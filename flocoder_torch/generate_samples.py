@@ -1,0 +1,184 @@
+"""Generate samples from a trained flow checkpoint on the CUDA card — the
+port of the repo's ``generate_samples.py``.
+
+Usage:
+    python -m flocoder_torch.generate_samples --config-name flowers_vqgan.yaml \\
+        +flow_checkpoint=checkpoints/flowema_100.npz +n_samples=64
+
+Loads the flow and codec checkpoints (npz contract, see
+``training/checkpoint.py``), builds the U-Net from the flow checkpoint's
+embedded config, integrates with RK4/Euler/Heun/midpoint and CFG, decodes,
+and writes PNG grids and individual PNGs. ``+device=cpu`` runs on the CPU;
+without it the run needs a CUDA device. Not ported yet (ROADMAP.md): MIDI
+``.mid`` export, bf16 and int8 serving, HDiT and audio checkpoints, the
+gradio UI and sharded serving.
+"""
+from __future__ import annotations
+
+import glob
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .config import ldcfg, parse_cli
+from .evaluation import sampler
+from .models.codecs import VQVAE, setup_codec
+from .models.unet import Unet
+from .training.checkpoint import (UNET_PREFIXES, VQVAE_PREFIXES,
+                                  load_checkpoint, load_jax_flat)
+from .utils.device import resolve_device
+from .utils.viz import save_img, save_img_grid
+
+__all__ = ["load_models_once", "generate_samples", "main", "CONFIG_DIR"]
+
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "configs")
+
+_MODEL_CACHE: dict = {}
+
+
+def _latest_checkpoint(ckpt_dir: str, prefix: str) -> Optional[str]:
+    files = glob.glob(os.path.join(ckpt_dir, f"{prefix}*.npz"))
+    return max(files, key=os.path.getmtime) if files else None
+
+
+def load_models_once(config, flow_ckpt_path: str, device) -> dict:
+    """Build and load the flow model and codec on ``device``, cached per
+    (checkpoint path, device)."""
+    key = (flow_ckpt_path, str(device))
+    if key in _MODEL_CACHE:
+        return _MODEL_CACHE[key]
+    ck = load_checkpoint(flow_ckpt_path)
+    ck_config = ck["config"] or config
+    bf16 = config.get("bf16", None)
+    if bool(bf16) if bf16 is not None else bool(ldcfg(ck_config, "bf16", False)):
+        raise NotImplementedError("bf16 serving is not ported yet (ROADMAP.md)")
+    if str(config.get("quant", "") or "").lower() in ("int8", "true", "1"):
+        raise NotImplementedError("int8 serving is not ported yet (ROADMAP.md)")
+    if str(ldcfg(ck_config, "arch", "unet")).lower() == "hdit":
+        raise NotImplementedError("HDiT checkpoints are not ported yet "
+                                  "(ROADMAP.md)")
+
+    codec = setup_codec(ck_config, device=device)
+    image_size = int(ldcfg(ck_config, "image_size", 128))
+    H, W, C = codec.latent_shape(image_size)
+    n_classes = int(ldcfg(ck_config, "n_classes", 0))
+    meanflow = bool(ldcfg(ck_config, "meanflow", False))
+    model = Unet(dim=H, channels=C,
+                 dim_mults=tuple(ldcfg(ck_config, "dim_mults", [1, 2, 4, 8])),
+                 n_classes=n_classes, dual_time=meanflow).to(device)
+    load_jax_flat(model, ck["model_state_dict"], UNET_PREFIXES)
+    model.eval()
+
+    if isinstance(codec, VQVAE):
+        codec_ckpt = (ck_config.codec.get("checkpoint")
+                      if "codec" in ck_config else None)
+        if codec_ckpt and os.path.exists(str(codec_ckpt)):
+            load_jax_flat(codec, load_checkpoint(str(codec_ckpt))
+                          ["model_state_dict"], VQVAE_PREFIXES)
+        else:
+            print(f"codec checkpoint not found ({codec_ckpt!r}): the codec "
+                  "keeps its untrained weights")
+    codec.eval()
+
+    bundle = dict(model=model, codec=codec, latent_shape=(H, W, C),
+                  n_classes=n_classes, config=ck_config,
+                  t_scale=1.0 if meanflow else 999.0)
+    _MODEL_CACHE[key] = bundle
+    return bundle
+
+
+def save_sample_batch(decoded: np.ndarray, batch_idx: int, output_dir: str,
+                      max_individual: int = 100) -> None:
+    """A grid plus up to 100 individual PNGs."""
+    os.makedirs(output_dir, exist_ok=True)
+    save_img_grid(decoded, epoch=batch_idx, tag=f"samples_b{batch_idx}",
+                  output_dir=output_dir)
+    for i in range(min(decoded.shape[0], max_individual)):
+        save_img(decoded[i], os.path.join(output_dir,
+                                          f"sample_{batch_idx:03d}_{i:03d}.png"))
+
+
+def generate_samples(config) -> dict:
+    """Sample ``+n_samples`` images in batches of ``batch_size`` and write
+    them to ``+output_dir``. Returns ``{'images': (N, H, W, 3) array,
+    'batch_seconds': [...], 'nfe': int, 'device': str}``."""
+    device = resolve_device(config.get("device", None))
+    flow_ckpt = str(config.get("flow_checkpoint", "") or
+                    ldcfg(config, "flow_checkpoint", ""))
+    if not flow_ckpt:
+        flow_ckpt = (_latest_checkpoint("checkpoints", "flowema_") or
+                     _latest_checkpoint("checkpoints", "flow_") or "")
+    if not flow_ckpt or not os.path.exists(flow_ckpt):
+        raise SystemExit(f"flow checkpoint not found: {flow_ckpt!r} "
+                         "(pass +flow_checkpoint=...)")
+    print(f"loading {flow_ckpt}")
+    b = load_models_once(config, flow_ckpt, device)
+
+    n_samples = int(config.get("n_samples", 64))
+    batch_size = min(int(ldcfg(config, "batch_size", 256)), n_samples)
+    n_steps = int(config.get("n_steps", ldcfg(config, "n_steps", 100)))
+    method = str(config.get("method", "rk4"))
+    cfg_strength = float(config.get("cfg_strength",
+                                    ldcfg(config, "cfg_strength", 3.0)))
+    output_dir = str(config.get("output_dir", "samples"))
+    is_midi = any(s in str(config.get("data", "")).lower()
+                  for s in ("midi", "pop909"))
+    if is_midi:
+        print("MIDI .mid export is not ported yet (ROADMAP.md): writing PNGs")
+    keep_gray = int(ldcfg(config, "in_channels", 3)) == 1
+    generator = torch.Generator(device).manual_seed(int(config.get("seed", 0)))
+
+    fixed_class = config.get("class_cond", None)
+    init_image = config.get("init_image", None) or None
+    init_strength = float(config.get("init_strength",
+                                     0.5 if init_image else 0.0))
+    init_latents = None
+    if init_image is not None:
+        from PIL import Image
+        img = Image.open(str(init_image)).convert("RGB")
+        arr = torch.from_numpy(np.asarray(img, np.float32) / 255.0)[None]
+        with torch.inference_mode():
+            init_latents = b["codec"].encode(arr.to(device))
+
+    images, seconds, nfe = [], [], 0
+    done, batch_idx = 0, 0
+    while done < n_samples:
+        bs = min(batch_size, n_samples - done)
+        t0 = time.time()
+        cond = None
+        if fixed_class is not None and b["n_classes"] > 0:
+            cond = {"class_cond": torch.full((bs,), int(fixed_class),
+                                             dtype=torch.long, device=device)}
+        _, decoded, nfe = sampler(
+            b["model"], b["codec"], generator, method=method, batch_size=bs,
+            n_steps=n_steps, cond=cond, n_classes=b["n_classes"],
+            latent_shape=b["latent_shape"], cfg_strength=cfg_strength,
+            is_midi=is_midi, keep_gray=keep_gray, init_latents=init_latents,
+            init_strength=init_strength, t_scale=b["t_scale"])
+        decoded = decoded.float().cpu().numpy()
+        dt = time.time() - t0
+        print(f"batch {batch_idx}: {bs} samples, nfe={nfe}, {dt:.2f}s "
+              f"({bs / dt:.1f} samples/s)")
+        save_sample_batch(decoded, batch_idx, output_dir)
+        images.append(decoded)
+        seconds.append(dt)
+        done += bs
+        batch_idx += 1
+    print(f"wrote {done} samples to {output_dir}/")
+    return {"images": np.concatenate(images), "batch_seconds": seconds,
+            "nfe": nfe, "device": str(device)}
+
+
+def main(argv=None) -> dict:
+    config = parse_cli(argv, default_config=None, config_dir=CONFIG_DIR)
+    if config.get("use_gradio"):
+        raise NotImplementedError("the gradio UI is not ported yet (ROADMAP.md)")
+    return generate_samples(config)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,463 @@
+"""Image codecs, PyTorch port of ``flocoder_tpu/models/codecs.py``: NoOp,
+SimpleResize and the VQGAN-style VQVAE encoder/decoder.
+
+Public functions take and return NHWC like the JAX package; the modules run
+NCHW inside. Submodule attributes carry linen's auto-names (``Conv_0``,
+``GroupNorm_1``, ``EncDecResidualBlock_2``, ...), so the JAX parameter tree
+maps onto the ``state_dict`` key for key (``training/checkpoint.py``).
+Neighborhood attention goes through ``ops.neighborhood_attention.na2d``:
+the CUDA kernel K1 on the card, its plain twin on the CPU.
+
+Serving only: dropout is off and NoiseInjection runs at strength 0 (its
+zero-init convs are kept for the weights). Not ported yet (ROADMAP.md): the
+RVQ bottleneck (``quantize``), ``encode_quantize_fused``, int8 ``quant``
+convs, ring attention, and the sd / vqgan_plus / dac codecs.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.neighborhood_attention import na2d
+from .layers import Scope, conv, group_norm, init_params
+
+__all__ = ["gn_groups", "NoOpAE", "SimpleResizeAE", "VQVAE", "VQVAEEncoder",
+           "VQVAEDecoder", "AttnBlock", "NATTENBlock", "EncDecResidualBlock",
+           "NoiseInjection", "SpatialNonLocalAttention", "setup_codec"]
+
+
+def gn_groups(proposed: int, channels: int) -> int:
+    """Nearest valid GroupNorm group count ≥ proposed that divides channels."""
+    if channels % proposed == 0:
+        return proposed
+    for cand in range(proposed, channels):
+        if channels % cand == 0:
+            return cand
+    return 1
+
+
+# --------------------------------------------------------------------------
+# Trivial codecs
+# --------------------------------------------------------------------------
+
+class NoOpAE(nn.Module):
+    """Identity codec. Latents are pixels."""
+
+    def __init__(self, in_channels: int = 3):
+        super().__init__()
+        self.in_channels = in_channels
+
+    def encode(self, x):
+        return x
+
+    def decode(self, z):
+        return z
+
+    def latent_shape(self, image_size: int) -> Tuple[int, int, int]:
+        return (image_size, image_size, self.in_channels)
+
+
+class SimpleResizeAE(nn.Module):
+    """Bilinear-resize pseudo-codec: 'latents' are a resized image; extra
+    latent channels are copies of the channel mean; only the first 3
+    channels decode."""
+
+    def __init__(self, latent_shape=(32, 32, 3), image_size: int = 128):
+        super().__init__()
+        # accepts reference-style (C,H,W) lists for recipe compat
+        if len(latent_shape) == 3 and latent_shape[0] <= 4 < latent_shape[-1]:
+            c, h, w = latent_shape
+            latent_shape = (h, w, c)
+        self._latent_shape = tuple(latent_shape)
+        self.image_size = image_size
+        self.in_channels = self._latent_shape[-1]
+
+    @staticmethod
+    def _resize(x, size):
+        y = F.interpolate(x.permute(0, 3, 1, 2), size=size, mode="bilinear",
+                          align_corners=False, antialias=False)
+        return y.permute(0, 2, 3, 1)
+
+    def encode(self, x):
+        h, w, c = self._latent_shape
+        small = self._resize(x, (h, w))
+        if c == x.shape[-1]:
+            return small
+        extra = small.mean(dim=-1, keepdim=True).expand(
+            *small.shape[:3], c - x.shape[-1])
+        return torch.cat([small, extra], dim=-1)
+
+    def decode(self, z):
+        z = z[..., : min(3, z.shape[-1])]
+        return self._resize(z, (self.image_size, self.image_size))
+
+    def latent_shape(self, image_size: int) -> Tuple[int, int, int]:
+        return self._latent_shape
+
+
+# --------------------------------------------------------------------------
+# Building blocks (NCHW inside)
+# --------------------------------------------------------------------------
+
+def _tokens(x):
+    """(b, c, h, w) → (b, h·w, c), row-major tokens as the JAX reshape."""
+    return x.flatten(2).transpose(1, 2)
+
+
+def _untokens(t, h, w):
+    return t.transpose(1, 2).reshape(t.shape[0], -1, h, w)
+
+
+class AttnBlock(nn.Module):
+    """VQGAN-style single-head non-local block: GroupNorm → 1×1 q/k/v →
+    softmax attention over all tokens → 1×1 out, residual."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.GroupNorm_0 = group_norm(gn_groups(32, c), c, 1e-6)
+        self.Conv_0 = conv(c, c, 1)
+        self.Conv_1 = conv(c, c, 1)
+        self.Conv_2 = conv(c, c, 1)
+        self.Conv_3 = conv(c, c, 1)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        hn = self.GroupNorm_0(x)
+        q, k, v = (_tokens(m(hn)) for m in (self.Conv_0, self.Conv_1, self.Conv_2))
+        attn = (torch.einsum("bnc,bmc->bnm", q, k) * c ** -0.5).softmax(dim=-1)
+        out = _untokens(torch.einsum("bnm,bmc->bnc", attn, v), h, w)
+        return x + self.Conv_3(out)
+
+
+class NATTENBlock(nn.Module):
+    """Neighborhood-attention block: GroupNorm → qkv projection → k×k
+    window attention (``na2d``) → out projection, residual gated by a
+    zero-init gamma."""
+
+    def __init__(self, c: int, kernel_size: int = 7, num_heads: int = 8,
+                 init_scale: float = 0.02):
+        super().__init__()
+        self.kernel_size, self.num_heads = kernel_size, num_heads
+        self.init_scale = init_scale
+        self.GroupNorm_0 = group_norm(gn_groups(8, c), c, 1e-5)
+        self.Dense_0 = nn.Linear(c, 3 * c, bias=False)
+        self.Dense_1 = nn.Linear(c, c, bias=False)
+        self.gamma = nn.Parameter(torch.zeros(1))
+
+    def init_special_(self, generator):
+        for lin in (self.Dense_0, self.Dense_1):
+            lin.weight.copy_(torch.randn(lin.weight.shape, generator=generator,
+                                         device=generator.device)
+                             * self.init_scale)
+        self.gamma.zero_()
+
+    def forward(self, x):
+        c = x.shape[1]
+        xn = self.GroupNorm_0(x).permute(0, 2, 3, 1)          # NHWC
+        # q, k, v as three products with row blocks of the fused weight:
+        # each comes out contiguous, as the kernel requires, with no copy
+        w = self.Dense_0.weight
+        q, k, v = (F.linear(xn, w[i * c:(i + 1) * c]) for i in range(3))
+        out = na2d(q, k, v, kernel_size=self.kernel_size, heads=self.num_heads)
+        out = self.Dense_1(out) * self.gamma
+        return x + out.permute(0, 3, 1, 2)
+
+
+class EncDecResidualBlock(nn.Module):
+    """Strided residual block with optional attention:
+    conv3×3(stride)→GN→SiLU→[attn]→conv3×3→GN → +skip(1×1 proj if needed)
+    → SiLU. Dropout is off (serving)."""
+
+    def __init__(self, c_in: int, out_channels: int, stride: int = 1,
+                 attention=None):
+        super().__init__()
+        g = gn_groups(8, out_channels)
+        self.Conv_0 = conv(c_in, out_channels, 3, stride=stride)
+        self.GroupNorm_0 = group_norm(g, out_channels, 1e-5)
+        if attention == "natten":
+            self.NATTENBlock_0 = NATTENBlock(out_channels)
+        elif attention == "full":
+            self.AttnBlock_0 = AttnBlock(out_channels)
+        self.attn = ({"natten": "NATTENBlock_0", "full": "AttnBlock_0"}
+                     .get(attention))
+        self.Conv_1 = conv(out_channels, out_channels, 3)
+        self.GroupNorm_1 = group_norm(g, out_channels, 1e-5)
+        self.project = stride != 1 or c_in != out_channels
+        if self.project:
+            self.Conv_2 = conv(c_in, out_channels, 1, stride=stride)
+            self.GroupNorm_2 = group_norm(g, out_channels, 1e-5)
+
+    def forward(self, x):
+        h = F.silu(self.GroupNorm_0(self.Conv_0(x)))
+        if self.attn is not None:
+            h = getattr(self, self.attn)(h)
+        h = self.GroupNorm_1(self.Conv_1(h))
+        if self.project:
+            x = self.GroupNorm_2(self.Conv_2(x))
+        return F.silu(h + x)
+
+
+class NoiseInjection(nn.Module):
+    """Learned spatially-varying noise, x + s·(noise·scale(x) + bias(x)),
+    with zero-init 1×1 convs. Serving runs it at strength 0, where it is the
+    identity; the convs are kept so the weights load."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.Conv_0 = conv(c, c, 1)
+        self.Conv_1 = conv(c, c, 1)
+
+    def init_special_(self, generator):
+        for m in (self.Conv_0, self.Conv_1):
+            m.weight.zero_()
+            m.bias.zero_()
+
+    def forward(self, x):
+        return x
+
+
+def _rope_1d(x: torch.Tensor, max_log: float = math.log(10000.0)) -> torch.Tensor:
+    """1-D RoPE over flattened spatial tokens (b, n, c)."""
+    b, n, c = x.shape
+    c_pad = c + (c % 2)
+    if c_pad != c:
+        x = F.pad(x, (0, 1))
+    half = c_pad // 2
+    pos = torch.arange(n, device=x.device).to(x.dtype)[:, None]
+    inv_freq = torch.exp(-torch.arange(half, device=x.device).to(x.dtype)
+                         * max_log / half)
+    ang = pos * inv_freq[None, :]
+    sin, cos = torch.sin(ang)[None], torch.cos(ang)[None]
+    x_even, x_odd = x[..., 0::2], x[..., 1::2]
+    out = torch.stack([x_even * cos - x_odd * sin,
+                       x_odd * cos + x_even * sin], dim=-1).reshape(b, n, c_pad)
+    return out[..., :c] if c_pad != c else out
+
+
+class SpatialNonLocalAttention(nn.Module):
+    """Full attention over flattened H·W tokens with 1-D RoPE on q/k;
+    zero-init output projection so the block starts as identity; residual."""
+
+    def __init__(self, c: int, reduction_factor: int = 2):
+        super().__init__()
+        rd = max(1, c // reduction_factor)
+        self.Conv_0 = conv(c, rd, 1)
+        self.Conv_1 = conv(c, rd, 1)
+        self.Conv_2 = conv(c, c, 1)
+        self.Conv_3 = conv(c, c, 1)
+
+    def init_special_(self, generator):
+        # flax variance_scaling(1e-4, "fan_avg", "uniform") on q/k/v
+        for m in (self.Conv_0, self.Conv_1, self.Conv_2):
+            fan_avg = (m.in_channels + m.out_channels) / 2
+            lim = math.sqrt(3e-4 / fan_avg)
+            u = torch.rand(m.weight.shape, generator=generator,
+                           device=generator.device)
+            m.weight.copy_((u * 2 - 1) * lim)
+        self.Conv_3.weight.zero_()
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        q = _rope_1d(_tokens(self.Conv_0(x)))
+        k = _rope_1d(_tokens(self.Conv_1(x)))
+        v = _tokens(self.Conv_2(x))
+        logits = torch.einsum("bnc,bmc->bnm", q, k) * (q.shape[-1] ** -0.5)
+        out = torch.einsum("bnm,bmc->bnc", logits.softmax(dim=-1), v)
+        return x + self.Conv_3(_untokens(out, h, w))
+
+
+# --------------------------------------------------------------------------
+# VQVAE encoder / decoder stacks
+# --------------------------------------------------------------------------
+
+class VQVAEEncoder(nn.Module):
+    """Per scale a stride-2 block plus a stride-1 block, neighborhood
+    attention on the last two scales; then a block to internal_dim, a 1×1
+    and the 1×1→GN→SiLU→3×3 compression to vq_embedding_dim.
+    NHWC in and out."""
+
+    def __init__(self, in_channels: int = 3, hidden_channels: int = 256,
+                 num_downsamples: int = 3, internal_dim: int = 128,
+                 vq_embedding_dim: int = 4, use_attention: bool = True):
+        super().__init__()
+        s = Scope(self)
+        blocks, c, attention = [], in_channels, None
+        for i in range(num_downsamples):
+            out_ch = hidden_channels * (2 ** i)
+            attention = ("natten" if use_attention and i >= num_downsamples - 2
+                         else None)
+            blocks.append(s.add("EncDecResidualBlock", EncDecResidualBlock(
+                c, out_ch, stride=2, attention=attention)))
+            blocks.append(s.add("EncDecResidualBlock", EncDecResidualBlock(
+                out_ch, out_ch, stride=1, attention=attention)))
+            c = out_ch
+        blocks.append(s.add("EncDecResidualBlock", EncDecResidualBlock(
+            c, internal_dim, stride=1, attention=attention)))
+        self.blocks = blocks
+        s.conv(internal_dim, internal_dim, 1)
+        s.conv(internal_dim, vq_embedding_dim, 1)
+        s.gn(gn_groups(2, vq_embedding_dim), vq_embedding_dim, 1e-5)
+        s.conv(vq_embedding_dim, vq_embedding_dim, 3)
+
+    def forward(self, x):
+        h = x.permute(0, 3, 1, 2)
+        for blk in self.blocks:
+            h = blk(h)
+        h = self.Conv_1(self.Conv_0(h))
+        h = self.Conv_2(F.silu(self.GroupNorm_0(h)))
+        return h.permute(0, 2, 3, 1)
+
+
+class VQVAEDecoder(nn.Module):
+    """RoPE non-local attention at latent resolution, 1×1 expansion, then per
+    scale conv→SiLU→PixelShuffle2× → NoiseInjection → two residual blocks
+    (neighborhood attention in the first at the coarsest upsampled scale);
+    3×3 head to pixels. NHWC in and out."""
+
+    def __init__(self, in_channels: int = 3, hidden_channels: int = 256,
+                 num_downsamples: int = 3, internal_dim: int = 128,
+                 vq_embedding_dim: int = 4, decoder_nonlocal: bool = True,
+                 use_attention: bool = True):
+        super().__init__()
+        s = Scope(self)
+        noise = lambda c: s.add("NoiseInjection", NoiseInjection(c))  # noqa: E731
+        block = lambda *a, **kw: s.add("EncDecResidualBlock",  # noqa: E731
+                                       EncDecResidualBlock(*a, **kw))
+        ops = []
+        if decoder_nonlocal:
+            ops.append(s.add("SpatialNonLocalAttention",
+                             SpatialNonLocalAttention(vq_embedding_dim)))
+        cur = hidden_channels * (2 ** (num_downsamples - 1))
+        ops += [s.conv(vq_embedding_dim, internal_dim, 1),
+                s.gn(gn_groups(vq_embedding_dim, internal_dim), internal_dim, 1e-5),
+                nn.SiLU(),
+                s.conv(internal_dim, cur, 1),
+                noise(cur)]
+        first_attn = "full" if decoder_nonlocal else (
+            "natten" if use_attention else None)
+        ops.append(block(cur, cur, attention=first_attn))
+        for i in range(num_downsamples - 1, -1, -1):
+            out_ch = hidden_channels * (2 ** max(0, i - 1))
+            if i == 0:
+                out_ch = hidden_channels
+            attn = ("natten" if use_attention and i > num_downsamples - 2
+                    else None)
+            ops += [s.conv(cur, cur * 4, 3), nn.SiLU(), nn.PixelShuffle(2),
+                    noise(cur),
+                    block(cur, out_ch, attention=attn),
+                    noise(out_ch),
+                    block(out_ch, out_ch, attention=None)]
+            cur = out_ch
+        ops += [noise(cur), s.conv(cur, 64, 3), nn.SiLU(), noise(64),
+                s.conv(64, in_channels, 3)]
+        self.ops = ops
+
+    def forward(self, z):
+        h = z.permute(0, 3, 1, 2)
+        for op in self.ops:
+            h = op(h)
+        return h.permute(0, 2, 3, 1)
+
+
+class _VQState(nn.Module):
+    """The RVQ codebook state carried in a codec checkpoint (``vq/...``).
+    Held as buffers so checkpoints round-trip; the RVQ search itself is not
+    ported yet (ROADMAP.md)."""
+
+    def __init__(self, levels: int, codebook_size: int, dim: int):
+        super().__init__()
+        self.register_buffer("codebooks", torch.zeros(levels, codebook_size, dim))
+        self.register_buffer("ema_counts", torch.zeros(levels, codebook_size))
+        self.register_buffer("ema_sums", torch.zeros(levels, codebook_size, dim))
+        self.register_buffer("initted", torch.zeros((), dtype=torch.bool))
+
+    def init_special_(self, generator):
+        self.codebooks.copy_(torch.randn(self.codebooks.shape,
+                                         generator=generator,
+                                         device=generator.device) * 0.02)
+        self.ema_counts.zero_()
+        self.ema_sums.zero_()
+        self.initted.fill_(False)
+
+
+class VQVAE(nn.Module):
+    """VQGAN codec: encoder + RVQ state + decoder. ``encode``/``decode`` are
+    NHWC; the JAX checkpoint's ``encoder/params/…``, ``decoder/params/…`` and
+    ``vq/…`` map onto ``encoder.…``, ``decoder.…`` and ``vq.…``."""
+
+    def __init__(self, in_channels=3, hidden_channels=256, num_downsamples=3,
+                 vq_num_embeddings=512, internal_dim=256, codebook_levels=3,
+                 vq_embedding_dim=4, use_attention=True, decoder_nonlocal=True):
+        super().__init__()
+        self.in_channels = in_channels
+        self.num_downsamples = num_downsamples
+        self.vq_embedding_dim = vq_embedding_dim
+        self.encoder = VQVAEEncoder(in_channels, hidden_channels,
+                                    num_downsamples, internal_dim,
+                                    vq_embedding_dim, use_attention)
+        self.decoder = VQVAEDecoder(in_channels, hidden_channels,
+                                    num_downsamples, internal_dim,
+                                    vq_embedding_dim, decoder_nonlocal,
+                                    use_attention)
+        self.vq = _VQState(codebook_levels, vq_num_embeddings, vq_embedding_dim)
+
+    def init(self, generator: torch.Generator) -> "VQVAE":
+        """Seeded random init (``layers.init_params``); returns self."""
+        return init_params(self, generator)
+
+    def encode(self, x):
+        return self.encoder(x)
+
+    def decode(self, z_q):
+        return self.decoder(z_q)
+
+    def latent_shape(self, image_size: int) -> Tuple[int, int, int]:
+        s = image_size // (2 ** self.num_downsamples)
+        return (s, s, self.vq_embedding_dim)
+
+
+# --------------------------------------------------------------------------
+# Factory
+# --------------------------------------------------------------------------
+
+def setup_codec(config, device=None) -> nn.Module:
+    """Build a codec from ``config.codec.choice`` ∈ {noop, resize, vqgan}
+    on ``device``, in float32. Weights are the caller's concern
+    (``training.checkpoint``). Other choices and ``codec.bf16`` are not
+    ported yet and raise."""
+    from ..config import ldcfg
+    choice = config.codec.choice if "codec" in config else "noop"
+    image_size = ldcfg(config, "image_size", 128)
+    in_channels = ldcfg(config, "in_channels", 3)
+    if "codec" in config and bool(config.codec.get("bf16", False)):
+        raise NotImplementedError("bf16 codecs are not ported yet (ROADMAP.md)")
+    if choice == "noop":
+        codec = NoOpAE(in_channels=in_channels)
+    elif choice == "resize":
+        lat = config.codec.get("latent_shape", [in_channels, 32, 32])
+        codec = SimpleResizeAE(latent_shape=tuple(lat),
+                               image_size=config.codec.get("image_size",
+                                                           image_size))
+    elif choice == "vqgan":
+        for key in ("quant_decode", "quant_encode"):
+            if str(ldcfg(config, key, "")) == "int8":
+                raise NotImplementedError(f"codec.{key}=int8 is not ported "
+                                          "yet (ROADMAP.md)")
+        codec = VQVAE(
+            in_channels=in_channels,
+            hidden_channels=ldcfg(config, "hidden_channels", 256),
+            num_downsamples=ldcfg(config, "num_downsamples", 3),
+            vq_num_embeddings=ldcfg(config, "vq_num_embeddings", 512),
+            internal_dim=ldcfg(config, "internal_dim", 256),
+            codebook_levels=ldcfg(config, "codebook_levels", 3),
+            vq_embedding_dim=ldcfg(config, "vq_embedding_dim", 4))
+    elif choice in ("sd", "vqgan_plus", "dac"):
+        raise NotImplementedError(f"codec '{choice}' is not ported yet "
+                                  "(ROADMAP.md)")
+    else:
+        raise ValueError(f"Unknown codec choice: {choice}")
+    return codec.to(device) if device is not None else codec

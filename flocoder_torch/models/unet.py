@@ -1,0 +1,277 @@
+"""Flow-matching velocity-field U-Net, PyTorch port of
+``flocoder_tpu/models/unet.py``.
+
+The public forward takes and returns NHWC like the JAX module; inside, the
+modules run NCHW for cuDNN. Submodule names follow linen's auto-names (see
+``layers.Scope``), so the JAX parameter tree maps onto the ``state_dict``
+key for key.
+
+Ported: ResnetBlock with FiLM, LinearAttention at every scale, softmax
+Attention at the bottleneck (plain matmul + softmax), pixel-unshuffle
+Downsample and nearest Upsample, the sinusoidal time embedding, the class
+embedding with the null id −1 masked, and ``dual_time`` (MeanFlow). Mask
+conditioning and the sequence-parallel (ring) bottleneck are not ported yet
+and raise (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import Scope, conv, group_norm
+
+__all__ = ["Unet", "sinusoidal_embedding", "pixel_shuffle", "pixel_unshuffle"]
+
+
+def sinusoidal_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sinusoidal embedding of a (B,) time vector (divisor ``half - 1``, as
+    in the JAX package)."""
+    half = dim // 2
+    freqs = torch.exp(torch.arange(half, dtype=t.dtype, device=t.device)
+                      * (-math.log(10000.0) / (half - 1)))
+    args = t[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+def pixel_unshuffle(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Space-to-depth on NHWC: (B, H, W, C) → (B, H/f, W/f, C·f²), channel
+    order c·f² + i·f + j as in the JAX package."""
+    return F.pixel_unshuffle(x.permute(0, 3, 1, 2), factor).permute(0, 2, 3, 1)
+
+
+def pixel_shuffle(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """Depth-to-space on NHWC: (B, H, W, C·f²) → (B, H·f, W·f, C)."""
+    return F.pixel_shuffle(x.permute(0, 3, 1, 2), factor).permute(0, 2, 3, 1)
+
+
+class Block(nn.Module):
+    """conv3×3 → GroupNorm → (FiLM scale/shift) → SiLU."""
+
+    def __init__(self, dim_in: int, dim_out: int, groups: int = 4):
+        super().__init__()
+        self.Conv_0 = conv(dim_in, dim_out, 3)
+        self.GroupNorm_0 = group_norm(groups, dim_out, 1e-5)
+
+    def forward(self, x, scale_shift=None):
+        x = self.GroupNorm_0(self.Conv_0(x))
+        if scale_shift is not None:
+            scale, shift = scale_shift
+            x = x * (scale + 1.0) + shift
+        return F.silu(x)
+
+
+class ResnetBlock(nn.Module):
+    """FiLM-conditioned residual block."""
+
+    def __init__(self, dim_in: int, dim_out: int, time_dim: int,
+                 groups: int = 4):
+        super().__init__()
+        self.Dense_0 = nn.Linear(time_dim, dim_out * 2)
+        self.Block_0 = Block(dim_in, dim_out, groups)
+        self.Block_1 = Block(dim_out, dim_out, groups)
+        self.Conv_0 = conv(dim_in, dim_out, 1) if dim_in != dim_out else None
+
+    def forward(self, x, time_emb):
+        emb = self.Dense_0(F.silu(time_emb))[:, :, None, None]
+        scale, shift = emb.chunk(2, dim=1)
+        h = self.Block_1(self.Block_0(x, (scale, shift)))
+        return h + (self.Conv_0(x) if self.Conv_0 is not None else x)
+
+
+def _split_heads(qkv: torch.Tensor, heads: int, dim_head: int):
+    """(b, 3·heads·d, h, w) → q, k, v each (b, heads, d, n); the JAX
+    channel order (3, heads, d)."""
+    b = qkv.shape[0]
+    qkv = qkv.reshape(b, 3, heads, dim_head, -1)
+    return qkv[:, 0], qkv[:, 1], qkv[:, 2]
+
+
+class Attention(nn.Module):
+    """Full softmax attention over spatial tokens (bottleneck only), as a
+    plain matmul + softmax."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.Conv_0 = conv(dim, hidden * 3, 1, bias=False)
+        self.Conv_1 = conv(hidden, dim, 1)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        q, k, v = _split_heads(self.Conv_0(x), self.heads, self.dim_head)
+        q = q * (self.dim_head ** -0.5)
+        sim = torch.einsum("bhdn,bhdm->bhnm", q, k)
+        sim = sim - sim.amax(dim=-1, keepdim=True)
+        attn = sim.softmax(dim=-1)
+        out = torch.einsum("bhnm,bhdm->bhdn", attn, v)
+        return self.Conv_1(out.reshape(b, -1, h, w))
+
+
+class LinearAttention(nn.Module):
+    """O(N) kernel-feature attention used at every scale: q softmaxed over
+    the feature dim, k over tokens, context = K Vᵀ, out = contextᵀ Q."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.Conv_0 = conv(dim, hidden * 3, 1, bias=False)
+        self.Conv_1 = conv(hidden, dim, 1)
+        self.GroupNorm_0 = group_norm(1, dim, 1e-5)
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        q, k, v = _split_heads(self.Conv_0(x), self.heads, self.dim_head)
+        q = q.softmax(dim=2) * (self.dim_head ** -0.5)   # over d
+        k = k.softmax(dim=3)                              # over tokens
+        context = torch.einsum("bhdn,bhen->bhde", k, v)
+        out = torch.einsum("bhde,bhdn->bhen", context, q)
+        return self.GroupNorm_0(self.Conv_1(out.reshape(b, -1, h, w)))
+
+
+class PreNormResidual(nn.Module):
+    """x + fn(GroupNorm_1(x)). ``fn`` is owned by the parent, as in the JAX
+    module tree, so it is not registered here."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.GroupNorm_0 = group_norm(1, dim, 1e-5)
+
+    def forward(self, x, fn):
+        return x + fn(self.GroupNorm_0(x))
+
+
+class Downsample(nn.Module):
+    """Pixel-unshuffle + 1×1 conv."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.Conv_0 = conv(dim_in * 4, dim_out, 1)
+
+    def forward(self, x):
+        return self.Conv_0(F.pixel_unshuffle(x, 2))
+
+
+class Upsample(nn.Module):
+    """Nearest 2× upsample + conv3×3."""
+
+    def __init__(self, dim_in: int, dim_out: int):
+        super().__init__()
+        self.Conv_0 = conv(dim_in, dim_out, 3)
+
+    def forward(self, x):
+        return self.Conv_0(F.interpolate(x, scale_factor=2, mode="nearest"))
+
+
+class Unet(nn.Module):
+    """Velocity field v(x, t, cond). ``cond`` is a dict
+    ``{'class_cond': (B,) int or None, 'mask_cond': None}``; a class id < 0
+    is the CFG null token and contributes nothing. NHWC in and out."""
+
+    def __init__(self, dim: int, dim_mults: Sequence[int] = (1, 2, 4, 8),
+                 channels: int = 3, resnet_block_groups: int = 4,
+                 n_classes: int = 0, mask_cond: bool = False,
+                 dual_time: bool = False, ring_axis_size: int = 1):
+        super().__init__()
+        if mask_cond:
+            raise NotImplementedError("Unet mask conditioning is not ported "
+                                      "yet (ROADMAP.md)")
+        if ring_axis_size > 1:
+            raise NotImplementedError("Unet ring attention is not ported yet "
+                                      "(ROADMAP.md)")
+        self.dim, self.n_classes, self.dual_time = dim, n_classes, dual_time
+        groups = resnet_block_groups
+        dims = [dim] + [dim * m for m in dim_mults]
+        in_out = list(zip(dims[:-1], dims[1:]))
+        time_dim = dim * 8
+        s = Scope(self)
+        s.conv(channels, dim, 1, name="init_conv")
+        self.time_mlp = [s.dense(dim, time_dim), s.dense(time_dim, time_dim)]
+        self.horizon_mlp = ([s.dense(dim, time_dim), s.dense(time_dim, time_dim)]
+                            if dual_time else None)
+        if n_classes > 0:
+            self.class_emb = [s.add("Embed", nn.Embedding(n_classes, time_dim)),
+                              s.dense(time_dim, time_dim),
+                              s.dense(time_dim, time_dim)]
+
+        # Creation order mirrors the JAX forward, which fixes every name.
+        self.downs = []
+        for ind, (dim_in, dim_out) in enumerate(in_out):
+            is_last = ind >= len(in_out) - 1
+            r1 = s.add("ResnetBlock", ResnetBlock(dim_in, dim_in, time_dim, groups))
+            r2 = s.add("ResnetBlock", ResnetBlock(dim_in, dim_in, time_dim, groups))
+            pre = s.add("PreNormResidual", PreNormResidual(dim_in))
+            attn = s.add("LinearAttention", LinearAttention(dim_in))
+            down = (s.add("Downsample", Downsample(dim_in, dim_out)) if not is_last
+                    else s.conv(dim_in, dim_out, 3))
+            self.downs.append((r1, r2, pre, attn, down))
+        mid = dims[-1]
+        self.mid = (s.add("ResnetBlock", ResnetBlock(mid, mid, time_dim, groups)),
+                    s.add("PreNormResidual", PreNormResidual(mid)),
+                    s.add("Attention", Attention(mid)),
+                    s.add("ResnetBlock", ResnetBlock(mid, mid, time_dim, groups)))
+        self.ups = []
+        for ind, (dim_in, dim_out) in enumerate(reversed(in_out)):
+            is_last = ind == len(in_out) - 1
+            r1 = s.add("ResnetBlock", ResnetBlock(dim_out + dim_in, dim_out, time_dim, groups))
+            r2 = s.add("ResnetBlock", ResnetBlock(dim_out + dim_in, dim_out, time_dim, groups))
+            pre = s.add("PreNormResidual", PreNormResidual(dim_out))
+            attn = s.add("LinearAttention", LinearAttention(dim_out))
+            up = (s.add("Upsample", Upsample(dim_out, dim_in)) if not is_last
+                  else s.conv(dim_out, dim_in, 3))
+            self.ups.append((r1, r2, pre, attn, up))
+        self.final_res = [s.add("ResnetBlock",
+                                ResnetBlock(dim * 2, dim, time_dim, groups))]
+        s.conv(dim, channels, 1, name="final_conv")
+
+    @staticmethod
+    def _mlp(layers, x):
+        return layers[1](F.gelu(layers[0](x)))
+
+    def forward(self, x: torch.Tensor, time: torch.Tensor,
+                cond: Optional[dict] = None) -> torch.Tensor:
+        class_cond = cond.get("class_cond") if cond else None
+        if cond and cond.get("mask_cond") is not None:
+            raise NotImplementedError("Unet mask conditioning is not ported "
+                                      "yet (ROADMAP.md)")
+        dtype = self.init_conv.weight.dtype
+        x = self.init_conv(x.to(dtype).permute(0, 3, 1, 2))
+        r = x
+
+        tv = torch.as_tensor(time, dtype=dtype, device=x.device)
+        t = self._mlp(self.time_mlp, sinusoidal_embedding(tv, self.dim))
+        if self.dual_time:
+            horizon = cond.get("time_horizon") if cond else None
+            delta = (torch.as_tensor(horizon, dtype=dtype, device=x.device) - tv
+                     if horizon is not None else torch.zeros_like(tv))
+            t = t + self._mlp(self.horizon_mlp,
+                              sinusoidal_embedding(delta, self.dim))
+        if self.n_classes > 0 and class_cond is not None:
+            embed, d0, d1 = self.class_emb
+            ce = d1(F.gelu(d0(embed(class_cond.clamp(0, self.n_classes - 1)))))
+            t = t + ce * (class_cond >= 0).to(dtype)[:, None]
+
+        hs = []
+        for r1, r2, pre, attn, down in self.downs:
+            x = r1(x, t)
+            hs.append(x)
+            x = pre(r2(x, t), attn)
+            hs.append(x)
+            x = down(x)
+
+        m1, pre, attn, m2 = self.mid
+        x = m2(pre(m1(x, t), attn), t)
+
+        for r1, r2, pre, attn, up in self.ups:
+            x = r1(torch.cat([x, hs.pop()], dim=1), t)
+            x = r2(torch.cat([x, hs.pop()], dim=1), t)
+            x = up(pre(x, attn))
+
+        x = self.final_res[0](torch.cat([x, r], dim=1), t)
+        out = self.final_conv(x)
+        return out.permute(0, 2, 3, 1).float()

@@ -1,0 +1,66 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one ``.cu`` file under ``flocoder_torch/csrc/`` with a plain C
+interface. It is compiled at first use with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library under ``flocoder_torch/build/`` and loaded
+with ``ctypes``. The library's file name carries a hash of its source and
+flags, so an edited source is rebuilt and a stale library is never loaded.
+"""
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build_library"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc`` when CUDA_HOME is set, else ``nvcc`` on PATH,
+    else the toolkit's default install location. Raises if none exists."""
+    home = os.environ.get("CUDA_HOME")
+    if home:
+        cands = [os.path.join(home, "bin", "nvcc")]
+    else:
+        cands = [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (searched %s): the CUDA kernels of flocoder_torch are "
+        "built at first use and need the CUDA toolkit" % [c for c in cands if c])
+
+
+def build_library(source: str, build_dir: str = BUILD_DIR) -> str:
+    """Compile ``csrc/<source>`` into ``<build_dir>/lib<stem>_<hash>.so`` unless
+    that file already exists; returns its path. Raises RuntimeError when nvcc
+    is missing or fails."""
+    src = os.path.join(CSRC_DIR, source)
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    stem = os.path.splitext(source)[0]
+    out = os.path.join(build_dir, f"lib{stem}_{digest}.so")
+    if os.path.isfile(out):
+        return out
+    nvcc = find_nvcc()
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
+    try:
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{res.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out

@@ -1,0 +1,156 @@
+"""Checkpoints in the JAX package's npz contract, and the weight bridge.
+
+The contract (``flocoder_tpu/training/checkpoint.py:38-113``): one ``.npz``
+whose keys are ``model_state_dict/<path>``, ``ema_state_dict/<path>`` and
+``optimizer_state_dict/<path>`` (``/``-joined parameter paths, flax
+layouts), ``epoch`` and ``config_json`` (the run's config as JSON).
+
+The bridge maps a module's ``state_dict`` onto that flat JAX tree and back.
+Port modules carry linen's names (``models/layers.py``), so a key maps by
+``.`` ↔ ``/`` under a prefix, and the value by its module type:
+
+- ``nn.Conv2d`` weight OIHW ↔ ``kernel`` HWIO;
+- ``nn.Linear`` weight (out, in) ↔ Dense ``kernel`` (in, out);
+- ``nn.GroupNorm`` weight ↔ ``scale``;
+- ``nn.Embedding`` weight ↔ ``embedding``;
+- everything else (biases, ``gamma``, buffers) by name, unchanged.
+
+Keys match strictly: a missing or extra key raises.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import config_from_dict, to_dict
+
+__all__ = ["save_checkpoint", "load_checkpoint", "to_jax_flat",
+           "load_jax_flat", "UNET_PREFIXES", "VQVAE_PREFIXES"]
+
+_SEP = "/"
+
+# Where each model's parameters live in the JAX trees the training scripts
+# save: the flow model under {"model": {"params": ...}}, the codec under
+# {"encoder": {"params": ...}, "decoder": {"params": ...}, "vq": RVQState}.
+UNET_PREFIXES = {"": "model/params"}
+VQVAE_PREFIXES = {"encoder": "encoder/params", "decoder": "decoder/params",
+                  "vq": "vq"}
+
+
+def _entries(module: nn.Module, prefixes: dict) -> dict:
+    """{torch key: (jax key, kind)} for every parameter and buffer."""
+    out = {}
+    for mname, m in module.named_modules():
+        items = list(m.named_parameters(recurse=False)) + \
+            list(m.named_buffers(recurse=False))
+        for pname, _ in items:
+            tkey = f"{mname}.{pname}" if mname else pname
+            kind, leaf = "same", pname
+            if pname == "weight":
+                if isinstance(m, nn.Conv2d):
+                    kind, leaf = "conv", "kernel"
+                elif isinstance(m, nn.Linear):
+                    kind, leaf = "dense", "kernel"
+                elif isinstance(m, nn.GroupNorm):
+                    leaf = "scale"
+                elif isinstance(m, nn.Embedding):
+                    leaf = "embedding"
+            parts = (mname.split(".") if mname else []) + [leaf]
+            if "" in prefixes:
+                head = prefixes[""]
+            else:
+                head = prefixes[parts[0]]
+                parts = parts[1:]
+            out[tkey] = (_SEP.join([head] + parts), kind)
+    return out
+
+
+def _to_jax(t: torch.Tensor, kind: str) -> np.ndarray:
+    a = t.detach().cpu().numpy()
+    if kind == "conv":
+        return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    if kind == "dense":
+        return np.ascontiguousarray(a.T)
+    return a
+
+
+def _from_jax(a: np.ndarray, kind: str) -> np.ndarray:
+    if kind == "conv":
+        return a.transpose(3, 2, 0, 1)
+    if kind == "dense":
+        return a.T
+    return a
+
+
+def to_jax_flat(module: nn.Module, prefixes: dict) -> dict:
+    """The module's state as a flat ``{jax path: numpy array}`` dict in
+    flax layouts."""
+    sd = module.state_dict()
+    return {jkey: _to_jax(sd[tkey], kind)
+            for tkey, (jkey, kind) in _entries(module, prefixes).items()}
+
+
+def load_jax_flat(module: nn.Module, flat: dict, prefixes: dict) -> nn.Module:
+    """Load a flat JAX tree into ``module`` in place. Strict: a key missing
+    on either side, or a shape that disagrees, raises."""
+    entries = _entries(module, prefixes)
+    wanted = {jkey for jkey, _ in entries.values()}
+    missing = sorted(wanted - set(flat))
+    extra = sorted(set(flat) - wanted)
+    if missing or extra:
+        raise KeyError(f"checkpoint mismatch: missing={missing[:5]} "
+                       f"extra={extra[:5]}")
+    sd = module.state_dict()
+    new = {}
+    for tkey, (jkey, kind) in entries.items():
+        a = _from_jax(np.asarray(flat[jkey]), kind)
+        if tuple(a.shape) != tuple(sd[tkey].shape):
+            raise ValueError(f"shape mismatch for {jkey}: {a.shape} vs "
+                             f"{tuple(sd[tkey].shape)}")
+        new[tkey] = torch.tensor(a, dtype=sd[tkey].dtype)
+    module.load_state_dict(new, strict=True)
+    return module
+
+
+def save_checkpoint(params: dict, epoch: int, ckpt_dir: str = "checkpoints",
+                    prefix: str = "flow_", config=None,
+                    ema: Optional[dict] = None) -> str:
+    """Write ``{ckpt_dir}/{prefix}{epoch}.npz`` in the contract:
+    ``model_state_dict/…`` from ``params`` (a flat JAX tree, e.g. from
+    ``to_jax_flat``), optional ``ema_state_dict/…``, ``epoch`` and
+    ``config_json``. Returns the path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    payload = {f"model_state_dict{_SEP}{k}": np.asarray(v)
+               for k, v in params.items()}
+    if ema is not None:
+        payload.update({f"ema_state_dict{_SEP}{k}": np.asarray(v)
+                        for k, v in ema.items()})
+    payload["epoch"] = np.asarray(epoch)
+    if config is not None:
+        payload["config_json"] = np.asarray(json.dumps(to_dict(config)))
+    path = os.path.join(ckpt_dir, f"{prefix}{epoch}.npz")
+    np.savez_compressed(path, **payload)
+    return path
+
+
+def load_checkpoint(path: str) -> dict:
+    """Returns ``{'model_state_dict': flat dict, 'ema_state_dict': …,
+    'optimizer_state_dict': …, 'epoch': int, 'config': Config or None}``;
+    each state dict is flat ``{jax path: numpy array}``."""
+    groups: dict = {}
+    epoch, config = 0, None
+    with np.load(path, allow_pickle=False) as data:
+        for key in data.files:
+            if key == "epoch":
+                epoch = int(data[key])
+            elif key == "config_json":
+                config = config_from_dict(json.loads(str(data[key])))
+            else:
+                head, _, rest = key.partition(_SEP)
+                groups.setdefault(head, {})[rest] = data[key]
+    return {**groups, "epoch": epoch, "config": config}

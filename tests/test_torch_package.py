@@ -1,0 +1,95 @@
+"""flocoder_torch as a package: it imports nothing of JAX or of the JAX
+package, its entry point refuses to run without a card unless asked for
+the CPU, and ``python -m flocoder_torch.generate_samples`` serves end to end
+on the CPU from checkpoints in the npz contract."""
+import os
+import pkgutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import flocoder_torch
+from flocoder_torch import generate_samples as gs
+from flocoder_torch.config import load_config
+from flocoder_torch.models.codecs import NATTENBlock, setup_codec
+from flocoder_torch.models.layers import init_params
+from flocoder_torch.models.unet import Unet
+from flocoder_torch.training.checkpoint import (UNET_PREFIXES, VQVAE_PREFIXES,
+                                                save_checkpoint, to_jax_flat)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tier-1 runs six xdist workers on a few cores; torch's default of one
+    thread per core oversubscribes them, and its OpenMP pool then stalls
+    (a 0.5 s test took 30 s). One thread each keeps these tests quick."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_every_module_imports_without_jax():
+    mods = [m.name for m in pkgutil.walk_packages(flocoder_torch.__path__,
+                                                  "flocoder_torch.")]
+    assert "flocoder_torch.ops.kernels.na2d" in mods and len(mods) > 15
+    code = ("import sys, importlib\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'flocoder_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'flocoder_tpu') and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert res.returncode == 0, res.stderr
+
+
+def _write_checkpoints(tmp_path, overrides):
+    """Seeded random-init flow and codec checkpoints for ``smoke_vqgan``
+    (32² images, 8×8×4 latents), written with the port's save_checkpoint."""
+    codec_path = str(tmp_path / "vqgan_0.npz")
+    cfg = load_config("smoke_vqgan", config_dir=gs.CONFIG_DIR,
+                      overrides=[f"codec.checkpoint={codec_path}", *overrides])
+    codec = init_params(setup_codec(cfg), torch.Generator().manual_seed(0))
+    for m in codec.modules():
+        if isinstance(m, NATTENBlock):
+            m.gamma.data.fill_(1.0)
+    save_checkpoint(to_jax_flat(codec, VQVAE_PREFIXES), 0,
+                    ckpt_dir=str(tmp_path), prefix="vqgan_")
+    unet = Unet(dim=8, channels=4, n_classes=int(cfg.flow.get("n_classes", 0)))
+    init_params(unet, torch.Generator().manual_seed(1))
+    return save_checkpoint(to_jax_flat(unet, UNET_PREFIXES), 0,
+                           ckpt_dir=str(tmp_path), prefix="flowema_", config=cfg)
+
+
+def test_entry_point_without_card_raises(tmp_path, monkeypatch):
+    flow = _write_checkpoints(tmp_path, [])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=cpu"):
+        gs.main(["--config-name", "smoke_vqgan", f"+flow_checkpoint={flow}",
+                 "+n_samples=1", f"+output_dir={tmp_path / 'out'}"])
+
+
+@pytest.mark.parametrize("overrides,extra", [
+    ([], []),
+    (["+flow.n_classes=3"], ["+class_cond=1"]),
+])
+def test_generate_samples_serves_on_cpu(tmp_path, overrides, extra):
+    flow = _write_checkpoints(tmp_path, overrides)
+    out = tmp_path / "samples"
+    res = gs.main(["--config-name", "smoke_vqgan", f"+flow_checkpoint={flow}",
+                   "+n_samples=3", "flow.batch_size=2", "+n_steps=3",
+                   "+device=cpu", f"+output_dir={out}", *extra])
+    assert res["images"].shape == (3, 32, 32, 3)
+    assert np.isfinite(res["images"]).all() and res["nfe"] == 8
+    assert len(res["batch_seconds"]) == 2
+    assert (out / "sample_001_000.png").exists()
