@@ -6,12 +6,15 @@ NCHW inside. Submodule attributes carry linen's auto-names (``Conv_0``,
 ``GroupNorm_1``, ``EncDecResidualBlock_2``, ...), so the JAX parameter tree
 maps onto the ``state_dict`` key for key (``training/checkpoint.py``).
 Neighborhood attention goes through ``ops.neighborhood_attention.na2d``:
-the CUDA kernel K1 on the card, its plain twin on the CPU.
+on the card K1 forward and K2 backward, on the CPU their plain twins.
 
-Serving only: dropout is off and NoiseInjection runs at strength 0 (its
-zero-init convs are kept for the weights). Not ported yet (ROADMAP.md): the
-RVQ bottleneck (``quantize``), ``encode_quantize_fused``, int8 ``quant``
-convs, ring attention, and the sd / vqgan_plus / dac codecs.
+Training mode (``VQVAE.forward(x, train=True, generator=g)``): dropout in
+the encoder's blocks (0.05 / 0.15) and the decoder's first block (0.05),
+NoiseInjection at strength 0.05, and the RVQ bottleneck's EMA update. Its
+randomness comes from the explicit generator; ``deterministic=True`` turns
+dropout and noise off (for parity tests). Not ported yet (ROADMAP.md):
+``encode_quantize_fused`` (the fused Pallas tail K3), int8 ``quant`` convs,
+ring attention, and the sd / vqgan_plus / dac codecs.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.neighborhood_attention import na2d
+from ..ops.rvq import RVQState, rvq_apply
 from .layers import Scope, conv, group_norm, init_params
 
 __all__ = ["gn_groups", "NoOpAE", "SimpleResizeAE", "VQVAE", "VQVAEEncoder",
@@ -167,14 +171,25 @@ class NATTENBlock(nn.Module):
         return x + out.permute(0, 3, 1, 2)
 
 
+def _dropout(x, rate: float, generator):
+    """flax ``nn.Dropout``: keep with probability 1 − rate and scale by
+    1/(1 − rate); the identity without a generator (deterministic)."""
+    if generator is None or rate <= 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator,
+                      device=generator.device).to(x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 class EncDecResidualBlock(nn.Module):
     """Strided residual block with optional attention:
-    conv3×3(stride)→GN→SiLU→[attn]→conv3×3→GN → +skip(1×1 proj if needed)
-    → SiLU. Dropout is off (serving)."""
+    conv3×3(stride)→GN→SiLU→dropout→[attn]→conv3×3→GN → +skip(1×1 proj if
+    needed) → SiLU → dropout. Dropout runs only when a generator is given."""
 
     def __init__(self, c_in: int, out_channels: int, stride: int = 1,
-                 attention=None):
+                 attention=None, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         g = gn_groups(8, out_channels)
         self.Conv_0 = conv(c_in, out_channels, 3, stride=stride)
         self.GroupNorm_0 = group_norm(g, out_channels, 1e-5)
@@ -191,20 +206,20 @@ class EncDecResidualBlock(nn.Module):
             self.Conv_2 = conv(c_in, out_channels, 1, stride=stride)
             self.GroupNorm_2 = group_norm(g, out_channels, 1e-5)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         h = F.silu(self.GroupNorm_0(self.Conv_0(x)))
+        h = _dropout(h, self.dropout_rate, generator)
         if self.attn is not None:
             h = getattr(self, self.attn)(h)
         h = self.GroupNorm_1(self.Conv_1(h))
         if self.project:
             x = self.GroupNorm_2(self.Conv_2(x))
-        return F.silu(h + x)
+        return _dropout(F.silu(h + x), self.dropout_rate, generator)
 
 
 class NoiseInjection(nn.Module):
     """Learned spatially-varying noise, x + s·(noise·scale(x) + bias(x)),
-    with zero-init 1×1 convs. Serving runs it at strength 0, where it is the
-    identity; the convs are kept so the weights load."""
+    with zero-init 1×1 convs; the identity at strength 0 (serving)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -216,8 +231,12 @@ class NoiseInjection(nn.Module):
             m.weight.zero_()
             m.bias.zero_()
 
-    def forward(self, x):
-        return x
+    def forward(self, x, strength: float = 0.0, generator=None):
+        if strength == 0.0:
+            return x
+        noise = torch.randn(x.shape, generator=generator,
+                            device=generator.device).to(x.device)
+        return x + strength * (noise * self.Conv_0(x) + self.Conv_1(x))
 
 
 def _rope_1d(x: torch.Tensor, max_log: float = math.log(10000.0)) -> torch.Tensor:
@@ -291,22 +310,24 @@ class VQVAEEncoder(nn.Module):
             attention = ("natten" if use_attention and i >= num_downsamples - 2
                          else None)
             blocks.append(s.add("EncDecResidualBlock", EncDecResidualBlock(
-                c, out_ch, stride=2, attention=attention)))
+                c, out_ch, stride=2, attention=attention, dropout_rate=0.05)))
             blocks.append(s.add("EncDecResidualBlock", EncDecResidualBlock(
-                out_ch, out_ch, stride=1, attention=attention)))
+                out_ch, out_ch, stride=1, attention=attention,
+                dropout_rate=0.15)))
             c = out_ch
         blocks.append(s.add("EncDecResidualBlock", EncDecResidualBlock(
-            c, internal_dim, stride=1, attention=attention)))
+            c, internal_dim, stride=1, attention=attention, dropout_rate=0.15)))
         self.blocks = blocks
         s.conv(internal_dim, internal_dim, 1)
         s.conv(internal_dim, vq_embedding_dim, 1)
         s.gn(gn_groups(2, vq_embedding_dim), vq_embedding_dim, 1e-5)
         s.conv(vq_embedding_dim, vq_embedding_dim, 3)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        """``generator``: dropout's randomness; none means deterministic."""
         h = x.permute(0, 3, 1, 2)
         for blk in self.blocks:
-            h = blk(h)
+            h = blk(h, generator)
         h = self.Conv_1(self.Conv_0(h))
         h = self.Conv_2(F.silu(self.GroupNorm_0(h)))
         return h.permute(0, 2, 3, 1)
@@ -339,7 +360,7 @@ class VQVAEDecoder(nn.Module):
                 noise(cur)]
         first_attn = "full" if decoder_nonlocal else (
             "natten" if use_attention else None)
-        ops.append(block(cur, cur, attention=first_attn))
+        ops.append(block(cur, cur, attention=first_attn, dropout_rate=0.05))
         for i in range(num_downsamples - 1, -1, -1):
             out_ch = hidden_channels * (2 ** max(0, i - 1))
             if i == 0:
@@ -356,46 +377,34 @@ class VQVAEDecoder(nn.Module):
                 s.conv(64, in_channels, 3)]
         self.ops = ops
 
-    def forward(self, z):
+    def forward(self, z, generator=None, noise_strength: float = 0.0):
+        """``generator``: the randomness of dropout and of NoiseInjection at
+        ``noise_strength``; none (with strength 0) means deterministic."""
         h = z.permute(0, 3, 1, 2)
         for op in self.ops:
-            h = op(h)
+            if isinstance(op, EncDecResidualBlock):
+                h = op(h, generator)
+            elif isinstance(op, NoiseInjection):
+                h = op(h, noise_strength, generator)
+            else:
+                h = op(h)
         return h.permute(0, 2, 3, 1)
 
 
-class _VQState(nn.Module):
-    """The RVQ codebook state carried in a codec checkpoint (``vq/...``).
-    Held as buffers so checkpoints round-trip; the RVQ search itself is not
-    ported yet (ROADMAP.md)."""
-
-    def __init__(self, levels: int, codebook_size: int, dim: int):
-        super().__init__()
-        self.register_buffer("codebooks", torch.zeros(levels, codebook_size, dim))
-        self.register_buffer("ema_counts", torch.zeros(levels, codebook_size))
-        self.register_buffer("ema_sums", torch.zeros(levels, codebook_size, dim))
-        self.register_buffer("initted", torch.zeros((), dtype=torch.bool))
-
-    def init_special_(self, generator):
-        self.codebooks.copy_(torch.randn(self.codebooks.shape,
-                                         generator=generator,
-                                         device=generator.device) * 0.02)
-        self.ema_counts.zero_()
-        self.ema_sums.zero_()
-        self.initted.fill_(False)
-
-
 class VQVAE(nn.Module):
-    """VQGAN codec: encoder + RVQ state + decoder. ``encode``/``decode`` are
-    NHWC; the JAX checkpoint's ``encoder/params/…``, ``decoder/params/…`` and
-    ``vq/…`` map onto ``encoder.…``, ``decoder.…`` and ``vq.…``."""
+    """VQGAN codec: encoder + RVQ bottleneck + decoder. ``encode``/``decode``
+    are NHWC; the JAX checkpoint's ``encoder/params/…``, ``decoder/params/…``
+    and ``vq/…`` map onto ``encoder.…``, ``decoder.…`` and ``vq.…``."""
 
     def __init__(self, in_channels=3, hidden_channels=256, num_downsamples=3,
                  vq_num_embeddings=512, internal_dim=256, codebook_levels=3,
-                 vq_embedding_dim=4, use_attention=True, decoder_nonlocal=True):
+                 vq_embedding_dim=4, commitment_weight=0.25, use_attention=True,
+                 decoder_nonlocal=True):
         super().__init__()
         self.in_channels = in_channels
         self.num_downsamples = num_downsamples
         self.vq_embedding_dim = vq_embedding_dim
+        self.commitment_weight = commitment_weight
         self.encoder = VQVAEEncoder(in_channels, hidden_channels,
                                     num_downsamples, internal_dim,
                                     vq_embedding_dim, use_attention)
@@ -403,17 +412,47 @@ class VQVAE(nn.Module):
                                     num_downsamples, internal_dim,
                                     vq_embedding_dim, decoder_nonlocal,
                                     use_attention)
-        self.vq = _VQState(codebook_levels, vq_num_embeddings, vq_embedding_dim)
+        self.vq = RVQState(codebook_levels, vq_num_embeddings, vq_embedding_dim)
 
     def init(self, generator: torch.Generator) -> "VQVAE":
         """Seeded random init (``layers.init_params``); returns self."""
         return init_params(self, generator)
 
-    def encode(self, x):
-        return self.encoder(x)
+    def encode(self, x, generator=None):
+        return self.encoder(x, generator)
 
-    def decode(self, z_q):
-        return self.decoder(z_q)
+    def quantize(self, z, train: bool = False, generator=None, **draws):
+        """NHWC latents → (z_q, indices (B,H,W,L), commit_loss, new_vq), the
+        new RVQ state as tensors (``ops.rvq.rvq_apply``; ``draws`` are its
+        injected ``kmeans_seeds``/``reseed_picks``)."""
+        b, h, w, c = z.shape
+        z_q, idx, loss, new_vq = rvq_apply(
+            self.vq, z.reshape(-1, c), train=train, generator=generator,
+            commitment_weight=self.commitment_weight, **draws)
+        return z_q.reshape(b, h, w, c), idx.reshape(b, h, w, -1), loss, new_vq
+
+    def encode_quantize_fused(self, x):
+        raise NotImplementedError(
+            "encode_quantize_fused (the fused compress+RVQ Pallas kernel K3) "
+            "is not ported yet (ROADMAP.md queue 2)")
+
+    def decode(self, z_q, generator=None, noise_strength: float = 0.0):
+        return self.decoder(z_q, generator, noise_strength)
+
+    def forward(self, x, train: bool = False, generator=None,
+                deterministic: bool = False, noise_strength=None, **draws):
+        """Full autoencode. Returns (recon, commit_loss, indices, new_vq).
+        With ``train``: dropout and NoiseInjection (strength 0.05) draw from
+        ``generator`` unless ``deterministic``, and the RVQ state update
+        draws from it too (or takes ``draws``)."""
+        rand = generator if train and not deterministic else None
+        if noise_strength is None:
+            noise_strength = 0.05 if rand is not None else 0.0
+        z = self.encode(x, rand)
+        z_q, idx, commit_loss, new_vq = self.quantize(
+            z, train=train, generator=generator, **draws)
+        recon = self.decode(z_q, rand, noise_strength)
+        return recon, commit_loss, idx, new_vq
 
     def latent_shape(self, image_size: int) -> Tuple[int, int, int]:
         s = image_size // (2 ** self.num_downsamples)
@@ -454,7 +493,8 @@ def setup_codec(config, device=None) -> nn.Module:
             vq_num_embeddings=ldcfg(config, "vq_num_embeddings", 512),
             internal_dim=ldcfg(config, "internal_dim", 256),
             codebook_levels=ldcfg(config, "codebook_levels", 3),
-            vq_embedding_dim=ldcfg(config, "vq_embedding_dim", 4))
+            vq_embedding_dim=ldcfg(config, "vq_embedding_dim", 4),
+            commitment_weight=ldcfg(config, "commitment_weight", 0.25))
     elif choice in ("sd", "vqgan_plus", "dac"):
         raise NotImplementedError(f"codec '{choice}' is not ported yet "
                                   "(ROADMAP.md)")

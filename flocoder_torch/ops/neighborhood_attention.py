@@ -4,10 +4,15 @@
 - ``na2d_reference``: exact clamped-window semantics via gathers, the
   correctness oracle.
 - ``na2d_banded``: the dense row-band formulation in plain torch, the plain
-  twin of the CUDA kernel K1 and what CPU tensors run.
-- ``na2d``: dispatch by device. A CPU tensor runs ``na2d_banded``; a CUDA
-  tensor runs K1 (``ops/kernels/na2d.py``) or raises. There is no fallback
-  from the kernel to the plain version.
+  twin of the CUDA kernel K1 and what CPU tensors run (under torch
+  autograd).
+- ``na2d_bwd_banded``: the plain twin of K2, the backward: the same formulas
+  in plain torch, not autograd. Tests and ``chip_smoke.py`` use it.
+- ``NA2DFunction``: the autograd Function of the card, K1 forward and K2
+  backward (``ops/kernels/na2d.py``).
+- ``na2d``: dispatch by device. A CPU tensor runs ``na2d_banded``; any other
+  tensor runs ``NA2DFunction``, whose kernels build and launch or raise.
+  There is no fallback from a kernel to a plain version.
 
 Window semantics match NATTEN: every query attends to exactly k×k keys; at
 borders the window slides inward (clamped), it does not shrink. NHWC
@@ -19,9 +24,10 @@ from typing import Optional
 
 import torch
 
-from .kernels.na2d import na2d_fwd
+from .kernels.na2d import na2d_bwd, na2d_fwd
 
-__all__ = ["na2d", "na2d_reference", "na2d_banded", "window_starts"]
+__all__ = ["na2d", "na2d_reference", "na2d_banded", "na2d_bwd_banded",
+           "NA2DFunction", "window_starts"]
 
 
 def window_starts(n: int, kernel_size: int, device=None) -> torch.Tensor:
@@ -59,6 +65,33 @@ def na2d_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, W, C)
 
 
+def _bands(H: int, ks: int, tile_h: int, dev) -> tuple:
+    """Row bands of ``na2d_banded``: band height, number of bands, halo
+    height, the (nb, KH) halo rows and the (nb, th) clamped window starts of
+    the bands' query rows."""
+    th = tile_h
+    while H % th:
+        th //= 2
+    th = max(th, 1)
+    nb = H // th
+    KH = min(th + ks - 1, H)
+    band_r0 = torch.arange(nb, device=dev) * th
+    halo_start = torch.clamp(band_r0 - ks // 2, 0, H - KH)
+    halo_rows = halo_start[:, None] + torch.arange(KH, device=dev)[None]
+    qi = band_r0[:, None] + torch.arange(th, device=dev)[None]
+    return th, nb, KH, halo_rows, torch.clamp(qi - ks // 2, 0, H - ks)
+
+
+def _band_mask(halo_rows, rs, W: int, ks: int, dev) -> torch.Tensor:
+    """(nb, th, W, KH, W) clamped-window mask of the row bands."""
+    wi = torch.arange(W, device=dev)
+    cs = torch.clamp(wi - ks // 2, 0, W - ks)
+    row_ok = ((halo_rows[:, None, :] >= rs[:, :, None]) &
+              (halo_rows[:, None, :] < rs[:, :, None] + ks))
+    col_ok = (wi[None, :] >= cs[:, None]) & (wi[None, :] < cs[:, None] + ks)
+    return row_ok[:, :, None, :, None] & col_ok[None, None, :, None, :]
+
+
 def na2d_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 kernel_size: int = 7, heads: int = 8,
                 scale: Optional[float] = None,
@@ -72,32 +105,14 @@ def na2d_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dh = C // heads
     if scale is None:
         scale = dh ** -0.5
-    th = tile_h
-    while H % th:
-        th //= 2
-    th = max(th, 1)
-    nb = H // th
-    KH = min(th + ks - 1, H)
     dev = q.device
-
-    band_r0 = torch.arange(nb, device=dev) * th                          # (nb,)
-    halo_start = torch.clamp(band_r0 - ks // 2, 0, H - KH)               # (nb,)
-    halo_rows = halo_start[:, None] + torch.arange(KH, device=dev)[None]  # (nb, KH)
-
+    th, nb, KH, halo_rows, rs = _bands(H, ks, tile_h, dev)
     qb = q.reshape(B, nb, th, W, heads, dh)
     kb = k[:, halo_rows].reshape(B, nb, KH, W, heads, dh)
     vb = v[:, halo_rows].reshape(B, nb, KH, W, heads, dh)
-
     scores = torch.einsum("bntwhd,bnkxhd->bnhtwkx", (qb * scale).float(),
                           kb.float())
-    qi = band_r0[:, None] + torch.arange(th, device=dev)[None]           # (nb, th)
-    rs = torch.clamp(qi - ks // 2, 0, H - ks)                            # (nb, th)
-    wi = torch.arange(W, device=dev)
-    cs = torch.clamp(wi - ks // 2, 0, W - ks)                            # (W,)
-    row_ok = ((halo_rows[:, None, :] >= rs[:, :, None]) &
-              (halo_rows[:, None, :] < rs[:, :, None] + ks))             # (nb, th, KH)
-    col_ok = (wi[None, :] >= cs[:, None]) & (wi[None, :] < cs[:, None] + ks)  # (W, W)
-    mask = row_ok[:, :, None, :, None] & col_ok[None, None, :, None, :]  # (nb,th,W,KH,W)
+    mask = _band_mask(halo_rows, rs, W, ks, dev)
     scores = scores.masked_fill(~mask[None, :, None], float("-inf"))
     # softmax over the (KH, W) key axes jointly
     probs = torch.softmax(scores.flatten(-2), dim=-1).view_as(scores)
@@ -105,14 +120,79 @@ def na2d_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, H, W, C)
 
 
+def na2d_bwd_banded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, g: torch.Tensor, kernel_size: int = 7,
+                    heads: int = 8, scale: Optional[float] = None,
+                    tile_h: int = 8) -> tuple:
+    """The backward of ``na2d_banded`` by K2's formulas, in plain torch (no
+    autograd): per row band P is recomputed, dP = g·Vᵀ, δ = g·o (o the
+    forward output, = rowsum(P∘dP)), dS = P∘(dP − δ), dQ = dS·K·scale,
+    dK = dSᵀ·(scale·Q), dV = Pᵀ·g; the bands' overlapping key halos are
+    summed. fp32 throughout; returns (dq, dk, dv) in q's dtype."""
+    B, H, W, C = q.shape
+    ks = min(kernel_size, H, W)
+    dh = C // heads
+    if scale is None:
+        scale = dh ** -0.5
+    dev = q.device
+    th, nb, KH, halo_rows, rs = _bands(H, ks, tile_h, dev)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    qb = qf.reshape(B, nb, th, W, heads, dh) * scale
+    gb = gf.reshape(B, nb, th, W, heads, dh)
+    kb = kf[:, halo_rows].reshape(B, nb, KH, W, heads, dh)
+    vb = vf[:, halo_rows].reshape(B, nb, KH, W, heads, dh)
+    mask = _band_mask(halo_rows, rs, W, ks, dev)[None, :, None]
+    scores = torch.einsum("bntwhd,bnkxhd->bnhtwkx", qb, kb)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores.flatten(-2), dim=-1).view_as(scores)
+    dp = torch.einsum("bntwhd,bnkxhd->bnhtwkx", gb, vb)
+    delta = (gf * o.float()).reshape(B, nb, th, W, heads, dh).sum(-1)
+    ds = probs * (dp - delta.permute(0, 1, 4, 2, 3)[..., None, None])
+    dq = torch.einsum("bnhtwkx,bnkxhd->bntwhd", ds, kb) * scale
+    dk_band = torch.einsum("bnhtwkx,bntwhd->bnkxhd", ds, qb)
+    dv_band = torch.einsum("bnhtwkx,bntwhd->bnkxhd", probs, gb)
+    rows = halo_rows.reshape(-1)
+
+    def halo_sum(band):
+        out = torch.zeros(B, H, W, heads, dh, device=dev)
+        return out.index_add_(1, rows, band.reshape(B, nb * KH, W, heads, dh))
+
+    return tuple(t.reshape(B, H, W, C).to(q.dtype)
+                 for t in (dq, halo_sum(dk_band), halo_sum(dv_band)))
+
+
+class NA2DFunction(torch.autograd.Function):
+    """Neighborhood attention on the card with its gradient: forward K1,
+    backward K2 (the kernels' wrappers in ``ops/kernels/na2d.py``). Saves
+    q, k, v and K1's output, from which K2 takes δ = g·o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kernel_size: int, heads: int,
+                scale: Optional[float]):
+        out = na2d_fwd(q, k, v, kernel_size=kernel_size, heads=heads,
+                       scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.window = (kernel_size, heads, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out = ctx.saved_tensors
+        kernel_size, heads, scale = ctx.window
+        dq, dk, dv = na2d_bwd(q, k, v, out, g.contiguous(),
+                              kernel_size=kernel_size, heads=heads,
+                              scale=scale)
+        return dq, dk, dv, None, None, None
+
+
 def na2d(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          kernel_size: int = 7, heads: int = 8,
          scale: Optional[float] = None) -> torch.Tensor:
     """Neighborhood attention dispatched by device: CPU tensors run the
-    plain ``na2d_banded``; any other device runs the CUDA kernel K1, which
-    raises rather than falling back when it cannot run."""
+    plain ``na2d_banded`` under torch autograd; any other device runs
+    ``NA2DFunction`` (K1 forward, K2 backward), which raises rather than
+    falling back when a kernel cannot run."""
     if q.device.type == "cpu":
         return na2d_banded(q, k, v, kernel_size=kernel_size, heads=heads,
                            scale=scale)
-    return na2d_fwd(q, k, v, kernel_size=kernel_size, heads=heads,
-                    scale=scale)
+    return NA2DFunction.apply(q, k, v, kernel_size, heads, scale)

@@ -1,0 +1,181 @@
+"""Train the VQGAN codec on the CUDA card — the port of the repo's
+``train_vqgan.py``.
+
+Usage:
+    python -m flocoder_torch.train_vqgan --config-name flowers_vqgan.yaml \\
+        [data=/path/to/images] [codec.epochs=N] [key=value ...]
+
+Two phases: reconstruction-only warmup for ``codec.warmup_epochs``, then
+adversarial training with the discriminator step and the generator step on
+one codec forward (``training/vqgan.py``). Validation with reconstruction
+grids on epoch 1 and every 5th, codebook usage every 10th, checkpoints every
+``codec.ckpt_every`` (50) epochs and at the end, written as the JAX trainer
+writes them (``vqgan_<epoch>.npz``: the codec's flax tree), so both
+packages load them. ``+device=cpu`` runs on the CPU; without it the run
+needs a CUDA device. ``+ckpt_dir`` and ``+output_dir`` move the checkpoints
+(default ``checkpoints``) and the grids (``output_vqgan_<data name>``).
+Not ported yet (ROADMAP.md): bf16 codecs, ``codec.grad_accum``, data and
+tensor parallelism, wandb logging, MIDI data and note metrics, the codebook
+plots.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from .config import ldcfg, parse_cli
+from .data.datasets import create_image_loaders
+from .generate_samples import CONFIG_DIR
+from .models.codecs import setup_codec
+from .models.discriminator import (VQGANPlusDiscriminator,
+                                   VQGANPlusPatchDiscriminator,
+                                   init_discriminator)
+from .models.perceptual import make_perceptual_fn
+from .training.checkpoint import (VQVAE_PREFIXES, load_checkpoint,
+                                  load_jax_flat, save_checkpoint, to_jax_flat)
+from .training.vqgan import (create_vqgan_state, make_vqgan_eval_step,
+                             make_vqgan_gan_step, make_vqgan_warmup_step)
+from .utils.codebook_analysis import CodebookUsageTracker, analyze_codebooks
+from .utils.device import resolve_device
+from .utils.viz import save_img_grid
+
+__all__ = ["train_vqgan", "main"]
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train_vqgan(config) -> dict:
+    """Returns ``{'state': VQGANState, 'step_seconds': {'warmup': [...],
+    'gan': [...]}, 'epoch_seconds': [...], 'epochs': [per-epoch mean
+    losses], 'val': [...], 'checkpoint': path, 'device': str}``. Step times
+    are host-clock seconds of each training step, ending in a device
+    synchronise. ``epoch_seconds`` holds, per epoch, its phase, its samples
+    and the host-clock seconds of its training loop: the steps plus the
+    loader's wait, the copy to the device and the codebook tracker
+    (validation excluded)."""
+    device = resolve_device(config.get("device", None))
+    cc = config.codec
+    image_size = int(cc.get("image_size", ldcfg(config, "image_size", 128)))
+    batch_size = int(cc.get("batch_size", 64))
+    epochs = int(cc.get("epochs", 2000))
+    warmup_epochs = int(cc.get("warmup_epochs", 5))
+    lr = float(cc.get("learning_rate", 1e-4))
+    in_channels = int(cc.get("in_channels", 3))
+    seed = int(ldcfg(config, "seed", 0))
+    data_path = os.path.expanduser(str(config.data))
+    is_midi = any(s in data_path.lower() for s in ("pop909", "midi"))
+    if int(ldcfg(config, "tp", 1)) > 1:
+        raise NotImplementedError("tensor-parallel codec training is not "
+                                  "ported yet (ROADMAP.md)")
+
+    train_loader, val_loader = create_image_loaders(
+        batch_size, image_size, data_path,
+        num_workers=int(ldcfg(config, "num_workers", 4)), is_midi=is_midi,
+        seed=seed)
+
+    # quant_* flags are inference-only: a recipe that serves int8 trains fp32
+    cc.pop("quant_decode", None)
+    cc.pop("quant_encode", None)
+    codec = setup_codec(config, device=device)
+    gen = torch.Generator(device)
+    codec.init(gen.manual_seed(seed))
+    n_params = sum(p.numel() for p in [*codec.encoder.parameters(),
+                                       *codec.decoder.parameters()])
+    print(f"codec params: {n_params / 1e6:.2f}M  latent "
+          f"{codec.latent_shape(image_size)}  device {device}")
+    resume = ldcfg(config, "load_checkpoint", None)
+    if resume and os.path.exists(str(resume)):
+        ck = load_checkpoint(str(resume))
+        load_jax_flat(codec, ck["model_state_dict"], VQVAE_PREFIXES)
+        print(f"resumed codec from {resume} (epoch {ck['epoch']})")
+
+    # 'patch' (the default the reference trains with) or 'vqgan_plus'
+    if str(ldcfg(config, "discriminator", "patch")) == "vqgan_plus":
+        disc = VQGANPlusDiscriminator(in_channels=in_channels)
+    else:
+        disc = VQGANPlusPatchDiscriminator(in_channels=in_channels)
+    init_discriminator(disc.to(device), gen.manual_seed(seed + 2))
+
+    perceptual_fn = None
+    if float(cc.get("lambda_perc", 0)) > 0 and in_channels == 3:
+        perceptual_fn = make_perceptual_fn(seed=seed, device=device)
+    state = create_vqgan_state(codec, disc, lr)
+    grad_accum = max(int(ldcfg(config, "grad_accum", 1)), 1)
+    warmup_step = make_vqgan_warmup_step(config, perceptual_fn,
+                                         grad_accum=grad_accum)
+    gan_step = make_vqgan_gan_step(config, perceptual_fn,
+                                   lecam_weight=float(ldcfg(config, "lecam_weight", 0.0)),
+                                   grad_accum=grad_accum)
+    eval_step = make_vqgan_eval_step(config, perceptual_fn)
+
+    levels = int(cc.get("codebook_levels", 4))
+    tracker = CodebookUsageTracker(num_levels=levels,
+                                   codebook_size=int(cc.get("vq_num_embeddings", 96)))
+    output_dir = str(config.get("output_dir",
+                                f"output_vqgan_{os.path.basename(data_path)}"))
+    ckpt_dir = str(config.get("ckpt_dir", "checkpoints"))
+    os.makedirs(output_dir, exist_ok=True)
+
+    step_seconds = {"warmup": [], "gan": []}
+    epoch_seconds, history, val_history, path = [], [], [], None
+    gen.manual_seed(seed + 1)
+    for epoch in range(1, epochs + 1):
+        phase = "gan" if epoch > warmup_epochs else "warmup"
+        step_fn = gan_step if phase == "gan" else warmup_step
+        ep_aux, t_ep = [], time.time()
+        for batch in train_loader:
+            x = torch.from_numpy(batch["target"]).to(device)
+            t0 = time.time()
+            state, aux, idx = step_fn(state, x, gen)
+            _sync(device)
+            step_seconds[phase].append(time.time() - t0)
+            ep_aux.append(aux)
+            tracker.update_counts("train", idx.reshape(-1, levels).cpu().numpy())
+        n_samples = len(ep_aux) * train_loader.batch_size
+        epoch_seconds.append({"epoch": epoch, "phase": phase, "samples": n_samples,
+                              "seconds": time.time() - t_ep})
+        means = {k: float(np.mean([float(a[k]) for a in ep_aux])) for k in ep_aux[0]}
+        history.append({"epoch": epoch, "phase": phase, **means})
+        sps = n_samples / max(epoch_seconds[-1]["seconds"], 1e-9)
+        print(f"epoch {epoch}/{epochs} [{phase}] " +
+              "  ".join(f"{k} {v:.4f}" for k, v in means.items()) +
+              f"  {sps:.1f} samples/s")
+
+        if epoch % 5 == 0 or epoch == 1:
+            x = torch.from_numpy(next(iter(val_loader))["target"]).to(device)
+            recon, vlosses, idx = eval_step(codec, x)
+            tracker.update_counts("val", idx.reshape(-1, levels).cpu().numpy())
+            vmeans = {k: float(v) for k, v in vlosses.items()}
+            val_history.append({"epoch": epoch, **vmeans})
+            print("  val: " + "  ".join(f"{k} {v:.4f}" for k, v in vmeans.items()))
+            n_demo = min(10, x.shape[0])
+            save_img_grid(torch.cat([x[:n_demo], recon[:n_demo]]).float().cpu().numpy(),
+                          epoch, tag="recon", output_dir=output_dir, ncols=n_demo)
+
+        if epoch % 10 == 0:
+            analyze_codebooks(tracker, epoch)
+            tracker.reset_all()
+
+        if epoch % int(cc.get("ckpt_every", 50)) == 0 or epoch == epochs:
+            path = save_checkpoint(to_jax_flat(codec, VQVAE_PREFIXES), epoch,
+                                   ckpt_dir=ckpt_dir, prefix="vqgan_",
+                                   config=config, keep=5)
+            print(f"  checkpoint -> {path}")
+    return {"state": state, "step_seconds": step_seconds,
+            "epoch_seconds": epoch_seconds, "epochs": history,
+            "val": val_history, "checkpoint": path, "device": str(device)}
+
+
+def main(argv=None) -> dict:
+    config = parse_cli(argv, default_config=None, config_dir=CONFIG_DIR)
+    return train_vqgan(config)
+
+
+if __name__ == "__main__":
+    main()

@@ -13,12 +13,20 @@ Port modules carry linen's names (``models/layers.py``), so a key maps by
 - ``nn.Linear`` weight (out, in) ↔ Dense ``kernel`` (in, out);
 - ``nn.GroupNorm`` weight ↔ ``scale``;
 - ``nn.Embedding`` weight ↔ ``embedding``;
+- a spectrally normalised conv's power-iteration buffers ``u`` and
+  ``sigma`` ↔ ``batch_stats/<parent>/SpectralNorm_<i>/Conv_<j>/kernel/u``
+  (flax's ``SpectralNorm`` collection; ``models/discriminator.py``);
 - everything else (biases, ``gamma``, buffers) by name, unchanged.
 
-Keys match strictly: a missing or extra key raises.
+Keys match strictly: a missing or extra key raises. A trained codec is
+saved as the JAX trainer saves ``state.params`` (``to_jax_flat(codec,
+VQVAE_PREFIXES)``, prefix ``vqgan_``); a discriminator's flat tree is its
+flax variables, ``params/…`` and ``batch_stats/…`` (``DISC_PREFIXES``), and
+the VGG16 features' its ``params/…`` (``VGG_PREFIXES``).
 """
 from __future__ import annotations
 
+import glob
 import json
 import os
 from typing import Optional
@@ -30,7 +38,8 @@ from torch import nn
 from ..config import config_from_dict, to_dict
 
 __all__ = ["save_checkpoint", "load_checkpoint", "to_jax_flat",
-           "load_jax_flat", "UNET_PREFIXES", "VQVAE_PREFIXES"]
+           "load_jax_flat", "UNET_PREFIXES", "VQVAE_PREFIXES", "DISC_PREFIXES",
+           "VGG_PREFIXES"]
 
 _SEP = "/"
 
@@ -40,6 +49,8 @@ _SEP = "/"
 UNET_PREFIXES = {"": "model/params"}
 VQVAE_PREFIXES = {"encoder": "encoder/params", "decoder": "decoder/params",
                   "vq": "vq"}
+DISC_PREFIXES = {"": "params"}
+VGG_PREFIXES = {"": "params"}
 
 
 def _entries(module: nn.Module, prefixes: dict) -> dict:
@@ -50,6 +61,12 @@ def _entries(module: nn.Module, prefixes: dict) -> dict:
             list(m.named_buffers(recurse=False))
         for pname, _ in items:
             tkey = f"{mname}.{pname}" if mname else pname
+            sn_name = getattr(m, "sn_name", None)
+            if sn_name is not None and pname in ("u", "sigma"):
+                *parent, conv_name = mname.split(".")
+                out[tkey] = (_SEP.join(["batch_stats", *parent, sn_name,
+                                        conv_name, "kernel", pname]), "same")
+                continue
             kind, leaf = "same", pname
             if pname == "weight":
                 if isinstance(m, nn.Conv2d):
@@ -71,12 +88,14 @@ def _entries(module: nn.Module, prefixes: dict) -> dict:
 
 
 def _to_jax(t: torch.Tensor, kind: str) -> np.ndarray:
+    """A copy in flax layout: never a view of the module's memory, which
+    an optimizer updates in place."""
     a = t.detach().cpu().numpy()
     if kind == "conv":
         return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
     if kind == "dense":
         return np.ascontiguousarray(a.T)
-    return a
+    return a.copy()
 
 
 def _from_jax(a: np.ndarray, kind: str) -> np.ndarray:
@@ -119,11 +138,12 @@ def load_jax_flat(module: nn.Module, flat: dict, prefixes: dict) -> nn.Module:
 
 def save_checkpoint(params: dict, epoch: int, ckpt_dir: str = "checkpoints",
                     prefix: str = "flow_", config=None,
-                    ema: Optional[dict] = None) -> str:
+                    ema: Optional[dict] = None, keep: Optional[int] = None) -> str:
     """Write ``{ckpt_dir}/{prefix}{epoch}.npz`` in the contract:
     ``model_state_dict/…`` from ``params`` (a flat JAX tree, e.g. from
     ``to_jax_flat``), optional ``ema_state_dict/…``, ``epoch`` and
-    ``config_json``. Returns the path."""
+    ``config_json``; with ``keep``, only the newest ``keep`` files of the
+    prefix stay. Returns the path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {f"model_state_dict{_SEP}{k}": np.asarray(v)
                for k, v in params.items()}
@@ -135,6 +155,11 @@ def save_checkpoint(params: dict, epoch: int, ckpt_dir: str = "checkpoints",
         payload["config_json"] = np.asarray(json.dumps(to_dict(config)))
     path = os.path.join(ckpt_dir, f"{prefix}{epoch}.npz")
     np.savez_compressed(path, **payload)
+    if keep:
+        files = sorted(glob.glob(os.path.join(ckpt_dir, f"{prefix}*.npz")),
+                       key=os.path.getmtime)
+        for f in files[:-keep]:
+            os.remove(f)
     return path
 
 

@@ -1,0 +1,200 @@
+"""VQGAN codec training steps, PyTorch port of
+``flocoder_tpu/training/vqgan.py``: the warmup step (reconstruction only),
+the GAN step and the eval step.
+
+- Optimizers are optax's ``chain(clip_by_global_norm(c), adam(lr))``:
+  ``ClippedAdam`` scales the gradients by c / max(‖g‖, c) over all of its
+  parameters (not ``clip_grad_norm_``, which adds 1e-6), then runs
+  ``torch.optim.Adam`` (b1 0.9, b2 0.999, eps 1e-8, optax's update). The
+  discriminator's learning rate is lr·1e-3. The RVQ codebooks are updated
+  by EMA (``ops/rvq.py``), never by an optimizer.
+- The GAN step keeps the JAX order and runs the codec forward once: recon;
+  discriminator step on ``recon.detach()`` (real batch then fake, power
+  iterations advancing), its update; the generator loss against the updated
+  discriminator with its statistics frozen; the backward into the codec
+  only (the discriminator's parameters do not collect the generator's
+  gradients).
+- ``deterministic=True`` turns dropout and NoiseInjection off (parity tests
+  only). Gradient accumulation and data / tensor parallelism are not ported
+  yet (ROADMAP.md) and raise.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from ..metrics import (compute_vqgan_losses, get_total_vqgan_loss,
+                       hinge_d_loss, lecam_loss)
+from ..models.discriminator import make_disc_apply
+
+__all__ = ["ClippedAdam", "VQGANState", "create_vqgan_state",
+           "make_vqgan_optimizers", "make_vqgan_warmup_step",
+           "make_vqgan_gan_step", "make_vqgan_eval_step", "g_trainable"]
+
+
+class ClippedAdam:
+    """optax ``chain(clip_by_global_norm(grad_clip), adam(lr))`` over
+    ``params``. A parameter without a gradient takes a zero one, as optax
+    gives every leaf a gradient."""
+
+    def __init__(self, params, lr: float, grad_clip: float = 1.0):
+        self.params = list(params)
+        self.grad_clip = grad_clip
+        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
+                                     eps=1e-8)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads]))
+        torch._foreach_mul_(grads, self.grad_clip / norm.clamp(min=self.grad_clip))
+        self.adam.step()
+
+
+def g_trainable(codec: nn.Module) -> list:
+    """The encoder's and decoder's parameters; the RVQ state is buffers."""
+    return [*codec.encoder.parameters(), *codec.decoder.parameters()]
+
+
+def make_vqgan_optimizers(codec: nn.Module, disc: Optional[nn.Module],
+                          learning_rate: float, d_lr_scale: float = 1e-3,
+                          grad_clip: float = 1.0) -> tuple:
+    """Generator Adam at lr and discriminator Adam at lr·d_lr_scale, each
+    after a global-norm clip."""
+    opt_g = ClippedAdam(g_trainable(codec), learning_rate, grad_clip)
+    opt_d = (ClippedAdam(disc.parameters(), learning_rate * d_lr_scale, grad_clip)
+             if disc is not None else None)
+    return opt_g, opt_d
+
+
+@dataclass
+class VQGANState:
+    codec: nn.Module
+    opt_g: ClippedAdam
+    disc: Optional[nn.Module] = None
+    opt_d: Optional[ClippedAdam] = None
+    step: int = 0
+
+
+def create_vqgan_state(codec, disc, learning_rate: float, **kw) -> VQGANState:
+    opt_g, opt_d = make_vqgan_optimizers(codec, disc, learning_rate, **kw)
+    return VQGANState(codec=codec, opt_g=opt_g, disc=disc, opt_d=opt_d)
+
+
+def _not_ported(mesh, grad_accum: int) -> None:
+    if mesh is not None:
+        raise NotImplementedError("data- and tensor-parallel codec training is "
+                                  "not ported yet (ROADMAP.md)")
+    if grad_accum != 1:
+        raise NotImplementedError("codec.grad_accum > 1 is not ported yet "
+                                  "(ROADMAP.md)")
+
+
+def _aux(losses: dict, total) -> dict:
+    out = {k: v.detach() for k, v in losses.items()}
+    out["total"] = total.detach()
+    return out
+
+
+def make_vqgan_warmup_step(config, perceptual_fn: Optional[Callable] = None,
+                           mesh=None, grad_accum: int = 1,
+                           deterministic: bool = False):
+    """Reconstruction-only phase: ``step(state, batch, generator) ->
+    (state, aux, indices)``; ``state`` is updated in place."""
+    _not_ported(mesh, grad_accum)
+
+    def step(state: VQGANState, batch, generator):
+        codec = state.codec
+        state.opt_g.zero_grad()
+        recon, commit, idx, new_vq = codec(batch, train=True, generator=generator,
+                                           deterministic=deterministic)
+        losses = compute_vqgan_losses(recon, batch, commit, config,
+                                      perceptual_fn=perceptual_fn)
+        total = get_total_vqgan_loss(losses, config)
+        total.backward()
+        state.opt_g.step()
+        codec.vq.assign_(new_vq)
+        state.step += 1
+        return state, _aux(losses, total), idx
+
+    return step
+
+
+def make_vqgan_gan_step(config, perceptual_fn: Optional[Callable] = None,
+                        lecam_weight: float = 0.0, mesh=None,
+                        grad_accum: int = 1, deterministic: bool = False):
+    """GAN phase, discriminator step then generator step on one codec
+    forward: ``step(state, batch, generator) -> (state, aux, indices)``.
+    ``codec.share_real_features=true`` reuses the discriminator step's real
+    features as the feature-matching targets instead of a second real
+    forward through the updated discriminator. ``mark(name)``, when given,
+    is called after each part of the step ("codec_forward", "d_step",
+    "g_loss_backward", "optimizers"), for a breakdown of its time."""
+    _not_ported(mesh, grad_accum)
+    share_real_features = bool(config.codec.get("share_real_features", False))
+
+    def step(state: VQGANState, batch, generator, mark=None):
+        mark = mark or (lambda name: None)
+        codec, disc = state.codec, state.disc
+        state.opt_g.zero_grad()
+        state.opt_d.zero_grad()
+        recon, commit, idx, new_vq = codec(batch, train=True, generator=generator,
+                                           deterministic=deterministic)
+        mark("codec_forward")
+
+        # discriminator step, power iterations advancing: real, then fake
+        real_pred, real_features = disc(batch, update_stats=True)
+        fake_pred, _ = disc(recon.detach(), update_stats=True)
+        d_loss = hinge_d_loss(real_pred, fake_pred)
+        if lecam_weight > 0:
+            d_loss = d_loss + lecam_loss(real_pred, fake_pred, lecam_weight)
+        d_loss.backward()
+        state.opt_d.step()
+        mark("d_step")
+
+        # generator step against the updated discriminator, stats frozen
+        disc.requires_grad_(False)
+        losses = compute_vqgan_losses(
+            recon, batch, commit, config, perceptual_fn=perceptual_fn,
+            disc_apply=make_disc_apply(disc, update_stats=False),
+            warmed_up=True, report_d_loss=False,
+            real_features=([f.detach() for f in real_features]
+                           if share_real_features else None))
+        total = get_total_vqgan_loss(losses, config)
+        total.backward()
+        disc.requires_grad_(True)
+        mark("g_loss_backward")
+        state.opt_g.step()
+        codec.vq.assign_(new_vq)
+        mark("optimizers")
+        state.step += 1
+        aux = _aux(losses, total)
+        aux["d_loss"] = d_loss.detach()
+        return state, aux, idx
+
+    return step
+
+
+def make_vqgan_eval_step(config, perceptual_fn: Optional[Callable] = None):
+    """Validation reconstruction and losses, deterministic:
+    ``eval_fn(codec, batch) -> (recon, losses, indices)``."""
+
+    @torch.no_grad()
+    def eval_fn(codec, batch):
+        recon, commit, idx, _ = codec(batch, train=False)
+        losses = compute_vqgan_losses(recon, batch, commit, config,
+                                      perceptual_fn=perceptual_fn)
+        losses["total"] = get_total_vqgan_loss(losses, config)
+        return recon, losses, idx
+
+    return eval_fn

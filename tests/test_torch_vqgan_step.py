@@ -1,0 +1,264 @@
+"""The port's codec training (flocoder_torch.training.vqgan) against the JAX
+package's on the same weights: ``compute_vqgan_losses``, then one warmup
+step and one GAN step, comparing the losses, the codec's and the
+discriminator's parameters (and power-iteration stats) after the update,
+and the RVQ state.
+
+Both sides run deterministically: the JAX side through a test-side wrapper
+of its ``VQVAE`` whose ``forward`` encodes and decodes with
+``deterministic=True`` and no noise (nothing in flocoder_tpu changes), the
+port with ``deterministic=True``. The RVQ state is initialised and has no
+dead codes, so no random draw enters the step. The perceptual loss runs on
+the same VGG16 weights (the port's seeded init, bridged). Small sizes:
+16² images, hidden 16, two downsamples, a 16-wide discriminator.
+
+Tolerances (fp32): losses and updated parameters 1e-4 absolute. Adam's
+first update moves each weight by about ±lr whatever its gradient's size,
+so the parameters show only each gradient's sign; the gradients themselves
+are held through Adam's first moment after the step (0.1 · the clipped
+gradient, torch's ``exp_avg`` against optax's ``mu``), for the codec and
+for the discriminator, to 1e-4 · the largest |mu| of that model plus 1e-3
+relative.
+"""
+import copy
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from flocoder_tpu import metrics as jmetrics
+from flocoder_tpu.config import load_config as jload_config
+from flocoder_tpu.models import codecs as jcodecs
+from flocoder_tpu.models import discriminator as jdisc
+from flocoder_tpu.models.perceptual import VGG16Features as JaxVGG
+from flocoder_tpu.ops.rvq import RVQState as JaxRVQState
+from flocoder_tpu.training import vqgan as jvqgan
+from flocoder_tpu.training.checkpoint import flatten_tree, load_into_tree, unflatten_tree
+from flocoder_torch import metrics as tmetrics
+from flocoder_torch.config import load_config
+from flocoder_torch.models import codecs as tcodecs
+from flocoder_torch.models import discriminator as tdisc
+from flocoder_torch.models.layers import init_params
+from flocoder_torch.models.perceptual import VGG16Features, make_perceptual_fn
+from flocoder_torch.training import vqgan as tvqgan
+from flocoder_torch.training.checkpoint import (DISC_PREFIXES, VGG_PREFIXES,
+                                                VQVAE_PREFIXES, to_jax_flat)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Tier-1 runs six xdist workers on a few cores; one torch thread each
+    keeps these tests quick."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+ATOL = 1e-4
+KW = dict(hidden_channels=16, num_downsamples=2, internal_dim=8,
+          vq_embedding_dim=4, vq_num_embeddings=8, codebook_levels=2,
+          commitment_weight=0.5)
+OVERRIDES = ["codec.lambda_perc=0.001", "codec.learning_rate=0.0001"]
+S = 16
+
+
+class _DeterministicVQVAE(jcodecs.VQVAE):
+    """The JAX codec with dropout and noise off and the RVQ in training."""
+
+    def forward(self, params, x, train=False, rng=None, noise_strength=None,
+                axis_name=None):
+        z = self.encode(params, x, deterministic=True)
+        z_q, idx, commit, new_vq = self.quantize(params, z, train=train, rng=rng,
+                                                 axis_name=axis_name)
+        return self.decode(params, z_q, deterministic=True, noise_strength=0.0), \
+            commit, idx, new_vq
+
+
+def _noisy(module, seed):
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.add_(torch.from_numpy(0.05 * rng.normal(size=tuple(p.shape))
+                                    .astype(np.float32)))
+    return module
+
+
+def _setup():
+    """Port and JAX codec, discriminator and VGG on the same numbers; the
+    port's modules are fresh copies for each caller (a step updates them)."""
+    base = _base()
+    return dict(base, codec=copy.deepcopy(base["codec"]),
+                disc=copy.deepcopy(base["disc"]))
+
+
+@functools.lru_cache(maxsize=1)
+def _base():
+    codec = _noisy(init_params(tcodecs.VQVAE(**KW), torch.Generator().manual_seed(0)), 1)
+    rng = np.random.default_rng(2)
+    L, K, D = codec.vq.codebooks.shape
+    codec.vq.assign_({
+        "codebooks": torch.from_numpy(rng.normal(size=(L, K, D)).astype(np.float32) * 0.5),
+        "ema_counts": torch.from_numpy(rng.uniform(4, 30, (L, K)).astype(np.float32)),
+        "ema_sums": torch.from_numpy(rng.normal(size=(L, K, D)).astype(np.float32)),
+        "initted": torch.tensor(True)})
+    flat = to_jax_flat(codec, VQVAE_PREFIXES)
+    tree = unflatten_tree({k: jnp.asarray(v) for k, v in flat.items()})
+    jparams = {"encoder": tree["encoder"], "decoder": tree["decoder"],
+               "vq": JaxRVQState(**{k: tree["vq"][k] for k in
+                                    ("codebooks", "ema_counts", "ema_sums", "initted")})}
+
+    disc = _noisy(tdisc.init_discriminator(tdisc.VQGANPlusPatchDiscriminator(
+        hidden_channels=16), torch.Generator().manual_seed(3)), 4)
+    jd = jdisc.VQGANPlusPatchDiscriminator(hidden_channels=16)
+    template = jdisc.init_discriminator(jd, jax.random.PRNGKey(0), jnp.zeros((1, S, S, 3)))
+    jdvars = load_into_tree(template, to_jax_flat(disc, DISC_PREFIXES), strict=True)
+
+    vgg = init_params(VGG16Features(), torch.Generator().manual_seed(5))
+    jvgg_vars = unflatten_tree({k: jnp.asarray(v)
+                                for k, v in to_jax_flat(vgg, VGG_PREFIXES).items()})
+    jvgg = JaxVGG()
+    return dict(codec=codec, disc=disc, vgg=make_perceptual_fn(model=vgg),
+                jcodec=_DeterministicVQVAE(**KW), jparams=jparams, jd=jd,
+                jdvars=jdvars, jvgg=lambda x: jvgg.apply(jvgg_vars, x),
+                tcfg=load_config("smoke_vqgan", config_dir="configs", overrides=OVERRIDES),
+                jcfg=jload_config("smoke_vqgan", config_dir="configs", overrides=OVERRIDES))
+
+
+def _images(seed, b=2):
+    return np.random.default_rng(seed).uniform(-1, 1, size=(b, S, S, 3)).astype(np.float32)
+
+
+def _assert_losses(taux, jaux):
+    assert set(taux) == set(jaux), (sorted(taux), sorted(jaux))
+    for k in jaux:
+        np.testing.assert_allclose(float(taux[k].detach()), float(jaux[k]), atol=ATOL,
+                                   err_msg=k)
+
+
+def _assert_tree(ours: dict, ref: dict, what: str):
+    assert set(ours) == set(ref), what
+    for k in ref:
+        np.testing.assert_allclose(np.asarray(ours[k], np.float64),
+                                   np.asarray(ref[k], np.float64), atol=ATOL,
+                                   err_msg=f"{what}: {k}")
+
+
+def test_compute_vqgan_losses_matches_jax():
+    s = _setup()
+    recon, target = _images(10), _images(11)
+    cfg_over = OVERRIDES + ["codec.lambda_ce=0.5"]
+    tcfg = load_config("smoke_vqgan", config_dir="configs", overrides=cfg_over)
+    jcfg = jload_config("smoke_vqgan", config_dir="configs", overrides=cfg_over)
+    jdapply = jdisc.make_disc_apply(s["jd"])
+    ref = jax.jit(lambda r, t: jmetrics.compute_vqgan_losses(
+        r, t, jnp.asarray(0.3), jcfg, perceptual_fn=s["jvgg"], disc_apply=jdapply,
+        disc_params=s["jdvars"], warmed_up=True))(jnp.asarray(recon), jnp.asarray(target))
+    ours = tmetrics.compute_vqgan_losses(
+        torch.from_numpy(recon), torch.from_numpy(target), torch.tensor(0.3), tcfg,
+        perceptual_fn=s["vgg"], disc_apply=tdisc.make_disc_apply(s["disc"]),
+        warmed_up=True)
+    _assert_losses(ours, ref)
+    np.testing.assert_allclose(float(tmetrics.get_total_vqgan_loss(ours, tcfg).detach()),
+                               float(jmetrics.get_total_vqgan_loss(ref, jcfg)), atol=ATOL)
+    np.testing.assert_allclose(
+        float(tmetrics.spectral_loss(torch.from_numpy(recon), torch.from_numpy(target))),
+        float(jmetrics.spectral_loss(jnp.asarray(recon), jnp.asarray(target))), rtol=1e-5)
+
+
+def _codec_flat(codec):
+    return to_jax_flat(codec, VQVAE_PREFIXES)
+
+
+def _jax_codec_flat(params):
+    return flatten_tree({"encoder": params["encoder"], "decoder": params["decoder"],
+                         "vq": {k: getattr(params["vq"], k) for k in
+                                ("codebooks", "ema_counts", "ema_sums", "initted")}})
+
+
+def _jax_moments(opt_state, prefix: str) -> dict:
+    """optax Adam's first moment as a flat JAX-layout dict."""
+    isa = lambda s: isinstance(s, optax.ScaleByAdamState)
+    (adam,) = [s for s in jax.tree_util.tree_leaves(opt_state, is_leaf=isa) if isa(s)]
+    return flatten_tree({prefix: adam.mu} if prefix else adam.mu)
+
+
+def _moments(module, opt, prefixes) -> dict:
+    """torch Adam's first moment of each of ``module``'s optimised
+    parameters, in the layout of ``to_jax_flat``."""
+    m = copy.deepcopy(module)
+    with torch.no_grad():
+        for pm, p in zip(m.parameters(), module.parameters()):
+            pm.copy_(opt.adam.state[p]["exp_avg"] if p in opt.adam.state
+                     else torch.full_like(p, float("nan")))
+    return to_jax_flat(m, prefixes)
+
+
+def _assert_grads(ours: dict, ref: dict, what: str):
+    assert set(ref) <= set(ours), what
+    scale = max(float(np.abs(np.asarray(v)).max()) for v in ref.values())
+    assert scale > 0, what
+    for k in ref:
+        np.testing.assert_allclose(np.asarray(ours[k], np.float64),
+                                   np.asarray(ref[k], np.float64), rtol=1e-3,
+                                   atol=1e-4 * scale, err_msg=f"{what}: {k}")
+
+
+def test_warmup_step_matches_jax():
+    s = _setup()
+    x = _images(20)
+    tx_g, tx_d = jvqgan.make_vqgan_optimizers(1e-4)
+    jstate = jvqgan.create_vqgan_state(s["jparams"], tx_g)
+    jstep = jvqgan.make_vqgan_warmup_step(s["jcodec"], tx_g, s["jcfg"], s["jvgg"],
+                                          donate=False)
+    jstate, jaux, jidx = jax.block_until_ready(
+        jstep(jstate, jnp.asarray(x), jax.random.PRNGKey(1)))
+
+    state = tvqgan.create_vqgan_state(s["codec"], None, 1e-4)
+    step = tvqgan.make_vqgan_warmup_step(s["tcfg"], s["vgg"], deterministic=True)
+    state, aux, idx = step(state, torch.from_numpy(x), torch.Generator())
+    _assert_losses(aux, jaux)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    _assert_tree(_codec_flat(state.codec), _jax_codec_flat(jstate.params), "codec")
+    _assert_grads(_moments(state.codec, state.opt_g, VQVAE_PREFIXES),
+                  _jax_moments(jstate.opt_g, ""), "codec gradient")
+    assert state.step == 1
+
+
+def test_gan_step_matches_jax():
+    s = _setup()
+    x = _images(30)
+    tx_g, tx_d = jvqgan.make_vqgan_optimizers(1e-4)
+    jstate = jvqgan.create_vqgan_state(s["jparams"], tx_g, s["jdvars"], tx_d)
+    jstep = jvqgan.make_vqgan_gan_step(
+        s["jcodec"], tx_g, s["jd"], jdisc.make_disc_apply(s["jd"], update_stats=True),
+        jdisc.make_disc_apply(s["jd"]), tx_d, s["jcfg"], s["jvgg"], donate=False)
+    jstate, jaux, _ = jax.block_until_ready(
+        jstep(jstate, jnp.asarray(x), jax.random.PRNGKey(2)))
+
+    state = tvqgan.create_vqgan_state(s["codec"], s["disc"], 1e-4)
+    step = tvqgan.make_vqgan_gan_step(s["tcfg"], s["vgg"], deterministic=True)
+    state, aux, _ = step(state, torch.from_numpy(x), torch.Generator())
+    _assert_losses(aux, jaux)
+    _assert_tree(_codec_flat(state.codec), _jax_codec_flat(jstate.params), "codec")
+    _assert_tree(to_jax_flat(state.disc, DISC_PREFIXES), flatten_tree(jstate.disc_vars),
+                 "discriminator")
+    _assert_grads(_moments(state.codec, state.opt_g, VQVAE_PREFIXES),
+                  _jax_moments(jstate.opt_g, ""), "codec gradient")
+    _assert_grads(_moments(state.disc, state.opt_d, DISC_PREFIXES),
+                  _jax_moments(jstate.opt_d, "params"), "discriminator gradient")
+    assert all(p.requires_grad for p in state.disc.parameters())
+
+
+def test_not_ported_options_raise():
+    cfg = load_config("smoke_vqgan", config_dir="configs")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tvqgan.make_vqgan_warmup_step(cfg, grad_accum=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tvqgan.make_vqgan_gan_step(cfg, mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tcodecs.VQVAE(**KW).encode_quantize_fused(torch.zeros(1, S, S, 3))
