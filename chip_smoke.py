@@ -6,15 +6,17 @@
 1. Checks for a CUDA device and prints the card's name and power limit.
 2. Builds the hand-written kernels from the sources in this checkout, one
    nvcc each, started together: K1, the NA2D forward
-   (flocoder_torch/csrc/na2d_fwd.cu), and K2, the NA2D backward
-   (flocoder_torch/csrc/na2d_bwd.cu).
+   (flocoder_torch/csrc/na2d_fwd.cu), K2, the NA2D backward
+   (flocoder_torch/csrc/na2d_bwd.cu), and K3, K4 and K5, the fused
+   compression tail and RVQ search (flocoder_torch/csrc/fused_vq.cu).
 3. Holds K1 against its plain PyTorch version (na2d_banded) on the card, TF32
    off: the codec's shapes at B=8 (32²×512 with head dim 64, 16²×1024 with
-   head dim 128, 16²×128 with head dim 16) and at the serving runs' batches
-   (64 for the decode, 1 for img2img's encode), a non-square map, a map
-   smaller than the window, a ragged one; fp32 (max |Δ| < 1e-4) and bf16
-   (against the plain version in fp32 on the same bf16 values, max |Δ| <
-   2e-2: one bf16 rounding of outputs of magnitude up to ~4).
+   head dim 128, 16²×128 with head dim 16) and at the main paths' batches
+   (64 for the serving decode, 1 for img2img's encode, 32 for the
+   pre-encode's encoder, fp32 only), a non-square map, a map smaller than
+   the window, a ragged one; fp32 (max |Δ| < 1e-4) and bf16 (against the
+   plain version in fp32 on the same bf16 values, max |Δ| < 2e-2: one bf16
+   rounding of outputs of magnitude up to ~4).
 4. Holds K2 against its plain twin (na2d_bwd_banded) at the training shapes
    at B=8 and the same non-square, smaller-than-window and ragged maps: fp32
    max |Δ| < 1e-4·max(1, max|ref|), bf16 < 3e-2·max(1, max|ref|) against the
@@ -49,6 +51,27 @@
    and one GAN step of a small codec (hidden 64): losses and parameters
    within 1e-3·max(1, |ref|), and the gradients (Adam's first moments of
    the codec and of the discriminator) within 1e-3·max|ref| of each model.
+9. Holds K4, K3 and K5 against their plain twins (flocoder_torch.ops.fused_vq)
+   on the card, TF32 off: each token's picks equal the twin's or ε-optimal
+   under an fp64 oracle (relative distance gap < 1e-5), z_q within
+   1e-5·max(1, |ref|) where the picks agree, K5's intermediates within
+   1e-5·max(1, |ref|) of the twin and of the fp64 oracle; K4 at a
+   pre-encode batch of tokens, the probe's shape, a ragged N and D=3 and 8,
+   K3 at a pre-encode batch (both layouts of h), a ragged 5×7 map, a 20×20
+   map, D=3 with one group and D=8 with two. Times each at its main shape
+   beside its twin, the unfused torch path (the yardstick) and its bound.
+10. Pre-encodes flowers_vqgan at full width through the port's entry point
+   (flocoder_torch.preencode_data.main) with preencoding.quantize=true
+   preencoding.fused_vq=true, batch 32, augs_per 4, over 320 seeded random
+   500² PNGs (4 val and 36 train batches). The launch counts are zeroed
+   before and read after: 5 K1 and 1 K3 per batch, no K2, K4 or K5. Reads
+   the latents back, rebuilds the first batch from the same config and
+   holds its fused picks against the unfused path's, and prints latents/s
+   per split, encode ms per batch fused and unfused, peak memory and one
+   batch's device idle share.
+11. Pre-encodes a small codec's (hidden 64) batches on the card and on the
+   CPU through the same entry point: on each rebuilt batch the picks equal
+   or ε-optimal, the latent files within 1e-4·max(1, |ref|) elsewhere.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -133,22 +156,27 @@ def check_k1(na2d_fwd, na2d_banded) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator("cuda").manual_seed(0)
-    cases = [  # (label, (B, H, W, C), heads, kernel_size)
-        ("decoder/encoder 32x32 C512 dh64", (8, 32, 32, 512), 8, 7),
-        ("encoder 16x16 C1024 dh128", (8, 16, 16, 1024), 8, 7),
-        ("encoder 16x16 C128 dh16", (8, 16, 16, 128), 8, 7),
+    both = ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
+    cases = [  # (label, (B, H, W, C), heads, kernel_size, dtypes)
+        ("decoder/encoder 32x32 C512 dh64", (8, 32, 32, 512), 8, 7, both),
+        ("encoder 16x16 C1024 dh128", (8, 16, 16, 1024), 8, 7, both),
+        ("encoder 16x16 C128 dh16", (8, 16, 16, 128), 8, 7, both),
         # the serving runs' own shapes: decode at batch 64, img2img's encode
         # of one image (the decode at 64 is held in time_k1)
-        ("serving encode 32x32 C512 dh64 B1", (1, 32, 32, 512), 8, 7),
-        ("serving encode 16x16 C1024 dh128 B1", (1, 16, 16, 1024), 8, 7),
-        ("serving encode 16x16 C128 dh16 B1", (1, 16, 16, 128), 8, 7),
-        ("non-square 24x40 dh32", (2, 24, 40, 64), 2, 7),
-        ("smaller than k 5x6 dh8 (ks=5)", (2, 5, 6, 32), 4, 7),
-        ("ragged tiles 17x13 dh24", (2, 17, 13, 48), 2, 7),
+        ("serving encode 32x32 C512 dh64 B1", (1, 32, 32, 512), 8, 7, both),
+        ("serving encode 16x16 C1024 dh128 B1", (1, 16, 16, 1024), 8, 7, both),
+        ("serving encode 16x16 C128 dh16 B1", (1, 16, 16, 128), 8, 7, both),
+        # the pre-encode's own shapes: the encoder at batch 32, in fp32
+        ("pre-encode 32x32 C512 dh64 B32", (32, 32, 32, 512), 8, 7, both[:1]),
+        ("pre-encode 16x16 C1024 dh128 B32", (32, 16, 16, 1024), 8, 7, both[:1]),
+        ("pre-encode 16x16 C128 dh16 B32", (32, 16, 16, 128), 8, 7, both[:1]),
+        ("non-square 24x40 dh32", (2, 24, 40, 64), 2, 7, both),
+        ("smaller than k 5x6 dh8 (ks=5)", (2, 5, 6, 32), 4, 7, both),
+        ("ragged tiles 17x13 dh24", (2, 17, 13, 48), 2, 7, both),
     ]
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    for label, shape, heads, ks in cases:
-        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+    for label, shape, heads, ks, dtypes in cases:
+        for dtype, tol in dtypes:
             q, k, v = (torch.randn(shape, device="cuda", generator=g).to(dtype)
                        for _ in range(3))
             out = na2d_fwd(q, k, v, kernel_size=ks, heads=heads)
@@ -351,12 +379,23 @@ def time_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded, na2d, card: str) -> tuple:
                 bf16_ms=bf16_ms), err
 
 
+def scale_codebooks(codec, image_size: int) -> None:
+    """Scales the codec's N(0, 0.02²) codebooks to the spread of its
+    encoder's output on seeded random images, so that the RVQ picks spread
+    over the codes (as the JAX package's fused VQ test does)."""
+    g = torch.Generator(codec.vq.codebooks.device).manual_seed(9)
+    x = torch.rand(4, image_size, image_size, 3, device=g.device, generator=g) * 2 - 1
+    with torch.inference_mode():
+        spread = codec.encode(x).std().item()
+    codec.vq.codebooks.data.mul_(spread / 0.02)
+
+
 def write_checkpoints(tmp: str, config_dir: str):
     """Seeded random-init checkpoints in the npz contract for flowers_vqgan
-    as composed: the VQGAN codec (128², hidden 256, 3 downsamples), an
-    unconditional U-Net (dim 16, dim_mults 1,2,4,8) and a class-conditional
-    one (n_classes 102). NATTEN gates are set to 1 so that K1's output
-    reaches the images."""
+    as composed: the VQGAN codec (128², hidden 256, 3 downsamples; its
+    codebooks scaled by ``scale_codebooks``), an unconditional U-Net (dim
+    16, dim_mults 1,2,4,8) and a class-conditional one (n_classes 102).
+    NATTEN gates are set to 1 so that K1's output reaches the images."""
     from flocoder_torch.config import load_config
     from flocoder_torch.models.codecs import NATTENBlock, setup_codec
     from flocoder_torch.models.layers import init_params
@@ -374,10 +413,11 @@ def write_checkpoints(tmp: str, config_dir: str):
     for m in codec.modules():
         if isinstance(m, NATTENBlock):
             m.gamma.data.fill_(1.0)
+    scale_codebooks(codec, 128)
     save_checkpoint(to_jax_flat(codec, VQVAE_PREFIXES), 0, ckpt_dir=tmp,
                     prefix="vqgan_")
     H, W, C = codec.latent_shape(128)
-    paths = {}
+    paths = {"codec": codec_path}
     for name, c, n_classes in (("uncond", cfg, 0), ("cfg", cfg_cls, 102)):
         unet = Unet(dim=H, channels=C, dim_mults=(1, 2, 4, 8),
                     n_classes=n_classes).cuda()
@@ -530,15 +570,15 @@ def check_small_input(paths: dict) -> None:
             fail(f"card and CPU disagree on {name}")
 
 
-def write_pngs(folder: str, n: int = 320, size: int = 128) -> str:
-    """``n`` seeded random RGB PNGs: 10% go to validation, the rest give
-    4 training steps of 64 per epoch."""
+def write_pngs(folder: str, n: int = 320, size: int = 128, seed: int = 3) -> str:
+    """``n`` seeded random RGB PNGs (at 128², 10% go to validation, the rest
+    give 4 training steps of 64 per epoch)."""
     from PIL import Image
     os.makedirs(folder)
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     for i in range(n):
         Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
-            os.path.join(folder, f"img_{i:04d}.png"))
+            os.path.join(folder, f"img_{i:04d}.png"), compress_level=1)
     return folder
 
 
@@ -733,6 +773,396 @@ def check_train_small() -> None:
           + "; ".join(grad_report), flush=True)
 
 
+def hold_picks(label, zq, idx, zq_ref, idx_ref, x64, cb, rel=1e-5) -> dict:
+    """Prints and enforces flocoder_torch.ops.fused_vq.check_quantized: each
+    token's picks equal the reference's or are ε-optimal under the fp64
+    distances from ``x64`` (relative gap < 1e-5); z_q within
+    ``rel``·max(1, max|ref|) where the picks agree."""
+    from flocoder_torch.ops.fused_vq import check_quantized
+    res = check_quantized(zq, idx, zq_ref, idx_ref, x64, cb, rel)
+    print(f"{label}: {res['differ']} of {res['tokens']} tokens pick other codes than "
+          f"the reference, max relative gap of those {res['max_gap']:.2e} (tol 1e-05); "
+          f"z_q max_abs_err={res['max_abs_err']:.3e} where the picks agree (tol "
+          f"{res['tol']:.3e}) {'ok' if res['ok'] else 'FAIL'}", flush=True)
+    if not res["ok"]:
+        fail(f"{label}: picks or z_q disagree")
+    return res
+
+
+def check_fused_vq() -> dict:
+    """K4, K3 and K5 against their plain twins on the card, TF32 off, at
+    every D the source instantiates (3, 4, 8): K4 at a pre-encode batch of
+    tokens (8192×128 → 4, 4×96 codes), the probe's shape (1024×256, 3×512),
+    a ragged N=77 and N=300 at D=8 and D=3; K3 at a pre-encode batch
+    (32×16²×128, both layouts of h), a ragged 5×7 map, a 20×20 map larger
+    than the block, D=3 with one group and D=8 with two; K5 at the probe's
+    (4, 16, 16, 256) and a ragged one, against the twin and the fp64 oracle
+    within 1e-5·max(1, max|ref|). Returns per kernel the worst numbers."""
+    from flocoder_torch.ops import fused_vq as fvq
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator("cuda").manual_seed(7)
+    out = {}
+
+    def worst(name, r):
+        w = out.setdefault(name, {"max_abs_err": 0.0, "differ": 0, "tokens": 0,
+                                  "max_gap": 0.0})
+        w["max_abs_err"] = max(w["max_abs_err"], r["max_abs_err"])
+        w["max_gap"] = max(w["max_gap"], r.get("max_gap", 0.0))
+        w["differ"] += r.get("differ", 0)
+        w["tokens"] += r.get("tokens", 0)
+
+    for label, shape in (("pre-encode batch", (8192, 128, 4, 4, 96)),
+                         ("probe", (1024, 256, 4, 3, 512)), ("ragged", (77, 128, 4, 4, 96)),
+                         ("D=8", (300, 64, 8, 2, 64)), ("D=3", (300, 64, 3, 2, 64))):
+        z, w, b, cb = fvq.random_vq_inputs(g, *shape)
+        zq, idx = fvq.fused_compress_vq(z, w, b, cb)
+        torch.cuda.synchronize()
+        worst("fused_compress_vq", hold_picks(
+            f"K4 check {label} N,Din,D,L,K={shape}", zq, idx,
+            *fvq.fused_compress_vq_plain(z, w, b, cb),
+            z.double() @ w.double() + b.double(), cb))
+    for label, shape, nchw in (
+            ("pre-encode batch", (32, 16, 16, 128, 4, 4, 96, 2), True),
+            ("pre-encode batch, NHWC memory", (32, 16, 16, 128, 4, 4, 96, 2), False),
+            ("ragged 5x7", (3, 5, 7, 128, 4, 4, 96, 2), True),
+            ("20x20, more tokens than threads", (2, 20, 20, 128, 4, 4, 96, 2), True),
+            ("D=3 groups=1", (4, 16, 16, 128, 3, 4, 96, 1), True),
+            ("D=8 groups=2", (4, 16, 16, 128, 8, 4, 96, 2), True)):
+        h, tail, cb = fvq.random_tail_inputs(g, *shape, nchw=nchw)
+        groups = shape[-1]
+        zq, idx = fvq.fused_compress_tail_vq(h, *tail, cb, groups)
+        torch.cuda.synchronize()
+        worst("fused_compress_tail_vq", hold_picks(
+            f"K3 check {label} B,H,W,Din,D,L,K,groups={shape}", zq, idx,
+            *fvq.fused_compress_tail_vq_plain(h, *tail, cb, groups),
+            fvq.compress_tail_oracle(h, *tail, groups)[2], cb))
+    for label, shape in (("probe", (4, 16, 16, 256, 4, 1, 1, 2)),
+                         ("ragged 5x7 D=3", (3, 5, 7, 64, 3, 1, 1, 1))):
+        h, tail, _ = fvq.random_tail_inputs(g, *shape)
+        groups = shape[-1]
+        ours = fvq.compress_tail_debug(h, *tail, groups)
+        torch.cuda.synchronize()
+        twin = fvq.compress_tail_debug_plain(h, *tail, groups)
+        oracle = fvq.compress_tail_oracle(h, *tail, groups)
+        for name, a, ref, ref64 in zip(("y1", "y2", "out"), ours, twin, oracle):
+            for what, r in (("twin", ref), ("fp64 oracle", ref64)):
+                err = (a.double() - r.double()).abs().max().item()
+                tol = 1e-5 * max(1.0, r.abs().max().item())
+                ok = bool(np.isfinite(err)) and err < tol
+                print(f"K5 check {label} {shape[:5]} {name} vs {what}: max_abs_err="
+                      f"{err:.3e} (tol {tol:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"K5 disagrees with its {what} at {label} ({name})")
+                worst("compress_tail_debug", {"max_abs_err": err})
+    return out
+
+
+def fused_vq_bound_ms(n_bytes: float, n_ops: float) -> tuple:
+    """(least ms, 'bytes' or 'operations') against HBM bytes and fp32 FLOPs."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_fused_vq(card: str) -> dict:
+    """K4, K3 and K5 at their main shapes (K3 and K4: one pre-encode batch of
+    flowers_vqgan, 32×16² tokens of 128 channels → D=4, 4×96 codes; K5: the
+    probe's 4×16²×256), TF32 off: CUDA events over back-to-back calls, the
+    profiler's device time of the kernel alone, the plain twin, and the
+    unfused torch path (cuBLAS/cuDNN 1×1 conv → GroupNorm → SiLU → 3×3 conv
+    → ``rvq_apply``, as the codec's ``quantize(encode(x))`` runs it; for K4
+    ``addmm`` → ``rvq_apply``): no single PyTorch call computes these
+    functions, so that path is the library yardstick. The bound counts each
+    input read once and each output written once, against the fp32
+    operations: 2·Din·D per token for the 1×1, 18·D² for the 3×3, 10·D for
+    GroupNorm + SiLU, and L·(K·(2·D + 3) + 2·D) for the search."""
+    import torch.nn.functional as F
+    from flocoder_torch.ops import fused_vq as fvq
+    from flocoder_torch.ops.rvq import RVQState, rvq_apply
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator("cuda").manual_seed(8)
+    out = {}
+
+    def state(cb):
+        st = RVQState(*cb.shape).cuda()
+        st.codebooks.copy_(cb)
+        return st
+
+    def measure(name, key, kernel, plain, library, n_bytes, n_ops):
+        with torch.inference_mode():
+            ms = cuda_ms(kernel, 200, warmup=5)
+            dev_ms = device_ms(kernel, key, iters=20)
+            plain_ms = cuda_ms(plain, 50, warmup=3)
+            library_ms = cuda_ms(library, 50, warmup=3)
+        bound_ms, bound_by = fused_vq_bound_ms(n_bytes, n_ops)
+        print(f"{name} time: kernel_ms={ms:.5f} device_ms={dev_ms:.5f} plain_ms="
+              f"{plain_ms:.5f} library_ms={library_ms:.5f} (unfused torch path) "
+              f"bound_ms={bound_ms:.5f} ({bound_by}; {n_bytes / 1e6:.3f} MB, "
+              f"{n_ops / 1e6:.2f} MFLOP) | card: {card}", flush=True)
+        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+    def search_ops(n, D, L, K):
+        return n * L * (K * (2 * D + 3) + 2 * D)
+
+    N, Din, D, L, K = 8192, 128, 4, 4, 96
+    z, w, b, cb = fvq.random_vq_inputs(g, N, Din, D, L, K)
+    st = state(cb)
+    measure("fused_compress_vq", "compress_vq_kernel",
+            lambda: fvq.fused_compress_vq(z, w, b, cb),
+            lambda: fvq.fused_compress_vq_plain(z, w, b, cb),
+            lambda: rvq_apply(st, torch.addmm(b, z, w))[:2],
+            4 * (N * Din + Din * D + D + L * K * D + N * D + N * L),
+            2 * N * Din * D + search_ops(N, D, L, K))
+
+    B, H, W, Din, groups = 32, 16, 16, 128, 2
+    n = B * H * W
+    h, tail, cb = fvq.random_tail_inputs(g, B, H, W, Din, D, L, K, groups)
+    w1, b1, gs, gb, cw, cbias = tail
+    st = state(cb)
+    h_nchw = h.permute(0, 3, 1, 2)
+
+    def unfused_tail(x):
+        y = F.silu(F.group_norm(F.conv2d(x, w1, b1), groups, gs, gb, 1e-5))
+        return F.conv2d(y, cw, cbias, padding=1)
+
+    tail_bytes = 4 * (n * Din + D * Din + 4 * D + 9 * D * D)
+    tail_ops = n * (2 * Din * D + 18 * D * D + 10 * D)
+    with torch.inference_mode():
+        lib_zq, lib_idx = rvq_apply(st, unfused_tail(h_nchw).permute(0, 2, 3, 1)
+                                    .reshape(-1, D))[:2]
+        zq, idx = fvq.fused_compress_tail_vq(h, *tail, cb, groups)
+    hold_picks("K3 against the unfused torch path (its yardstick)", zq, idx, lib_zq,
+               lib_idx, fvq.compress_tail_oracle(h, *tail, groups)[2], cb, rel=1e-4)
+    measure("fused_compress_tail_vq", "tail_kernel<4, true>",
+            lambda: fvq.fused_compress_tail_vq(h, *tail, cb, groups),
+            lambda: fvq.fused_compress_tail_vq_plain(h, *tail, cb, groups),
+            lambda: rvq_apply(st, unfused_tail(h_nchw).permute(0, 2, 3, 1)
+                              .reshape(-1, D))[:2],
+            tail_bytes + 4 * (L * K * D + n * D + n * L),
+            tail_ops + search_ops(n, D, L, K))
+
+    B, Din = 4, 256
+    n = B * H * W
+    h, tail, _ = fvq.random_tail_inputs(g, B, H, W, Din, D, 1, 1, groups)
+    w1, b1, gs, gb, cw, cbias = tail
+    h_nchw = h.permute(0, 3, 1, 2)
+    measure("compress_tail_debug", "tail_kernel<4, false>",
+            lambda: fvq.compress_tail_debug(h, *tail, groups),
+            lambda: fvq.compress_tail_debug_plain(h, *tail, groups),
+            lambda: unfused_tail(h_nchw),
+            4 * (n * Din + D * Din + 4 * D + 9 * D * D + 3 * n * D),
+            n * (2 * Din * D + 18 * D * D + 10 * D))
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tail_oracle_of(codec, h):
+    """The fp64 compression tail of ``codec`` on its pre-compress
+    activations ``h``."""
+    from flocoder_torch.models.codecs import gn_groups
+    from flocoder_torch.ops.fused_vq import compress_tail_oracle
+    enc = codec.encoder
+    return compress_tail_oracle(h, enc.Conv_1.weight, enc.Conv_1.bias,
+                                enc.GroupNorm_0.weight, enc.GroupNorm_0.bias,
+                                enc.Conv_2.weight, enc.Conv_2.bias,
+                                gn_groups(2, codec.vq_embedding_dim),
+                                enc.GroupNorm_0.eps)[2]
+
+
+def rebuilt_batches(argv: list, split: str):
+    """The pixel batches that flocoder_torch.preencode_data.main(argv)
+    encoded for ``split``, rebuilt by its open_split from the same config
+    (the same seed gives the same pixels)."""
+    from flocoder_torch import preencode_data as pe
+    from flocoder_torch.config import parse_cli
+    from flocoder_torch.generate_samples import CONFIG_DIR
+    _, _, batches = pe.open_split(parse_cli(argv, config_dir=CONFIG_DIR), split)
+    return batches
+
+
+def preencode_flowers(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
+    """flowers_vqgan at full width (128², hidden 256, 3 downsamples, RVQ
+    4×96×4) pre-encoded through flocoder_torch.preencode_data.main with
+    ``preencoding.quantize=true preencoding.fused_vq=true``, batch 32 (the
+    recipe's), ``augs_per=4`` (the recipe's 1024, cut for time) over 320
+    seeded random 500² PNGs (decoding, rotating and cropping them costs the
+    host what Oxford Flowers' ~500-px images cost): 4 val and 36 train
+    batches. Checks the launch counts (5 K1 and 1 K3 per batch, no other
+    kernel), reads the latents back through PreEncodedDataset, and holds the
+    first batch's fused picks against the unfused path's, TF32 off. Times a
+    batch's encode fused against unfused, and profiles one batch."""
+    from flocoder_torch import preencode_data as pe
+    from flocoder_torch.data.datasets import PreEncodedDataset
+
+    data = write_pngs(os.path.join(tmp, "pe_images"), n=320, size=500, seed=4)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    argv = ["--config-name", "flowers_vqgan.yaml", f"data={data}",
+            f"codec.checkpoint={paths['codec']}", "preencoding.quantize=true",
+            "preencoding.fused_vq=true", "preencoding.augs_per=4", "+seed=0"]
+    t0 = time.time()
+    res = pe.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    splits = {s: res[s] for s in ("val", "train")}
+    batches = sum(r["batches"] for r in splits.values())
+    expected = dict.fromkeys(kernels, 0)
+    expected.update(na2d_fwd=5 * batches, fused_compress_tail_vq=batches)
+    print(f"pre-encode launches: {launches} (expected {expected}; {batches} batches)",
+          flush=True)
+    if launches != expected or [r["batches"] for r in splits.values()] != [4, 36]:
+        fail(f"pre-encoding launched {launches}, expected {expected} "
+             f"({[r['batches'] for r in splits.values()]} batches)")
+    for split, r in splits.items():
+        ds = PreEncodedDataset(r["out_dir"])
+        lat = [ds.get(i, np.random.default_rng(0))[0] for i in range(len(ds))]
+        if len(lat) != r["latents"] or r["latents"] != 32 * r["batches"] or any(
+                a.shape != (16, 16, 4) or not np.isfinite(a).all() for a in lat):
+            fail(f"pre-encode {split}: {len(lat)} latents read back of "
+                 f"{r['latents']}, shapes {sorted({a.shape for a in lat})}")
+
+    codec = res["codec"]
+    val_batches = rebuilt_batches(argv, "val")
+    x = torch.from_numpy(next(val_batches)["pixels"]).cuda()
+    val_batches.close()
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.inference_mode():
+        h = codec.encoder(x, stop_before_compress=True)
+        layout = "NHWC" if h.is_contiguous() else "NCHW"
+        print(f"pre-encode: the encoder hands K3 h {tuple(h.shape)} in {layout} "
+              "memory", flush=True)
+        zq_f, idx_f = codec.encode_quantize_fused(x)
+        zq_u, idx_u, _, _ = codec.quantize(codec.encode(x))
+        picks = hold_picks("pre-encode first batch, fused (K3) against unfused "
+                           "(cuDNN + rvq_apply), TF32 off", zq_f, idx_f, zq_u, idx_u,
+                           _tail_oracle_of(codec, h), codec.vq.codebooks)
+    torch.backends.cudnn.allow_tf32 = True
+    x_host = x.cpu().numpy()
+    with torch.inference_mode():
+        fused_ms = cuda_ms(lambda: codec.encode_quantize_fused(x), 10)
+        unfused_ms = cuda_ms(lambda: codec.quantize(codec.encode(x))[0], 10)
+        prof = profile_batch(lambda: codec.encode_quantize_fused(
+            torch.from_numpy(x_host).cuda())[0].cpu())
+    top = prof.pop("top_kernels")
+    # K1's least time in one batch: the encoder's five NATTEN blocks at B=32
+    # (two at 32²×512, two at 16²×1024, one at 16²×128; 8 heads, k=7)
+    prof["na2d_bound_ms"] = sum(na2d_bound_ms(32, s, s, c, 7, torch.float32)[0]
+                                for s, c in ((32, 512), (32, 512), (16, 1024),
+                                             (16, 1024), (16, 128)))
+    rec_out = dict(batch=32, batches=batches, wall_s=wall, peak_mem_gib=peak,
+                   card=card, encode_fused_ms=fused_ms, encode_unfused_ms=unfused_ms,
+                   first_batch_picks=picks, h_memory=layout, **prof,
+                   **{f"{s}_latents_per_s": r["latents_per_s"] for s, r in splits.items()},
+                   **{f"{s}_seconds": r["seconds"] for s, r in splits.items()})
+    print(f"pre-encode flowers_vqgan B=32 128² (fused_vq): val "
+          f"{splits['val']['latents_per_s']:.2f} latents/s ({splits['val']['seconds']:.3f} s),"
+          f" train {splits['train']['latents_per_s']:.2f} latents/s "
+          f"({splits['train']['seconds']:.3f} s), wall {wall:.1f} s, peak {peak:.2f} GiB; "
+          f"encode per batch fused {fused_ms:.4f} ms, unfused {unfused_ms:.4f} ms "
+          f"(CUDA events, cuDNN TF32 on); one batch under the profiler: "
+          f"{prof['profiled_batch_s']:.4f} s wall, {prof['device_busy_s']:.4f} s busy, "
+          f"idle share {prof['device_idle_share']:.4f}, K1 {prof['na2d_kernels_ms']:.4f} ms "
+          f"of it (5 launches, bound {prof['na2d_bound_ms']:.4f} ms) | card: {card}",
+          flush=True)
+    print("  device time by kernel (ms): " + "; ".join(
+        f"{name[:60]}={ms:.3f}" for name, ms in top), flush=True)
+    del codec, res, x, h
+    torch.cuda.empty_cache()
+    return rec_out, launches
+
+
+def check_preencode_small(tmp: str, config_dir: str) -> dict:
+    """A small codec (flowers_vqgan at hidden 64, internal 64, 64² images)
+    pre-encodes the same folder of 10 PNGs through
+    flocoder_torch.preencode_data.main on the card and with +device=cpu,
+    TF32 off (batch 8, augs_per 2: two batches of 1 in val, two of 8 in
+    train). Each batch, rebuilt from the same config, is encoded by both
+    runs' codecs: the card's picks must equal the CPU's or be ε-optimal
+    under the fp64 tail of the card's own activations. The latent files
+    must agree within 1e-4·max(1, |ref|) except at the tokens whose picks
+    differ."""
+    from flocoder_torch import preencode_data as pe
+    from flocoder_torch.config import load_config
+    from flocoder_torch.models.codecs import NATTENBlock, setup_codec
+    from flocoder_torch.models.layers import init_params
+    from flocoder_torch.training.checkpoint import (VQVAE_PREFIXES, save_checkpoint,
+                                                    to_jax_flat)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = ["codec.hidden_channels=64", "codec.internal_dim=64", "codec.image_size=64"]
+    cfg = load_config("flowers_vqgan.yaml", config_dir, small)
+    codec = init_params(setup_codec(cfg, device="cuda"),
+                        torch.Generator("cuda").manual_seed(10))
+    for m in codec.modules():
+        if isinstance(m, NATTENBlock):
+            m.gamma.data.fill_(1.0)
+    scale_codebooks(codec, 64)
+    ckpt = save_checkpoint(to_jax_flat(codec, VQVAE_PREFIXES), 0,
+                           ckpt_dir=os.path.join(tmp, "small_ckpt"), prefix="vqgan_")
+    src = write_pngs(os.path.join(tmp, "pe_small"), n=10, size=64, seed=5)
+    runs = {}
+    for i, dev in enumerate(("cuda", "cpu")):
+        data = f"{src}_{i}"
+        shutil.copytree(src, data)
+        argv = ["--config-name", "flowers_vqgan.yaml", f"data={data}", *small,
+                f"codec.checkpoint={ckpt}", "preencoding.quantize=true",
+                "preencoding.fused_vq=true", "preencoding.batch_size=8",
+                "preencoding.augs_per=2", "preencoding.num_workers=2", "+seed=0"]
+        runs[dev] = pe.main(argv + (["+device=cpu"] if dev == "cpu" else []))
+    res_card, res_cpu = runs["cuda"], runs["cpu"]
+    codec, codec_cpu = res_card["codec"], res_cpu["codec"]
+    totals = {"tokens": 0, "differ": 0, "max_gap": 0.0, "max_abs_err": 0.0}
+    n_batches = 0
+    for split in ("val", "train"):
+        for batch in rebuilt_batches(argv, split):
+            x = torch.from_numpy(batch["pixels"])
+            with torch.inference_mode():
+                zq_c, idx_c = codec.encode_quantize_fused(x.cuda())
+                zq_p, idx_p = codec_cpu.encode_quantize_fused(x)
+                out64 = _tail_oracle_of(codec, codec.encoder(x.cuda(),
+                                                             stop_before_compress=True))
+            r = hold_picks(f"card vs CPU pre-encode {split} batch {tuple(x.shape)}",
+                           zq_c.cpu(), idx_c.cpu(), zq_p, idx_p, out64.cpu(),
+                           codec.vq.codebooks.cpu(), rel=1e-4)
+            n_batches += 1
+            for k in ("tokens", "differ"):
+                totals[k] += r[k]
+            for k in ("max_gap", "max_abs_err"):
+                totals[k] = max(totals[k], r[k])
+    if n_batches != 4:
+        fail(f"small pre-encode: {n_batches} batches rebuilt, not 4")
+    files = 0
+    far = 0
+    for split in ("val", "train"):
+        a_dir, b_dir = res_card[split]["out_dir"], res_cpu[split]["out_dir"]
+        names = sorted(os.path.relpath(os.path.join(r, f), a_dir)
+                       for r, _, fs in os.walk(a_dir) for f in fs)
+        names_cpu = sorted(os.path.relpath(os.path.join(r, f), b_dir)
+                           for r, _, fs in os.walk(b_dir) for f in fs)
+        if names != names_cpu or not names:
+            fail(f"small pre-encode {split}: card and CPU wrote different files")
+        for name in names:
+            a, ref = np.load(os.path.join(a_dir, name)), np.load(os.path.join(b_dir, name))
+            tol = 1e-4 * max(1.0, float(np.abs(ref).max()))
+            far += int((np.abs(a - ref).max(-1) > tol).sum())
+            files += 1
+    print(f"card vs CPU pre-encode (hidden 64, 64², {files} files): {far} latent "
+          f"vectors off by more than 1e-4·max(1, |ref|), {totals['differ']} of "
+          f"{totals['tokens']} tokens with other picks", flush=True)
+    if far > totals["differ"]:
+        fail("card and CPU latent files disagree beyond the tokens whose picks differ")
+    return dict(totals, files=files, far_vectors=far)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
@@ -741,15 +1171,24 @@ def main() -> None:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from flocoder_torch.generate_samples import CONFIG_DIR
+    from flocoder_torch.ops.kernels import fused_vq as fvk
     from flocoder_torch.ops.kernels.na2d import na2d_bwd, na2d_fwd
     from flocoder_torch.ops.neighborhood_attention import (na2d, na2d_banded,
                                                           na2d_bwd_banded)
+    kernels = {"na2d_fwd": na2d_fwd, "na2d_bwd": na2d_bwd,
+               "fused_compress_vq": fvk.fused_compress_vq,
+               "fused_compress_tail_vq": fvk.fused_compress_tail_vq,
+               "compress_tail_debug": fvk.compress_tail_debug}
+    fused = ("fused_compress_vq", "fused_compress_tail_vq", "compress_tail_debug")
 
     t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:      # one nvcc per source, together
-        for f in [pool.submit(k.build) for k in (na2d_fwd, na2d_bwd)]:
+    with ThreadPoolExecutor(3) as pool:      # one nvcc per source, together
+        for f in [pool.submit(k.build) for k in (na2d_fwd, na2d_bwd,
+                                                  fvk.fused_compress_tail_vq)]:
             f.result()
-    print(f"K1 + K2 build: {time.time() - t0:.1f} s", flush=True)
+    for name in fused:                       # the library fused_vq.cu built
+        kernels[name].build()
+    print(f"K1 + K2 + K3/K4/K5 build: {time.time() - t0:.1f} s", flush=True)
     errs = check_k1(na2d_fwd, na2d_banded)
     errs2 = check_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded)
     check_function(na2d, na2d_banded)
@@ -757,6 +1196,8 @@ def main() -> None:
     errs[torch.float32] = max(errs[torch.float32], decode_err)
     timing2, train_err = time_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded, na2d, card)
     errs2[torch.float32] = max(errs2[torch.float32], train_err)
+    fused_errs = check_fused_vq()
+    fused_timing = time_fused_vq(card)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -764,7 +1205,8 @@ def main() -> None:
         torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
         paths = write_checkpoints(tmp, CONFIG_DIR)
         torch.cuda.empty_cache()
-        na2d_bwd.launches = 0
+        for name in ("na2d_bwd", *fused):
+            kernels[name].launches = 0
         serving, serve_launches = serve(tmp, paths, card, na2d_fwd)
         if na2d_bwd.launches:
             fail(f"serving launched K2 {na2d_bwd.launches} times")
@@ -773,29 +1215,47 @@ def main() -> None:
         gan_parts = gan_breakdown(state, card)
         del state
         torch.cuda.empty_cache()
+        if any(kernels[name].launches for name in fused):
+            fail("serving or training launched a fused VQ kernel: "
+                 f"{ {name: kernels[name].launches for name in fused} }")
         check_small_input(paths)
         check_train_small()
+        preencode, pre_launches = preencode_flowers(tmp, paths, card, kernels)
+        preencode_small = check_preencode_small(tmp, CONFIG_DIR)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     print(json.dumps({"serving": serving, "breakdown": parts, "training": training,
-                      "gan_breakdown": gan_parts}))
+                      "gan_breakdown": gan_parts, "preencode": preencode,
+                      "preencode_card_vs_cpu": preencode_small}))
+
+    def fused_entry(name, replaces):
+        by_path = {"serve": 0, "train": 0, "preencode": pre_launches[name]}
+        return {"name": name, "route": "cuda", "source": "flocoder_torch/csrc/fused_vq.cu",
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, **fused_errs[name], **fused_timing[name]}
+
     print(json.dumps({"kernels": [
         {"name": "na2d_fwd", "route": "cuda",
          "source": "flocoder_torch/csrc/na2d_fwd.cu",
          "replaces": "flocoder_tpu/ops/pallas/na2d.py:40",
-         "launches": serve_launches + train_launches["na2d_fwd"],
+         "launches": serve_launches + train_launches["na2d_fwd"] + pre_launches["na2d_fwd"],
          "launches_by_path": {"serve": serve_launches,
-                              "train": train_launches["na2d_fwd"]},
+                              "train": train_launches["na2d_fwd"],
+                              "preencode": pre_launches["na2d_fwd"]},
          "max_abs_err": errs[torch.float32],
          "max_abs_err_bf16": errs[torch.bfloat16], **timing},
         {"name": "na2d_bwd", "route": "cuda",
          "source": "flocoder_torch/csrc/na2d_bwd.cu",
          "replaces": "flocoder_tpu/ops/pallas/na2d.py:148",
          "launches": train_launches["na2d_bwd"],
-         "launches_by_path": {"serve": 0, "train": train_launches["na2d_bwd"]},
+         "launches_by_path": {"serve": 0, "train": train_launches["na2d_bwd"],
+                              "preencode": pre_launches["na2d_bwd"]},
          "max_abs_err": errs2[torch.float32],
-         "max_abs_err_bf16": errs2[torch.bfloat16], **timing2}]}))
+         "max_abs_err_bf16": errs2[torch.bfloat16], **timing2},
+        fused_entry("fused_compress_tail_vq", "flocoder_tpu/ops/pallas/fused_vq.py:134"),
+        fused_entry("fused_compress_vq", "flocoder_tpu/ops/pallas/fused_vq.py:80"),
+        fused_entry("compress_tail_debug", "benchmarks/fused_probe.py:129")]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,9 @@ Training mode (``VQVAE.forward(x, train=True, generator=g)``): dropout in
 the encoder's blocks (0.05 / 0.15) and the decoder's first block (0.05),
 NoiseInjection at strength 0.05, and the RVQ bottleneck's EMA update. Its
 randomness comes from the explicit generator; ``deterministic=True`` turns
-dropout and noise off (for parity tests). Not ported yet (ROADMAP.md):
-``encode_quantize_fused`` (the fused Pallas tail K3), int8 ``quant`` convs,
+dropout and noise off (for parity tests). ``VQVAE.encode_quantize_fused``
+runs the compression tail and the RVQ search as one kernel on the card (K3,
+``ops/fused_vq.py``). Not ported yet (ROADMAP.md): int8 ``quant`` convs,
 ring attention, and the sd / vqgan_plus / dac codecs.
 """
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.fused_vq import fused_compress_tail_vq
 from ..ops.neighborhood_attention import na2d
 from ..ops.rvq import RVQState, rvq_apply
 from .layers import Scope, conv, group_norm, init_params
@@ -323,13 +325,18 @@ class VQVAEEncoder(nn.Module):
         s.gn(gn_groups(2, vq_embedding_dim), vq_embedding_dim, 1e-5)
         s.conv(vq_embedding_dim, vq_embedding_dim, 3)
 
-    def forward(self, x, generator=None):
-        """``generator``: dropout's randomness; none means deterministic."""
+    def forward(self, x, generator=None, stop_before_compress: bool = False):
+        """``generator``: dropout's randomness; none means deterministic.
+        ``stop_before_compress`` returns the activations after ``Conv_0``,
+        the hand-off point of the fused tail (``VQVAE.encode_quantize_fused``),
+        as an NHWC view of the NCHW tensor, without a copy."""
         h = x.permute(0, 3, 1, 2)
         for blk in self.blocks:
             h = blk(h, generator)
-        h = self.Conv_1(self.Conv_0(h))
-        h = self.Conv_2(F.silu(self.GroupNorm_0(h)))
+        h = self.Conv_0(h)
+        if stop_before_compress:
+            return h.permute(0, 2, 3, 1)
+        h = self.Conv_2(F.silu(self.GroupNorm_0(self.Conv_1(h))))
         return h.permute(0, 2, 3, 1)
 
 
@@ -432,9 +439,20 @@ class VQVAE(nn.Module):
         return z_q.reshape(b, h, w, c), idx.reshape(b, h, w, -1), loss, new_vq
 
     def encode_quantize_fused(self, x):
-        raise NotImplementedError(
-            "encode_quantize_fused (the fused compress+RVQ Pallas kernel K3) "
-            "is not ported yet (ROADMAP.md queue 2)")
+        """Inference encode + quantize with the compression tail (1×1 →
+        GroupNorm → SiLU → 3×3) and the RVQ search fused: one launch of K3
+        on the card, its plain twin on the CPU (``ops/fused_vq.py``). fp32
+        throughout, so the picks agree with an fp64 oracle up to ties inside
+        fp32 rounding. Unlike the JAX method there is no ``tile_b``: one
+        block per image, and no batch padding. Returns (z_q (B,h,w,D),
+        indices (B,h,w,L) int32)."""
+        enc = self.encoder
+        h = enc(x, stop_before_compress=True)
+        return fused_compress_tail_vq(
+            h, enc.Conv_1.weight, enc.Conv_1.bias, enc.GroupNorm_0.weight,
+            enc.GroupNorm_0.bias, enc.Conv_2.weight, enc.Conv_2.bias,
+            self.vq.codebooks, groups=gn_groups(2, self.vq_embedding_dim),
+            eps=enc.GroupNorm_0.eps)
 
     def decode(self, z_q, generator=None, noise_strength: float = 0.0):
         return self.decoder(z_q, generator, noise_strength)

@@ -8,13 +8,15 @@ flags, so an edited source is rebuilt and a stale library is never loaded.
 """
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build_library"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build_library",
+           "Kernel"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -64,3 +66,30 @@ def build_library(source: str, build_dir: str = BUILD_DIR) -> str:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+class Kernel:
+    """One C entry point of a kernel library: the library is built at first
+    use and the entry bound with ctypes. ``launches`` counts kernel launches
+    (nothing else adds to it), so a run can show that it went through the
+    kernel. Entries that share a source share one library file."""
+
+    _source = ""
+    _entry = ""
+    _argtypes: list = []
+
+    def __init__(self, build_dir: str = BUILD_DIR):
+        self.build_dir = build_dir
+        self.launches = 0
+        self._fn = None
+
+    def build(self):
+        """Compile (if needed) and load the kernel library; returns its C
+        entry point. Raises RuntimeError when it cannot be built."""
+        if self._fn is None:
+            lib = ctypes.CDLL(build_library(self._source, self.build_dir))
+            fn = getattr(lib, self._entry)
+            fn.argtypes = self._argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn

@@ -22,7 +22,7 @@ from typing import Optional
 
 import torch
 
-from .build import BUILD_DIR, build_library
+from .build import Kernel
 
 __all__ = ["NA2DForward", "NA2DBackward", "na2d_fwd", "na2d_bwd", "pick_tile",
            "smem_bytes"]
@@ -74,32 +74,6 @@ def pick_tile(H: int, W: int, dh: int, ks: int) -> tuple:
                      "fit in shared memory")
 
 
-class _Kernel:
-    """One kernel library: built at first use, its C entry point bound with
-    ctypes. ``launches`` counts kernel launches (nothing else adds to it), so
-    a run can show that it went through the kernel."""
-
-    _source = ""
-    _entry = ""
-    _argtypes: list = []
-
-    def __init__(self, build_dir: str = BUILD_DIR):
-        self.build_dir = build_dir
-        self.launches = 0
-        self._fn = None
-
-    def build(self):
-        """Compile (if needed) and load the kernel library; returns its C
-        entry point. Raises RuntimeError when it cannot be built."""
-        if self._fn is None:
-            lib = ctypes.CDLL(build_library(self._source, self.build_dir))
-            fn = getattr(lib, self._entry)
-            fn.argtypes = self._argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
-
 def _window(q: torch.Tensor, kernel_size: int, heads: int,
             scale: Optional[float]) -> tuple:
     B, H, W, C = q.shape
@@ -110,7 +84,7 @@ def _window(q: torch.Tensor, kernel_size: int, heads: int,
     return B, H, W, dh, ks, dh ** -0.5 if scale is None else scale
 
 
-class NA2DForward(_Kernel):
+class NA2DForward(Kernel):
     """Launches K1: ``na2d_fwd(q, k, v, kernel_size, heads, scale) -> out``."""
 
     _source = "na2d_fwd.cu"
@@ -139,7 +113,7 @@ class NA2DForward(_Kernel):
         return out
 
 
-class NA2DBackward(_Kernel):
+class NA2DBackward(Kernel):
     """Launches K2: ``na2d_bwd(q, k, v, o, g, kernel_size, heads, scale) ->
     (dq, dk, dv)``, with ``o`` K1's output for (q, k, v) and ``g`` the
     gradient of the loss with respect to it. One call is one launch of the

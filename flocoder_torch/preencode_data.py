@@ -1,0 +1,224 @@
+"""Pre-encode an image dataset into latents with frozen augmentations, on the
+CUDA card — the port of the repo's ``preencode_data.py``.
+
+Usage:
+    python -m flocoder_torch.preencode_data --config-name flowers_vqgan.yaml \\
+        [data=/path/to/images] [preencoding.quantize=true] \\
+        [preencoding.fused_vq=true] [key=value ...]
+
+For each split (10% of the items by a fixed shuffle go to ``val``, the rest
+to ``train``) the host's thread pool draws items with replacement and
+augments them (``InfiniteDataset`` under the ``Loader``, seeded by ``seed``
+plus 0 for train and 1 for val), the codec encodes each batch on the card
+under ``torch.inference_mode``, and a pool of 8 writers saves every latent as
+``{data}_encoded_{codec.choice}/{split}/{class}/b{batch:06d}_{item:03d}.npy``
+(HWC float32), the files the JAX package writes, so either package's flow
+trainer reads either package's latents. ``augs_per`` passes over a split
+give ``augs_per·len(split)//batch_size`` batches. A split that already holds
+files is never overwritten, and writing stops at ``max_storage_gb``.
+
+Encoding: ``codec.encode``; with ``preencoding.quantize=true`` also the RVQ
+(``codec.quantize(...)[0]``); with ``preencoding.fused_vq=true`` as well,
+``encode_quantize_fused``, whose compression tail and RVQ search are one
+launch of K3 on the card. The codec loads ``codec.checkpoint`` strictly
+when that file exists, and keeps seeded random weights otherwise.
+
+A data path is an image folder or, when absent, the synthetic image set.
+``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
+Not ported yet (each raises, ROADMAP.md): named torchvision sets,
+``preencoding.device_augs``, ``preencoding.format=shard``, ``inpainting``,
+MIDI and audio data, ``+quant=int8`` and ``codec.bf16``.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from .config import ldcfg, parse_cli
+from .data.datasets import (ImageFolderDataset, InfiniteDataset, Loader,
+                            SyntheticImageDataset)
+from .data.transforms import image_transforms
+from .generate_samples import CONFIG_DIR
+from .models.codecs import VQVAE, setup_codec
+from .models.layers import init_params
+from .training.checkpoint import VQVAE_PREFIXES, load_checkpoint, load_jax_flat
+from .utils.device import resolve_device
+
+__all__ = ["open_split", "process_dataset", "load_codec", "main"]
+
+
+def _refuse_unported(config) -> None:
+    pe = config.get("preencoding", {})
+    data = str(config.get("data", "")).lower()
+    quant = str(config.get("quant", "") or "").lower()
+    for what, unported in (
+            ("preencoding.device_augs", bool(pe.get("device_augs", False))),
+            ("preencoding.format=shard", str(pe.get("format", "files")) == "shard"),
+            ("inpainting", bool(config.get("inpainting", False))),
+            ("MIDI data", any(s in data for s in ("pop909", "midi"))),
+            ("audio data (codec.choice=dac)",
+             "codec" in config and config.codec.get("choice") == "dac"),
+            ("+quant=int8", quant in ("int8", "true", "1")),
+            ("codec.bf16", "codec" in config and bool(config.codec.get("bf16", False)))):
+        if unported:
+            raise NotImplementedError(f"pre-encoding with {what} is not ported yet "
+                                      "(ROADMAP.md)")
+
+
+def load_codec(config, device) -> torch.nn.Module:
+    """The recipe's codec on ``device`` with seeded random weights (seed 0),
+    then ``codec.checkpoint`` loaded strictly when that file exists."""
+    codec = setup_codec(config, device=device)
+    init_params(codec, torch.Generator(device).manual_seed(0))
+    ckpt = config.codec.get("checkpoint") if "codec" in config else None
+    if isinstance(codec, VQVAE):
+        if ckpt and os.path.exists(str(ckpt)):
+            load_jax_flat(codec, load_checkpoint(str(ckpt))["model_state_dict"],
+                          VQVAE_PREFIXES)
+            print(f"loaded codec checkpoint {ckpt}")
+        else:
+            print(f"codec checkpoint not found ({ckpt!r}): the codec keeps seeded "
+                  "random weights")
+    return codec.eval()
+
+
+def _encoder(config, codec):
+    """The batch → latents function of the three encode modes."""
+    pe = config.get("preencoding", {})
+    if bool(pe.get("quantize", False)) and isinstance(codec, VQVAE):
+        if bool(pe.get("fused_vq", False)):
+            return lambda x: codec.encode_quantize_fused(x)[0]
+        return lambda x: codec.quantize(codec.encode(x))[0]
+    return codec.encode
+
+
+def open_split(config, split: str) -> tuple:
+    """One split as ``process_dataset`` encodes it: ``(dataset, n_batches,
+    batches)``, with ``batches`` a generator of the split's ``n_batches``
+    batches ({'pixels', 'class_cond'}) in order. The same config gives the
+    same pixels, so a caller can rebuild what was encoded."""
+    data_path = os.path.expanduser(str(config.data))
+    image_size = int(ldcfg(config, "image_size", 128))
+    pe = config.get("preencoding", {})
+    batch_size = int(pe.get("batch_size", 32))
+    augs_per = int(pe.get("augs_per", 16))
+    num_workers = int(pe.get("num_workers", 4))
+    seed = int(ldcfg(config, "seed", 0)) + (0 if split == "train" else 1)
+
+    tf = image_transforms(image_size)
+    if os.path.isdir(data_path):
+        dataset = ImageFolderDataset(data_path, transform=tf)
+        print(f"[{split}] image folder {data_path}: {len(dataset)} images")
+    else:
+        print(f"data path {data_path!r} is not a folder (the port downloads "
+              "nothing): pre-encoding the synthetic image set")
+        dataset = SyntheticImageDataset(image_size=image_size, transform=tf)
+
+    # 90/10 split by a fixed shuffle of the item indices
+    idx = np.arange(len(dataset))
+    np.random.default_rng(0).shuffle(idx)
+    n_val = max(1, len(dataset) // 10)
+    ids = idx[:n_val] if split == "val" else idx[n_val:]
+
+    class _Split:
+        n_classes = getattr(dataset, "n_classes", 0)
+
+        def __len__(self):
+            return len(ids)
+
+        def get(self, i, rng):
+            return dataset.get(int(ids[i]), rng)
+
+    batch_size = max(1, min(batch_size, len(ids)))
+    loader = Loader(InfiniteDataset(_Split(), length=len(ids)), batch_size,
+                    num_workers=num_workers, seed=seed, key="pixels")
+    total_batches = max(1, (augs_per * len(ids)) // batch_size)
+
+    def batches():
+        it = iter(loader)
+        try:
+            for _ in range(total_batches):
+                try:
+                    yield next(it)
+                except StopIteration:       # the next pass over the split
+                    it = iter(loader)
+                    yield next(it)
+        finally:
+            it.close()
+
+    return dataset, total_batches, batches()
+
+
+def process_dataset(config, split: str, codec, device) -> dict:
+    """Pre-encode one split; returns ``{'split', 'out_dir', 'batches',
+    'latents', 'seconds', 'latents_per_s', 'bytes'}``, the seconds by the
+    host clock over the whole split (loader, copies, encodes, writes)."""
+    _refuse_unported(config)
+    data_path = os.path.expanduser(str(config.data))
+    max_gb = float(config.get("preencoding", {}).get("max_storage_gb", 60))
+    out_split = os.path.join(f"{data_path}_encoded_{config.codec.choice}", split)
+    if os.path.exists(out_split) and os.listdir(out_split):
+        raise SystemExit(f"Refusing to overwrite existing {out_split}")
+    dataset, total_batches, batches = open_split(config, split)
+    os.makedirs(out_split, exist_ok=True)
+    encode = _encoder(config, codec)
+    class_names = getattr(dataset, "class_names", None)
+    n_classes = getattr(dataset, "n_classes", 0)
+    bytes_written = 0
+    lock = threading.Lock()
+
+    def write_one(name: str, latent: np.ndarray, label: int) -> None:
+        nonlocal bytes_written
+        sub = (class_names[label] if class_names and class_names != [""]
+               else f"{label:04d}" if n_classes else "data")
+        d = os.path.join(out_split, sub)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, name) + ".npy"
+        np.save(path, latent)
+        with lock:
+            bytes_written += os.path.getsize(path)
+
+    t0 = time.time()
+    n_saved, b = 0, 0
+    with ThreadPoolExecutor(8) as writer, torch.inference_mode():
+        for b, batch in enumerate(batches):
+            x = torch.from_numpy(batch["pixels"]).to(device)
+            z = encode(x).float().cpu().numpy()
+            for i, label in enumerate(batch["class_cond"]):
+                writer.submit(write_one, f"b{b:06d}_{i:03d}", z[i], int(label))
+                n_saved += 1
+            if bytes_written > max_gb * 1e9:
+                print(f"storage cap {max_gb}GB reached")
+                batches.close()
+                break
+            if b % 50 == 0:
+                print(f"  [{split}] batch {b}/{total_batches}  {n_saved} latents  "
+                      f"{n_saved / max(time.time() - t0, 1e-9):.0f}/s  "
+                      f"{bytes_written / 1e9:.2f}GB")
+    seconds = time.time() - t0
+    rate = n_saved / max(seconds, 1e-9)
+    print(f"[{split}] done: {n_saved} latents in {seconds:.1f}s ({rate:.1f} "
+          f"latents/s) -> {out_split}")
+    return {"split": split, "out_dir": out_split, "batches": b + 1,
+            "latents": n_saved, "seconds": seconds, "latents_per_s": rate,
+            "bytes": bytes_written}
+
+
+def main(argv=None) -> dict:
+    """Pre-encode ``val`` then ``train``; returns ``{'val': stats, 'train':
+    stats, 'codec': the codec, 'device': str}``."""
+    config = parse_cli(argv, default_config=None, config_dir=CONFIG_DIR)
+    device = resolve_device(config.get("device", None))
+    codec = load_codec(config, device)
+    out = {split: process_dataset(config, split, codec, device)
+           for split in ("val", "train")}
+    return {**out, "codec": codec, "device": str(device)}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""K1 and K2, the hand-written NA2D forward and backward kernels, against
-their plain versions on the card. Marked ``gpu``: it skips without a CUDA device. This file imports
+"""The hand-written kernels against their plain versions on the card: K1 and
+K2 (the NA2D forward and backward), K3, K4 and K5 (the fused compression
+tail and RVQ search). Marked ``gpu``: it skips without a CUDA device. This file imports
 neither jax nor flocoder_tpu, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -66,3 +67,54 @@ def test_backward_kernel_matches_plain_on_card():
                                            leaves, gr))
         for a, ref in zip(*got):
             assert (a - ref).abs().max().item() < 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_fused_vq_kernels_match_twins_on_card():
+    """K4, K3 and K5 against their plain twins on the card, TF32 off: picks
+    equal to the twin's or ε-optimal (relative fp64 distance gap < 1e-5),
+    z_q within 1e-5·max(1, max|ref|) where the picks agree, K5's
+    intermediates within 1e-5·max(1, max|ref|) of the twin and of the fp64
+    oracle; every D that the source instantiates; a map too large for one
+    block's shared memory raises."""
+    from flocoder_torch.ops import fused_vq as fvq
+    from flocoder_torch.ops.kernels import fused_vq as kernels
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator("cuda").manual_seed(2)
+
+    for N, Din, D, L, K in ((8192, 128, 4, 4, 96), (1024, 256, 4, 3, 512), (77, 16, 4, 3, 8),
+                            (300, 64, 8, 2, 64), (300, 64, 3, 2, 64)):
+        z, w, b, cb = fvq.random_vq_inputs(g, N, Din, D, L, K)
+        zq, idx = fvq.fused_compress_vq(z, w, b, cb)
+        torch.cuda.synchronize()
+        res = fvq.check_quantized(zq, idx, *fvq.fused_compress_vq_plain(z, w, b, cb),
+                                  z.double() @ w.double() + b.double(), cb)
+        assert res["ok"], res
+
+    for B, H, W, Din, D, L, K, groups, nchw in (
+            (32, 16, 16, 128, 4, 4, 96, 2, True), (32, 16, 16, 128, 4, 4, 96, 2, False),
+            (3, 5, 7, 16, 4, 3, 8, 2, True), (2, 20, 20, 16, 4, 2, 16, 2, True),
+            (2, 16, 16, 32, 3, 2, 16, 1, True), (2, 16, 16, 32, 8, 2, 16, 2, True)):
+        h, tail, cb = fvq.random_tail_inputs(g, B, H, W, Din, D, L, K, groups, nchw)
+        zq, idx = fvq.fused_compress_tail_vq(h, *tail, cb, groups)
+        torch.cuda.synchronize()
+        res = fvq.check_quantized(zq, idx, *fvq.fused_compress_tail_vq_plain(h, *tail, cb, groups),
+                                  fvq.compress_tail_oracle(h, *tail, groups)[2], cb)
+        assert res["ok"], res
+
+    h, tail, _ = fvq.random_tail_inputs(g, 4, 16, 16, 256, 4, 1, 1, 2)
+    ours = fvq.compress_tail_debug(h, *tail, 2)
+    torch.cuda.synchronize()
+    for a, ref, ref64 in zip(ours, fvq.compress_tail_debug_plain(h, *tail, 2),
+                             fvq.compress_tail_oracle(h, *tail, 2)):
+        for r in (ref, ref64):
+            assert (a - r).abs().max().item() < 1e-5 * max(1.0, r.abs().max().item())
+
+    h, tail, cb = fvq.random_tail_inputs(g, 1, 256, 256, 8, 4, 1, 4, 2)
+    before = kernels.compress_tail_debug.launches
+    with pytest.raises(ValueError, match="shared memory"):     # a 1 MB map
+        kernels.compress_tail_debug(h, *tail, 2)
+    assert kernels.compress_tail_debug.launches == before

@@ -1,5 +1,5 @@
 """flocoder_torch as a package: it imports nothing of JAX or of the JAX
-package (the serving and the codec-training modules alike), its entry point refuses to run without a card unless asked for
+package (the serving, codec-training and pre-encoding modules alike), its entry point refuses to run without a card unless asked for
 the CPU, and ``python -m flocoder_torch.generate_samples`` serves end to end
 on the CPU from checkpoints in the npz contract."""
 import os
@@ -41,7 +41,8 @@ def test_every_module_imports_without_jax():
     assert "flocoder_torch.ops.kernels.na2d" in mods and len(mods) > 25
     for m in ("train_vqgan", "training.vqgan", "models.discriminator",
               "models.perceptual", "ops.rvq", "data.datasets", "data.transforms",
-              "utils.codebook_analysis", "metrics"):
+              "utils.codebook_analysis", "metrics", "preencode_data", "ops.fused_vq",
+              "ops.kernels.fused_vq"):
         assert f"flocoder_torch.{m}" in mods, m
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'flax', 'flocoder_tpu'):\n"

@@ -261,4 +261,5 @@ def test_not_ported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tvqgan.make_vqgan_gan_step(cfg, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcodecs.VQVAE(**KW).encode_quantize_fused(torch.zeros(1, S, S, 3))
+        tcodecs.setup_codec(load_config("smoke_vqgan", config_dir="configs",
+                                        overrides=["+codec.bf16=true"]))
