@@ -20,8 +20,9 @@
 4. Holds K2 against its plain twin (na2d_bwd_banded) at the training shapes
    at B=8 and the same non-square, smaller-than-window and ragged maps: fp32
    max |Δ| < 1e-4·max(1, max|ref|), bf16 < 3e-2·max(1, max|ref|) against the
-   twin in fp32 on the same bf16 values; and the gradients of na2d on the
-   card (NA2DFunction: K1 forward, K2 backward) against torch autograd of
+   twin in fp32 on the same bf16 values; that two K2 calls on the same
+   inputs are bitwise equal; and the gradients of na2d on the card
+   (NA2DFunction: K1 forward, K2 backward) against torch autograd of
    na2d_banded.
 5. Times K1 and K2 at the decoder's shape (B=64, 32², C=512, fp32), by
    CUDA events over back-to-back calls and by the profiler's device time of
@@ -29,7 +30,10 @@
    could take, and
    F.scaled_dot_product_attention with the neighborhood mask (forward for
    K1, forward + backward against K1 + K2 for K2: a yardstick only; the
-   port never calls it).
+   port never calls it). Then times K1 at every NATTEN shape of the codec
+   (32²×512, 16²×1024, 16²×128) at B=64 and B=32 and K2 at B=64, fp32 and
+   bf16, beside each shape's bound (time_na2d_shapes; the same function
+   times another checkout's kernels in benchmarks/na2d_shapes.py).
 6. Serves flowers_vqgan at full width through the port's entry point
    (flocoder_torch.generate_samples.main) from seeded random-init
    checkpoints: unconditional, class-conditional with CFG (n_classes=102),
@@ -290,6 +294,13 @@ def check_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded) -> dict:
                 if not ok:
                     fail(f"K2 disagrees with its plain twin at {label} {dtype} {name}")
                 errs[dtype] = max(errs[dtype], err)
+            if label.startswith("decoder"):     # no atomics: a second call is bitwise equal
+                again = na2d_bwd(q, k, v, o, gr, kernel_size=ks, heads=heads)
+                same = all(torch.equal(a, b) for a, b in zip(grads, again))
+                print(f"K2 determinism {label} {str(dtype)[6:]}: two calls bitwise equal: "
+                      f"{same}", flush=True)
+                if not same:
+                    fail(f"K2 gave two different results on the same inputs ({dtype})")
     return errs
 
 
@@ -377,6 +388,43 @@ def time_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded, na2d, card: str) -> tuple:
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, fwd_bwd_ms=fwd_bwd_ms,
                 bf16_ms=bf16_ms), err
+
+
+# (B, H, W, C, heads) of the codec's NATTEN blocks (k=7) at the main paths'
+# batches: 64 (serving decode, training), 32 (pre-encode's encoder).
+NA2D_SHAPES = [(64, 32, 32, 512, 8), (64, 16, 16, 1024, 8), (64, 16, 16, 128, 8),
+               (32, 32, 32, 512, 8), (32, 16, 16, 1024, 8), (32, 16, 16, 128, 8)]
+
+
+def time_na2d_shapes(na2d_fwd, na2d_bwd, card: str, bwd_batch: int = 64) -> list:
+    """K1 at every shape of NA2D_SHAPES and K2 at those of batch
+    ``bwd_batch``, fp32 and bf16: the kernels' device time by the profiler
+    (10 calls), CUDA events over 20 back-to-back calls, and the bound.
+    Takes the kernels as arguments, so that benchmarks/na2d_shapes.py can
+    time another checkout's kernels with it."""
+    rows = []
+    g = torch.Generator("cuda").manual_seed(6)
+    for B, H, W, C, heads in NA2D_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, gr = (torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+                           for _ in range(4))
+            fwd = lambda: na2d_fwd(q, k, v, kernel_size=7, heads=heads)  # noqa: E731
+            runs = [("na2d_fwd", fwd, na2d_bound_ms)]
+            if B == bwd_batch:
+                o = fwd()
+                runs.append(("na2d_bwd", lambda: na2d_bwd(q, k, v, o, gr, kernel_size=7,
+                                                          heads=heads), na2d_bwd_bound_ms))
+            for name, fn, bound in runs:
+                row = dict(kernel=name, shape=[B, H, W, C], heads=heads,
+                           dtype=str(dtype)[6:], device_ms=device_ms(fn, name),
+                           ms=cuda_ms(fn, 20), bound_ms=bound(B, H, W, C, 7, dtype)[0])
+                rows.append(row)
+                print(f"{name} shape B={B} {H}x{W} C={C} {row['dtype']}: device_ms="
+                      f"{row['device_ms']:.4f} ms={row['ms']:.4f} bound_ms="
+                      f"{row['bound_ms']:.4f} | card: {card}", flush=True)
+            del q, k, v, gr
+    torch.cuda.empty_cache()
+    return rows
 
 
 def scale_codebooks(codec, image_size: int) -> None:
@@ -1196,6 +1244,7 @@ def main() -> None:
     errs[torch.float32] = max(errs[torch.float32], decode_err)
     timing2, train_err = time_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded, na2d, card)
     errs2[torch.float32] = max(errs2[torch.float32], train_err)
+    shapes = time_na2d_shapes(na2d_fwd, na2d_bwd, card)
     fused_errs = check_fused_vq()
     fused_timing = time_fused_vq(card)
 
@@ -1244,7 +1293,8 @@ def main() -> None:
                               "train": train_launches["na2d_fwd"],
                               "preencode": pre_launches["na2d_fwd"]},
          "max_abs_err": errs[torch.float32],
-         "max_abs_err_bf16": errs[torch.bfloat16], **timing},
+         "max_abs_err_bf16": errs[torch.bfloat16], **timing,
+         "per_shape": [r for r in shapes if r["kernel"] == "na2d_fwd"]},
         {"name": "na2d_bwd", "route": "cuda",
          "source": "flocoder_torch/csrc/na2d_bwd.cu",
          "replaces": "flocoder_tpu/ops/pallas/na2d.py:148",
@@ -1252,7 +1302,8 @@ def main() -> None:
          "launches_by_path": {"serve": 0, "train": train_launches["na2d_bwd"],
                               "preencode": pre_launches["na2d_bwd"]},
          "max_abs_err": errs2[torch.float32],
-         "max_abs_err_bf16": errs2[torch.bfloat16], **timing2},
+         "max_abs_err_bf16": errs2[torch.bfloat16], **timing2,
+         "per_shape": [r for r in shapes if r["kernel"] == "na2d_bwd"]},
         fused_entry("fused_compress_tail_vq", "flocoder_tpu/ops/pallas/fused_vq.py:134"),
         fused_entry("fused_compress_vq", "flocoder_tpu/ops/pallas/fused_vq.py:80"),
         fused_entry("compress_tail_debug", "benchmarks/fused_probe.py:129")]}))

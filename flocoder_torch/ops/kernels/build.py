@@ -1,10 +1,12 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each kernel is one ``.cu`` file under ``flocoder_torch/csrc/`` with a plain C
-interface. It is compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``) into a shared library under ``flocoder_torch/build/`` and loaded
-with ``ctypes``. The library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale library is never loaded.
+interface; sources may include the shared headers (``*.cuh``) beside them.
+It is compiled at first use with ``nvcc`` for Hopper (``sm_90a``) into a
+shared library under ``flocoder_torch/build/`` and loaded with ``ctypes``.
+The library's file name carries a hash of its source, every header under
+``csrc/`` and the flags, so an edited source or header is rebuilt and a
+stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "build_library",
-           "Kernel"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "library_path",
+           "build_library", "Kernel"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -41,15 +43,27 @@ def find_nvcc() -> str:
         "built at first use and need the CUDA toolkit" % [c for c in cands if c])
 
 
-def build_library(source: str, build_dir: str = BUILD_DIR) -> str:
-    """Compile ``csrc/<source>`` into ``<build_dir>/lib<stem>_<hash>.so`` unless
-    that file already exists; returns its path. Raises RuntimeError when nvcc
-    is missing or fails."""
-    src = os.path.join(CSRC_DIR, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+def library_path(source: str, build_dir: str = BUILD_DIR,
+                 csrc_dir: str = CSRC_DIR) -> str:
+    """``<build_dir>/lib<stem>_<hash>.so``, the hash over ``<csrc_dir>/<source>``,
+    every ``*.cuh`` header in ``csrc_dir`` (by name, in sorted order) and the
+    nvcc flags."""
+    h = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(csrc_dir) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(csrc_dir, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
-    out = os.path.join(build_dir, f"lib{stem}_{digest}.so")
+    return os.path.join(build_dir, f"lib{stem}_{h.hexdigest()[:12]}.so")
+
+
+def build_library(source: str, build_dir: str = BUILD_DIR) -> str:
+    """Compile ``csrc/<source>`` into ``library_path(source, build_dir)``
+    unless that file already exists; returns its path. Raises RuntimeError
+    when nvcc is missing or fails."""
+    src = os.path.join(CSRC_DIR, source)
+    out = library_path(source, build_dir)
     if os.path.isfile(out):
         return out
     nvcc = find_nvcc()

@@ -12,8 +12,14 @@ from flocoder_torch.ops.kernels.na2d import na2d_bwd, na2d_fwd
 from flocoder_torch.ops.neighborhood_attention import (na2d, na2d_banded,
                                                       na2d_bwd_banded)
 
+# (B, H, W, C, kernel_size, heads): the codec's three shapes; a map smaller
+# than the window (ks 5); a ragged one; an even window (6x6 map: ks 6); a
+# 33x31 map, so that 4x4 patches are ragged on both axes; a small window
+# (ks 3); head dims 8 and 24, which bf16 pads to its k16 step.
 SHAPES = [(2, 32, 32, 512, 7, 8), (2, 16, 16, 1024, 7, 8), (2, 16, 16, 128, 7, 8),
-          (2, 5, 6, 32, 7, 4), (1, 17, 13, 48, 7, 2)]
+          (2, 5, 6, 32, 7, 4), (1, 17, 13, 48, 7, 2), (2, 6, 6, 64, 7, 4),
+          (1, 33, 31, 64, 7, 2), (1, 16, 16, 64, 3, 4), (2, 12, 12, 64, 7, 8),
+          (2, 12, 12, 96, 7, 4)]
 
 
 @pytest.mark.gpu
@@ -33,7 +39,8 @@ def test_kernel_matches_plain_on_card():
             torch.cuda.synchronize()
             ref = na2d_banded(q.float(), k.float(), v.float(),
                               kernel_size=ks, heads=heads)
-            assert (out.float() - ref).abs().max().item() < tol
+            err = (out.float() - ref).abs().max().item()
+            assert err < tol, ((B, H, W, C, ks, heads), dtype, err)
 
 
 @pytest.mark.gpu
@@ -55,9 +62,10 @@ def test_backward_kernel_matches_plain_on_card():
             torch.cuda.synchronize()
             refs = na2d_bwd_banded(*(t.float() for t in (q, k, v, o, gr)),
                                    kernel_size=ks, heads=heads)
-            for a, ref in zip(grads, refs):
+            for name, a, ref in zip(("dq", "dk", "dv"), grads, refs):
                 tol = rel * max(1.0, ref.abs().max().item())
-                assert (a.float() - ref).abs().max().item() < tol
+                err = (a.float() - ref).abs().max().item()
+                assert err < tol, ((B, H, W, C, ks, heads), dtype, name, err, tol)
         q, k, v, gr = (torch.randn(B, H, W, C, device="cuda", generator=g)
                        for _ in range(4))
         got = []
@@ -67,6 +75,43 @@ def test_backward_kernel_matches_plain_on_card():
                                            leaves, gr))
         for a, ref in zip(*got):
             assert (a - ref).abs().max().item() < 1e-4 * max(1.0, ref.abs().max().item())
+
+
+@pytest.mark.gpu
+def test_backward_kernel_is_deterministic_on_card():
+    """K2 writes every output once, with no atomics: two calls on the same
+    inputs give bitwise-equal dq, dk and dv, in fp32 and bf16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator("cuda").manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, gr = (torch.randn(2, 33, 31, 128, device="cuda", generator=g).to(dtype)
+                       for _ in range(4))
+        o = na2d_fwd(q, k, v, kernel_size=7, heads=4)
+        first = na2d_bwd(q, k, v, o, gr, kernel_size=7, heads=4)
+        second = na2d_bwd(q, k, v, o, gr, kernel_size=7, heads=4)
+        torch.cuda.synchronize()
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_a_misaligned_view_on_card():
+    """The kernels copy 16-byte chunks, so a view that starts off a 16-byte
+    boundary is refused before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    shape = (1, 8, 8, 64)
+    buf = torch.randn(8 * 8 * 64 + 1, device="cuda")
+    bad = buf[1:].view(shape)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    good = torch.randn(shape, device="cuda")
+    fwd, bwd = na2d_fwd.launches, na2d_bwd.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        na2d_fwd(good, bad, good, kernel_size=7, heads=4)
+    with pytest.raises(ValueError, match="16-byte"):
+        na2d_bwd(good, good, good, good, bad, kernel_size=7, heads=4)
+    assert (na2d_fwd.launches, na2d_bwd.launches) == (fwd, bwd)
 
 
 @pytest.mark.gpu

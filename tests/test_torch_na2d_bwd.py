@@ -5,10 +5,12 @@
   backward, run in interpret mode as tests/test_pallas_na2d.py runs it) and
   of the JAX ``na2d_banded``, for q, k and v: a ragged map, a map smaller
   than the window, and 16²×(8·16).
-- K2's own algorithm (query-major dq with the log-sum-exp and δ = g·o, then
-  every key gathering the queries whose clamped windows hold it), emulated
-  in numpy, against the same gradients; and the closed form of its query
-  ranges (``q_lo``/``q_hi`` in csrc/na2d_bwd.cu) against brute force.
+- K2's own algorithm (per 4×4 query patch: exact softmax over the patch's
+  key union, dq, the log-sum-exp and δ = g·o; then per 4×4 key patch: the
+  union of its keys' query ranges in chunks), emulated in numpy, against
+  the same gradients; the closed form of its query ranges (``q_lo``/``q_hi``
+  in csrc/na2d_mma.cuh) and its second pass's launch plan against brute
+  force.
 - The wiring on the card: ``na2d`` of a tensor that is not on the CPU goes
   through ``NA2DFunction`` (K1 forward, K2 backward), so its output has a
   gradient. The kernels themselves run only on the card
@@ -86,10 +88,9 @@ def test_backward_matches_jax_grad(shape):
 def _query_range(j: int, n: int, ks: int) -> tuple:
     """The queries along an axis of length ``n`` whose clamped window holds
     key position ``j``, as K2 computes them (``q_lo``/``q_hi`` in
-    csrc/na2d_bwd.cu): the inclusive range (lo, hi)."""
-    lo = 0 if j <= ks - 1 else j - ks + 1 + ks // 2
-    hi = n - 1 if j >= n - ks else j + ks // 2
-    return lo, hi
+    csrc/na2d_mma.cuh, mirrored by the wrapper): the inclusive range
+    (lo, hi)."""
+    return kna.q_lo(j, ks), kna.q_hi(j, n, ks)
 
 
 @pytest.mark.parametrize("n,ks", [(n, ks) for n in (1, 4, 7, 10, 17, 32)
@@ -102,43 +103,109 @@ def test_query_range_is_the_inverse_neighbourhood(n, ks):
     assert _query_range(6, 32, 7) == (0, 9)   # 10 rows see key row 6
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+def test_key_plan_covers_every_pair_up_to_40(bf16):
+    """For every H, W in 1..40 and ks in 1..7 (dh 128, the most shared
+    memory): K2's second-pass plan fits 227 KB; on each axis, by brute
+    force, every (key, query) pair of the window relation lies in the
+    query union of the key's 4-key patch, that union lies in the key
+    tile's query halo, and the halo and the union fit the plan's sizes
+    (``span_h`` × ``span_w`` pixels, ``table`` entries a warp)."""
+    def axis(n, ks, tile):
+        starts = [min(max(i - ks // 2, 0), n - ks) for i in range(n)]
+        span = longest = 0
+        for t0 in range(0, n, tile):
+            h0, h1 = _query_range(t0, n, ks)[0], _query_range(min(t0 + tile, n) - 1, n, ks)[1]
+            span = max(span, h1 - h0 + 1)
+            for p0 in range(t0, min(t0 + tile, n), 4):
+                u0 = _query_range(p0, n, ks)[0]
+                u1 = _query_range(min(p0 + 3, n - 1), n, ks)[1]
+                longest = max(longest, u1 - u0 + 1)
+                assert h0 <= u0 and u1 <= h1
+                for j in range(p0, min(p0 + 4, n)):
+                    seen = [i for i in range(n) if starts[i] <= j < starts[i] + ks]
+                    assert u0 <= seen[0] and seen[-1] <= u1
+        return span, longest
+
+    memo = {}
+    for H in range(1, 41):
+        for W in range(1, 41):
+            for ks in range(1, min(7, H, W) + 1):
+                p = kna.plan_keys(H, W, 128, ks, bf16)
+                assert p.smem <= 227 * 1024
+                assert p.chunk == kna.query_chunk(128) and p.table % p.chunk == 0
+                (sh, lh), (sw, lw) = (memo.setdefault((n, ks, t), axis(n, ks, t))
+                                      for n, t in ((H, p.tile_h), (W, p.tile_w)))
+                assert sh <= p.span_h and sw <= p.span_w
+                assert lh * lw <= p.table
+
+
 def _emulate_k2(q, k, v, o, g, ks, heads):
-    """K2's two passes in float64 numpy: pass 1 per query (dq, log-sum-exp,
-    δ = g·o); pass 2 per key over ``_query_range`` rows × columns."""
+    """K2's two passes as the kernels run them, in float64 numpy. Pass 1 per
+    4×4 query patch over the union of its windows: S with the window mask,
+    the exact softmax, the log-sum-exp, δ = g·o, dP, dS and dq. Pass 2 per
+    4×4 key patch over the union of its keys' query ranges
+    (``_query_range``), in chunks of ``query_chunk(dh)`` queries, each
+    (key, query) pair masked to the window relation."""
     B, H, W, C = q.shape
     dh = C // heads
     scale = dh ** -0.5
     ks = min(ks, H, W)
     sh = lambda x: x.reshape(B, H, W, heads, dh).astype(np.float64)  # noqa: E731
     q, k, v, o, g = map(sh, (q, k, v, o, g))
-    rs = [min(max(i - ks // 2, 0), H - ks) for i in range(H)]
-    cs = [min(max(i - ks // 2, 0), W - ks) for i in range(W)]
+    ws = kna.window_start
+    rs = np.array([ws(i, H, ks) for i in range(H)])
+    cs = np.array([ws(i, W, ks) for i in range(W)])
     dq, dk, dv = (np.zeros_like(q) for _ in range(3))
     lse = np.zeros((B, H, W, heads))
     delta = (g * o).sum(-1)
-    for r in range(H):
-        for c in range(W):
-            kw = k[:, rs[r]:rs[r] + ks, cs[c]:cs[c] + ks].reshape(B, -1, heads, dh)
-            vw = v[:, rs[r]:rs[r] + ks, cs[c]:cs[c] + ks].reshape(B, -1, heads, dh)
-            s = np.einsum("bhd,bjhd->bjh", q[:, r, c] * scale, kw)
-            m = s.max(1)
-            lse[:, r, c] = m + np.log(np.exp(s - m[:, None]).sum(1))
-            p = np.exp(s - lse[:, None, r, c])
-            dp = np.einsum("bhd,bjhd->bjh", g[:, r, c], vw)
-            dq[:, r, c] = scale * np.einsum("bjh,bjhd->bhd",
-                                            p * (dp - delta[:, None, r, c]), kw)
-    for r in range(H):
-        r_lo, r_hi = _query_range(r, H, ks)
-        for c in range(W):
-            c_lo, c_hi = _query_range(c, W, ks)
-            for a in range(r_lo, r_hi + 1):
-                for b in range(c_lo, c_hi + 1):
-                    s = (q[:, a, b] * scale * k[:, r, c]).sum(-1)
-                    p = np.exp(s - lse[:, a, b])
-                    dp = (g[:, a, b] * v[:, r, c]).sum(-1)
-                    ds = p * (dp - delta[:, a, b])
-                    dk[:, r, c] += ds[..., None] * q[:, a, b] * scale
-                    dv[:, r, c] += p[..., None] * g[:, a, b]
+
+    def patch(r0, c0, H, W):
+        rr, cc = np.meshgrid(np.arange(r0, min(r0 + 4, H)), np.arange(c0, min(c0 + 4, W)),
+                             indexing="ij")
+        return rr.ravel(), cc.ravel()
+
+    def in_window(qr, qc, kr, kc):      # (queries, keys): key inside the query's window
+        return (((kr[None] >= rs[qr][:, None]) & (kr[None] < rs[qr][:, None] + ks))
+                & ((kc[None] >= cs[qc][:, None]) & (kc[None] < cs[qc][:, None] + ks)))
+
+    for r0 in range(0, H, 4):
+        for c0 in range(0, W, 4):
+            qr, qc = patch(r0, c0, H, W)
+            kr, kc = np.meshgrid(np.arange(rs[r0], rs[qr.max()] + ks),
+                                 np.arange(cs[c0], cs[qc.max()] + ks), indexing="ij")
+            kr, kc = kr.ravel(), kc.ravel()
+            assert len(kr) <= kna.key_table(ks, False)
+            mask = in_window(qr, qc, kr, kc)[None, :, None, :]
+            K, V = k[:, kr, kc], v[:, kr, kc]                   # (B, keys, heads, dh)
+            s = np.where(mask, np.einsum("bqhd,bkhd->bqhk", q[:, qr, qc], K) * scale, -np.inf)
+            m = s.max(-1, keepdims=True)
+            l = np.exp(s - m).sum(-1, keepdims=True)
+            lse[:, qr, qc] = (m + np.log(l))[..., 0]
+            p = np.exp(s - m) / l
+            dp = np.einsum("bqhd,bkhd->bqhk", g[:, qr, qc], V)
+            ds = p * (dp - delta[:, qr, qc][..., None])
+            dq[:, qr, qc] = scale * np.einsum("bqhk,bkhd->bqhd", ds, K)
+
+    chunk = kna.query_chunk(dh)
+    for r0 in range(0, H, 4):
+        for c0 in range(0, W, 4):
+            kr, kc = patch(r0, c0, H, W)
+            (lo_r, _), (_, hi_r) = _query_range(r0, H, ks), _query_range(kr.max(), H, ks)
+            (lo_c, _), (_, hi_c) = _query_range(c0, W, ks), _query_range(kc.max(), W, ks)
+            qr, qc = np.meshgrid(np.arange(lo_r, hi_r + 1), np.arange(lo_c, hi_c + 1),
+                                 indexing="ij")
+            qr, qc = qr.ravel(), qc.ravel()
+            for c in range(0, len(qr), chunk):
+                cr, cc = qr[c:c + chunk], qc[c:c + chunk]
+                mask = in_window(cr, cc, kr, kc).T[None, :, None, :]     # (1, keys, 1, queries)
+                Q, G = q[:, cr, cc], g[:, cr, cc]
+                st = np.einsum("bkhd,bqhd->bkhq", k[:, kr, kc], Q) * scale
+                pt = np.where(mask, np.exp(st - lse[:, cr, cc].transpose(0, 2, 1)[:, None]), 0.0)
+                dpt = np.einsum("bkhd,bqhd->bkhq", v[:, kr, kc], G)
+                dst = pt * (dpt - delta[:, cr, cc].transpose(0, 2, 1)[:, None])
+                dk[:, kr, kc] += scale * np.einsum("bkhq,bqhd->bkhd", dst, Q)
+                dv[:, kr, kc] += np.einsum("bkhq,bqhd->bkhd", pt, G)
     return [x.reshape(B, H, W, C) for x in (dq, dk, dv)]
 
 
@@ -209,17 +276,21 @@ class _CudaStub:
     """Just enough of a CUDA tensor for the wrapper's checks; it owns no
     memory, so nothing may ever launch on it."""
 
-    def __init__(self, shape, dtype=torch.float32, contiguous=True):
+    def __init__(self, shape, dtype=torch.float32, contiguous=True, ptr=0):
         self.shape = torch.Size(shape)
         self.dtype = dtype
         self.device = torch.device("cuda", 0)
         self._contiguous = contiguous
+        self._ptr = ptr
 
     def dim(self):
         return len(self.shape)
 
     def is_contiguous(self):
         return self._contiguous
+
+    def data_ptr(self):
+        return self._ptr
 
 
 def test_backward_wrapper_with_unbuilt_kernel_raises(tmp_path, monkeypatch):
@@ -237,6 +308,7 @@ def test_backward_wrapper_with_unbuilt_kernel_raises(tmp_path, monkeypatch):
     (lambda s: s[:4] + [_CudaStub((1, 8, 8, 16), torch.bfloat16)], TypeError),
     (lambda s: s[:3] + [_CudaStub((1, 8, 4, 16)), s[4]], ValueError),
     (lambda s: [_CudaStub((1, 8, 8, 24))] * 5, ValueError),                  # dh = 12
+    (lambda s: s[:2] + [_CudaStub((1, 8, 8, 16), ptr=8)] + s[3:], ValueError),  # misaligned
 ])
 def test_backward_wrapper_rejects_what_the_kernel_does_not_take(bad, err, tmp_path):
     kernel = kna.NA2DBackward(build_dir=str(tmp_path))
