@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of flocoder_torch on one CUDA card (an H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 1. Checks for a CUDA device and prints the card's name and power limit.
 2. Builds the hand-written kernels from the sources in this checkout, one
    nvcc each, started together: K1, the NA2D forward
    (flocoder_torch/csrc/na2d_fwd.cu), K2, the NA2D backward
    (flocoder_torch/csrc/na2d_bwd.cu), and K3, K4 and K5, the fused
-   compression tail and RVQ search (flocoder_torch/csrc/fused_vq.cu).
+   compression tail and RVQ search (flocoder_torch/csrc/fused_vq.cu), and
+   prints each fused kernel's registers and spills from ptxas's report.
 3. Holds K1 against its plain PyTorch version (na2d_banded) on the card, TF32
    off: the codec's shapes at B=8 (32²×512 with head dim 64, 16²×1024 with
    head dim 128, 16²×128 with head dim 16) and at the main paths' batches
@@ -60,10 +61,18 @@
    under an fp64 oracle (relative distance gap < 1e-5), z_q within
    1e-5·max(1, |ref|) where the picks agree, K5's intermediates within
    1e-5·max(1, |ref|) of the twin and of the fp64 oracle; K4 at a
-   pre-encode batch of tokens, the probe's shape, a ragged N and D=3 and 8,
-   K3 at a pre-encode batch (both layouts of h), a ragged 5×7 map, a 20×20
-   map, D=3 with one group and D=8 with two. Times each at its main shape
-   beside its twin, the unfused torch path (the yardstick) and its bound.
+   pre-encode batch of tokens, the probe's shape, a ragged N, D=3 and 8 and
+   Din=30; K3 at a pre-encode batch (both layouts of h, every cluster
+   size), a ragged 5×7 map, 20×20 maps, D=3 with one group and D=8 with
+   two, a 1×1 map, B=1 and a 3-row map in a cluster of 8; K5 at every
+   cluster size; codebooks with duplicated codes (the first index exactly),
+   a NaN token (code 0), two calls bitwise equal, and a map too large for a
+   cluster refused before any launch. Times each at its main shape (device
+   time by the profiler, CUDA events, the wrapper's host µs a call) beside
+   its twin, the unfused torch path (the yardstick) and its bound; K3 and
+   K5 at every cluster size, K3's empty-launch floor, and with --parent DIR
+   another checkout's kernels on the same inputs in turns (parent, this,
+   this, parent).
 10. Pre-encodes flowers_vqgan at full width through the port's entry point
    (flocoder_torch.preencode_data.main) with preencoding.quantize=true
    preencoding.fused_vq=true, batch 32, augs_per 4, over 320 seeded random
@@ -130,18 +139,28 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
 def device_ms(fn, key: str, iters: int = 10) -> float:
     """Device milliseconds per call of ``fn`` spent in the kernels whose
     name holds ``key``, by the profiler over ``iters`` calls after a warm
-    one: the kernels' own time, whatever the host spends between launches."""
+    one: the kernels' own time, whatever the host spends between launches.
+    A window in which the profiler did not see the same number of such
+    kernels in each call is taken again (at most twice more); 0.0 means it
+    never saw one."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and key in e.key) / 1e3 / iters
+    ms = 0.0
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and key in e.key]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3 / iters
+        count = sum(e.count for e in hits)
+        if count and count % iters == 0:
+            break
+    return ms
 
 
 def na2d_bound_ms(B, H, W, C, ks, dtype) -> tuple:
@@ -841,12 +860,19 @@ def check_fused_vq() -> dict:
     """K4, K3 and K5 against their plain twins on the card, TF32 off, at
     every D the source instantiates (3, 4, 8): K4 at a pre-encode batch of
     tokens (8192×128 → 4, 4×96 codes), the probe's shape (1024×256, 3×512),
-    a ragged N=77 and N=300 at D=8 and D=3; K3 at a pre-encode batch
-    (32×16²×128, both layouts of h), a ragged 5×7 map, a 20×20 map larger
-    than the block, D=3 with one group and D=8 with two; K5 at the probe's
-    (4, 16, 16, 256) and a ragged one, against the twin and the fp64 oracle
-    within 1e-5·max(1, max|ref|). Returns per kernel the worst numbers."""
+    a ragged N=77, N=300 at D=8 and D=3 and Din=30 (the scalar row loop); K3
+    at a pre-encode batch (32×16²×128, both layouts of h, every cluster size),
+    a ragged 5×7 map, a 20×20 map larger than the block, D=3 with one group
+    and D=8 with two, a 1×1 map, B=1, and a 3-row map with a cluster of 8
+    (five blocks with no rows); K5 at the probe's (4, 16, 16, 256) at every
+    cluster size and a ragged one, against the twin and the fp64 oracle
+    within 1e-5·max(1, max|ref|). Then codebooks with duplicated codes (the
+    pick must be the first index exactly, K4 and K3 at every cluster size),
+    a NaN token (code 0 at every level), two calls bitwise equal (each K3, K4
+    and K5 case), and a map too large for a cluster's shared memory (raises,
+    nothing launched). Returns per kernel the worst numbers."""
     from flocoder_torch.ops import fused_vq as fvq
+    from flocoder_torch.ops.kernels import fused_vq as fvk
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator("cuda").manual_seed(7)
@@ -860,9 +886,14 @@ def check_fused_vq() -> dict:
         w["differ"] += r.get("differ", 0)
         w["tokens"] += r.get("tokens", 0)
 
+    def bitwise(label, first, second):
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            fail(f"{label}: two calls on the same inputs differ")
+
     for label, shape in (("pre-encode batch", (8192, 128, 4, 4, 96)),
                          ("probe", (1024, 256, 4, 3, 512)), ("ragged", (77, 128, 4, 4, 96)),
-                         ("D=8", (300, 64, 8, 2, 64)), ("D=3", (300, 64, 3, 2, 64))):
+                         ("D=8", (300, 64, 8, 2, 64)), ("D=3", (300, 64, 3, 2, 64)),
+                         ("Din=30", (100, 30, 4, 2, 16))):
         z, w, b, cb = fvq.random_vq_inputs(g, *shape)
         zq, idx = fvq.fused_compress_vq(z, w, b, cb)
         torch.cuda.synchronize()
@@ -870,26 +901,40 @@ def check_fused_vq() -> dict:
             f"K4 check {label} N,Din,D,L,K={shape}", zq, idx,
             *fvq.fused_compress_vq_plain(z, w, b, cb),
             z.double() @ w.double() + b.double(), cb))
-    for label, shape, nchw in (
-            ("pre-encode batch", (32, 16, 16, 128, 4, 4, 96, 2), True),
-            ("pre-encode batch, NHWC memory", (32, 16, 16, 128, 4, 4, 96, 2), False),
-            ("ragged 5x7", (3, 5, 7, 128, 4, 4, 96, 2), True),
-            ("20x20, more tokens than threads", (2, 20, 20, 128, 4, 4, 96, 2), True),
-            ("D=3 groups=1", (4, 16, 16, 128, 3, 4, 96, 1), True),
-            ("D=8 groups=2", (4, 16, 16, 128, 8, 4, 96, 2), True)):
+        bitwise(f"K4 {label}", (zq, idx), fvq.fused_compress_vq(z, w, b, cb))
+    pre = (32, 16, 16, 128, 4, 4, 96, 2)
+    for label, shape, nchw, cs in (
+            ("pre-encode batch", pre, True, None),
+            ("pre-encode batch, NHWC memory", pre, False, None),
+            *((f"pre-encode batch, cluster {c}", pre, True, c) for c in fvk.CLUSTER_SIZES),
+            ("ragged 5x7", (3, 5, 7, 128, 4, 4, 96, 2), True, None),
+            ("20x20, more tokens than threads", (2, 20, 20, 128, 4, 4, 96, 2), True, 1),
+            ("20x20, cluster of 8", (2, 20, 20, 128, 4, 4, 96, 2), True, None),
+            ("D=3 groups=1", (4, 16, 16, 128, 3, 4, 96, 1), True, None),
+            ("D=8 groups=2", (4, 16, 16, 128, 8, 4, 96, 2), True, None),
+            ("1x1 map, B=1", (1, 1, 1, 128, 4, 4, 96, 2), True, None),
+            ("1x1 map, B=1, cluster 8", (1, 1, 1, 128, 4, 4, 96, 2), True, 8),
+            ("B=1", (1, 16, 16, 128, 4, 4, 96, 2), True, None),
+            ("3 rows, cluster 8", (2, 3, 16, 128, 4, 4, 96, 2), True, 8),
+            ("3 rows, cluster 8, NHWC memory", (2, 3, 5, 128, 4, 4, 96, 2), False, 8)):
         h, tail, cb = fvq.random_tail_inputs(g, *shape, nchw=nchw)
         groups = shape[-1]
-        zq, idx = fvq.fused_compress_tail_vq(h, *tail, cb, groups)
+        zq, idx = fvk.fused_compress_tail_vq(h, *tail, cb, groups, cluster=cs)
         torch.cuda.synchronize()
         worst("fused_compress_tail_vq", hold_picks(
             f"K3 check {label} B,H,W,Din,D,L,K,groups={shape}", zq, idx,
             *fvq.fused_compress_tail_vq_plain(h, *tail, cb, groups),
             fvq.compress_tail_oracle(h, *tail, groups)[2], cb))
-    for label, shape in (("probe", (4, 16, 16, 256, 4, 1, 1, 2)),
-                         ("ragged 5x7 D=3", (3, 5, 7, 64, 3, 1, 1, 1))):
+        bitwise(f"K3 {label}", (zq, idx),
+                fvk.fused_compress_tail_vq(h, *tail, cb, groups, cluster=cs))
+    for label, shape, cs in (
+            *((f"probe, cluster {c}", (4, 16, 16, 256, 4, 1, 1, 2), c)
+              for c in fvk.CLUSTER_SIZES),
+            ("ragged 5x7 D=3", (3, 5, 7, 64, 3, 1, 1, 1), None),
+            ("1x1 map D=8, cluster 8", (1, 1, 1, 64, 8, 1, 1, 2), 8)):
         h, tail, _ = fvq.random_tail_inputs(g, *shape)
         groups = shape[-1]
-        ours = fvq.compress_tail_debug(h, *tail, groups)
+        ours = fvk.compress_tail_debug(h, *tail, groups, cluster=cs)
         torch.cuda.synchronize()
         twin = fvq.compress_tail_debug_plain(h, *tail, groups)
         oracle = fvq.compress_tail_oracle(h, *tail, groups)
@@ -903,6 +948,37 @@ def check_fused_vq() -> dict:
                 if not ok:
                     fail(f"K5 disagrees with its {what} at {label} ({name})")
                 worst("compress_tail_debug", {"max_abs_err": err})
+        bitwise(f"K5 {label}", ours, fvk.compress_tail_debug(h, *tail, groups, cluster=cs))
+
+    # codes 2i and 2i + 1 equal: the first of each pair, so every pick is even
+    z, w, b, cb = fvq.random_vq_inputs(g, 8192, 128, 4, 4, 48)
+    odd = [int((fvq.fused_compress_vq(z, w, b, cb.repeat_interleave(2, 1))[1] % 2).sum())]
+    h, tail, cb = fvq.random_tail_inputs(g, *pre[:5], 4, 48, 2)
+    odd += [int((fvk.fused_compress_tail_vq(h, *tail, cb.repeat_interleave(2, 1), 2,
+                                            cluster=c)[1] % 2).sum())
+            for c in fvk.CLUSTER_SIZES]
+    print(f"duplicated codes (2i = 2i + 1): picks of the second copy, K4 and K3 at "
+          f"clusters {fvk.CLUSTER_SIZES}: {odd} (must be 0)", flush=True)
+    if any(odd):
+        fail("a duplicated code was not picked at its first index")
+    z[5] = float("nan")
+    zq, idx = fvq.fused_compress_vq(z, w, b, cb)
+    first = torch.zeros_like(zq[5])
+    for code in cb[:, 0]:
+        first = first + code
+    if idx[5].any() or not torch.equal(zq[5], first):
+        fail(f"K4 on a NaN token picked {idx[5].tolist()}, not code 0 at every level")
+    print("NaN token: code 0 at every level ok", flush=True)
+
+    h, tail, _ = fvq.random_tail_inputs(g, 1, 512, 512, 8, 4, 1, 4, 2)
+    before = fvk.compress_tail_debug.launches
+    try:
+        fvk.compress_tail_debug(h, *tail, 2)
+        fail("K5 launched on a 1x512x512x4 map, more than a cluster's shared memory")
+    except ValueError as e:
+        print(f"oversized map refused before launch: {e}", flush=True)
+    if fvk.compress_tail_debug.launches != before:
+        fail("the oversized map counted a launch")
     return out
 
 
@@ -912,20 +988,71 @@ def fused_vq_bound_ms(n_bytes: float, n_ops: float) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_fused_vq(card: str) -> dict:
+def host_us(fn, calls: int = 1000) -> float:
+    """Host µs per call of ``fn`` over ``calls`` calls with no synchronise
+    between them (the wrapper's checks, allocation and launch)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def launch_floor_ms(images: int, cluster: int, card: str) -> float:
+    """Device ms of an empty launch shaped like K3's (images·cluster blocks
+    of its threads in clusters of ``cluster``, one cluster barrier): the
+    least a K3 launch of this size can take, whatever its work."""
+    import ctypes
+    from flocoder_torch.ops.kernels.build import build_library
+    fn = ctypes.CDLL(build_library("fused_vq.cu")).fused_vq_launch_floor
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    if fn(images * cluster, cluster, stream) != 0:
+        fail("the empty cluster launch failed")
+    ms = device_ms(lambda: fn(images * cluster, cluster, stream), "empty_cluster_kernel", iters=50)
+    print(f"empty cluster launch ({images * cluster} blocks, clusters of {cluster}): "
+          f"device_ms={ms:.5f} | card: {card}", flush=True)
+    return ms
+
+
+def load_fused_kernels(root: str, alias: str):
+    """``flocoder_torch/ops/kernels/fused_vq.py`` of the checkout at
+    ``root`` (for instance an unpacked ``git archive`` of an earlier
+    commit), imported as package ``alias``; it builds into that checkout's
+    own ``flocoder_torch/build/``."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(root), "flocoder_torch")
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{alias}.ops.kernels.fused_vq")
+
+
+def time_fused_vq(card: str, parent: str | None = None) -> dict:
     """K4, K3 and K5 at their main shapes (K3 and K4: one pre-encode batch of
     flowers_vqgan, 32×16² tokens of 128 channels → D=4, 4×96 codes; K5: the
     probe's 4×16²×256), TF32 off: CUDA events over back-to-back calls, the
-    profiler's device time of the kernel alone, the plain twin, and the
-    unfused torch path (cuBLAS/cuDNN 1×1 conv → GroupNorm → SiLU → 3×3 conv
-    → ``rvq_apply``, as the codec's ``quantize(encode(x))`` runs it; for K4
-    ``addmm`` → ``rvq_apply``): no single PyTorch call computes these
-    functions, so that path is the library yardstick. The bound counts each
-    input read once and each output written once, against the fp32
-    operations: 2·Din·D per token for the 1×1, 18·D² for the 3×3, 10·D for
-    GroupNorm + SiLU, and L·(K·(2·D + 3) + 2·D) for the search."""
+    profiler's device time of the kernel alone, the wrapper's host µs per
+    call, the plain twin, and the unfused torch path (cuBLAS/cuDNN 1×1 conv
+    → GroupNorm → SiLU → 3×3 conv → ``rvq_apply``, as the codec's
+    ``quantize(encode(x))`` runs it; for K4 ``addmm`` → ``rvq_apply``): no
+    single PyTorch call computes these functions, so that path is the
+    library yardstick. K3 and K5 also at every cluster size. The bound
+    counts each input read once and each output written once, against the
+    fp32 operations: 2·Din·D per token for the 1×1, 18·D² for the 3×3, 10·D
+    for GroupNorm + SiLU, and L·(K·(2·D + 3) + 2·D) for the search. With
+    ``parent`` (another checkout), its kernels' device times on the same
+    inputs in turns with this checkout's: parent, this, this, parent."""
     import torch.nn.functional as F
     from flocoder_torch.ops import fused_vq as fvq
+    from flocoder_torch.ops.kernels import fused_vq as fvk
     from flocoder_torch.ops.rvq import RVQState, rvq_apply
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -937,29 +1064,39 @@ def time_fused_vq(card: str) -> dict:
         st.codebooks.copy_(cb)
         return st
 
-    def measure(name, key, kernel, plain, library, n_bytes, n_ops):
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def measure(name, key, kernel, plain, library, n_bytes, n_ops, sweep=None,
+                sweep_default=None):
         with torch.inference_mode():
             ms = cuda_ms(kernel, 200, warmup=5)
             dev_ms = device_ms(kernel, key, iters=20)
+            host = host_us(kernel)
             plain_ms = cuda_ms(plain, 50, warmup=3)
             library_ms = cuda_ms(library, 50, warmup=3)
+            by_cluster = {c: device_ms(lambda: sweep(c), key, iters=20)
+                          for c in fvk.CLUSTER_SIZES} if sweep else None
         bound_ms, bound_by = fused_vq_bound_ms(n_bytes, n_ops)
-        print(f"{name} time: kernel_ms={ms:.5f} device_ms={dev_ms:.5f} plain_ms="
-              f"{plain_ms:.5f} library_ms={library_ms:.5f} (unfused torch path) "
-              f"bound_ms={bound_ms:.5f} ({bound_by}; {n_bytes / 1e6:.3f} MB, "
+        print(f"{name} time: kernel_ms={ms:.5f} device_ms={dev_ms:.5f} host_us_per_call="
+              f"{host:.2f} plain_ms={plain_ms:.5f} library_ms={library_ms:.5f} (unfused "
+              f"torch path) bound_ms={bound_ms:.5f} ({bound_by}; {n_bytes / 1e6:.3f} MB, "
               f"{n_ops / 1e6:.2f} MFLOP) | card: {card}", flush=True)
-        out[name] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+        out[name] = dict(ms=ms, device_ms=dev_ms, host_us_per_call=host, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if sweep:
+            print(f"{name} device_ms by cluster size (the plan's default {sweep_default}): "
+                  f"{by_cluster} | card: {card}", flush=True)
+            out[name].update(device_ms_by_cluster=by_cluster, default_cluster=sweep_default)
 
     def search_ops(n, D, L, K):
         return n * L * (K * (2 * D + 3) + 2 * D)
 
     N, Din, D, L, K = 8192, 128, 4, 4, 96
-    z, w, b, cb = fvq.random_vq_inputs(g, N, Din, D, L, K)
-    st = state(cb)
+    z, w, b, cb4 = fvq.random_vq_inputs(g, N, Din, D, L, K)
+    st = state(cb4)
     measure("fused_compress_vq", "compress_vq_kernel",
-            lambda: fvq.fused_compress_vq(z, w, b, cb),
-            lambda: fvq.fused_compress_vq_plain(z, w, b, cb),
+            lambda: fvk.fused_compress_vq(z, w, b, cb4),
+            lambda: fvq.fused_compress_vq_plain(z, w, b, cb4),
             lambda: rvq_apply(st, torch.addmm(b, z, w))[:2],
             4 * (N * Din + Din * D + D + L * K * D + N * D + N * L),
             2 * N * Din * D + search_ops(N, D, L, K))
@@ -984,24 +1121,52 @@ def time_fused_vq(card: str) -> dict:
     hold_picks("K3 against the unfused torch path (its yardstick)", zq, idx, lib_zq,
                lib_idx, fvq.compress_tail_oracle(h, *tail, groups)[2], cb, rel=1e-4)
     measure("fused_compress_tail_vq", "tail_kernel<4, true>",
-            lambda: fvq.fused_compress_tail_vq(h, *tail, cb, groups),
+            lambda: fvk.fused_compress_tail_vq(h, *tail, cb, groups),
             lambda: fvq.fused_compress_tail_vq_plain(h, *tail, cb, groups),
             lambda: rvq_apply(st, unfused_tail(h_nchw).permute(0, 2, 3, 1)
                               .reshape(-1, D))[:2],
             tail_bytes + 4 * (L * K * D + n * D + n * L),
-            tail_ops + search_ops(n, D, L, K))
+            tail_ops + search_ops(n, D, L, K),
+            sweep=lambda c: fvk.fused_compress_tail_vq(h, *tail, cb, groups, cluster=c),
+            sweep_default=fvk.plan_bands(H, W, None, B, sm)[0])
+    out["fused_compress_tail_vq"]["launch_floor_ms"] = launch_floor_ms(
+        B, fvk.plan_bands(H, W, None, B, sm)[0], card)
 
-    B, Din = 4, 256
-    n = B * H * W
-    h, tail, _ = fvq.random_tail_inputs(g, B, H, W, Din, D, 1, 1, groups)
-    w1, b1, gs, gb, cw, cbias = tail
-    h_nchw = h.permute(0, 3, 1, 2)
+    n5 = 4 * H * W
+    h5, tail5, _ = fvq.random_tail_inputs(g, 4, H, W, 256, D, 1, 1, groups)
     measure("compress_tail_debug", "tail_kernel<4, false>",
-            lambda: fvq.compress_tail_debug(h, *tail, groups),
-            lambda: fvq.compress_tail_debug_plain(h, *tail, groups),
-            lambda: unfused_tail(h_nchw),
-            4 * (n * Din + D * Din + 4 * D + 9 * D * D + 3 * n * D),
-            n * (2 * Din * D + 18 * D * D + 10 * D))
+            lambda: fvk.compress_tail_debug(h5, *tail5, groups),
+            lambda: fvq.compress_tail_debug_plain(h5, *tail5, groups),
+            lambda: F.conv2d(F.silu(F.group_norm(F.conv2d(h5.permute(0, 3, 1, 2), tail5[0],
+                                                          tail5[1]), groups, tail5[2],
+                                                 tail5[3], 1e-5)), tail5[4], tail5[5],
+                             padding=1),
+            4 * (n5 * 256 + D * 256 + 4 * D + 9 * D * D + 3 * n5 * D),
+            n5 * (2 * 256 * D + 18 * D * D + 10 * D),
+            sweep=lambda c: fvk.compress_tail_debug(h5, *tail5, groups, cluster=c),
+            sweep_default=fvk.plan_bands(H, W, None, 4, sm)[0])
+
+    if parent:
+        pk = load_fused_kernels(parent, "parent_flocoder_torch")
+        t0 = time.time()
+        pk.fused_compress_tail_vq.build()
+        print(f"parent's fused_vq.cu ({parent}) build: {time.time() - t0:.1f} s", flush=True)
+        runs = {"fused_compress_vq": ("compress_vq_kernel", lambda m: m.fused_compress_vq(
+                    z, w, b, cb4)),
+                "fused_compress_tail_vq": ("tail_kernel<4, true>",
+                                           lambda m: m.fused_compress_tail_vq(
+                                               h, *tail, cb, groups)),
+                "compress_tail_debug": ("tail_kernel<4, false>",
+                                        lambda m: m.compress_tail_debug(h5, *tail5, groups))}
+        with torch.inference_mode():
+            for name, (key, call) in runs.items():
+                turns = [(who, device_ms(lambda: call(m), key, iters=20))
+                         for who, m in (("parent", pk), ("this", fvk), ("this", fvk),
+                                        ("parent", pk))]
+                out[name]["parent_turns_device_ms"] = turns
+                print(f"{name} device_ms in turns (parent, this, this, parent): "
+                      + ", ".join(f"{who} {t:.5f}" for who, t in turns)
+                      + f" | card: {card}", flush=True)
     torch.cuda.empty_cache()
     return out
 
@@ -1211,7 +1376,30 @@ def check_preencode_small(tmp: str, config_dir: str) -> dict:
     return dict(totals, files=files, far_vectors=far)
 
 
+def print_ptxas(source: str) -> None:
+    """Each kernel's registers and spills from ptxas's report of the build of
+    ``source`` in this run, demangled."""
+    from flocoder_torch.ops.kernels.build import build_log
+    log = build_log(source)
+    if shutil.which("c++filt"):
+        log = subprocess.run(["c++filt"], input=log, capture_output=True, text=True,
+                             check=True).stdout
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1].replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0]
+        elif name and ("spill" in line or "Used" in line):
+            print(f"ptxas {source} {name}: {line.strip()}", flush=True)
+
+
 def main() -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None,
+                    help="another checkout (an unpacked git archive) whose fused VQ "
+                         "kernels are timed in turns with this one's")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
     card = card_line()
@@ -1237,6 +1425,7 @@ def main() -> None:
     for name in fused:                       # the library fused_vq.cu built
         kernels[name].build()
     print(f"K1 + K2 + K3/K4/K5 build: {time.time() - t0:.1f} s", flush=True)
+    print_ptxas("fused_vq.cu")
     errs = check_k1(na2d_fwd, na2d_banded)
     errs2 = check_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded)
     check_function(na2d, na2d_banded)
@@ -1246,7 +1435,7 @@ def main() -> None:
     errs2[torch.float32] = max(errs2[torch.float32], train_err)
     shapes = time_na2d_shapes(na2d_fwd, na2d_bwd, card)
     fused_errs = check_fused_vq()
-    fused_timing = time_fused_vq(card)
+    fused_timing = time_fused_vq(card, args.parent)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:

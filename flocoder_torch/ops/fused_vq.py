@@ -107,8 +107,8 @@ def fused_compress_tail_vq(h, w1, b1, gn_scale, gn_bias, conv_w, conv_b,
                            codebooks, groups: int, eps: float = 1e-5) -> tuple:
     """The codec's whole compression tail and the RVQ search: ``h`` (B, H,
     W, Din) → ``(z_q (B, H, W, D), idx (B, H, W, L) int32)``; on the CPU the
-    twin, on the card K3 (one block per image; ``h`` contiguous NHWC or an
-    NHWC view of NCHW memory)."""
+    twin, on the card K3 (a cluster of blocks per image; ``h`` contiguous
+    NHWC or an NHWC view of NCHW memory)."""
     if h.device.type == "cpu":
         return fused_compress_tail_vq_plain(h, w1, b1, gn_scale, gn_bias, conv_w,
                                             conv_b, codebooks, groups, eps)

@@ -6,7 +6,8 @@ It is compiled at first use with ``nvcc`` for Hopper (``sm_90a``) into a
 shared library under ``flocoder_torch/build/`` and loaded with ``ctypes``.
 The library's file name carries a hash of its source, every header under
 ``csrc/`` and the flags, so an edited source or header is rebuilt and a
-stale library is never loaded.
+stale library is never loaded. ptxas's report (registers, shared memory,
+spills of each kernel) is kept beside the library (``build_log``).
 """
 from __future__ import annotations
 
@@ -18,13 +19,13 @@ import subprocess
 import tempfile
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "library_path",
-           "build_library", "Kernel"]
+           "build_library", "build_log", "Kernel"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:
@@ -75,11 +76,24 @@ def build_library(source: str, build_dir: str = BUILD_DIR) -> str:
                              capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source}:\n{res.stderr}")
+        with open(out + ".ptxas.txt", "w") as f:
+            f.write(res.stderr)
         os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build_log(source: str, build_dir: str = BUILD_DIR) -> str:
+    """ptxas's report from the build of ``library_path(source, build_dir)``
+    (each kernel's registers, shared memory and spill stores and loads);
+    empty when that library was not built here."""
+    path = library_path(source, build_dir) + ".ptxas.txt"
+    if not os.path.isfile(path):
+        return ""
+    with open(path) as f:
+        return f.read()
 
 
 class Kernel:

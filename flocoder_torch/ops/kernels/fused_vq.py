@@ -14,16 +14,19 @@ disagree, a D that the source does not instantiate (``BUILT_D``: the latent
 widths of the repo's configs) or groups that do not divide D, a tensor that
 is not contiguous, and a tensor that is not on one CUDA device
 (``ValueError``). Then it builds the library at first use, allocates the
-outputs and launches on PyTorch's current stream. The C entry alone works
-out the launch layout; a map or codebooks too large for one block's shared
-memory come back as its ``kErrSharedMemory`` code, raised here as a
-``ValueError``. Each launch that the entry reports adds one to the
-wrapper's ``launches``. The plain twins and the dispatch by device are in
-``flocoder_torch.ops.fused_vq``.
+outputs and launches on PyTorch's current stream. K3 and K5 run a cluster
+of blocks per image, each block a band of rows; ``plan_bands`` works out
+that plan here, where the CPU tests check it, and the C entry checks it
+again. The C entry alone sizes shared memory: a band or codebooks too large
+for one block's shared memory come back as its ``kErrSharedMemory`` code,
+raised here as a ``ValueError``. Each launch that the entry reports adds
+one to the wrapper's ``launches``. The plain twins and the dispatch by
+device are in ``flocoder_torch.ops.fused_vq``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,10 +34,13 @@ from .build import Kernel
 
 __all__ = ["FusedCompressVQ", "FusedCompressTailVQ", "CompressTailDebug",
            "fused_compress_vq", "fused_compress_tail_vq", "compress_tail_debug",
-           "BUILT_D"]
+           "plan_bands", "band_layout", "BUILT_D", "CLUSTER_SIZES"]
 
 BUILT_D = (3, 4, 8)       # FUSED_VQ_CASES in the source
 _ERR_SHARED_MEMORY = -1   # kErrSharedMemory in the source
+TAIL_THREADS = 128        # kThreads in the source
+TOKENS_PER_GROUP = 2      # kTok in the source: tokens a lane group searches at once
+CLUSTER_SIZES = (1, 2, 4, 8)   # 8: the portable limit of a cluster
 _SOURCE = "fused_vq.cu"
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -72,6 +78,51 @@ def _check(kernel: str, shapes: dict, tensors: dict, D: int, groups: int) -> Non
 
 def _nchw_memory(h: torch.Tensor) -> bool:
     return h.dim() == 4 and h.permute(0, 3, 1, 2).is_contiguous()
+
+
+def plan_bands(H: int, W: int, cluster: int | None = None, batch: int = 1,
+               sms: int = 132) -> tuple:
+    """K3's and K5's launch plan for ``batch`` H×W maps on a card of ``sms``
+    SMs: ``(cluster, rows, lanes)``. Each image gets a cluster of
+    ``cluster`` blocks (1, 2, 4 or 8); by default the most for which the
+    blocks come to at most two an SM (batch·cluster ≤ 2·sms) and no more
+    than the map has rows: 8 at the pre-encode batch of 32, the fastest
+    there (PERF.md §6 times every size). Block ``rank`` owns rows ``[rank·rows, (rank + 1)·rows)`` clipped to the map,
+    so the last bands may be short or empty (``band_layout``). ``lanes``
+    lanes (a power of two up to 32) search each group of TOKENS_PER_GROUP
+    tokens: the most for which a full band's tokens fit the block's threads
+    in one pass."""
+    if cluster is None:      # double while the doubled grid stays within 2·sms
+        cluster = 1
+        while cluster < CLUSTER_SIZES[-1] and cluster < H and cluster * batch <= sms:
+            cluster *= 2
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster={cluster}; K3 and K5 take a cluster of {CLUSTER_SIZES} blocks")
+    rows = -(-H // cluster)
+    lanes = 1
+    while lanes < 32 and 2 * lanes * rows * W <= TAIL_THREADS * TOKENS_PER_GROUP:
+        lanes *= 2
+    return cluster, rows, lanes
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def band_layout(H: int, cluster: int, rows: int) -> list:
+    """Each block's band as the kernel derives it from the plan: ``(first
+    row, end row, rank holding the row above, rank holding the row below)``,
+    a rank of -1 where the band meets the image's edge (its halo row is
+    zero) or the band is empty."""
+    out = []
+    for rank in range(cluster):
+        r0 = min(H, rank * rows)
+        r1 = min(H, r0 + rows)
+        live = r1 > r0
+        out.append((r0, r1, rank - 1 if live and r0 > 0 else -1,
+                    rank + 1 if live and r1 < H else -1))
+    return out
 
 
 def _launch(kernel: Kernel, fn, args: list, staged: str) -> None:
@@ -146,30 +197,33 @@ class FusedCompressTailVQ(Kernel):
     NHWC view of contiguous NCHW memory (what ``permute(0, 2, 3, 1)`` of the
     codec's NCHW activations gives; read without a copy, coalesced); ``w1``
     and ``conv_w`` are the 1×1 and 3×3 convolutions' OIHW weights, (D, Din,
-    1, 1) and (D, D, 3, 3). One block per image."""
+    1, 1) and (D, D, 3, 3). A cluster of ``cluster`` blocks per image
+    (``plan_bands``; by default its choice)."""
 
     _source = _SOURCE
     _entry = "fused_compress_tail_vq"
-    _argtypes = [_P, _LL, _LL, _LL] + [_I] * 4 + [_P] * 7 + [_I] * 4 + [_F, _P, _P, _P]
+    _argtypes = [_P, _LL, _LL, _LL] + [_I] * 7 + [_P] * 7 + [_I] * 4 + [_F, _P, _P, _P]
 
     def __call__(self, h, w1, b1, gn_scale, gn_bias, conv_w, conv_b, codebooks,
-                 groups: int, eps: float = 1e-5) -> tuple:
+                 groups: int, eps: float = 1e-5, cluster: int | None = None) -> tuple:
         B, H, W, Din, D, sb, sc, sp = _tail_inputs(
             self._entry, h, w1, b1, gn_scale, gn_bias, conv_w, conv_b, groups,
             codebooks)
         L, K = codebooks.shape[:2]
+        cs, rows, lanes = plan_bands(H, W, cluster, B, _sm_count(h.device))
         fn = self.build()
         z_q = torch.empty(B, H, W, D, device=h.device, dtype=torch.float32)
         idx = torch.empty(B, H, W, L, device=h.device, dtype=torch.int32)
         with torch.cuda.device(h.device):
             stream = torch.cuda.current_stream(h.device).cuda_stream
-            _launch(self, fn, [h.data_ptr(), sb, sc, sp, B, H, W, Din,
+            _launch(self, fn, [h.data_ptr(), sb, sc, sp, B, H, W, Din, cs, rows, lanes,
                                w1.data_ptr(), b1.data_ptr(), gn_scale.data_ptr(),
                                gn_bias.data_ptr(), conv_w.data_ptr(),
                                conv_b.data_ptr(), codebooks.data_ptr(), D, L, K,
                                groups, float(eps), z_q.data_ptr(), idx.data_ptr(),
                                stream],
-                    f"an image's {H}x{W}x{D} map, Din={Din} and the {L}x{K} codebooks")
+                    f"an image's {H}x{W}x{D} map in bands of {rows} rows over a cluster "
+                    f"of {cs}, Din={Din} and the {L}x{K} codebooks")
         return z_q, idx
 
 
@@ -177,27 +231,29 @@ class CompressTailDebug(Kernel):
     """Launches K5: ``compress_tail_debug(h, w1, b1, gn_scale, gn_bias,
     conv_w, conv_b, groups, eps) -> (y1, y2, out)``, K3's tail without the
     search: each (B·H·W, D) fp32, after the 1×1, after GroupNorm + SiLU and
-    after the 3×3. Inputs as ``FusedCompressTailVQ``."""
+    after the 3×3. Inputs and ``cluster`` as ``FusedCompressTailVQ``."""
 
     _source = _SOURCE
     _entry = "compress_tail_debug"
-    _argtypes = [_P, _LL, _LL, _LL] + [_I] * 4 + [_P] * 6 + [_I] * 2 + [_F] + [_P] * 4
+    _argtypes = [_P, _LL, _LL, _LL] + [_I] * 7 + [_P] * 6 + [_I] * 2 + [_F] + [_P] * 4
 
     def __call__(self, h, w1, b1, gn_scale, gn_bias, conv_w, conv_b,
-                 groups: int, eps: float = 1e-5) -> tuple:
+                 groups: int, eps: float = 1e-5, cluster: int | None = None) -> tuple:
         B, H, W, Din, D, sb, sc, sp = _tail_inputs(
             self._entry, h, w1, b1, gn_scale, gn_bias, conv_w, conv_b, groups)
+        cs, rows, lanes = plan_bands(H, W, cluster, B, _sm_count(h.device))
         fn = self.build()
         y1, y2, out = (torch.empty(B * H * W, D, device=h.device, dtype=torch.float32)
                        for _ in range(3))
         with torch.cuda.device(h.device):
             stream = torch.cuda.current_stream(h.device).cuda_stream
-            _launch(self, fn, [h.data_ptr(), sb, sc, sp, B, H, W, Din,
+            _launch(self, fn, [h.data_ptr(), sb, sc, sp, B, H, W, Din, cs, rows, lanes,
                                w1.data_ptr(), b1.data_ptr(), gn_scale.data_ptr(),
                                gn_bias.data_ptr(), conv_w.data_ptr(),
                                conv_b.data_ptr(), D, groups, float(eps),
                                y1.data_ptr(), y2.data_ptr(), out.data_ptr(), stream],
-                    f"an image's {H}x{W}x{D} map and Din={Din}")
+                    f"an image's {H}x{W}x{D} map in bands of {rows} rows over a cluster "
+                    f"of {cs} and Din={Din}")
         return y1, y2, out
 
 

@@ -207,3 +207,246 @@ def test_wrapper_refuses_groups_and_oversized_maps():
     assert k.launches == 0
     kernels._launch(k, lambda *a: 0, [], "an image's 4x4x4 map")
     assert k.launches == 1
+
+
+# ---- the Hopper kernels' arithmetic, emulated in torch (csrc/fused_vq.cu)
+
+def _owner(layout, y):
+    owners = [rank for rank, (r0, r1, _, _) in enumerate(layout) if r0 <= y < r1]
+    assert len(owners) == 1, (y, layout)
+    return owners[0]
+
+
+@pytest.mark.parametrize("cs", kernels.CLUSTER_SIZES)
+def test_band_plan_matches_brute_force(cs):
+    """Every H, W ≤ 24 and every cluster size: each row is owned by one block; a band's halo rows
+    come from the blocks that own them, as the last row of a full band
+    above and the first row of the band below (the kernel reads those
+    places), or are the image's edge; blocks with no rows come last and
+    exchange nothing; the lanes are the most (a power of two up to 32) for
+    which a full band's tokens fit the block's threads in one pass, each
+    lane group taking TOKENS_PER_GROUP tokens."""
+    T = kernels.TAIL_THREADS * kernels.TOKENS_PER_GROUP
+    for H in range(1, 25):
+        for W in range(1, 25):
+            got, rows, lanes = kernels.plan_bands(H, W, cs)
+            assert got == cs and rows * cs >= H and (rows - 1) * cs < H
+            layout = kernels.band_layout(H, cs, rows)
+            for y in range(H):
+                _owner(layout, y)
+            live = [r0 < r1 for r0, r1, _, _ in layout]
+            assert live == sorted(live, reverse=True)
+            for rank, (r0, r1, above, below) in enumerate(layout):
+                if r0 == r1:
+                    assert (above, below) == (-1, -1)
+                    continue
+                if r0 == 0:
+                    assert above == -1
+                else:
+                    assert above == _owner(layout, r0 - 1) == rank - 1
+                    a0, a1 = layout[above][:2]
+                    assert a1 == r0 and a1 - a0 == rows
+                if r1 == H:
+                    assert below == -1
+                else:
+                    assert below == _owner(layout, r1) == rank + 1
+                    assert layout[below][0] == r1
+            assert lanes & (lanes - 1) == 0 and 1 <= lanes <= 32
+            assert lanes == 1 or lanes * rows * W <= T
+            assert lanes == 32 or 2 * lanes * rows * W > T
+
+
+def test_band_plan_default_and_refusals():
+    """By default the most blocks an image for which the blocks come to at
+    most two an SM, up to 8 and no more than the map's rows: 8 at the
+    pre-encode batch of 32 on 132 SMs and at the probe's batch of 4, 4 at
+    batch 64."""
+    assert kernels.plan_bands(16, 16, batch=32, sms=132)[0] == 8
+    assert kernels.plan_bands(16, 16, batch=4, sms=132)[0] == 8
+    assert kernels.plan_bands(16, 16, batch=64, sms=132)[0] == 4
+    assert kernels.plan_bands(16, 16, batch=200, sms=132)[0] == 1
+    assert [kernels.plan_bands(H, 4)[0] for H in (1, 2, 3, 5)] == [1, 2, 4, 8]
+    for bad in (0, 3, 16):
+        with pytest.raises(ValueError, match="cluster"):
+            kernels.plan_bands(16, 16, bad)
+
+
+def _first_min(dist):
+    """A serial scan with a strict <, as the kernels before the lane split:
+    the first minimum; a NaN never wins; 0 when nothing is below +inf."""
+    d = torch.where(torch.isnan(dist), torch.full_like(dist, float("inf")), dist)
+    idx = d.argmin(1)
+    return torch.where(torch.isinf(d.min(1).values) & (d.min(1).values > 0),
+                       torch.zeros_like(idx), idx)
+
+
+CHAINS = 2   # kChains in csrc/fused_vq.cu
+
+
+def _lane_split_pick(dist, g):
+    """group_search's pick from (N, K) fp32 distances with g lanes a token:
+    the level padded to a multiple of CHAINS·g with NaN codes; lane j's
+    running minima u = 0..CHAINS-1 over codes j + u·g + CHAINS·g·m (a strict
+    <), merged in u order, then the xor-shuffle merge over the group; a pair
+    replaces another only if its distance is smaller, or equal with a
+    smaller index; no code below +inf gives index 0."""
+    N, K = dist.shape
+    Kp = -(-K // (CHAINS * g)) * (CHAINS * g)
+    pad = torch.cat([dist, torch.full((N, Kp - K), float("nan"))], 1)
+    lanes = pad.reshape(N, Kp // (CHAINS * g), CHAINS, g)   # [m, u, j]
+    code = torch.arange(Kp).reshape(Kp // (CHAINS * g), CHAINS, g)
+    no = torch.iinfo(torch.int64).max
+    best = torch.full((N, CHAINS, g), float("inf"))
+    bi = torch.full((N, CHAINS, g), no)
+    for m in range(lanes.shape[1]):                          # each chain in code order
+        take = lanes[:, m] < best
+        best = torch.where(take, lanes[:, m], best)
+        bi = torch.where(take, code[m].expand(N, CHAINS, g), bi)
+
+    def merge(b, i, ob, oi):
+        take = (ob < b) | ((ob == b) & (oi < i))
+        return torch.where(take, ob, b), torch.where(take, oi, i)
+
+    b, i = best[:, 0], bi[:, 0]
+    for u in range(1, CHAINS):
+        b, i = merge(b, i, best[:, u], bi[:, u])
+    off = 1
+    while off < g:
+        perm = torch.arange(g) ^ off
+        b, i = merge(b, i, b[:, perm], i[:, perm])
+        off *= 2
+    assert (i == i[:, :1]).all()                             # every lane holds the pick
+    i = i[:, 0]
+    return torch.where(i == no, torch.zeros_like(i), i)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 32])
+def test_lane_split_merge_is_the_first_minimum(g):
+    """Random distances, exact ties (few distinct values: many equal
+    minima), and NaN rows (some NaN, all NaN): the lane-split pick equals
+    torch.argmin's first minimum where there is no NaN, and the serial
+    scan's pick everywhere."""
+    gen = torch.Generator().manual_seed(g)
+    for K in (96, 13, 512):
+        rand = torch.randn(300, K, generator=gen)
+        ties = torch.randint(0, 4, (300, K), generator=gen).float()
+        nan = torch.randn(300, K, generator=gen)
+        nan[torch.rand(300, K, generator=gen) < 0.3] = float("nan")
+        nan[::7] = float("nan")
+        nan[3, :] = float("inf")
+        for dist in (rand, ties):
+            assert torch.equal(_lane_split_pick(dist, g), dist.argmin(1))
+        assert torch.equal(_lane_split_pick(nan, g), _first_min(nan))
+        assert not _lane_split_pick(nan, g)[::7].any()
+
+
+def test_division_by_reciprocal_is_exact():
+    """div_by in csrc/fused_vq.cu: a / b as trunc(a · fp32(1/b)) corrected
+    by one step each way equals the integer quotient for 0 ≤ a < 2^22."""
+    rng = np.random.default_rng(0)
+    for b in list(range(1, 200)) + list(rng.integers(200, 1 << 16, 300)):
+        a = np.concatenate([np.arange(0, 40 * b + 5),
+                            rng.integers(0, 1 << 22, 500)]).astype(np.int64)
+        inv = np.float32(1.0) / np.float32(b)
+        q = np.trunc(a.astype(np.float32) * inv).astype(np.int64)
+        r = a - q * b
+        q = q + (r >= b) - (r < 0)
+        np.testing.assert_array_equal(q, a // b)
+
+
+def _band_stats(y, groups, cs, rows):
+    """The kernel's GroupNorm statistics of one image's map y (H, W, D) in
+    fp32: each band's group sums and M2 around the band's own mean, merged
+    across the cluster (Chan; the kernel sums in a fixed shuffle tree, here
+    in rank order); returns per-channel (mean, rstd)."""
+    H, W, D = y.shape
+    gsz = D // groups
+    parts = []
+    for r0, r1, _, _ in kernels.band_layout(H, cs, rows):
+        yb = y[r0:r1].reshape(-1, groups, gsz)
+        n = float(yb.shape[0] * gsz)
+        s = yb.sum((0, 2))
+        m2 = ((yb - s[None, :, None] / n) ** 2).sum((0, 2)) if n else torch.zeros(groups)
+        parts.append((n, s, m2))
+    n = sum(p[0] for p in parts)
+    total = torch.zeros(groups)
+    for _, s, _ in parts:
+        total = total + s
+    mean = total / n
+    m2 = torch.zeros(groups)
+    for nq, s, mq in parts:
+        if nq:
+            m2 = m2 + mq + nq * (s / nq - mean) ** 2
+    rstd = 1.0 / torch.sqrt(m2 / n + 1e-5)
+    return mean.repeat_interleave(gsz), rstd.repeat_interleave(gsz)
+
+
+@pytest.mark.parametrize("cs", kernels.CLUSTER_SIZES)
+def test_cluster_groupnorm_merge_matches_oracle(cs):
+    """At the pre-encode shape (16×16×128 → D=4, two groups) at batch 4:
+    the band partials merged in rank order give GroupNorm's output within
+    1e-6 of compress_tail_oracle's (the projection taken from the oracle and
+    rounded to fp32, so that only the statistics are compared)."""
+    g = torch.Generator().manual_seed(cs)
+    h, tail, _ = fvq.random_tail_inputs(g, 4, 16, 16, 128, 4, 1, 1, 2)
+    y1, y2, _ = fvq.compress_tail_oracle(h, *tail, 2)
+    y1 = y1.reshape(4, 16, 16, 4)
+    rows = kernels.plan_bands(16, 16, cs)[1]
+    for b in range(4):
+        mean, rstd = _band_stats(y1[b].float(), 2, cs, rows)
+        ours = torch.nn.functional.silu((y1[b].float() - mean) * rstd * tail[2] + tail[3])
+        err = (ours.double() - y2.reshape(4, 16, 16, 4)[b]).abs().max().item()
+        assert err < 1e-6, (cs, b, err)
+
+
+def _emulate_tail(h, w1, b1, gs, gb, cw, cbias, codebooks, groups, cs):
+    """K3's bands in torch, fp32: each band projected, the statistics merged
+    across the cluster, SiLU, the band padded with the neighbours' rows
+    where band_layout names them (the last row of a full band above, the
+    first row of the band below) and zeros elsewhere, a valid 3×3
+    convolution, and the lane-split search. Returns (out, idx)."""
+    B, H, W, Din = h.shape
+    D = w1.shape[0]
+    cs, rows, lanes = kernels.plan_bands(H, W, cs)
+    layout = kernels.band_layout(H, cs, rows)
+    out = torch.empty(B, H, W, D)
+    for b in range(B):
+        y1 = h[b] @ w1.reshape(D, Din).T + b1
+        mean, rstd = _band_stats(y1, groups, cs, rows)
+        y2 = torch.nn.functional.silu((y1 - mean) * rstd * gs + gb)
+        for r0, r1, above, below in layout:
+            if r0 == r1:
+                continue
+            pad = torch.zeros(rows + 2, W + 2, D)
+            pad[1:1 + r1 - r0, 1:W + 1] = y2[r0:r1]
+            if above >= 0:
+                pad[0, 1:W + 1] = y2[layout[above][0]:layout[above][1]][rows - 1]
+            if below >= 0:
+                pad[r1 - r0 + 1, 1:W + 1] = y2[layout[below][0]]
+            conv = torch.nn.functional.conv2d(pad.permute(2, 0, 1)[None], cw, cbias)
+            out[b, r0:r1] = conv[0, :, :r1 - r0].permute(1, 2, 0)
+    r = out.reshape(-1, D)
+    picks = []
+    for cb in codebooks:
+        dist = (r * r).sum(1, keepdim=True) + (cb * cb).sum(1)[None] - 2.0 * (r @ cb.T)
+        i = _lane_split_pick(dist, lanes)
+        r = r - cb[i]
+        picks.append(i)
+    return out, torch.stack(picks, 1).reshape(B, H, W, -1)
+
+
+@pytest.mark.parametrize("H,W,cs", [(16, 16, 8), (16, 16, 4), (3, 5, 8), (5, 7, 4),
+                                    (1, 1, 8), (20, 20, 2), (7, 3, 1)])
+def test_band_emulation_matches_twin_and_oracle(H, W, cs):
+    """The band decomposition (plan, layout, halos, statistics, lane-split
+    search) reproduces the tail: its 3×3 output within 1e-5·max(1, |ref|) of
+    the fp64 oracle, and picks equal to the twin's or ε-optimal."""
+    g = torch.Generator().manual_seed(H * 100 + W)
+    h, tail, cb = fvq.random_tail_inputs(g, 2, H, W, 32, 4, 3, 24, 2)
+    out, idx = _emulate_tail(h, *tail, cb, 2, cs)
+    ref64 = fvq.compress_tail_oracle(h, *tail, 2)[2]
+    err = (out.reshape(-1, 4).double() - ref64).abs().max().item()
+    assert err < 1e-5 * max(1.0, ref64.abs().max().item()), err
+    zq_ref, idx_ref = fvq.fused_compress_tail_vq_plain(h, *tail, cb, 2)
+    res = fvq.check_picks(idx, idx_ref, fvq.rvq_pick_gaps(ref64, cb, idx))
+    assert res["ok"], res

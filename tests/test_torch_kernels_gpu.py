@@ -120,8 +120,12 @@ def test_fused_vq_kernels_match_twins_on_card():
     equal to the twin's or ε-optimal (relative fp64 distance gap < 1e-5),
     z_q within 1e-5·max(1, max|ref|) where the picks agree, K5's
     intermediates within 1e-5·max(1, max|ref|) of the twin and of the fp64
-    oracle; every D that the source instantiates; a map too large for one
-    block's shared memory raises."""
+    oracle; every D that the source instantiates; K3 and K5 at every cluster
+    size, on a 1×1 map, at B=1 and on a 3-row map with a cluster of 8 (five
+    blocks with no rows); codebooks with duplicated codes, where the pick is
+    the first index exactly; a NaN token picks code 0 at every level; two
+    calls are bitwise equal; a map too large for a cluster's shared memory
+    raises before any launch."""
     from flocoder_torch.ops import fused_vq as fvq
     from flocoder_torch.ops.kernels import fused_vq as kernels
     if not torch.cuda.is_available():
@@ -131,35 +135,71 @@ def test_fused_vq_kernels_match_twins_on_card():
     g = torch.Generator("cuda").manual_seed(2)
 
     for N, Din, D, L, K in ((8192, 128, 4, 4, 96), (1024, 256, 4, 3, 512), (77, 16, 4, 3, 8),
-                            (300, 64, 8, 2, 64), (300, 64, 3, 2, 64)):
+                            (300, 64, 8, 2, 64), (300, 64, 3, 2, 64), (100, 30, 4, 2, 16)):
         z, w, b, cb = fvq.random_vq_inputs(g, N, Din, D, L, K)
         zq, idx = fvq.fused_compress_vq(z, w, b, cb)
         torch.cuda.synchronize()
         res = fvq.check_quantized(zq, idx, *fvq.fused_compress_vq_plain(z, w, b, cb),
                                   z.double() @ w.double() + b.double(), cb)
         assert res["ok"], res
+        again = fvq.fused_compress_vq(z, w, b, cb)
+        assert torch.equal(zq, again[0]) and torch.equal(idx, again[1])
 
-    for B, H, W, Din, D, L, K, groups, nchw in (
-            (32, 16, 16, 128, 4, 4, 96, 2, True), (32, 16, 16, 128, 4, 4, 96, 2, False),
-            (3, 5, 7, 16, 4, 3, 8, 2, True), (2, 20, 20, 16, 4, 2, 16, 2, True),
-            (2, 16, 16, 32, 3, 2, 16, 1, True), (2, 16, 16, 32, 8, 2, 16, 2, True)):
+    for B, H, W, Din, D, L, K, groups, nchw, cs in (
+            (32, 16, 16, 128, 4, 4, 96, 2, True, None), (32, 16, 16, 128, 4, 4, 96, 2, False, None),
+            (32, 16, 16, 128, 4, 4, 96, 2, True, 1), (32, 16, 16, 128, 4, 4, 96, 2, True, 2),
+            (32, 16, 16, 128, 4, 4, 96, 2, True, 4), (32, 16, 16, 128, 4, 4, 96, 2, True, 8),
+            (3, 5, 7, 16, 4, 3, 8, 2, True, None), (2, 20, 20, 16, 4, 2, 16, 2, True, None),
+            (2, 20, 20, 16, 4, 2, 16, 2, True, 1), (2, 16, 16, 32, 3, 2, 16, 1, True, None),
+            (2, 16, 16, 32, 8, 2, 16, 2, True, None), (1, 1, 1, 16, 4, 2, 16, 2, True, None),
+            (1, 1, 1, 16, 4, 2, 16, 2, True, 8), (1, 16, 16, 128, 4, 4, 96, 2, True, None),
+            (2, 3, 5, 32, 4, 2, 16, 2, True, 8), (2, 3, 8, 32, 4, 2, 16, 2, False, 8)):
         h, tail, cb = fvq.random_tail_inputs(g, B, H, W, Din, D, L, K, groups, nchw)
-        zq, idx = fvq.fused_compress_tail_vq(h, *tail, cb, groups)
+        zq, idx = kernels.fused_compress_tail_vq(h, *tail, cb, groups, cluster=cs)
         torch.cuda.synchronize()
         res = fvq.check_quantized(zq, idx, *fvq.fused_compress_tail_vq_plain(h, *tail, cb, groups),
                                   fvq.compress_tail_oracle(h, *tail, groups)[2], cb)
-        assert res["ok"], res
+        assert res["ok"], ((B, H, W, Din, D, L, K, groups, nchw, cs), res)
+        again = kernels.fused_compress_tail_vq(h, *tail, cb, groups, cluster=cs)
+        assert torch.equal(zq, again[0]) and torch.equal(idx, again[1])
 
-    h, tail, _ = fvq.random_tail_inputs(g, 4, 16, 16, 256, 4, 1, 1, 2)
-    ours = fvq.compress_tail_debug(h, *tail, 2)
+    # duplicated codes: codes 2i and 2i + 1 are equal, so every pick is even
+    z, w, b, cb = fvq.random_vq_inputs(g, 8192, 128, 4, 4, 48)
+    cb2 = cb.repeat_interleave(2, dim=1)
+    idx = fvq.fused_compress_vq(z, w, b, cb2)[1]
     torch.cuda.synchronize()
-    for a, ref, ref64 in zip(ours, fvq.compress_tail_debug_plain(h, *tail, 2),
-                             fvq.compress_tail_oracle(h, *tail, 2)):
-        for r in (ref, ref64):
-            assert (a - r).abs().max().item() < 1e-5 * max(1.0, r.abs().max().item())
+    assert not (idx % 2).any()
+    h, tail, cb = fvq.random_tail_inputs(g, 32, 16, 16, 128, 4, 4, 48, 2)
+    for cs in kernels.CLUSTER_SIZES:
+        idx = kernels.fused_compress_tail_vq(h, *tail, cb.repeat_interleave(2, dim=1), 2,
+                                             cluster=cs)[1]
+        torch.cuda.synchronize()
+        assert not (idx % 2).any(), cs
+    # a NaN token: every distance is NaN, so every level picks code 0
+    z[5] = float("nan")
+    zq, idx = fvq.fused_compress_vq(z, w, b, cb)
+    torch.cuda.synchronize()
+    first = torch.zeros_like(zq[5])
+    for code in cb[:, 0]:                  # z_q sums the picks in level order
+        first = first + code
+    assert not idx[5].any() and torch.equal(zq[5], first)
 
-    h, tail, cb = fvq.random_tail_inputs(g, 1, 256, 256, 8, 4, 1, 4, 2)
+    for (B, H, W, Din, D, groups), cs in (((4, 16, 16, 256, 4, 2), None),
+                                          ((4, 16, 16, 256, 4, 2), 1),
+                                          ((4, 16, 16, 256, 4, 2), 2),
+                                          ((3, 5, 7, 64, 3, 1), 8), ((1, 1, 1, 16, 8, 2), 8)):
+        h, tail, _ = fvq.random_tail_inputs(g, B, H, W, Din, D, 1, 1, groups)
+        ours = kernels.compress_tail_debug(h, *tail, groups, cluster=cs)
+        torch.cuda.synchronize()
+        for a, ref, ref64 in zip(ours, fvq.compress_tail_debug_plain(h, *tail, groups),
+                                 fvq.compress_tail_oracle(h, *tail, groups)):
+            for r in (ref, ref64):
+                assert (a - r).abs().max().item() < 1e-5 * max(1.0, r.abs().max().item())
+        again = kernels.compress_tail_debug(h, *tail, groups, cluster=cs)
+        assert all(torch.equal(a, b) for a, b in zip(ours, again))
+
+    h, tail, cb = fvq.random_tail_inputs(g, 1, 512, 512, 8, 4, 1, 4, 2)
     before = kernels.compress_tail_debug.launches
-    with pytest.raises(ValueError, match="shared memory"):     # a 1 MB map
+    with pytest.raises(ValueError, match="shared memory"):     # bands of 64 rows: 540 KB
         kernels.compress_tail_debug(h, *tail, 2)
     assert kernels.compress_tail_debug.launches == before
