@@ -14,7 +14,8 @@
    off: the codec's shapes at B=8 (32²×512 with head dim 64, 16²×1024 with
    head dim 128, 16²×128 with head dim 16) and at the main paths' batches
    (64 for the serving decode, 1 for img2img's encode, 32 for the
-   pre-encode's encoder, fp32 only), a non-square map, a map smaller than
+   pre-encode's encoder and 128 for the flow evaluation's decode, fp32
+   only), a non-square map, a map smaller than
    the window, a ragged one; fp32 (max |Δ| < 1e-4) and bf16 (against the
    plain version in fp32 on the same bf16 values, max |Δ| < 2e-2: one bf16
    rounding of outputs of magnitude up to ~4).
@@ -66,7 +67,8 @@
    size), a ragged 5×7 map, 20×20 maps, D=3 with one group and D=8 with
    two, a 1×1 map, B=1 and a 3-row map in a cluster of 8; K5 at every
    cluster size; codebooks with duplicated codes (the first index exactly),
-   a NaN token (code 0), two calls bitwise equal, and a map too large for a
+   a NaN token (z_q 0, index 0, as the TPU kernels), two calls bitwise equal,
+   and a map too large for a
    cluster refused before any launch. Times each at its main shape (device
    time by the profiler, CUDA events, the wrapper's host µs a call) beside
    its twin, the unfused torch path (the yardstick) and its bound; K3 and
@@ -85,6 +87,24 @@
 11. Pre-encodes a small codec's (hidden 64) batches on the card and on the
    CPU through the same entry point: on each rebuilt batch the picks equal
    or ε-optimal, the latent files within 1e-4·max(1, |ref|) elsewhere.
+12. Trains flowers_vqgan's flow at full width through the port's entry point
+   (flocoder_torch.train_flow.main) on the latents step 10 wrote (1,152
+   train, 128 val): U-Net dim 16, dim_mults 1,2,4,8, 102 classes, batch 256,
+   parallel OT, EMA, cosine warm restarts, 3 epochs (the recipe's 10,000)
+   with an RK4 + CFG evaluation each epoch at n_steps 20 (the recipe's
+   100). The launch counts are zeroed before and read after: K1 twice per
+   evaluation (the sampled and the target latents' decodes, one chunk of
+   128 each), nothing else. Serves the trained EMA checkpoint through
+   generate_samples (one K1). Prints flow samples/s over the steady steps
+   (CUDA events recorded after each step; the loop synchronises once an
+   epoch) and per epoch, the OT pairing's rounds a step and ms a pairing, each
+   evaluation's seconds split into sampler, decode, metrics and grids, peak
+   memory and one step's device idle share; holds the parallel OT
+   permutation at B=256 on the card to the CPU's, and one flow step on the
+   card to the CPU's with the same draws: in fp32 with TF32 off, the loss,
+   parameters, Adam's first moments and EMA within 1e-3·max(1, |ref|); in
+   float64, the step's changes to the parameters and the EMA and Adam's
+   first moments within 1e-3 of the largest on the CPU.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -106,6 +126,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12      # H100 SXM bf16 tensor cores, dense
+FLOW_BATCH = 256               # flowers_vqgan's flow batch
+PE_VAL_LATENTS = 4 * 32        # the pre-encode phase's 4 val batches of 32
 
 
 def fail(msg: str) -> None:
@@ -175,7 +197,19 @@ def na2d_bound_ms(B, H, W, C, ks, dtype) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_k1(na2d_fwd, na2d_banded) -> dict:
+def flow_decode_chunks(chunk: int) -> list:
+    """The batch of each decoder call in one of the flow phase's evaluation
+    decodes: the validation batch (min(FLOW_BATCH, PE_VAL_LATENTS) latents)
+    in chunks of ``chunk`` (``evaluation.DECODE_CHUNK``)."""
+    n = min(FLOW_BATCH, PE_VAL_LATENTS)
+    return [min(chunk, n - i) for i in range(0, n, chunk)]
+
+
+def check_k1(na2d_fwd, na2d_banded, flow_decode_batches) -> dict:
+    """K1 against na2d_banded at every shape the main path gives it (the
+    serving decode at B=64 is held in time_k1) and at edge shapes.
+    ``flow_decode_batches``: the decoder's batches in the flow phase's
+    evaluations."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator("cuda").manual_seed(0)
@@ -193,6 +227,9 @@ def check_k1(na2d_fwd, na2d_banded) -> dict:
         ("pre-encode 32x32 C512 dh64 B32", (32, 32, 32, 512), 8, 7, both[:1]),
         ("pre-encode 16x16 C1024 dh128 B32", (32, 16, 16, 1024), 8, 7, both[:1]),
         ("pre-encode 16x16 C128 dh16 B32", (32, 16, 16, 128), 8, 7, both[:1]),
+        # the flow phase's evaluation decodes, in fp32
+        *((f"flow eval decode 32x32 C512 dh64 B{b}", (b, 32, 32, 512), 8, 7, both[:1])
+          for b in sorted(set(flow_decode_batches))),
         ("non-square 24x40 dh32", (2, 24, 40, 64), 2, 7, both),
         ("smaller than k 5x6 dh8 (ks=5)", (2, 5, 6, 32), 4, 7, both),
         ("ragged tiles 17x13 dh24", (2, 17, 13, 48), 2, 7, both),
@@ -868,8 +905,8 @@ def check_fused_vq() -> dict:
     cluster size and a ragged one, against the twin and the fp64 oracle
     within 1e-5·max(1, max|ref|). Then codebooks with duplicated codes (the
     pick must be the first index exactly, K4 and K3 at every cluster size),
-    a NaN token (code 0 at every level), two calls bitwise equal (each K3, K4
-    and K5 case), and a map too large for a cluster's shared memory (raises,
+    a NaN token (no code at any level: z_q 0, index 0; in K3 a NaN image),
+    two calls bitwise equal (each K3, K4 and K5 case), and a map too large for a cluster's shared memory (raises,
     nothing launched). Returns per kernel the worst numbers."""
     from flocoder_torch.ops import fused_vq as fvq
     from flocoder_torch.ops.kernels import fused_vq as fvk
@@ -961,14 +998,23 @@ def check_fused_vq() -> dict:
           f"clusters {fvk.CLUSTER_SIZES}: {odd} (must be 0)", flush=True)
     if any(odd):
         fail("a duplicated code was not picked at its first index")
+    # a NaN token: no code wins at any level, as in the TPU kernels'
+    # all-zero one-hot (z_q 0, index 0); K3: a NaN pixel makes its image NaN
     z[5] = float("nan")
     zq, idx = fvq.fused_compress_vq(z, w, b, cb)
-    first = torch.zeros_like(zq[5])
-    for code in cb[:, 0]:
-        first = first + code
-    if idx[5].any() or not torch.equal(zq[5], first):
-        fail(f"K4 on a NaN token picked {idx[5].tolist()}, not code 0 at every level")
-    print("NaN token: code 0 at every level ok", flush=True)
+    if idx[5].any() or zq[5].any() or not torch.equal(
+            idx, fvq.fused_compress_vq_plain(z, w, b, cb)[1]):
+        fail(f"K4 on a NaN token gave z_q {zq[5].tolist()}, indices {idx[5].tolist()}, "
+             "not 0 and 0")
+    h, tail, cb = fvq.random_tail_inputs(g, 2, 16, 16, 128, 4, 4, 96, 2)
+    h[1, 3, 4] = float("nan")
+    for c in fvk.CLUSTER_SIZES:
+        zq, idx = fvk.fused_compress_tail_vq(h, *tail, cb, 2, cluster=c)
+        if idx[1].any() or zq[1].any() or not torch.equal(
+                idx, fvq.fused_compress_tail_vq_plain(h, *tail, cb, 2)[1]):
+            fail(f"K3 (cluster {c}) on a NaN image did not give z_q 0 and index 0")
+    print("NaN token: no code at any level (z_q 0, index 0), K4 and K3 at every cluster "
+          "size, as the twins ok", flush=True)
 
     h, tail, _ = fvq.random_tail_inputs(g, 1, 512, 512, 8, 4, 1, 4, 2)
     before = fvk.compress_tail_debug.launches
@@ -1376,6 +1422,231 @@ def check_preencode_small(tmp: str, config_dir: str) -> dict:
     return dict(totals, files=files, far_vectors=far)
 
 
+def _flow_batch(out_dir: str, n: int = 256) -> dict:
+    """The first ``n`` latents of a pre-encoded split with their labels, on
+    the card."""
+    from flocoder_torch.data.datasets import PreEncodedDataset
+    ds = PreEncodedDataset(out_dir, n_classes=102)
+    items = [ds.get(i, np.random.default_rng(0)) for i in range(n)]
+    return {"target": torch.from_numpy(np.stack([a for a, _ in items])).cuda(),
+            "class_cond": torch.tensor([int(c) for _, c in items]).cuda()}
+
+
+def _flow_step_on(dev: str, model, batch: dict, draws: dict, dtype) -> tuple:
+    """One flow step of a copy of ``model`` in ``dtype`` on ``dev``, with
+    ``draws`` passed in and the CFG gate closed."""
+    from flocoder_torch.training.flow import create_flow_state, make_flow_train_step
+    state = create_flow_state(copy.deepcopy(model).to(dev, dtype), 1e-4)
+    on = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+          for k, v in batch.items()}
+    return make_flow_train_step()(state, on, None,
+                                  draws=[{k: v.to(dev, dtype) for k, v in draws.items()}],
+                                  drop=torch.tensor(False, device=dev))
+
+
+def check_flow_step(model, batch: dict) -> dict:
+    """One flow step (OT pairing, U-Net forward and backward, clipped Adam
+    at lr 1e-4, EMA 0.999) of copies of ``model`` on the card and on the
+    CPU, with the same draws passed in and the gate closed, held twice:
+    - in fp32, TF32 off: the loss, the parameters, Adam's first moments and
+      the EMA within 1e-3·max(1, |ref|) of each tensor;
+    - in float64: what the step changed, (parameters after − before) and
+      (EMA after − before), and Adam's first moments, on the card within
+      1e-3 of the largest of each on the CPU. A step moves a weight by about
+      1e-4 and the EMA by about 1e-7, so a card step that applied no update,
+      another learning rate or no EMA update fails here. The changes are
+      held in float64 because in fp32 a weight near 1 rounds at 1.2e-7, 1.2e-3
+      of its change, and a gradient that rounds to zero flips its first Adam
+      step from +lr to −lr.
+    Also holds the parallel OT permutation at B=256 on the card to the
+    CPU's."""
+    from flocoder_torch.ops.ot import compute_ot_pairing_parallel
+    from flocoder_torch.training.flow import draw_flow_inputs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    draws = draw_flow_inputs(torch.Generator().manual_seed(11), batch["target"].shape)
+    perms = [compute_ot_pairing_parallel(draws["noise"].to(dev), batch["target"].to(dev))
+             for dev in ("cuda", "cpu")]
+    if not torch.equal(perms[0].cpu(), perms[1]):
+        fail(f"parallel OT at B=256: card and CPU permutations differ in "
+             f"{int((perms[0].cpu() != perms[1]).sum())} places")
+
+    def moments(state):
+        return [state.opt.adam.state[p]["exp_avg"] for p in state.model.parameters()]
+
+    (sc, ac), (sp, ap) = (_flow_step_on(dev, model, batch, draws, torch.float32)
+                          for dev in ("cuda", "cpu"))
+    worst = {}
+    pairs = {"loss": [(ac["loss"], ap["loss"])],
+             "params": list(zip(sc.model.parameters(), sp.model.parameters())),
+             "adam_mu": list(zip(moments(sc), moments(sp))),
+             "ema": list(zip(sc.ema.parameters(), sp.ema.parameters()))}
+    for name, ts in pairs.items():
+        ratio = 0.0
+        for a, ref in ts:
+            a, ref = a.detach().float().cpu(), ref.detach().float()
+            ratio = max(ratio, (a - ref).abs().max().item() /
+                        (1e-3 * max(1.0, ref.abs().max().item())))
+        worst[name] = ratio
+
+    before = [p.detach().cpu().double() for p in model.parameters()]
+    changes = {}
+    for dev in ("cuda", "cpu"):
+        state, _ = _flow_step_on(dev, model, batch, draws, torch.float64)
+        changes[dev] = {
+            "param_change": [p.detach().cpu() - b
+                             for p, b in zip(state.model.parameters(), before)],
+            "ema_change": [e.detach().cpu() - b
+                           for e, b in zip(state.ema.parameters(), before)],
+            "adam_mu_f64": [m.cpu() for m in moments(state)]}
+    largest = {}
+    for name, refs in changes["cpu"].items():
+        largest[name] = max(r.abs().max().item() for r in refs)
+        err = max((a - r).abs().max().item() for a, r in zip(changes["cuda"][name], refs))
+        worst[name] = err / (1e-3 * largest[name]) if largest[name] > 0 else float("inf")
+    print("card vs CPU flow step (B=256, same draws, TF32 off): fp32 max |Δ| / "
+          "(1e-3·max(1, |ref|)) and float64 max |Δ| / (1e-3·largest CPU value) " +
+          " ".join(f"{k}={v:.4f}" for k, v in worst.items()) +
+          "; largest CPU float64 " + " ".join(f"{k}={v:.3e}" for k, v in largest.items()) +
+          f"; loss {float(ac['loss']):.6f} vs {float(ap['loss']):.6f}; OT permutation "
+          "equal", flush=True)
+    if not all(np.isfinite(v) and v < 1.0 for v in worst.values()):
+        fail(f"card and CPU disagree on a flow step: {worst}")
+    return dict(worst, largest_cpu_f64=largest, ot_permutation_equal=True)
+
+
+def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: dict) -> tuple:
+    """flowers_vqgan's flow at full width through flocoder_torch.train_flow.main
+    on the latents the pre-encode phase wrote (1,152 train, 128 val): U-Net
+    dim 16, dim_mults 1,2,4,8, 102 classes, batch 256, lr 1e-4 on cosine warm
+    restarts (T0 50, Tmult 2, decay 0.6), EMA 0.999, parallel OT, RK4 + CFG
+    3.0 evaluations. Cut for time: 3 epochs (the recipe's 10,000) and eval
+    n_steps 20 (the recipe's 100). The launch counts are zeroed before and
+    read after: K1 runs in every evaluation's two decodes (the samples and
+    the targets, chunks of 128) and nothing else runs. Then serves the
+    trained EMA checkpoint through generate_samples, times the OT pairing,
+    profiles one step, and holds a step on the card to the CPU's."""
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch import train_flow as tf
+    from flocoder_torch.evaluation import DECODE_CHUNK
+    from flocoder_torch.ops.ot import pairwise_sqdist, parallel_assign
+    from flocoder_torch.training.flow import make_flow_train_step
+
+    print("flow phase cuts: 3 epochs (the recipe's 10,000), evaluation n_steps 20 "
+          "(the recipe's 100)", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    argv = ["--config-name", "flowers_vqgan.yaml", f"data={pe_data}",
+            f"codec.checkpoint={paths['codec']}", "flow.unet.n_classes=102",
+            "flow.epochs=3", "flow.n_steps=20", "flow.ckpt_every=3", "+seed=0",
+            f"+ckpt_dir={os.path.join(tmp, 'flow_ckpt')}",
+            f"+output_dir={os.path.join(tmp, 'flow_out')}"]
+    # an event after each step is queued: the step times come from the
+    # card's clock, and the loop keeps its one synchronise an epoch
+    events = []
+
+    def step_hook(epoch):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((epoch, ev))
+
+    t0 = time.time()
+    res = tf.main(argv, step_hook=step_hook)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    chunks = flow_decode_chunks(DECODE_CHUNK)
+    expected = dict.fromkeys(kernels, 0)
+    expected["na2d_fwd"] = len(res["eval"]) * 2 * len(chunks)
+    print(f"flow training launches: {launches} (expected {expected}: {len(res['eval'])} "
+          f"evaluations x 2 decodes x chunks {chunks})", flush=True)
+    if launches != expected or len(res["eval"]) != 3:
+        fail(f"flow training launched {launches}, expected {expected}")
+    if (len(events) != 12 or [e["steps"] for e in res["epoch_seconds"]] != [4] * 3
+            or [e["samples"] for e in res["epoch_seconds"]] != [4 * FLOW_BATCH] * 3):
+        fail(f"flow training ran {len(events)} steps, {res['epoch_seconds']}")
+    # seconds between consecutive steps' events within an epoch: the first
+    # step of each epoch (loader start, first of the epoch) is excluded
+    steps = [b.elapsed_time(a) / 1e3 for (ea, a), (eb, b) in zip(events[1:], events)
+             if ea == eb]
+    losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
+    metrics = [v for e in res["eval"] for v in [e["val_loss"], *e["metrics"].values()]
+               if not isinstance(v, str)]
+    if not (np.isfinite(losses).all() and np.isfinite(metrics).all()):
+        fail(f"flow losses or metrics not finite: {res['epochs']} {res['eval']}")
+    if not (res["checkpoint"] and os.path.exists(res["ema_checkpoint"])):
+        fail("flow training wrote no checkpoint")
+
+    # serve the trained EMA checkpoint on the card
+    kernels["na2d_fwd"].launches = 0
+    served = gs.main(["--config-name", "flowers_vqgan.yaml",
+                      f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=64",
+                      "+n_steps=20", "+seed=0", f"+output_dir={os.path.join(tmp, 'flow_gen')}"])
+    serve_k1 = kernels["na2d_fwd"].launches
+    if (served["images"].shape != (64, 128, 128, 3) or not np.isfinite(served["images"]).all()
+            or serve_k1 != 1):
+        fail(f"serving the trained flow: {served['images'].shape}, K1 {serve_k1} (expected 1)")
+    launches["na2d_fwd"] += serve_k1
+
+    train_dir = os.path.join(f"{pe_data}_encoded_vqgan", "train")
+    batch = _flow_batch(train_dir)
+    noise = torch.randn(batch["target"].shape, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(12))
+    ot = {}
+    for k in (1, 2, 4, 8):
+        ot[f"ms_rounds_per_check_{k}"] = cuda_ms(
+            lambda k=k: parallel_assign(pairwise_sqdist(noise, batch["target"])[None],
+                                        rounds_per_check=k), 10)
+    ot["rounds_per_step"] = res["ot_rounds"]
+    state = res["state"]
+    step = make_flow_train_step()
+    gen = torch.Generator("cuda").manual_seed(13)
+    step(state, batch, gen)
+    prof = profile_batch(lambda: step(state, batch, gen))
+    top = prof.pop("top_kernels")
+    step_check = check_flow_step(state.model, batch)
+
+    steady = float(np.median(steps))
+    rec = dict(batch=FLOW_BATCH, wall_s=wall, peak_mem_gib=peak, card=card, step_s=steps,
+               steady_samples_per_s=FLOW_BATCH / steady,
+               epoch_samples_per_s=[e["samples"] / e["seconds"] for e in res["epoch_seconds"]],
+               epochs=res["epochs"], evals=res["eval"], ot=ot, step_profile=prof,
+               k1_launches_eval=expected["na2d_fwd"], k1_launches_serve=serve_k1,
+               serve_batch_s=served["batch_seconds"], card_vs_cpu=step_check)
+    print(f"flow train flowers_vqgan B={FLOW_BATCH} 16x16x4: "
+          f"{rec['steady_samples_per_s']:.2f} samples/s over steady steps (median of "
+          f"{len(steps)} step-to-step intervals on CUDA events), per epoch "
+          f"{[round(x, 2) for x in rec['epoch_samples_per_s']]} (evaluations excluded), "
+          f"peak {peak:.2f} GiB, wall {wall:.1f} s; steps {[round(x, 4) for x in steps]} "
+          f"| card: {card}", flush=True)
+    print(f"  OT (parallel, B=256): rounds a step {ot['rounds_per_step']}; ms a pairing "
+          "(CUDA events) with a host check every k rounds: " + ", ".join(
+              f"k={k} {ot[f'ms_rounds_per_check_{k}']:.4f}" for k in (1, 2, 4, 8)) +
+          f" (default k=2) | card: {card}", flush=True)
+    for e in res["eval"]:
+        print(f"  eval epoch {e['epoch']}: s " + " ".join(
+            f"{k}={v:.4f}" for k, v in e["seconds"].items()) +
+            f" total={sum(e['seconds'].values()):.4f}; val_loss {e['val_loss']:.4f}, "
+            f"FID_px {e['metrics']['FID_px']:.3f}, sinkhorn {e['metrics']['sinkhorn']:.4f} "
+            f"| card: {card}", flush=True)
+    print(f"  one train step under the profiler: {prof['profiled_batch_s']:.4f} s wall, "
+          f"{prof['device_busy_s']:.4f} s busy, idle share {prof['device_idle_share']:.4f} "
+          f"| card: {card}", flush=True)
+    print("  device time by kernel (ms): " + "; ".join(
+        f"{name[:60]}={ms:.3f}" for name, ms in top), flush=True)
+    print(f"  served the trained EMA checkpoint: 64 samples, nfe={served['nfe']}, "
+          f"s/batch {[round(x, 4) for x in served['batch_seconds']]}, K1 launches "
+          f"{serve_k1} | card: {card}", flush=True)
+    del res, state, batch
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def print_ptxas(source: str) -> None:
     """Each kernel's registers and spills from ptxas's report of the build of
     ``source`` in this run, demangled."""
@@ -1426,7 +1697,8 @@ def main() -> None:
         kernels[name].build()
     print(f"K1 + K2 + K3/K4/K5 build: {time.time() - t0:.1f} s", flush=True)
     print_ptxas("fused_vq.cu")
-    errs = check_k1(na2d_fwd, na2d_banded)
+    from flocoder_torch.evaluation import DECODE_CHUNK
+    errs = check_k1(na2d_fwd, na2d_banded, flow_decode_chunks(DECODE_CHUNK))
     errs2 = check_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded)
     check_function(na2d, na2d_banded)
     timing, decode_err = time_k1(na2d_fwd, na2d_banded, card)
@@ -1460,15 +1732,18 @@ def main() -> None:
         check_train_small()
         preencode, pre_launches = preencode_flowers(tmp, paths, card, kernels)
         preencode_small = check_preencode_small(tmp, CONFIG_DIR)
+        flow, flow_launches = train_flow_phase(tmp, os.path.join(tmp, "pe_images"),
+                                               paths, card, kernels)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     print(json.dumps({"serving": serving, "breakdown": parts, "training": training,
                       "gan_breakdown": gan_parts, "preencode": preencode,
-                      "preencode_card_vs_cpu": preencode_small}))
+                      "preencode_card_vs_cpu": preencode_small, "flow": flow}))
 
     def fused_entry(name, replaces):
-        by_path = {"serve": 0, "train": 0, "preencode": pre_launches[name]}
+        by_path = {"serve": 0, "train": 0, "preencode": pre_launches[name],
+                   "flow": flow_launches[name]}
         return {"name": name, "route": "cuda", "source": "flocoder_torch/csrc/fused_vq.cu",
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path, **fused_errs[name], **fused_timing[name]}
@@ -1477,10 +1752,12 @@ def main() -> None:
         {"name": "na2d_fwd", "route": "cuda",
          "source": "flocoder_torch/csrc/na2d_fwd.cu",
          "replaces": "flocoder_tpu/ops/pallas/na2d.py:40",
-         "launches": serve_launches + train_launches["na2d_fwd"] + pre_launches["na2d_fwd"],
+         "launches": (serve_launches + train_launches["na2d_fwd"] + pre_launches["na2d_fwd"]
+                      + flow_launches["na2d_fwd"]),
          "launches_by_path": {"serve": serve_launches,
                               "train": train_launches["na2d_fwd"],
-                              "preencode": pre_launches["na2d_fwd"]},
+                              "preencode": pre_launches["na2d_fwd"],
+                              "flow": flow_launches["na2d_fwd"]},
          "max_abs_err": errs[torch.float32],
          "max_abs_err_bf16": errs[torch.bfloat16], **timing,
          "per_shape": [r for r in shapes if r["kernel"] == "na2d_fwd"]},
@@ -1489,7 +1766,8 @@ def main() -> None:
          "replaces": "flocoder_tpu/ops/pallas/na2d.py:148",
          "launches": train_launches["na2d_bwd"],
          "launches_by_path": {"serve": 0, "train": train_launches["na2d_bwd"],
-                              "preencode": pre_launches["na2d_bwd"]},
+                              "preencode": pre_launches["na2d_bwd"],
+                              "flow": flow_launches["na2d_bwd"]},
          "max_abs_err": errs2[torch.float32],
          "max_abs_err_bf16": errs2[torch.bfloat16], **timing2,
          "per_shape": [r for r in shapes if r["kernel"] == "na2d_bwd"]},

@@ -67,8 +67,9 @@
 //   equal with a smaller index: the first minimum, exactly as a serial scan
 //   finds it. Each level is padded with NaN codes to a multiple of kChains *
 //   G, so the scan has no guard; a NaN distance never wins, and if no code
-//   has a distance below +inf the index is 0. Every lane then applies the
-//   same pick to the residual. A token's chain drops from K steps to
+//   has a distance below +inf (a NaN token) the level picks nothing: index
+//   0 and nothing added, as the TPU kernels' all-zero one-hot. Every lane
+//   then applies the same pick to the residual. A token's chain drops from K steps to
 //   K / (kChains * G) + log2 G per level.
 // - Index arithmetic divides through a float reciprocal with an exact
 //   correction (div_by): the card has no integer divider, and a / b by a
@@ -221,8 +222,8 @@ __device__ __forceinline__ void code_norms(const float* s_cb, int n_codes, float
 // chains overlap); it merges its chains, then the group merges its lanes'
 // with xor shuffles. A pair (dist, index) replaces another only if its
 // distance is smaller, or equal with a smaller index: the first minimum. A
-// NaN distance never wins; no code below +inf gives index 0. Writes z_q (the
-// exact sum of the picked codes) and the L indices of each token t with
+// NaN distance never wins; no code below +inf picks nothing (index 0, no
+// code added). Writes z_q (the exact sum of the picked codes) and the L indices of each token t with
 // live[t] at zq + tok[t]*D and idx + tok[t]*L, spread over the group's
 // lanes. Every lane of the warp must call it (it shuffles with the full
 // mask).
@@ -293,12 +294,17 @@ __device__ __forceinline__ void group_search(float (&r)[kTok][D], int j, const f
           bi = oi;
         }
       }
-      if (bi == kNoCode) bi = 0;
+      // no code won (every distance NaN: a NaN token): as the TPU kernels'
+      // all-zero one-hot, the level adds nothing and records index 0
+      if (bi == kNoCode) {
+        bi = 0;
+      } else {
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const float q = c[bi * D + d];
-        acc[t][d] += q;
-        r[t][d] -= q;
+        for (int d = 0; d < D; ++d) {
+          const float q = c[bi * D + d];
+          acc[t][d] += q;
+          r[t][d] -= q;
+        }
       }
       if (live[t] && l % G == j) idx[tok[t] * L + l] = bi;
     }

@@ -1,11 +1,15 @@
-"""Sampling orchestration, PyTorch port of the serving half of
-``flocoder_tpu/evaluation.py``: ``decode_latents``, ``sampler`` and
-``make_e2e_sampler``, on one device.
+"""Sampling and evaluation orchestration, PyTorch port of
+``flocoder_tpu/evaluation.py``: ``decode_latents``, ``sampler``,
+``make_e2e_sampler`` and ``evaluate_model``, on one device.
 
 The JAX package fuses generate + decode into one cached XLA executable and
 can shard it over a mesh; PyTorch runs eagerly, so here the model, the
-codec and the generator simply live on one device. ``evaluate_model`` and
-the sharded serving branch are not ported yet (ROADMAP.md).
+codec and the generator simply live on one device. ``evaluate_model``
+samples, decodes through the codec (K1 in the VQGAN decoder's NATTEN block
+on the card), computes the sample metrics, tracks codebook usage and saves
+grids; a ``mark(name)`` callback, when given, is called after each of its
+parts. The audio evaluation, inpainting masks and the sharded serving
+branch are not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -14,15 +18,20 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .metrics import g2rgb
+from .metrics import compute_sample_metrics, g2rgb
 from .sampling import generate_latents
+from .utils.codebook_analysis import analyze_codebooks
+from .utils.viz import save_img_grid
 
-__all__ = ["decode_latents", "sampler", "make_e2e_sampler"]
+__all__ = ["DECODE_CHUNK", "decode_latents", "sampler", "make_e2e_sampler",
+           "evaluate_model"]
+
+DECODE_CHUNK = 128      # latents per decoder call
 
 
 @torch.inference_mode()
 def decode_latents(codec, latents: torch.Tensor, is_midi: bool = False,
-                   keep_gray: bool = False, chunk_size: int = 128):
+                   keep_gray: bool = False, chunk_size: int = DECODE_CHUNK):
     """Chunked decode with MIDI g2rgb post-processing."""
     outs = []
     for i in range(0, latents.shape[0], chunk_size):
@@ -31,18 +40,12 @@ def decode_latents(codec, latents: torch.Tensor, is_midi: bool = False,
     return torch.cat(outs, dim=0)
 
 
-@torch.inference_mode()
-def sampler(model_apply: Callable, codec, generator: torch.Generator,
-            method: str = "rk4", batch_size: int = 256, n_steps: int = 100,
-            cond: Optional[dict] = None, n_classes: int = 0,
-            latent_shape=(16, 16, 4), cfg_strength: float = 3.0,
-            is_midi: bool = False, keep_gray: bool = False, source=None,
-            init_image=None, init_latents=None, init_strength: float = 0.0,
-            t_scale: float = 999.0):
-    """Generate latents with ``model_apply(x, t, cond)`` and decode them.
-    Everything runs on ``generator.device``. ``latent_shape`` is (H, W, C)
-    NHWC. With ``n_classes > 0`` and no class condition, samples get the
-    10-column class grid. Returns ``(pred_latents, decoded_pred, nfe)``."""
+def _sample_latents(model_apply: Callable, codec, generator: torch.Generator,
+                    method: str, batch_size: int, n_steps: int, cond: Optional[dict],
+                    n_classes: int, latent_shape, cfg_strength: float, source,
+                    init_image, init_latents, init_strength: float,
+                    t_scale: float) -> tuple:
+    """``sampler`` without the decode: ``(pred_latents, nfe)``."""
     device = generator.device
     if init_latents is None and init_image is not None:
         if isinstance(init_image, str):
@@ -70,14 +73,90 @@ def sampler(model_apply: Callable, codec, generator: torch.Generator,
         cond = None
 
     shape = (batch_size,) + tuple(latent_shape)
-    pred_latents, nfe = generate_latents(
+    return generate_latents(
         model_apply, shape, generator, method=method, n_steps=n_steps,
         cond=cond, cfg_strength=cfg_strength, source=source,
         init_latents=init_latents, init_strength=init_strength,
         t_scale=t_scale)
+
+
+@torch.inference_mode()
+def sampler(model_apply: Callable, codec, generator: torch.Generator,
+            method: str = "rk4", batch_size: int = 256, n_steps: int = 100,
+            cond: Optional[dict] = None, n_classes: int = 0,
+            latent_shape=(16, 16, 4), cfg_strength: float = 3.0,
+            is_midi: bool = False, keep_gray: bool = False, source=None,
+            init_image=None, init_latents=None, init_strength: float = 0.0,
+            t_scale: float = 999.0):
+    """Generate latents with ``model_apply(x, t, cond)`` and decode them.
+    Everything runs on ``generator.device``. ``latent_shape`` is (H, W, C)
+    NHWC. With ``n_classes > 0`` and no class condition, samples get the
+    10-column class grid. Returns ``(pred_latents, decoded_pred, nfe)``."""
+    pred_latents, nfe = _sample_latents(
+        model_apply, codec, generator, method, batch_size, n_steps, cond,
+        n_classes, latent_shape, cfg_strength, source, init_image, init_latents,
+        init_strength, t_scale)
     decoded = decode_latents(codec, pred_latents, is_midi=is_midi,
                              keep_gray=keep_gray)
     return pred_latents, decoded, nfe
+
+
+@torch.inference_mode()
+def evaluate_model(model_apply: Callable, codec, epoch: int, target_latents,
+                   generator: torch.Generator, cond: Optional[dict] = None,
+                   batch_size: int = 256, n_classes: int = 0, method: str = "rk4",
+                   n_steps: int = 100, cfg_strength: float = 3.0,
+                   is_midi: bool = False, keep_gray: bool = False, tag: str = "",
+                   cb_tracker=None, codec_quantize: Optional[Callable] = None,
+                   output_dir: str = "./", source=None, mask_pixels=None,
+                   feature_fn=None, t_scale: float = 999.0,
+                   mark: Optional[Callable] = None) -> dict:
+    """Sample ``min(batch_size, len(target_latents))`` latents, decode them
+    and the targets (in chunks of 128), compute ``compute_sample_metrics``,
+    track the target and generated codes with ``codec_quantize`` into
+    ``cb_tracker``, and save the grids ``{tag}{name}_{method}_{nfe}``.
+    Returns the metrics as floats plus ``FID_feature_backend``. ``mark``
+    is called with "sampler", "decode", "metrics" and "grids"."""
+    from .ops.fid import default_feature_fn, feature_backend_name
+    if mask_pixels is not None or (cond and cond.get("mask_cond") is not None):
+        raise NotImplementedError("inpainting evaluation is not ported yet "
+                                  "(ROADMAP.md)")
+    mark = mark or (lambda name: None)
+    batch_size = min(batch_size, target_latents.shape[0])
+    target_latents = target_latents[:batch_size]
+    pred_latents, nfe = _sample_latents(
+        model_apply, codec, generator, method, batch_size, n_steps, cond, n_classes,
+        target_latents.shape[-3:], cfg_strength, source, None, None, 0.0, t_scale)
+    mark("sampler")
+    decoded_pred = decode_latents(codec, pred_latents, is_midi=is_midi,
+                                  keep_gray=keep_gray)
+    decoded_target = decode_latents(codec, target_latents, is_midi=is_midi,
+                                    keep_gray=keep_gray)
+    mark("decode")
+    if feature_fn is None:
+        feature_fn = default_feature_fn(image_size=decoded_target.shape[1])
+    metrics = compute_sample_metrics(pred_latents, target_latents, decoded_pred,
+                                     decoded_target, feature_fn=feature_fn)
+    out = {k: float(v) for k, v in metrics.items()}
+    mark("metrics")
+
+    if cb_tracker is not None and codec_quantize is not None:
+        for name, lat in (("val", target_latents), ("gen", pred_latents)):
+            idx = codec_quantize(lat)[1]
+            cb_tracker.update_counts(name, idx.reshape(-1, idx.shape[-1]).cpu().numpy())
+        analyze_codebooks(cb_tracker, epoch)
+    images = {"pred_latents": pred_latents, "target_latents": target_latents,
+              "decoded_pred": decoded_pred, "decoded_target": decoded_target}
+    if source is not None:
+        images["source_latents"] = source[:batch_size]
+        images["decoded_source"] = decode_latents(codec, source[:batch_size],
+                                                  is_midi=is_midi, keep_gray=keep_gray)
+    for key, val in images.items():
+        save_img_grid(val.float().cpu().numpy(), epoch,
+                      tag=f"{tag}{key}_{method}_{nfe}", output_dir=output_dir)
+    mark("grids")
+    out["FID_feature_backend"] = feature_backend_name(feature_fn)
+    return out
 
 
 def make_e2e_sampler(model_apply: Callable, codec, latent_shape,

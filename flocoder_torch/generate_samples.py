@@ -128,7 +128,7 @@ def generate_samples(config) -> dict:
     is_midi = any(s in str(config.get("data", "")).lower()
                   for s in ("midi", "pop909"))
     if is_midi:
-        print("MIDI .mid export is not ported yet (ROADMAP.md): writing PNGs")
+        raise NotImplementedError("MIDI .mid export is not ported yet (ROADMAP.md)")
     keep_gray = int(ldcfg(config, "in_channels", 3)) == 1
     generator = torch.Generator(device).manual_seed(int(config.get("seed", 0)))
 

@@ -2,10 +2,12 @@
 codec-training losses (focal loss and piano-roll cross-entropy, the VGG
 perceptual loss, the FFT spectral loss, hinge / LeCAM discriminator losses,
 the generator loss with feature matching, ``compute_vqgan_losses`` and its
-λ-weighted total) and ``g2rgb``, the MIDI recipes' decode post-processing.
-Images are NHWC. A ``disc_apply`` maps images to ``(logits, features)``
-(``models/discriminator.make_disc_apply``). FID, Sinkhorn and the sample
-metrics are not ported yet (ROADMAP.md).
+λ-weighted total), ``g2rgb``, the MIDI recipes' decode post-processing,
+and the sample metrics of flow evaluation: ``to_uint8``,
+``normalize_recon`` and ``compute_sample_metrics`` (FID on the rp2048
+features of ``ops/fid.py``, the Sinkhorn divergence of ``ops/sinkhorn.py``,
+MSEs and moments). Images are NHWC. A ``disc_apply`` maps images to
+``(logits, features)`` (``models/discriminator.make_disc_apply``).
 """
 from __future__ import annotations
 
@@ -14,11 +16,16 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from .ops.fid import fid_score, fid_score_chunked
+from .ops.sinkhorn import sinkhorn_loss, sinkhorn_loss_chunked
+
 __all__ = ["focal_loss", "sigmoid_bce", "piano_roll_rgb_cross_entropy",
            "perceptual_loss", "spectral_loss", "hinge_d_loss",
            "feature_matching_loss", "discriminator_loss", "lecam_loss",
            "discriminator_loss_lecam", "generator_loss",
-           "compute_vqgan_losses", "get_total_vqgan_loss", "g2rgb"]
+           "compute_vqgan_losses", "get_total_vqgan_loss", "g2rgb", "to_uint8",
+           "normalize_recon", "compute_sample_metrics", "fid_score",
+           "fid_score_chunked", "sinkhorn_loss", "sinkhorn_loss_chunked"]
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -163,3 +170,47 @@ def g2rgb(gf_img: torch.Tensor, keep_gray: bool = False) -> torch.Tensor:
     return torch.stack([(gf >= 0.75).float(),
                         ((gf - 0.5).abs() < 0.25).float(),
                         torch.zeros_like(gf)], dim=-1)
+
+
+def to_uint8(x: torch.Tensor) -> torch.Tensor:
+    """Per-image min-max to uint8 (truncating, as the JAX cast does)."""
+    x = x.detach()
+    x = x - x.amin(dim=(1, 2, 3), keepdim=True)
+    mx = x.amax(dim=(1, 2, 3), keepdim=True).clamp(min=1e-5)
+    return (x / mx * 255.0).clamp(0, 255).to(torch.uint8)
+
+
+def normalize_recon(orig: torch.Tensor, recon: torch.Tensor) -> torch.Tensor:
+    """Each recon image's channels rescaled to the original's range."""
+    o_min, o_max = orig.amin(dim=(1, 2), keepdim=True), orig.amax(dim=(1, 2), keepdim=True)
+    r_min, r_max = recon.amin(dim=(1, 2), keepdim=True), recon.amax(dim=(1, 2), keepdim=True)
+    rescaled = (recon - r_min) / (r_max - r_min).clamp(min=1e-8) * (o_max - o_min) + o_min
+    return torch.where(r_max > r_min, rescaled, recon)
+
+
+@torch.no_grad()
+def compute_sample_metrics(pred_latents, target_latents, decoded_pred, decoded_target,
+                           feature_fn: Optional[Callable] = None) -> dict:
+    """FID in pixel space (on per-image uint8 renders), the Sinkhorn
+    divergence of latents and of pixels, MSEs and moments; a dict of device
+    scalars under the JAX package's keys."""
+    bs = min(pred_latents.shape[0], target_latents.shape[0])
+    pl, tl = pred_latents[:bs], target_latents[:bs]
+    decoded_pred = normalize_recon(decoded_target, decoded_pred)
+    if feature_fn is None:
+        from .ops.fid import default_feature_fn
+        feature_fn = default_feature_fn(image_size=decoded_target.shape[1])
+    return {
+        "FID_px": fid_score(to_uint8(decoded_target), to_uint8(decoded_pred),
+                            feature_fn=feature_fn),
+        "sinkhorn": sinkhorn_loss(tl, pl),
+        "sinkhorn_px": sinkhorn_loss(decoded_target, decoded_pred),
+        "mse": ((pl - tl) ** 2).mean(),
+        "mse_px": ((decoded_pred - decoded_target) ** 2).mean(),
+        "pred_mean": pl.mean(), "targ_mean": tl.mean(),
+        "pred_std": pl.std(unbiased=False), "targ_std": tl.std(unbiased=False),
+        "pred_px_mean": decoded_pred.mean(),
+        "targ_px_mean": decoded_target.mean(),
+        "pred_px_std": decoded_pred.std(unbiased=False),
+        "targ_px_std": decoded_target.std(unbiased=False),
+    }

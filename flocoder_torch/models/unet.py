@@ -240,7 +240,7 @@ class Unet(nn.Module):
             raise NotImplementedError("Unet mask conditioning is not ported "
                                       "yet (ROADMAP.md)")
         dtype = self.init_conv.weight.dtype
-        x = self.init_conv(x.to(dtype).permute(0, 3, 1, 2))
+        x = self.init_conv(x.to(dtype).permute(0, 3, 1, 2).contiguous())
         r = x
 
         tv = torch.as_tensor(time, dtype=dtype, device=x.device)

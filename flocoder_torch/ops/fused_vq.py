@@ -8,8 +8,9 @@ port of ``flocoder_tpu/ops/pallas/fused_vq.py`` and of the debug tail in
   (``ops/kernels/fused_vq.py``), which launches or raises. There is no
   fallback from a kernel to a twin.
 - The twins, ``*_plain``, are plain torch ops in fp32 with the TPU kernels'
-  arithmetic: distances ``r2 + c2 - 2·(r @ cᵀ)``, the first minimum
-  (``torch.argmin``), the pick subtracted from the residual, and ``z_q`` the
+  arithmetic: distances ``r2 + c2 - 2·(r @ cᵀ)``, the first minimum (a
+  NaN token picks nothing: index 0, nothing added), the pick subtracted
+  from the residual, and ``z_q`` the
   exact sum of the picked codes (no rotation trick: this is the inference
   path). GroupNorm takes two passes (mean, then mean squared deviation), as
   the kernels do; the TPU kernels take E[y²] − m².
@@ -44,18 +45,24 @@ __all__ = ["fused_compress_vq", "fused_compress_tail_vq", "compress_tail_debug",
 
 def rvq_search_plain(x: torch.Tensor, codebooks: torch.Tensor) -> tuple:
     """Greedy RVQ of tokens ``x`` (N, D) over ``codebooks`` (L, K, D):
-    ``(z_q (N, D), idx (N, L) int32)``."""
+    ``(z_q (N, D), idx (N, L) int32)``. Each level picks the first code
+    whose distance is the row's minimum, as the TPU kernels' one-hot does;
+    a row with a NaN distance (a NaN token) has no such code, so that level
+    adds nothing to z_q and records index 0."""
     residual = x
     z_q = torch.zeros_like(x)
     picks = []
     for cb in codebooks:
+        K = cb.shape[0]
         d = ((residual * residual).sum(1, keepdim=True) + (cb * cb).sum(1)[None]
              - 2.0 * (residual @ cb.T))
-        i = d.argmin(1)
-        q = cb[i]
+        lane = torch.arange(K, device=d.device)
+        first = torch.where(d <= d.amin(1, keepdim=True), lane, K).amin(1)
+        found = first < K
+        q = torch.where(found[:, None], cb[first.clamp(max=K - 1)], 0.0)
         z_q = z_q + q
         residual = residual - q
-        picks.append(i)
+        picks.append(torch.where(found, first, 0))
     return z_q, torch.stack(picks, 1).to(torch.int32)
 
 

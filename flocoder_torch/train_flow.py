@@ -1,0 +1,302 @@
+"""Train a latent flow-matching model on the CUDA card — the port of the
+repo's ``train_flow.py``, on one device.
+
+Usage:
+    python -m flocoder_torch.train_flow --config-name flowers_vqgan.yaml \\
+        [data=/path/to/images] [flow.epochs=N] [key=value ...]
+
+Reads the latents that the pre-encode pass wrote under
+``<data>_encoded_<codec>/{train,val}`` (or, with ``flow.pre_encoded=false``,
+encodes image batches in the step with the frozen codec), trains the U-Net
+velocity field with minibatch OT, CFG dropout, clipped Adam on the cosine
+warm-restart schedule and EMA (``training/flow.py``), and evaluates on the
+JAX script's cadence: at every epoch below 20 and every 10th, unless
+``flow.no_eval=true``, a validation loss and ``evaluate_model`` (sample,
+decode through the codec, metrics, codebook usage, grids), and the EMA's at
+even epochs above 5. Checkpoints every ``flow.ckpt_every`` (25) epochs as
+the JAX script writes them: ``flow_<epoch>.npz`` (params, optax-layout Adam
+state, EMA) and ``flowema_<epoch>.npz``, so that both packages'
+``generate_samples`` load them; ``load_checkpoint=<flow_*.npz>`` resumes.
+``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
+``+ckpt_dir`` and ``+output_dir`` move the checkpoints (default
+``checkpoints``) and the grids (``output_<data name>-<H>x<W>``). Unlike the
+JAX script, a validation split smaller than the batch is read as one batch
+of its size. Not ported yet (ROADMAP.md), and refused: meshes and FSDP,
+ring attention, HDiT / MoE / pipeline models, orbax and sharded
+checkpoints, inpainting and reflow datasets, packed shards, audio codecs,
+bf16, wandb logging.
+"""
+from __future__ import annotations
+
+import glob
+import os
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .config import ldcfg, parse_cli
+from .data.datasets import Loader, PreEncodedDataset, create_image_loaders
+from .evaluation import evaluate_model
+from .generate_samples import CONFIG_DIR
+from .models.codecs import VQVAE, setup_codec
+from .models.layers import init_params
+from .models.unet import Unet
+from .training.checkpoint import (UNET_PREFIXES, VQVAE_PREFIXES, adam_to_jax_flat,
+                                  load_adam_jax_flat, load_checkpoint, load_jax_flat,
+                                  save_checkpoint, to_jax_flat)
+from .training.flow import create_flow_state, make_flow_eval_step, make_flow_train_step
+from .training.schedules import batch_size_schedule, cosine_warm_restarts_decay
+from .utils.codebook_analysis import CodebookUsageTracker
+from .utils.device import resolve_device
+
+__all__ = ["train_flow", "main"]
+
+
+def _refuse_unported(config) -> None:
+    flags = {"fsdp": "FSDP", "ring_attention": "ring attention", "moe_ep": "MoE",
+             "pp": "pipeline parallelism", "orbax_checkpoints": "orbax checkpoints",
+             "sharded_checkpoints": "sharded checkpoints", "bf16": "bf16 flow training",
+             "reflow": "reflow (paired) datasets", "otf_aug": "inpainting OTF augmentation"}
+    for key, what in flags.items():
+        if bool(ldcfg(config, key, False)):
+            raise NotImplementedError(f"{what} (flow.{key}) is not ported yet (ROADMAP.md)")
+    if int(ldcfg(config, "n_model", 1)) > 1:
+        raise NotImplementedError("model-parallel meshes (flow.n_model) are not "
+                                  "ported yet (ROADMAP.md)")
+    if str(ldcfg(config, "arch", "unet")).lower() != "unet":
+        raise NotImplementedError("HDiT flow models (flow.arch=hdit) are not ported "
+                                  "yet (ROADMAP.md)")
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _to_device(batch: dict, device) -> dict:
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.asarray(v))
+        out[k] = (t.long() if k == "class_cond" else t).to(device, non_blocking=True)
+    return out
+
+
+def _keep_recent_files(keep: int, directory: str, pattern: str) -> None:
+    files = sorted(glob.glob(os.path.join(directory, pattern)), key=os.path.getmtime)
+    for f in files[:-keep]:
+        os.remove(f)
+
+
+def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dict:
+    """Returns ``{'state': FlowState, 'epoch_seconds': [{'epoch', 'steps',
+    'samples', 'seconds'}], 'epochs': [per-epoch mean losses], 'eval':
+    [{'epoch', 'tag', 'metrics', 'seconds'}], 'ot_rounds': [per step],
+    'checkpoint': path, 'ema_checkpoint': path, 'output_dir': str, 'device':
+    str}``. The device is synchronised once an epoch, as in the JAX script:
+    an epoch's seconds cover its training loop (the loader's wait, the copy
+    to the device and the steps) and end in that synchronise. ``step_hook``,
+    if given, is called with the epoch after each step is queued, e.g. to
+    record a CUDA event. An evaluation's ``seconds`` are split into
+    'sampler', 'decode', 'metrics' and 'grids'."""
+    device = resolve_device(config.get("device", None))
+    _refuse_unported(config)
+    data_path = os.path.expanduser(str(config.data))
+    if "encoded" not in data_path:
+        data_path = f"{data_path}_encoded_{config.codec.choice}"
+    batch_size = int(ldcfg(config, "batch_size", 256))
+    grad_accum = max(int(ldcfg(config, "grad_accum", 1)), 1)
+    bs_step_every = int(ldcfg(config, "bs_step_every", 0))
+    bs_milestones = [int(m) for m in (ldcfg(config, "bs_milestones", None) or [])]
+    bs_sched = None
+    if bs_step_every or bs_milestones:
+        bs_sched = batch_size_schedule(
+            batch_size, gamma=float(ldcfg(config, "bs_gamma", 2.0)),
+            step_every=bs_step_every, milestones=bs_milestones,
+            max_bs=int(ldcfg(config, "bs_max", 0)) or None, multiple_of=grad_accum)
+    n_classes = int(ldcfg(config, "n_classes", 0))
+    epochs = int(ldcfg(config, "epochs", 100))
+    n_steps_eval = int(ldcfg(config, "n_steps", 100))
+    cfg_strength = float(ldcfg(config, "cfg_strength", 3.0))
+    is_midi = any(s in data_path.lower() for s in ("pop909", "midi"))
+    keep_gray = int(ldcfg(config, "in_channels", 3)) == 1
+    seed = int(ldcfg(config, "seed", 0))
+    pre_encoded = bool(ldcfg(config, "pre_encoded", True))
+    image_size = int(ldcfg(config, "image_size", 128))
+    num_workers = int(ldcfg(config, "num_workers", 4))
+    meanflow = bool(ldcfg(config, "meanflow", False))
+    t_scale = 1.0 if meanflow else 999.0
+    gen = torch.Generator(device)
+
+    # ---- the frozen codec: the evaluation's decode, the on-the-fly encode
+    codec = setup_codec(config, device=device)
+    if isinstance(codec, VQVAE):
+        codec.init(gen.manual_seed(seed))
+        codec_ckpt = ldcfg(config, "codec_checkpoint", None) or (
+            config.codec.get("checkpoint") if "codec" in config else None)
+        if codec_ckpt and os.path.exists(str(codec_ckpt)):
+            load_jax_flat(codec, load_checkpoint(str(codec_ckpt))["model_state_dict"],
+                          VQVAE_PREFIXES)
+            print(f"loaded codec checkpoint {codec_ckpt}")
+    codec.eval().requires_grad_(False)
+    encode_fn = None
+
+    # ---- data
+    if pre_encoded:
+        if glob.glob(os.path.join(data_path, "*", "data.fcshard")):
+            raise NotImplementedError("packed latent shards are not ported yet "
+                                      "(ROADMAP.md)")
+        train_ds = PreEncodedDataset(f"{data_path}/train", n_classes=n_classes)
+        val_ds = PreEncodedDataset(f"{data_path}/val", n_classes=n_classes)
+        train_loader = Loader(train_ds, batch_size, num_workers, seed)
+        val_loader = Loader(val_ds, min(batch_size, len(val_ds)), num_workers, seed + 1)
+        H, W, C = next(iter(train_loader))["target"].shape[1:]
+    else:
+        train_loader, val_loader = create_image_loaders(
+            batch_size, image_size, os.path.expanduser(str(config.data)),
+            num_workers=num_workers, is_midi=is_midi, seed=seed)
+        train_loader.key = val_loader.key = "pixels"
+        H, W, C = codec.latent_shape(image_size)
+        encode_fn = codec.encode
+        print(f"on-the-fly mode: encoding {image_size}px images in the step")
+    print(f"latent shape HWC = {(H, W, C)}, n_batches/epoch = {len(train_loader)}")
+    output_dir = str(config.get("output_dir",
+                                f"output_{os.path.basename(data_path)}-{H}x{W}"))
+    ckpt_dir = str(config.get("ckpt_dir", "checkpoints"))
+    os.makedirs(output_dir, exist_ok=True)
+
+    # ---- model, optimizer, state
+    model = Unet(dim=H, channels=C, dim_mults=tuple(ldcfg(config, "dim_mults", [1, 2, 4, 8])),
+                 n_classes=n_classes, dual_time=meanflow).to(device)
+    init_params(model, gen.manual_seed(seed + 1))
+    print(f"model params: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M  "
+          f"device {device}")
+    sched = cosine_warm_restarts_decay(
+        float(ldcfg(config, "learning_rate", 1e-4)), T_0=int(ldcfg(config, "lr_T0", 50)),
+        T_mult=int(ldcfg(config, "lr_Tmult", 2)), decay=float(ldcfg(config, "lr_decay", 0.6)),
+        steps_per_epoch=max(len(train_loader), 1))
+    state = create_flow_state(model, sched)
+    start_epoch = 1
+    resume = ldcfg(config, "load_checkpoint", None)
+    if resume and os.path.exists(str(resume)):
+        ck = load_checkpoint(str(resume))
+        load_jax_flat(state.model, ck["model_state_dict"], UNET_PREFIXES)
+        if ck.get("optimizer_state_dict"):
+            load_adam_jax_flat(state.model, state.opt.adam, ck["optimizer_state_dict"],
+                               UNET_PREFIXES)
+        load_jax_flat(state.ema, ck.get("ema_state_dict") or ck["model_state_dict"],
+                      UNET_PREFIXES)
+        state.step = ck["epoch"] * len(train_loader)
+        start_epoch = ck["epoch"] + 1
+        print(f"resumed from {resume} at epoch {ck['epoch']}")
+
+    # flow.steps_per_dispatch batches the JAX package's host dispatches;
+    # here every step is its own call, so the option changes nothing
+    step_kwargs = dict(
+        ema_decay=float(ldcfg(config, "ema_decay", 0.999)), encode_fn=encode_fn,
+        ot_method=str(ldcfg(config, "ot_method", "parallel")),
+        ot_block=int(ldcfg(config, "ot_block", 0)) or None,
+        curvature_weight=float(ldcfg(config, "curvature_weight", 0.0)),
+        meanflow=meanflow, meanflow_ratio=float(ldcfg(config, "meanflow_ratio", 0.25)),
+        meanflow_adaptive_p=float(ldcfg(config, "meanflow_adaptive_p", 0.5)),
+        t_scale=t_scale, grad_accum=grad_accum)
+    train_step = make_flow_train_step(**step_kwargs)
+    eval_step = make_flow_eval_step(t_scale=t_scale)
+    cb_tracker = CodebookUsageTracker(
+        num_levels=int(ldcfg(config, "codebook_levels", 4)),
+        codebook_size=int(ldcfg(config, "vq_num_embeddings", 32)))
+    codec_quantize = codec.quantize if isinstance(codec, VQVAE) else None
+    eval_method = str(ldcfg(config, "eval_method", "meanflow" if meanflow else "rk4"))
+
+    epoch_seconds, history, evals, ot_rounds = [], [], [], []
+    ck_path = ema_path = None
+    gen.manual_seed(seed + 2)
+    t_start = time.time()
+    for epoch in range(start_epoch, epochs + 1):
+        if bs_sched is not None and bs_sched(epoch) != train_loader.batch_size:
+            print(f"  batch size {train_loader.batch_size} -> {bs_sched(epoch)} "
+                  "(bs schedule)")
+            train_loader.batch_size = bs_sched(epoch)
+        ep_aux, t_ep = [], time.time()
+        for batch in train_loader:
+            batch.pop("source", None)
+            batch = _to_device(batch, device)
+            state, aux = train_step(state, batch, gen)
+            if step_hook is not None:
+                step_hook(epoch)
+            ep_aux.append(aux)
+        _sync(device)                   # one device sync per epoch, not per step
+        seconds = time.time() - t_ep
+        samples = len(ep_aux) * train_loader.batch_size
+        epoch_seconds.append({"epoch": epoch, "steps": len(ep_aux), "samples": samples,
+                              "seconds": seconds})
+        ot_rounds += [int(a["ot_rounds"]) for a in ep_aux if "ot_rounds" in a]
+        means = {k: float(torch.stack([a[k].float() for a in ep_aux]).mean())
+                 for k in ep_aux[0]} if ep_aux else {"loss": float("nan")}
+        history.append({"epoch": epoch, **means})
+        print(f"epoch {epoch}/{epochs}  loss {means['loss']:.4f}  "
+              f"lr {sched(state.step):.2e}  {len(ep_aux) / max(seconds, 1e-9):.2f} it/s  "
+              f"({samples / max(seconds, 1e-9):.0f} samples/s)", flush=True)
+
+        if not bool(ldcfg(config, "no_eval", False)) and (epoch < 20 or epoch % 10 == 0):
+            vb = next(iter(val_loader))
+            vb.pop("source", None)
+            vb = _to_device(vb, device)
+            if encode_fn is not None:
+                with torch.no_grad():
+                    vb["target"] = encode_fn(vb.pop("pixels"))
+            val_loss = float(eval_step(state.model, vb, gen))
+            print(f"  val loss {val_loss:.4f}")
+            runs = [("", state.model)]
+            if epoch > 5 and epoch % 2 == 0:
+                runs.append(("ema_", state.ema))
+            for tag, net in runs:
+                marks, t_mark = {}, [time.time()]
+
+                def mark(name, marks=marks, t_mark=t_mark):
+                    _sync(device)
+                    marks[name] = time.time() - t_mark[0]
+                    t_mark[0] = time.time()
+
+                metrics = evaluate_model(
+                    net, codec, epoch, vb["target"], gen,
+                    cond={"class_cond": vb["class_cond"], "mask_cond": None},
+                    batch_size=min(batch_size, 256), n_classes=n_classes,
+                    method=eval_method, n_steps=n_steps_eval, cfg_strength=cfg_strength,
+                    is_midi=is_midi, keep_gray=keep_gray, tag=tag, cb_tracker=cb_tracker,
+                    codec_quantize=codec_quantize, output_dir=output_dir,
+                    t_scale=t_scale, mark=mark)
+                evals.append({"epoch": epoch, "tag": tag, "val_loss": val_loss,
+                              "metrics": metrics, "seconds": marks})
+                print(f"  {tag}metrics: FID_px {metrics['FID_px']:.2f}  "
+                      f"sinkhorn {metrics['sinkhorn']:.4f}  ({sum(marks.values()):.2f} s)")
+            if epoch % 2 == 0:
+                cb_tracker.reset_all()
+
+        if epoch % int(ldcfg(config, "ckpt_every", 25)) == 0:
+            ck_path = save_checkpoint(
+                to_jax_flat(state.model, UNET_PREFIXES), epoch, ckpt_dir=ckpt_dir,
+                prefix="flow_", config=config, keep=5,
+                ema=to_jax_flat(state.ema, UNET_PREFIXES),
+                opt_state=adam_to_jax_flat(state.model, state.opt.adam, state.step,
+                                           UNET_PREFIXES))
+            ema_path = save_checkpoint(to_jax_flat(state.ema, UNET_PREFIXES), epoch,
+                                       ckpt_dir=ckpt_dir, prefix="flowema_",
+                                       config=config, keep=5)
+            _keep_recent_files(100, output_dir, "*.png")
+            print(f"  checkpoints -> {ck_path}, {ema_path}")
+    print(f"done in {time.time() - t_start:.0f}s")
+    return {"state": state, "epoch_seconds": epoch_seconds,
+            "epochs": history, "eval": evals, "ot_rounds": ot_rounds,
+            "checkpoint": ck_path, "ema_checkpoint": ema_path, "output_dir": output_dir,
+            "device": str(device)}
+
+
+def main(argv=None, step_hook: Optional[Callable[[int], None]] = None) -> dict:
+    config = parse_cli(argv, default_config=None, config_dir=CONFIG_DIR)
+    return train_flow(config, step_hook)
+
+
+if __name__ == "__main__":
+    main()

@@ -14,9 +14,10 @@ writes them (``vqgan_<epoch>.npz``: the codec's flax tree), so both
 packages load them. ``+device=cpu`` runs on the CPU; without it the run
 needs a CUDA device. ``+ckpt_dir`` and ``+output_dir`` move the checkpoints
 (default ``checkpoints``) and the grids (``output_vqgan_<data name>``).
-Not ported yet (ROADMAP.md): bf16 codecs, ``codec.grad_accum``, data and
-tensor parallelism, wandb logging, MIDI data and note metrics, the codebook
-plots.
+``codec.grad_accum`` (or ``flow.grad_accum`` through ``ldcfg``) splits each
+batch into that many microbatches. Not ported yet (ROADMAP.md): bf16
+codecs, data and tensor parallelism, wandb logging, MIDI data and note
+metrics, the codebook plots.
 """
 from __future__ import annotations
 

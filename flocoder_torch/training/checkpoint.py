@@ -18,7 +18,11 @@ Port modules carry linen's names (``models/layers.py``), so a key maps by
   (flax's ``SpectralNorm`` collection; ``models/discriminator.py``);
 - everything else (biases, ``gamma``, buffers) by name, unchanged.
 
-Keys match strictly: a missing or extra key raises. A trained codec is
+Keys match strictly: a missing or extra key raises. Adam's state crosses
+in optax's layout for ``chain(clip_by_global_norm, adam(schedule))``:
+``1/0/count``, ``1/0/mu/<param path>``, ``1/0/nu/<param path>`` and the
+schedule's ``1/1/count`` (``adam_to_jax_flat`` / ``load_adam_jax_flat``). A
+trained codec is
 saved as the JAX trainer saves ``state.params`` (``to_jax_flat(codec,
 VQVAE_PREFIXES)``, prefix ``vqgan_``); a discriminator's flat tree is its
 flax variables, ``params/…`` and ``batch_stats/…`` (``DISC_PREFIXES``), and
@@ -38,7 +42,7 @@ from torch import nn
 from ..config import config_from_dict, to_dict
 
 __all__ = ["save_checkpoint", "load_checkpoint", "to_jax_flat",
-           "load_jax_flat", "UNET_PREFIXES", "VQVAE_PREFIXES", "DISC_PREFIXES",
+           "load_jax_flat", "adam_to_jax_flat", "load_adam_jax_flat", "UNET_PREFIXES", "VQVAE_PREFIXES", "DISC_PREFIXES",
            "VGG_PREFIXES"]
 
 _SEP = "/"
@@ -136,20 +140,55 @@ def load_jax_flat(module: nn.Module, flat: dict, prefixes: dict) -> nn.Module:
     return module
 
 
+def adam_to_jax_flat(module: nn.Module, adam: torch.optim.Adam, step: int,
+                     prefixes: dict) -> dict:
+    """``adam``'s moments of ``module``'s parameters as optax's flat state
+    of Adam on a schedule (a parameter without state has zero moments)."""
+    entries = _entries(module, prefixes)
+    out = {"1/0/count": np.asarray(step, np.int32),
+           "1/1/count": np.asarray(step, np.int32)}
+    for name, p in module.named_parameters():
+        jkey, kind = entries[name]
+        state = adam.state.get(p, {})
+        for slot, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            out[f"1/0/{slot}/{jkey}"] = _to_jax(state.get(key, torch.zeros_like(p)), kind)
+    return out
+
+
+def load_adam_jax_flat(module: nn.Module, adam: torch.optim.Adam, flat: dict,
+                       prefixes: dict) -> int:
+    """Load optax's flat Adam state into ``adam`` for ``module``'s
+    parameters; returns the step count. Strict: a missing moment raises."""
+    entries = _entries(module, prefixes)
+    count = int(flat["1/0/count"])
+    for name, p in module.named_parameters():
+        jkey, kind = entries[name]
+        moments = {}
+        for slot, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            a = _from_jax(np.asarray(flat[f"1/0/{slot}/{jkey}"]), kind)
+            if tuple(a.shape) != tuple(p.shape):
+                raise ValueError(f"shape mismatch for {slot}/{jkey}: {a.shape}")
+            moments[key] = torch.tensor(a, dtype=p.dtype, device=p.device)
+        adam.state[p] = {"step": torch.tensor(float(count)), **moments}
+    return count
+
+
 def save_checkpoint(params: dict, epoch: int, ckpt_dir: str = "checkpoints",
                     prefix: str = "flow_", config=None,
-                    ema: Optional[dict] = None, keep: Optional[int] = None) -> str:
+                    ema: Optional[dict] = None, keep: Optional[int] = None,
+                    opt_state: Optional[dict] = None) -> str:
     """Write ``{ckpt_dir}/{prefix}{epoch}.npz`` in the contract:
     ``model_state_dict/…`` from ``params`` (a flat JAX tree, e.g. from
-    ``to_jax_flat``), optional ``ema_state_dict/…``, ``epoch`` and
-    ``config_json``; with ``keep``, only the newest ``keep`` files of the
-    prefix stay. Returns the path."""
+    ``to_jax_flat``), optional ``ema_state_dict/…`` and
+    ``optimizer_state_dict/…``, ``epoch`` and ``config_json``; with
+    ``keep``, only the newest ``keep`` files of the prefix stay. Returns the
+    path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     payload = {f"model_state_dict{_SEP}{k}": np.asarray(v)
                for k, v in params.items()}
-    if ema is not None:
-        payload.update({f"ema_state_dict{_SEP}{k}": np.asarray(v)
-                        for k, v in ema.items()})
+    for head, tree in (("ema_state_dict", ema), ("optimizer_state_dict", opt_state)):
+        if tree is not None:
+            payload.update({f"{head}{_SEP}{k}": np.asarray(v) for k, v in tree.items()})
     payload["epoch"] = np.asarray(epoch)
     if config is not None:
         payload["config_json"] = np.asarray(json.dumps(to_dict(config)))

@@ -1,0 +1,278 @@
+"""Flow-matching training steps, PyTorch port of
+``flocoder_tpu/training/flow.py``.
+
+- The step draws its noise, times and CFG noise from an explicit
+  ``torch.Generator`` on the model's device, or takes them through
+  ``draws`` (``{'noise', 't_uniform', 'cfg_noise'}``, plus ``'r_uniform'``
+  and ``'sel_uniform'`` for MeanFlow): tests pass the arrays ``jax.random``
+  drew with the JAX package's key split. ``t_uniform`` is the raw U(0,1)
+  draw; the step maps it to ``eps + (1 − eps)·u`` and warps it.
+- The CFG-dropout gate is one draw per optimizer step for the whole batch
+  (a 0-d bool tensor, so the step never waits on the card for it).
+- Minibatch OT pairs each source with a permuted target, and the class
+  label is permuted with its target, as the JAX package documents.
+- ``grad_accum`` splits the batch into leading microbatch slices, each
+  with its own draws and its own OT pairing, and backpropagates each
+  slice's loss divided by ``grad_accum``: the update sees the mean of the
+  microbatch gradients.
+- The JAX package's ``steps_per_call`` (K steps scanned in one dispatch)
+  has no counterpart: every step here is its own call.
+- ``curvature_weight`` and MeanFlow take their forward-mode derivative
+  with ``torch.func.jvp``; the parameters' gradients flow back through it.
+- The optimizer is ``ClippedAdam`` (optax's clip-by-global-norm then
+  Adam), its learning rate set from the schedule before each step. The
+  inpainting mask encoder, its optimizer group and the OTF augmentation
+  are not ported yet (ROADMAP.md) and raise.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from ..ops.ot import compute_ot_pairing, compute_ot_pairing_blocked
+from ..sampling import warp_time
+from .ema import ema_init, ema_update
+from .vqgan import ClippedAdam
+
+__all__ = ["FlowState", "create_flow_state", "make_flow_optimizer",
+           "make_flow_grads_fn", "make_flow_train_step", "make_flow_eval_step",
+           "meanflow_target", "draw_flow_inputs"]
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
+
+
+def meanflow_target(model: Callable, x_r, r, t_h, v_star, cond: Optional[dict],
+                    t_scale: float = 999.0) -> tuple:
+    """MeanFlow regression pair ``(u, u_tgt)``: the average velocity
+    u(x_r, r, t) and ``v_star + (t − r)·du/dr``, the total derivative along
+    the path taken by one jvp with tangents ``(v_star, 1)``. The caller
+    detaches ``u_tgt``."""
+    cond_h = dict(cond) if cond else {}
+    cond_h["time_horizon"] = t_h * t_scale
+    u, du_dr = torch.func.jvp(lambda xx, rr: model(xx, rr * t_scale, cond_h),
+                              (x_r, r), (v_star, torch.ones_like(r)))
+    return u, v_star + (t_h - r)[:, None, None, None] * du_dr
+
+
+def make_flow_optimizer(model: nn.Module, learning_rate, mask_encoder: bool = False,
+                        grad_clip: float = 1.0) -> ClippedAdam:
+    """Clip by global norm at ``grad_clip``, then Adam at ``learning_rate``
+    (a float or a ``schedule(step)``)."""
+    if mask_encoder:
+        _not_ported("the inpainting mask-encoder optimizer group")
+    return ClippedAdam(model.parameters(), learning_rate, grad_clip)
+
+
+@dataclass
+class FlowState:
+    model: nn.Module
+    opt: ClippedAdam
+    ema: nn.Module
+    step: int = 0
+
+
+def create_flow_state(model: nn.Module, learning_rate, grad_clip: float = 1.0) -> FlowState:
+    return FlowState(model=model, opt=make_flow_optimizer(model, learning_rate,
+                                                          grad_clip=grad_clip),
+                     ema=ema_init(model))
+
+
+def _interp(source, target, t):
+    te = t[:, None, None, None]
+    return (1 - te) * source + te * target
+
+
+def draw_flow_inputs(generator: torch.Generator, shape, meanflow: bool = False,
+                     dtype=torch.float32) -> dict:
+    """One (micro)batch's random inputs, drawn on ``generator``'s device."""
+    kw = dict(generator=generator, dtype=dtype, device=generator.device)
+    draws = {"noise": torch.randn(tuple(shape), **kw),
+             "t_uniform": torch.rand(shape[0], **kw),
+             "cfg_noise": torch.randn(tuple(shape), **kw)}
+    if meanflow:
+        draws["r_uniform"] = torch.rand(shape[0], **kw)
+        draws["sel_uniform"] = torch.rand(shape[0], **kw)
+    return draws
+
+
+def make_flow_grads_fn(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 999.0,
+                       use_ot: bool = True, encode_fn: Optional[Callable] = None,
+                       ot_method: str = "parallel", ot_block: Optional[int] = None,
+                       paired_source: bool = False, curvature_weight: float = 0.0,
+                       meanflow: bool = False, meanflow_ratio: float = 0.25,
+                       meanflow_adaptive_p: float = 0.5, mask_encoder=None,
+                       otf_aug=None) -> Callable:
+    """The per-(micro)batch loss core:
+    ``grads_fn(model, batch, drop, draws=None, generator=None,
+    loss_scale=1.0) -> aux``. It backpropagates ``loss·loss_scale`` into
+    the model's ``.grad`` and returns the detached losses. ``batch``:
+    ``{'target': (B,H,W,C), 'class_cond': (B,) or absent, 'source'
+    (paired_source only)}``, or ``'pixels'`` with ``encode_fn``."""
+    if mask_encoder is not None or otf_aug is not None:
+        _not_ported("inpainting flow training (the mask encoder, OTF augmentation)")
+
+    def grads_fn(model: nn.Module, batch: dict, drop, draws: Optional[dict] = None,
+                 generator: Optional[torch.Generator] = None,
+                 loss_scale: float = 1.0) -> dict:
+        if "mask_pixels" in batch:
+            _not_ported("inpainting flow training")
+        if encode_fn is not None and "pixels" in batch:
+            with torch.no_grad():
+                target = encode_fn(batch["pixels"])
+        else:
+            target = batch["target"]
+        class_cond = batch.get("class_cond")
+        B = target.shape[0]
+        if draws is None:
+            draws = draw_flow_inputs(generator, target.shape, meanflow, target.dtype)
+        t = warp_time(draws["t_uniform"] * (1 - eps) + eps, s=warp_s)
+
+        if paired_source:
+            source = batch["source"].to(target.dtype)
+        else:
+            source = torch.where(drop, draws["cfg_noise"], draws["noise"])
+        if class_cond is not None:
+            class_cond = torch.where(drop, -torch.ones_like(class_cond), class_cond)
+        aux = {}
+        if use_ot and not paired_source:
+            if ot_method == "parallel":
+                idx, aux["ot_rounds"] = compute_ot_pairing_blocked(
+                    source.detach(), target.detach(), block=ot_block or B,
+                    return_rounds=True)
+            else:
+                idx = compute_ot_pairing(source.detach(), target.detach(),
+                                         method=ot_method, block=ot_block)
+            target = target[idx]
+            if class_cond is not None:
+                class_cond = class_cond[idx]
+        v_star = target - source
+        cond = {"class_cond": class_cond, "mask_cond": None}
+
+        if meanflow:
+            r = t * draws["r_uniform"]
+            r = torch.where(draws["sel_uniform"] < meanflow_ratio, r, t)
+            u, u_tgt = meanflow_target(model, _interp(source, target, r), r, t,
+                                       v_star, cond, t_scale)
+            sq = ((u - u_tgt.detach()) ** 2).mean(dim=(1, 2, 3))
+            if meanflow_adaptive_p:
+                loss = ((sq.detach() + 1e-3) ** (-meanflow_adaptive_p) * sq).mean()
+            else:
+                loss = sq.mean()
+            (loss * loss_scale).backward()
+            aux.update(loss_flow=loss.detach(), loss=loss.detach(),
+                       loss_meanflow_raw=sq.mean().detach())
+            return aux
+
+        x = _interp(source, target, t)
+        if curvature_weight:
+            v, dv_dt = torch.func.jvp(lambda xx, tt: model(xx, tt * t_scale, cond),
+                                      (x, t), (v_star, torch.ones_like(t)))
+        else:
+            v = model(x, t * t_scale, cond)
+        loss = ((v - v_star) ** 2).mean()
+        aux["loss_flow"] = loss.detach()
+        if curvature_weight:
+            curv = (dv_dt ** 2).mean()
+            loss = loss + curvature_weight * curv
+            aux["loss_curvature"] = curv.detach()
+        aux["loss"] = loss.detach()
+        (loss * loss_scale).backward()
+        return aux
+
+    return grads_fn
+
+
+def _slice(batch: dict, i: int, n: int) -> dict:
+    return {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+
+
+def make_flow_train_step(cfg_dropout: float = 0.1, eps: float = 1e-3,
+                         warp_s: float = 0.5, t_scale: float = 999.0,
+                         ema_decay: float = 0.999, use_ot: bool = True,
+                         encode_fn: Optional[Callable] = None,
+                         ot_method: str = "parallel", ot_block: Optional[int] = None,
+                         paired_source: bool = False, curvature_weight: float = 0.0,
+                         meanflow: bool = False, meanflow_ratio: float = 0.25,
+                         meanflow_adaptive_p: float = 0.5, grad_accum: int = 1,
+                         mask_encoder=None, otf_aug=None, mesh=None):
+    """``step(state, batch, generator, draws=None, drop=None) -> (state,
+    aux)``, updating ``state`` in place: the gradients (over ``grad_accum``
+    microbatches), the clipped Adam update, the EMA. ``draws`` is a list of
+    one dict per microbatch; ``drop`` overrides the gate. ``aux`` holds
+    device scalars: the losses (the microbatches' mean), ``grad_norm``
+    before clipping and, with the parallel OT method, ``ot_rounds``."""
+    if mesh is not None:
+        _not_ported("data-parallel and sharded flow training")
+    if meanflow and curvature_weight:
+        raise ValueError("meanflow mode does not combine with curvature_weight "
+                         "or the inpainting mask path")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    grads_fn = make_flow_grads_fn(
+        eps=eps, warp_s=warp_s, t_scale=t_scale, use_ot=use_ot, encode_fn=encode_fn,
+        ot_method=ot_method, ot_block=ot_block, paired_source=paired_source,
+        curvature_weight=curvature_weight, meanflow=meanflow,
+        meanflow_ratio=meanflow_ratio, meanflow_adaptive_p=meanflow_adaptive_p,
+        mask_encoder=mask_encoder, otf_aug=otf_aug)
+
+    def step(state: FlowState, batch: dict, generator: torch.Generator,
+             draws=None, drop=None):
+        if drop is None:
+            drop = torch.rand((), generator=generator,
+                              device=generator.device) < cfg_dropout
+        state.opt.zero_grad()
+        lead = next(iter(batch.values())).shape[0]
+        if lead % grad_accum:
+            raise ValueError(f"batch size {lead} is not divisible by "
+                             f"grad_accum={grad_accum}")
+        n = lead // grad_accum
+        auxs = [grads_fn(state.model, _slice(batch, i, n) if grad_accum > 1 else batch,
+                         drop, draws[i] if draws is not None else None, generator,
+                         1.0 / grad_accum)
+                for i in range(grad_accum)]
+        aux = {k: sum(a[k] for a in auxs) / grad_accum for k in auxs[0]}
+        aux["grad_norm"] = state.opt.step(state.step)
+        ema_update(state.ema, state.model, ema_decay)
+        state.step += 1
+        return state, aux
+
+    return step
+
+
+def make_flow_eval_step(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 999.0,
+                        use_ot: bool = True, ot_method: str = "parallel",
+                        paired_source: bool = False, mask_encoder=None):
+    """Validation loss on a batch, same path, no update:
+    ``eval_fn(model, batch, generator, draws=None) -> loss`` (a device
+    scalar); ``draws`` holds ``'noise'`` and ``'t_uniform'``."""
+    if mask_encoder is not None:
+        _not_ported("inpainting flow evaluation")
+
+    @torch.no_grad()
+    def eval_fn(model: nn.Module, batch: dict, generator: Optional[torch.Generator] = None,
+                draws: Optional[dict] = None):
+        target = batch["target"]
+        class_cond = batch.get("class_cond")
+        B = target.shape[0]
+        if draws is None:
+            kw = dict(generator=generator, dtype=target.dtype, device=generator.device)
+            draws = {"noise": torch.randn(tuple(target.shape), **kw),
+                     "t_uniform": torch.rand(B, **kw)}
+        source = (batch["source"].to(target.dtype) if paired_source
+                  else draws["noise"])
+        if use_ot and not paired_source:
+            idx = compute_ot_pairing(source, target, method=ot_method)
+            target = target[idx]
+            if class_cond is not None:
+                class_cond = class_cond[idx]
+        t = warp_time(draws["t_uniform"] * (1 - eps) + eps, s=warp_s)
+        v = model(_interp(source, target, t), t * t_scale,
+                  {"class_cond": class_cond, "mask_cond": None})
+        return ((v - (target - source)) ** 2).mean()
+
+    return eval_fn

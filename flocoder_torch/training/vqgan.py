@@ -14,9 +14,17 @@ the GAN step and the eval step.
   discriminator with its statistics frozen; the backward into the codec
   only (the discriminator's parameters do not collect the generator's
   gradients).
+- ``grad_accum`` splits the batch into leading microbatch slices. Each
+  slice's loss, divided by ``grad_accum``, is backpropagated, and the RVQ
+  state chains through the slices (each slice quantizes with the state the
+  previous one left); then one optimizer step. In the GAN step every slice
+  also takes its discriminator gradients, its power iterations advancing,
+  and its generator loss sees the discriminator before this step's update
+  (the JAX package's simultaneous update); at ``grad_accum=1`` the step is
+  the alternating one above.
 - ``deterministic=True`` turns dropout and NoiseInjection off (parity tests
-  only). Gradient accumulation and data / tensor parallelism are not ported
-  yet (ROADMAP.md) and raise.
+  only). Data and tensor parallelism are not ported yet (ROADMAP.md) and
+  raise.
 """
 from __future__ import annotations
 
@@ -38,19 +46,23 @@ __all__ = ["ClippedAdam", "VQGANState", "create_vqgan_state",
 class ClippedAdam:
     """optax ``chain(clip_by_global_norm(grad_clip), adam(lr))`` over
     ``params``. A parameter without a gradient takes a zero one, as optax
-    gives every leaf a gradient."""
+    gives every leaf a gradient. ``lr`` is a float or a host function
+    ``schedule(count) -> float`` of the optimizer step, as optax's."""
 
-    def __init__(self, params, lr: float, grad_clip: float = 1.0):
+    def __init__(self, params, lr, grad_clip: float = 1.0):
         self.params = list(params)
         self.grad_clip = grad_clip
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
-                                     eps=1e-8)
+        self.schedule = lr if callable(lr) else None
+        self.adam = torch.optim.Adam(self.params, lr=0.0 if callable(lr) else lr,
+                                     betas=(0.9, 0.999), eps=1e-8)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
     @torch.no_grad()
-    def step(self) -> None:
+    def step(self, count: int = 0) -> torch.Tensor:
+        """One update; ``count`` is the step the schedule reads. Returns the
+        gradients' global norm before clipping."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -58,7 +70,11 @@ class ClippedAdam:
         norm = torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(g) for g in grads]))
         torch._foreach_mul_(grads, self.grad_clip / norm.clamp(min=self.grad_clip))
+        if self.schedule is not None:
+            for group in self.adam.param_groups:
+                group["lr"] = self.schedule(count)
         self.adam.step()
+        return norm
 
 
 def g_trainable(codec: nn.Module) -> list:
@@ -95,9 +111,19 @@ def _not_ported(mesh, grad_accum: int) -> None:
     if mesh is not None:
         raise NotImplementedError("data- and tensor-parallel codec training is "
                                   "not ported yet (ROADMAP.md)")
-    if grad_accum != 1:
-        raise NotImplementedError("codec.grad_accum > 1 is not ported yet "
-                                  "(ROADMAP.md)")
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+
+def _micro(batch, grad_accum: int) -> list:
+    if batch.shape[0] % grad_accum:
+        raise ValueError(f"batch size {batch.shape[0]} is not divisible by "
+                         f"grad_accum={grad_accum}")
+    return list(batch.chunk(grad_accum)) if grad_accum > 1 else [batch]
+
+
+def _mean_aux(auxs: list) -> dict:
+    return {k: sum(a[k] for a in auxs) / len(auxs) for k in auxs[0]}
 
 
 def _aux(losses: dict, total) -> dict:
@@ -116,16 +142,20 @@ def make_vqgan_warmup_step(config, perceptual_fn: Optional[Callable] = None,
     def step(state: VQGANState, batch, generator):
         codec = state.codec
         state.opt_g.zero_grad()
-        recon, commit, idx, new_vq = codec(batch, train=True, generator=generator,
-                                           deterministic=deterministic)
-        losses = compute_vqgan_losses(recon, batch, commit, config,
-                                      perceptual_fn=perceptual_fn)
-        total = get_total_vqgan_loss(losses, config)
-        total.backward()
+        auxs, idxs = [], []
+        for sub in _micro(batch, grad_accum):
+            recon, commit, idx, new_vq = codec(sub, train=True, generator=generator,
+                                               deterministic=deterministic)
+            losses = compute_vqgan_losses(recon, sub, commit, config,
+                                          perceptual_fn=perceptual_fn)
+            total = get_total_vqgan_loss(losses, config)
+            (total / grad_accum).backward()
+            codec.vq.assign_(new_vq)
+            auxs.append(_aux(losses, total))
+            idxs.append(idx)
         state.opt_g.step()
-        codec.vq.assign_(new_vq)
         state.step += 1
-        return state, _aux(losses, total), idx
+        return state, _mean_aux(auxs), torch.cat(idxs)
 
     return step
 
@@ -144,6 +174,8 @@ def make_vqgan_gan_step(config, perceptual_fn: Optional[Callable] = None,
     share_real_features = bool(config.codec.get("share_real_features", False))
 
     def step(state: VQGANState, batch, generator, mark=None):
+        if grad_accum > 1:
+            return accum_step(state, batch, generator)
         mark = mark or (lambda name: None)
         codec, disc = state.codec, state.disc
         state.opt_g.zero_grad()
@@ -181,6 +213,42 @@ def make_vqgan_gan_step(config, perceptual_fn: Optional[Callable] = None,
         aux = _aux(losses, total)
         aux["d_loss"] = d_loss.detach()
         return state, aux, idx
+
+    def accum_step(state: VQGANState, batch, generator):
+        """Simultaneous update over microbatches: every slice's D and G
+        gradients against the discriminator's weights before the update."""
+        codec, disc = state.codec, state.disc
+        state.opt_g.zero_grad()
+        state.opt_d.zero_grad()
+        auxs, idxs = [], []
+        for sub in _micro(batch, grad_accum):
+            recon, commit, idx, new_vq = codec(sub, train=True, generator=generator,
+                                               deterministic=deterministic)
+            real_pred, real_features = disc(sub, update_stats=True)
+            fake_pred, _ = disc(recon.detach(), update_stats=True)
+            d_loss = hinge_d_loss(real_pred, fake_pred)
+            if lecam_weight > 0:
+                d_loss = d_loss + lecam_loss(real_pred, fake_pred, lecam_weight)
+            (d_loss / grad_accum).backward()
+            disc.requires_grad_(False)
+            losses = compute_vqgan_losses(
+                recon, sub, commit, config, perceptual_fn=perceptual_fn,
+                disc_apply=make_disc_apply(disc, update_stats=False),
+                warmed_up=True, report_d_loss=False,
+                real_features=([f.detach() for f in real_features]
+                               if share_real_features else None))
+            total = get_total_vqgan_loss(losses, config)
+            (total / grad_accum).backward()
+            disc.requires_grad_(True)
+            codec.vq.assign_(new_vq)
+            aux = _aux(losses, total)
+            aux["d_loss"] = d_loss.detach()
+            auxs.append(aux)
+            idxs.append(idx)
+        state.opt_d.step()
+        state.opt_g.step()
+        state.step += 1
+        return state, _mean_aux(auxs), torch.cat(idxs)
 
     return step
 

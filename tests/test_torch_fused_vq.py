@@ -119,6 +119,44 @@ def test_compress_tail_debug_twin_matches_pallas_and_oracle():
         np.testing.assert_allclose(o64.numpy(), r64, atol=1e-10, err_msg=name)
 
 
+@pytest.mark.parametrize("kernel", ["compress_vq", "compress_tail_vq"])
+def test_nan_token_matches_the_fused_jax_reference(kernel):
+    """A NaN token has a NaN distance to every code, so the Pallas kernels'
+    first-minimum one-hot is all zero: each level adds nothing (z_q 0) and
+    records index 0. The twins do the same; every other token is unchanged.
+    In the tail a NaN pixel makes its whole image NaN (GroupNorm's per-image
+    statistics), so every token of that image is such a token."""
+    L, K, D = 3, 8, 4
+    if kernel == "compress_vq":
+        rng = np.random.default_rng(5)
+        z = rng.standard_normal((8, 16)).astype(np.float32)
+        z[5] = np.nan
+        w = (rng.standard_normal((16, D)) * 0.3).astype(np.float32)
+        b = (rng.standard_normal(D) * 0.1).astype(np.float32)
+        cb = (rng.standard_normal((L, K, D)) * float(np.nanstd(z @ w + b))).astype(np.float32)
+        zq_ref, idx_ref = jax_compress_vq(*map(jnp.asarray, (z, w, b, cb)), tile_n=128)
+        zq, idx = fvq.fused_compress_vq(*map(torch.from_numpy, (z, w, b, cb)))
+        bad = np.zeros(8, bool)
+        bad[5] = True
+    else:
+        a = _tail_inputs(6, 2, 4, 4, 16, D)
+        a["h"][1, 2, 3] = np.nan
+        args = _port_tail_args(a)
+        spread = float(fvq.compress_tail_debug_plain(*args, 2)[2][:16].std())
+        cb = (np.random.default_rng(8).standard_normal((L, K, D)) * spread).astype(np.float32)
+        zq_ref, idx_ref = jax_tail_vq(
+            *map(jnp.asarray, (a["h"], a["w1"], a["b1"], a["gs"], a["gb"], a["cw"],
+                               a["cb_"], cb)), groups=2, tile_b=2)
+        zq, idx = fvq.fused_compress_tail_vq(*args, torch.from_numpy(cb), 2)
+        bad = np.zeros((2, 4, 4), bool)
+        bad[1] = True
+    zq_ref, idx_ref = np.asarray(zq_ref), np.asarray(idx_ref)
+    assert not zq_ref[bad].any() and not idx_ref[bad].any()
+    np.testing.assert_array_equal(idx.numpy(), idx_ref)
+    np.testing.assert_allclose(zq.numpy(), zq_ref, atol=2e-5)
+    assert len(np.unique(idx_ref[~bad][..., 0])) > 1
+
+
 def test_encode_quantize_fused_matches_jax():
     """A small codec without attention (as the JAX package's own test):
     the port's fused encode and JAX's on the same weights give the same

@@ -175,14 +175,22 @@ def test_fused_vq_kernels_match_twins_on_card():
                                              cluster=cs)[1]
         torch.cuda.synchronize()
         assert not (idx % 2).any(), cs
-    # a NaN token: every distance is NaN, so every level picks code 0
+    # a NaN token: every distance is NaN, so no code wins at any level, as
+    # in the TPU kernels' all-zero one-hot: z_q 0, index 0; the others as
+    # the twin's. In K3 a NaN pixel makes its whole image NaN (GroupNorm).
     z[5] = float("nan")
     zq, idx = fvq.fused_compress_vq(z, w, b, cb)
     torch.cuda.synchronize()
-    first = torch.zeros_like(zq[5])
-    for code in cb[:, 0]:                  # z_q sums the picks in level order
-        first = first + code
-    assert not idx[5].any() and torch.equal(zq[5], first)
+    assert not idx[5].any() and not zq[5].any()
+    zq_p, idx_p = fvq.fused_compress_vq_plain(z, w, b, cb)
+    assert torch.equal(idx, idx_p) and not zq_p[5].any()
+    h, tail, cb = fvq.random_tail_inputs(g, 2, 16, 16, 128, 4, 4, 96, 2)
+    h[1, 3, 4] = float("nan")
+    for cs in kernels.CLUSTER_SIZES:
+        zq, idx = kernels.fused_compress_tail_vq(h, *tail, cb, 2, cluster=cs)
+        torch.cuda.synchronize()
+        assert not idx[1].any() and not zq[1].any(), cs
+        assert torch.equal(idx, fvq.fused_compress_tail_vq_plain(h, *tail, cb, 2)[1]), cs
 
     for (B, H, W, Din, D, groups), cs in (((4, 16, 16, 256, 4, 2), None),
                                           ((4, 16, 16, 256, 4, 2), 1),

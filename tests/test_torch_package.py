@@ -1,6 +1,7 @@
 """flocoder_torch as a package: it imports nothing of JAX or of the JAX
-package (the serving, codec-training and pre-encoding modules alike), its entry point refuses to run without a card unless asked for
-the CPU, and ``python -m flocoder_torch.generate_samples`` serves end to end
+package (the serving, codec-training, pre-encoding and flow-training
+modules alike), its entry point refuses to run without a card unless asked
+for the CPU, MIDI export refuses until it is ported, and ``python -m flocoder_torch.generate_samples`` serves end to end
 on the CPU from checkpoints in the npz contract."""
 import os
 import pkgutil
@@ -42,7 +43,8 @@ def test_every_module_imports_without_jax():
     for m in ("train_vqgan", "training.vqgan", "models.discriminator",
               "models.perceptual", "ops.rvq", "data.datasets", "data.transforms",
               "utils.codebook_analysis", "metrics", "preencode_data", "ops.fused_vq",
-              "ops.kernels.fused_vq"):
+              "ops.kernels.fused_vq", "train_flow", "evaluate_model", "training.flow",
+              "training.ema", "training.schedules", "ops.ot", "ops.sinkhorn", "ops.fid"):
         assert f"flocoder_torch.{m}" in mods, m
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'flax', 'flocoder_tpu'):\n"
@@ -98,3 +100,15 @@ def test_generate_samples_serves_on_cpu(tmp_path, overrides, extra):
     assert np.isfinite(res["images"]).all() and res["nfe"] == 8
     assert len(res["batch_seconds"]) == 2
     assert (out / "sample_001_000.png").exists()
+
+
+def test_midi_export_raises(tmp_path):
+    """The JAX script also writes .mid files for the MIDI recipes; until the
+    port has that export, a MIDI data path raises instead of writing PNGs
+    only."""
+    flow = _write_checkpoints(tmp_path, [])
+    with pytest.raises(NotImplementedError, match="MIDI .mid export.*ROADMAP"):
+        gs.main(["--config-name", "smoke_vqgan", f"+flow_checkpoint={flow}",
+                 "+n_samples=1", "+device=cpu", "data=/data/pop909_midi",
+                 f"+output_dir={tmp_path / 'out'}"])
+    assert not (tmp_path / "out").exists()

@@ -94,10 +94,61 @@ def test_integrators_and_cfg_velocity_match_jax(method, cfg):
 
 
 def test_unported_methods_raise():
+    """Every sampling method of the JAX package is ported; an unknown name
+    raises."""
     for method in ("rk45", "sde", "ab4", "meanflow"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsamp.generate_latents(_field(torch), (1, 2, 2, 1),
-                                   torch.Generator(), method=method)
+        x, nfe = tsamp.generate_latents(_field(torch), (1, 2, 2, 1), torch.Generator(),
+                                        method=method, n_steps=6)
+        assert x.shape == (1, 2, 2, 1) and nfe > 0
+    with pytest.raises(ValueError, match="unknown sampling method"):
+        tsamp.generate_latents(_field(torch), (1, 2, 2, 1), torch.Generator(),
+                               method="dopri8")
+
+
+@pytest.mark.parametrize("method,n_steps", [("ab4", 9), ("ab4", 4), ("sde", 7),
+                                            ("meanflow", 3), ("meanflow", 1), ("rk45", 0)])
+@pytest.mark.parametrize("cfg", [0.0, 3.0])
+def test_new_samplers_match_jax(method, n_steps, cfg):
+    """AB4 (with its RK4 bootstrap and the short-grid RK4 case), the SDE
+    sampler with JAX's noise passed in, MeanFlow segments and adaptive RK45,
+    from the same x0, within 1e-4."""
+    rng = np.random.default_rng(1)
+    x0 = rng.normal(size=(3, 4, 4, 2)).astype(np.float32)
+    cc = np.array([0, 1, -1], np.int32)
+    key = jax.random.PRNGKey(2)
+    ref, jnfe = jsamp.generate_latents(
+        _field(jnp), x0.shape, key, method=method, n_steps=n_steps, cfg_strength=cfg,
+        cond={"class_cond": jnp.asarray(cc)}, source=jnp.asarray(x0))
+    noise = None
+    if method == "sde":
+        _, k_noise = jax.random.split(key)
+        noise = torch.stack([torch.from_numpy(np.asarray(jax.random.normal(k, x0.shape)))
+                             for k in jax.random.split(k_noise, n_steps - 1)])
+    ours, nfe = tsamp.generate_latents(
+        _field(torch), x0.shape, torch.Generator(), method=method, n_steps=n_steps,
+        cfg_strength=cfg, cond={"class_cond": torch.from_numpy(cc)},
+        source=torch.from_numpy(x0), noise=noise)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4)
+    assert nfe == int(jnfe)
+
+
+def test_meanflow_sampler_on_a_dual_time_unet_matches_jax():
+    unet = Unet(dim=8, channels=2, dim_mults=(1, 2), n_classes=3, dual_time=True)
+    init_params(unet, torch.Generator().manual_seed(4))
+    jparams = _to_jax(unet, UNET_PREFIXES)["model"]
+    jm = JaxUnet(dim=8, channels=2, dim_mults=(1, 2), n_classes=3, dual_time=True)
+    x0 = np.random.default_rng(5).normal(size=(2, 8, 8, 2)).astype(np.float32)
+    cc = np.array([1, 2], np.int32)
+    kw = dict(method="meanflow", n_steps=2, cfg_strength=2.0, t_scale=1.0)
+    ref, _ = jsamp.generate_latents(lambda x, t, c: jm.apply(jparams, x, t, c), x0.shape,
+                                    jax.random.PRNGKey(0), cond={"class_cond": jnp.asarray(cc)},
+                                    source=jnp.asarray(x0), **kw)
+    with torch.no_grad():
+        ours, nfe = tsamp.generate_latents(unet, x0.shape, torch.Generator(),
+                                           cond={"class_cond": torch.from_numpy(cc)},
+                                           source=torch.from_numpy(x0), **kw)
+    assert nfe == 2
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-4)
 
 
 def _to_jax(module, prefixes):

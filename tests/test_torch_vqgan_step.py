@@ -1,8 +1,11 @@
 """The port's codec training (flocoder_torch.training.vqgan) against the JAX
-package's on the same weights: ``compute_vqgan_losses``, then one warmup
-step and one GAN step, comparing the losses, the codec's and the
-discriminator's parameters (and power-iteration stats) after the update,
-and the RVQ state.
+package's on the same weights: ``compute_vqgan_losses`` here, one warmup
+step in ``test_torch_vqgan_warmup.py``, one GAN step in
+``test_torch_vqgan_gan.py`` and the microbatched steps in
+``test_torch_vqgan_accum.py`` (separate files, so that the test runner's
+per-file workers take them in parallel; they import the helpers here),
+comparing the losses, the codec's and the discriminator's parameters (and
+power-iteration stats) after the update, and the RVQ state.
 
 Both sides run deterministically: the JAX side through a test-side wrapper
 of its ``VQVAE`` whose ``forward`` encodes and decodes with
@@ -36,7 +39,6 @@ from flocoder_tpu.models import codecs as jcodecs
 from flocoder_tpu.models import discriminator as jdisc
 from flocoder_tpu.models.perceptual import VGG16Features as JaxVGG
 from flocoder_tpu.ops.rvq import RVQState as JaxRVQState
-from flocoder_tpu.training import vqgan as jvqgan
 from flocoder_tpu.training.checkpoint import flatten_tree, load_into_tree, unflatten_tree
 from flocoder_torch import metrics as tmetrics
 from flocoder_torch.config import load_config
@@ -208,58 +210,14 @@ def _assert_grads(ours: dict, ref: dict, what: str):
                                    atol=1e-4 * scale, err_msg=f"{what}: {k}")
 
 
-def test_warmup_step_matches_jax():
-    s = _setup()
-    x = _images(20)
-    tx_g, tx_d = jvqgan.make_vqgan_optimizers(1e-4)
-    jstate = jvqgan.create_vqgan_state(s["jparams"], tx_g)
-    jstep = jvqgan.make_vqgan_warmup_step(s["jcodec"], tx_g, s["jcfg"], s["jvgg"],
-                                          donate=False)
-    jstate, jaux, jidx = jax.block_until_ready(
-        jstep(jstate, jnp.asarray(x), jax.random.PRNGKey(1)))
-
-    state = tvqgan.create_vqgan_state(s["codec"], None, 1e-4)
-    step = tvqgan.make_vqgan_warmup_step(s["tcfg"], s["vgg"], deterministic=True)
-    state, aux, idx = step(state, torch.from_numpy(x), torch.Generator())
-    _assert_losses(aux, jaux)
-    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
-    _assert_tree(_codec_flat(state.codec), _jax_codec_flat(jstate.params), "codec")
-    _assert_grads(_moments(state.codec, state.opt_g, VQVAE_PREFIXES),
-                  _jax_moments(jstate.opt_g, ""), "codec gradient")
-    assert state.step == 1
-
-
-def test_gan_step_matches_jax():
-    s = _setup()
-    x = _images(30)
-    tx_g, tx_d = jvqgan.make_vqgan_optimizers(1e-4)
-    jstate = jvqgan.create_vqgan_state(s["jparams"], tx_g, s["jdvars"], tx_d)
-    jstep = jvqgan.make_vqgan_gan_step(
-        s["jcodec"], tx_g, s["jd"], jdisc.make_disc_apply(s["jd"], update_stats=True),
-        jdisc.make_disc_apply(s["jd"]), tx_d, s["jcfg"], s["jvgg"], donate=False)
-    jstate, jaux, _ = jax.block_until_ready(
-        jstep(jstate, jnp.asarray(x), jax.random.PRNGKey(2)))
-
-    state = tvqgan.create_vqgan_state(s["codec"], s["disc"], 1e-4)
-    step = tvqgan.make_vqgan_gan_step(s["tcfg"], s["vgg"], deterministic=True)
-    state, aux, _ = step(state, torch.from_numpy(x), torch.Generator())
-    _assert_losses(aux, jaux)
-    _assert_tree(_codec_flat(state.codec), _jax_codec_flat(jstate.params), "codec")
-    _assert_tree(to_jax_flat(state.disc, DISC_PREFIXES), flatten_tree(jstate.disc_vars),
-                 "discriminator")
-    _assert_grads(_moments(state.codec, state.opt_g, VQVAE_PREFIXES),
-                  _jax_moments(jstate.opt_g, ""), "codec gradient")
-    _assert_grads(_moments(state.disc, state.opt_d, DISC_PREFIXES),
-                  _jax_moments(jstate.opt_d, "params"), "discriminator gradient")
-    assert all(p.requires_grad for p in state.disc.parameters())
-
-
 def test_not_ported_options_raise():
     cfg = load_config("smoke_vqgan", config_dir="configs")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvqgan.make_vqgan_warmup_step(cfg, grad_accum=2)
+        tvqgan.make_vqgan_warmup_step(cfg, mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tvqgan.make_vqgan_gan_step(cfg, mesh=object())
+    with pytest.raises(ValueError, match="grad_accum"):
+        tvqgan.make_vqgan_warmup_step(cfg, grad_accum=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcodecs.setup_codec(load_config("smoke_vqgan", config_dir="configs",
                                         overrides=["+codec.bf16=true"]))
