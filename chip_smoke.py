@@ -105,6 +105,36 @@
    parameters, Adam's first moments and EMA within 1e-3·max(1, |ref|); in
    float64, the step's changes to the parameters and the EMA and Adam's
    first moments within 1e-3 of the largest on the CPU.
+13. Holds K1 and K2 at HDiT's neighborhood-attention shapes (flowers_hdit
+   with flow.hdit_patch_size=2 and na:7: 8x8 tokens of width 256, 4 heads
+   of 64, k 7, at B=256 and B=128; and the 4x4 map of na:7 at patch 4)
+   against their plain twins, fp32 and bf16, with the gates of steps 3 and
+   4, and times them (profiler, CUDA events) beside the bound and SDPA with
+   the window mask; these rows join the kernels line's per_shape rows.
+14. sd_preencode: pre-encodes flowers_sd at full width (the SD VAE, 128²
+   images, 16x16x4 latents) through flocoder_torch.preencode_data.main,
+   batch 32, augs_per 4 (the recipe's 128), over step 10's PNGs: no kernel
+   launches; latents/s per split, encode ms a batch, one batch's idle
+   share, peak memory; two images on the card and on the CPU, TF32 off,
+   within 1e-4·max(1, |ref|).
+15. sd_serve: serves flowers_sd (seeded U-Nets, unconditional and CFG with
+   102 classes, batch 64, 20 grid points) through generate_samples: no
+   kernel launches; samples/s, the decode ms a batch; two samples on the
+   card and on the CPU within 1e-3·max(1, |ref|).
+16. hdit_flow: trains flowers_hdit with the NA variant at full width (bf16,
+   batch 256) for 3 epochs on step 14's latents, with an RK4 + CFG
+   evaluation each epoch (20 grid points, decoded through the SD VAE), then
+   serves the EMA checkpoint with +bf16=false. K1 and K2 are counted
+   exactly: 4 K1 (K2) per HDiT forward (backward), 4·NFE K1 per sampler
+   call. Steady samples/s, per-epoch samples/s, evaluation seconds by part,
+   one step's idle share, peak memory; one fp32 step, zero-init weights
+   perturbed, on the card against the CPU (B=64) within 1e-3·max(1, |ref|)
+   on the loss, parameters, Adam's first moments and EMA.
+17. hdit_recipe (flowers_hdit as composed: global attention, patch 4) and
+   hdit_moe (step 16's variant with flow.hdit_moe_experts=[8,0]): one epoch
+   each, no evaluation: steady samples/s, 0 NA2D launches for the recipe
+   and 4 K1 and 4 K2 a step for MoE, its auxiliary loss and dropped
+   fraction.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -183,6 +213,34 @@ def device_ms(fn, key: str, iters: int = 10) -> float:
         if count and count % iters == 0:
             break
     return ms
+
+
+def _window_mask(H: int, W: int, ks: int):
+    """The (H·W, H·W) clamped-window mask of NA2D, for the SDPA yardstick."""
+    r = torch.arange(H, device="cuda")
+    c = torch.arange(W, device="cuda")
+    rs = (r - ks // 2).clamp(0, H - ks)
+    cs = (c - ks // 2).clamp(0, W - ks)
+    row_ok = (r[None, :] >= rs[:, None]) & (r[None, :] < rs[:, None] + ks)
+    col_ok = (c[None, :] >= cs[:, None]) & (c[None, :] < cs[:, None] + ks)
+    return (row_ok[:, None, :, None] & col_ok[None, :, None, :]).reshape(H * W, H * W)
+
+
+def _steady(events: list) -> list:
+    """Seconds between consecutive steps' CUDA events within an epoch (the
+    first step of each epoch, with the loader's start, is excluded)."""
+    return [b.elapsed_time(a) / 1e3 for (ea, a), (eb, b) in zip(events[1:], events)
+            if ea == eb]
+
+
+def _hooked():
+    events = []
+
+    def step_hook(epoch):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append((epoch, ev))
+    return events, step_hook
 
 
 def na2d_bound_ms(B, H, W, C, ks, dtype) -> tuple:
@@ -277,13 +335,7 @@ def time_k1(na2d_fwd, na2d_banded, card: str) -> dict:
                                        heads=heads), 50)
 
     # yardstick: one SDPA call over the 1024 tokens with the NATTEN mask
-    r = torch.arange(H, device="cuda")
-    c = torch.arange(W, device="cuda")
-    rs = (r - ks // 2).clamp(0, H - ks)
-    cs = (c - ks // 2).clamp(0, W - ks)
-    row_ok = (r[None, :] >= rs[:, None]) & (r[None, :] < rs[:, None] + ks)
-    col_ok = (c[None, :] >= cs[:, None]) & (c[None, :] < cs[:, None] + ks)
-    mask = (row_ok[:, None, :, None] & col_ok[None, :, None, :]).reshape(H * W, H * W)
+    mask = _window_mask(H, W, ks)
     qs, ks_, vs = (t.reshape(B, H * W, heads, dh).transpose(1, 2).contiguous()
                    for t in (q, k, v))
     sdpa = lambda: F.scaled_dot_product_attention(qs, ks_, vs, attn_mask=mask)  # noqa: E731
@@ -408,13 +460,7 @@ def time_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded, na2d, card: str) -> tuple:
                                        heads=heads), 20)
 
     # yardstick: SDPA forward + backward with the NATTEN mask, against K1 + K2
-    r = torch.arange(H, device="cuda")
-    c = torch.arange(W, device="cuda")
-    rs = (r - ks // 2).clamp(0, H - ks)
-    cs = (c - ks // 2).clamp(0, W - ks)
-    row_ok = (r[None, :] >= rs[:, None]) & (r[None, :] < rs[:, None] + ks)
-    col_ok = (c[None, :] >= cs[:, None]) & (c[None, :] < cs[:, None] + ks)
-    mask = (row_ok[:, None, :, None] & col_ok[None, :, None, :]).reshape(H * W, H * W)
+    mask = _window_mask(H, W, ks)
     heads_first = lambda t: (t.reshape(B, H * W, heads, dh).transpose(1, 2)  # noqa: E731
                              .contiguous().requires_grad_())
     qs, ks_, vs = (heads_first(t) for t in (q, k, v))
@@ -494,12 +540,14 @@ def scale_codebooks(codec, image_size: int) -> None:
     codec.vq.codebooks.data.mul_(spread / 0.02)
 
 
-def write_checkpoints(tmp: str, config_dir: str):
-    """Seeded random-init checkpoints in the npz contract for flowers_vqgan
-    as composed: the VQGAN codec (128², hidden 256, 3 downsamples; its
-    codebooks scaled by ``scale_codebooks``), an unconditional U-Net (dim
-    16, dim_mults 1,2,4,8) and a class-conditional one (n_classes 102).
-    NATTEN gates are set to 1 so that K1's output reaches the images."""
+def write_checkpoints(tmp: str, config_dir: str, recipe: str = "flowers_vqgan"):
+    """Seeded random-init checkpoints in the npz contract for ``recipe`` as
+    composed: an unconditional U-Net (dim 16, dim_mults 1,2,4,8 on
+    16×16×4 latents) and a class-conditional one (n_classes 102), and for
+    flowers_vqgan the VQGAN codec (128², hidden 256, 3 downsamples; its
+    codebooks scaled by ``scale_codebooks``; NATTEN gates set to 1 so that
+    K1's output reaches the images). flowers_sd's SD VAE has no checkpoint
+    file: serving seeds it as pre-encoding does."""
     from flocoder_torch.config import load_config
     from flocoder_torch.models.codecs import NATTENBlock, setup_codec
     from flocoder_torch.models.layers import init_params
@@ -507,28 +555,27 @@ def write_checkpoints(tmp: str, config_dir: str):
     from flocoder_torch.training.checkpoint import (
         UNET_PREFIXES, VQVAE_PREFIXES, save_checkpoint, to_jax_flat)
 
-    codec_path = os.path.join(tmp, "vqgan_0.npz")
-    base = ["flowers_vqgan.yaml", config_dir]
-    cfg = load_config(*base, overrides=[f"codec.checkpoint={codec_path}"])
-    cfg_cls = load_config(*base, overrides=[f"codec.checkpoint={codec_path}",
-                                            "flow.unet.n_classes=102"])
     gen = torch.Generator("cuda")
-    codec = init_params(setup_codec(cfg, device="cuda"), gen.manual_seed(0))
-    for m in codec.modules():
-        if isinstance(m, NATTENBlock):
-            m.gamma.data.fill_(1.0)
-    scale_codebooks(codec, 128)
-    save_checkpoint(to_jax_flat(codec, VQVAE_PREFIXES), 0, ckpt_dir=tmp,
-                    prefix="vqgan_")
-    H, W, C = codec.latent_shape(128)
-    paths = {"codec": codec_path}
-    for name, c, n_classes in (("uncond", cfg, 0), ("cfg", cfg_cls, 102)):
-        unet = Unet(dim=H, channels=C, dim_mults=(1, 2, 4, 8),
+    paths, over = {}, []
+    if recipe == "flowers_vqgan":
+        paths["codec"] = os.path.join(tmp, "vqgan_0.npz")
+        over = [f"codec.checkpoint={paths['codec']}"]
+        codec = init_params(setup_codec(load_config(recipe, config_dir, over), device="cuda"),
+                            gen.manual_seed(0))
+        for m in codec.modules():
+            if isinstance(m, NATTENBlock):
+                m.gamma.data.fill_(1.0)
+        scale_codebooks(codec, 128)
+        save_checkpoint(to_jax_flat(codec, VQVAE_PREFIXES), 0, ckpt_dir=tmp,
+                        prefix="vqgan_")
+    for name, n_classes in (("uncond", 0), ("cfg", 102)):
+        cfg = load_config(recipe, config_dir, over + [f"flow.unet.n_classes={n_classes}"])
+        unet = Unet(dim=16, channels=4, dim_mults=(1, 2, 4, 8),
                     n_classes=n_classes).cuda()
         init_params(unet, gen.manual_seed(1))
         paths[name] = save_checkpoint(to_jax_flat(unet, UNET_PREFIXES), 0,
-                                      ckpt_dir=tmp, prefix=f"flowema_{name}_",
-                                      config=c)
+                                      ckpt_dir=tmp, prefix=f"flowema_{recipe}_{name}_",
+                                      config=cfg)
     return paths
 
 
@@ -638,16 +685,18 @@ def profile_batch(fn) -> dict:
                 top_kernels=[(e.key, e.self_device_time_total / 1e3) for e in top])
 
 
-def check_small_input(paths: dict) -> None:
-    """The CFG model and the codec on the card against copies on the CPU:
-    RK4 + CFG (4 grid points) and decode for 2 samples, and an encode."""
+def check_small_input(ckpt: str, label: str = "") -> dict:
+    """The served model of checkpoint ``ckpt`` (class-conditional, 16×16×4
+    latents) and its codec on the card against copies on the CPU, TF32
+    off: RK4 + CFG (4 grid points) and decode for 2 samples, and the encode
+    of an image, within 1e-3·max(1, |ref|). Returns the errors."""
     from flocoder_torch import generate_samples as gs
     from flocoder_torch.evaluation import sampler
     from flocoder_torch.config import Config
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    b = gs.load_models_once(Config({}), paths["cfg"], torch.device("cuda"))
+    b = gs.load_models_once(Config({}), ckpt, torch.device("cuda"))
     cpu_model = copy.deepcopy(b["model"]).to("cpu")
     cpu_codec = copy.deepcopy(b["codec"]).to("cpu")
     rng = np.random.default_rng(5)
@@ -665,13 +714,15 @@ def check_small_input(paths: dict) -> None:
         with torch.inference_mode():
             enc = codec.encode(img.to(dev))
         out[dev] = [t.float().cpu() for t in (lat, dec, enc)]
+    errs = {}
     for name, a, ref in zip(("latents", "images", "encoded"), out["cuda"], out["cpu"]):
-        err = (a - ref).abs().max().item()
+        err = errs[name] = (a - ref).abs().max().item()
         tol = 1e-3 * max(1.0, ref.abs().max().item())
-        print(f"card vs CPU {name} {tuple(a.shape)}: max_abs_err={err:.3e} "
+        print(f"card vs CPU {label}{name} {tuple(a.shape)}: max_abs_err={err:.3e} "
               f"(tol {tol:.3e})", flush=True)
         if not (np.isfinite(err) and err < tol):
-            fail(f"card and CPU disagree on {name}")
+            fail(f"card and CPU disagree on {label}{name}")
+    return errs
 
 
 def write_pngs(folder: str, n: int = 320, size: int = 128, seed: int = 3) -> str:
@@ -1471,23 +1522,8 @@ def check_flow_step(model, batch: dict) -> dict:
         fail(f"parallel OT at B=256: card and CPU permutations differ in "
              f"{int((perms[0].cpu() != perms[1]).sum())} places")
 
-    def moments(state):
-        return [state.opt.adam.state[p]["exp_avg"] for p in state.model.parameters()]
-
-    (sc, ac), (sp, ap) = (_flow_step_on(dev, model, batch, draws, torch.float32)
-                          for dev in ("cuda", "cpu"))
-    worst = {}
-    pairs = {"loss": [(ac["loss"], ap["loss"])],
-             "params": list(zip(sc.model.parameters(), sp.model.parameters())),
-             "adam_mu": list(zip(moments(sc), moments(sp))),
-             "ema": list(zip(sc.ema.parameters(), sp.ema.parameters()))}
-    for name, ts in pairs.items():
-        ratio = 0.0
-        for a, ref in ts:
-            a, ref = a.detach().float().cpu(), ref.detach().float()
-            ratio = max(ratio, (a - ref).abs().max().item() /
-                        (1e-3 * max(1.0, ref.abs().max().item())))
-        worst[name] = ratio
+    worst = hold_flow_step_fp32(model, batch, draws)
+    losses = worst.pop("loss_card"), worst.pop("loss_cpu")
 
     before = [p.detach().cpu().double() for p in model.parameters()]
     changes = {}
@@ -1498,7 +1534,7 @@ def check_flow_step(model, batch: dict) -> dict:
                              for p, b in zip(state.model.parameters(), before)],
             "ema_change": [e.detach().cpu() - b
                            for e, b in zip(state.ema.parameters(), before)],
-            "adam_mu_f64": [m.cpu() for m in moments(state)]}
+            "adam_mu_f64": [m.cpu() for m in _adam_mu(state)]}
     largest = {}
     for name, refs in changes["cpu"].items():
         largest[name] = max(r.abs().max().item() for r in refs)
@@ -1508,7 +1544,7 @@ def check_flow_step(model, batch: dict) -> dict:
           "(1e-3·max(1, |ref|)) and float64 max |Δ| / (1e-3·largest CPU value) " +
           " ".join(f"{k}={v:.4f}" for k, v in worst.items()) +
           "; largest CPU float64 " + " ".join(f"{k}={v:.3e}" for k, v in largest.items()) +
-          f"; loss {float(ac['loss']):.6f} vs {float(ap['loss']):.6f}; OT permutation "
+          f"; loss {losses[0]:.6f} vs {losses[1]:.6f}; OT permutation "
           "equal", flush=True)
     if not all(np.isfinite(v) and v < 1.0 for v in worst.values()):
         fail(f"card and CPU disagree on a flow step: {worst}")
@@ -1547,13 +1583,7 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
             f"+output_dir={os.path.join(tmp, 'flow_out')}"]
     # an event after each step is queued: the step times come from the
     # card's clock, and the loop keeps its one synchronise an epoch
-    events = []
-
-    def step_hook(epoch):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        events.append((epoch, ev))
-
+    events, step_hook = _hooked()
     t0 = time.time()
     res = tf.main(argv, step_hook=step_hook)
     torch.cuda.synchronize()
@@ -1570,10 +1600,7 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
     if (len(events) != 12 or [e["steps"] for e in res["epoch_seconds"]] != [4] * 3
             or [e["samples"] for e in res["epoch_seconds"]] != [4 * FLOW_BATCH] * 3):
         fail(f"flow training ran {len(events)} steps, {res['epoch_seconds']}")
-    # seconds between consecutive steps' events within an epoch: the first
-    # step of each epoch (loader start, first of the epoch) is excluded
-    steps = [b.elapsed_time(a) / 1e3 for (ea, a), (eb, b) in zip(events[1:], events)
-             if ea == eb]
+    steps = _steady(events)
     losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
     metrics = [v for e in res["eval"] for v in [e["val_loss"], *e["metrics"].values()]
                if not isinstance(v, str)]
@@ -1647,6 +1674,441 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# The SD-VAE latent family: flowers_sd (pre-encode, serve) and flowers_hdit
+# ---------------------------------------------------------------------------
+
+HDIT_NA = ["flow.hdit_patch_size=2", "flow.hdit_attns=[na:7,global]"]
+HDIT_N_STEPS = 20              # the evaluations' and serving's grid (the recipe's 100)
+HDIT_NFE = 4 * (HDIT_N_STEPS - 1)   # RK4: four velocity calls a step between grid points
+HDIT_NA_BLOCKS = 4             # down_0 and up_0, depth 2 each: K1 (K2) per forward (backward)
+# (B, H, W, C, heads, ks) where HDiT's NA level runs K1/K2: the training
+# batch and the evaluation sampler's CFG-doubled batch (2 x 128) at 256; the
+# validation loss and serving's CFG-doubled batch (2 x 64) at 128; and the
+# 4x4 map of na:7 at patch 4, where the window is clamped to 4x4.
+HDIT_SHAPES = [(256, 8, 8, 256, 4, 7), (128, 8, 8, 256, 4, 7), (256, 4, 4, 256, 4, 7)]
+
+
+def check_hdit_kernels(na2d_fwd, na2d_bwd, na2d_banded, na2d_bwd_banded) -> dict:
+    """K1 and K2 at HDIT_SHAPES against their plain twins, fp32 and bf16,
+    TF32 off, with the gates of check_k1 and check_k2: K1 1e-4 and 2e-2
+    absolute, K2 1e-4·max(1, |ref|) and 3e-2·max(1, |ref|)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator("cuda").manual_seed(14)
+    errs = {}
+    for B, H, W, C, heads, ks in HDIT_SHAPES:
+        for dtype, tol1, rel2 in ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 3e-2)):
+            q, k, v, gr = (torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+                           for _ in range(4))
+            o = na2d_fwd(q, k, v, kernel_size=ks, heads=heads)
+            grads = na2d_bwd(q, k, v, o, gr, kernel_size=ks, heads=heads)
+            torch.cuda.synchronize()
+            f32 = [t.float() for t in (q, k, v, o, gr)]
+            e1 = (o.float() - na2d_banded(*f32[:3], kernel_size=ks, heads=heads)).abs().max().item()
+            refs = na2d_bwd_banded(*f32, kernel_size=ks, heads=heads)
+            e2 = [(a.float() - r).abs().max().item() for a, r in zip(grads, refs)]
+            tol2 = [rel2 * max(1.0, r.abs().max().item()) for r in refs]
+            ok = (np.isfinite(e1) and e1 < tol1
+                  and all(np.isfinite(e) and e < t for e, t in zip(e2, tol2)))
+            print(f"K1/K2 check HDiT B={B} {H}x{W} C={C} heads={heads} k={ks} "
+                  f"{str(dtype)[6:]}: K1 max_abs_err={e1:.3e} (tol {tol1:g}), K2 dq/dk/dv "
+                  f"max_abs_err={[f'{e:.3e}' for e in e2]} (tol {[f'{t:.3e}' for t in tol2]}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"K1 or K2 disagrees with its plain twin at HDiT's {(B, H, W, C)} {dtype}")
+            for name, e in (("na2d_fwd", e1), ("na2d_bwd", max(e2))):
+                key = (name, dtype)
+                errs[key] = max(errs.get(key, 0.0), e)
+    return errs
+
+
+def time_hdit_kernels(na2d_fwd, na2d_bwd, card: str) -> list:
+    """K1 and K2 at HDIT_SHAPES, fp32 and bf16: the kernels' device time by
+    the profiler, CUDA events over 20 calls, the bound, and the SDPA
+    yardstick with the window mask (forward for K1; forward + backward,
+    against K1 + K2's 'fwd_bwd_ms', for K2)."""
+    import torch.nn.functional as F
+    rows = []
+    g = torch.Generator("cuda").manual_seed(15)
+    for B, H, W, C, heads, ks in HDIT_SHAPES:
+        dh = C // heads
+        mask = _window_mask(H, W, ks)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, gr = (torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+                           for _ in range(4))
+            o = na2d_fwd(q, k, v, kernel_size=ks, heads=heads)
+            heads_first = lambda t: (t.reshape(B, H * W, heads, dh).transpose(1, 2)  # noqa: E731
+                                     .contiguous())
+            qs, ks_, vs = (heads_first(t).requires_grad_() for t in (q, k, v))
+            gs_ = heads_first(gr)
+            fwd = lambda: na2d_fwd(q, k, v, kernel_size=ks, heads=heads)  # noqa: E731
+            bwd = lambda: na2d_bwd(q, k, v, o, gr, kernel_size=ks, heads=heads)  # noqa: E731
+            sdpa = lambda: F.scaled_dot_product_attention(qs, ks_, vs, attn_mask=mask)  # noqa: E731
+            sdpa_fb = lambda: torch.autograd.grad(sdpa(), (qs, ks_, vs), gs_)  # noqa: E731
+            lib_err = (sdpa().detach().transpose(1, 2).reshape(B, H, W, C).float()
+                       - o.float()).abs().max().item()
+            if not lib_err < (1e-3 if dtype == torch.float32 else 5e-2):
+                fail(f"the SDPA yardstick disagrees with K1 at HDiT's shape ({lib_err:.3e})")
+            for name, fn, bound, lib in (("na2d_fwd", fwd, na2d_bound_ms, sdpa),
+                                         ("na2d_bwd", bwd, na2d_bwd_bound_ms, sdpa_fb)):
+                row = dict(kernel=name, shape=[B, H, W, C], heads=heads, kernel_size=ks,
+                           dtype=str(dtype)[6:], path="hdit",
+                           device_ms=device_ms(fn, name), ms=cuda_ms(fn, 20),
+                           bound_ms=bound(B, H, W, C, ks, dtype)[0],
+                           bound_by=bound(B, H, W, C, ks, dtype)[1],
+                           library_ms=cuda_ms(lib, 20))
+                if name == "na2d_bwd":
+                    row["fwd_bwd_ms"] = cuda_ms(lambda: (fwd(), bwd()), 20)
+                rows.append(row)
+                print(f"{name} HDiT B={B} {H}x{W} C={C} heads={heads} k={ks} {row['dtype']}: "
+                      f"device_ms={row['device_ms']:.4f} ms={row['ms']:.4f} bound_ms="
+                      f"{row['bound_ms']:.4f} ({row['bound_by']}) SDPA+mask library_ms="
+                      f"{row['library_ms']:.4f}"
+                      + (f" (K1+K2 {row['fwd_bwd_ms']:.4f})" if "fwd_bwd_ms" in row else "")
+                      + f" | card: {card}", flush=True)
+            del q, k, v, gr, o, qs, ks_, vs, gs_
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sd_preencode(tmp: str, pe_data: str, card: str, kernels: dict) -> tuple:
+    """flowers_sd pre-encoded through flocoder_torch.preencode_data.main at
+    full width (the SD VAE's channels 128-512, 128² images, 16×16×4
+    latents, posterior mean), batch 32 (the recipe's), augs_per 4 (the
+    recipe's 128, cut for time), over the 500² PNGs of the VQGAN pre-encode
+    phase: 4 val and 36 train batches. The SD VAE runs no kernel of the
+    port (its attention is global), so every launch count stays 0. Then the
+    encode ms a batch (CUDA events), one batch under the profiler, and two
+    images encoded on the card and on the CPU, TF32 off, within
+    1e-4·max(1, |ref|)."""
+    from flocoder_torch import preencode_data as pe
+    from flocoder_torch.data.datasets import PreEncodedDataset
+
+    print("sd_preencode cuts: augs_per 4 (the recipe's 128)", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    argv = ["--config-name", "flowers_sd.yaml", f"data={pe_data}",
+            "preencoding.augs_per=4", "+seed=0"]
+    t0 = time.time()
+    res = pe.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    splits = {s: res[s] for s in ("val", "train")}
+    if any(launches.values()) or [r["batches"] for r in splits.values()] != [4, 36]:
+        fail(f"sd pre-encode launched {launches} (expected none), batches "
+             f"{[r['batches'] for r in splits.values()]}")
+    for split, r in splits.items():
+        ds = PreEncodedDataset(r["out_dir"])
+        lat = [ds.get(i, np.random.default_rng(0))[0] for i in range(len(ds))]
+        if len(lat) != 32 * r["batches"] or any(
+                a.shape != (16, 16, 4) or not np.isfinite(a).all() for a in lat):
+            fail(f"sd pre-encode {split}: {len(lat)} latents, shapes "
+                 f"{sorted({a.shape for a in lat})}")
+    codec = res["codec"]
+    val_batches = rebuilt_batches(argv, "val")
+    x = torch.from_numpy(next(val_batches)["pixels"]).cuda()
+    val_batches.close()
+    x_host = x.cpu().numpy()
+    with torch.inference_mode():
+        encode_ms = cuda_ms(lambda: codec.encode(x), 10)
+        prof = profile_batch(lambda: codec.encode(torch.from_numpy(x_host).cuda()).cpu())
+    top = prof.pop("top_kernels")
+    torch.backends.cudnn.allow_tf32 = False
+    cpu_codec = copy.deepcopy(codec).cpu()
+    with torch.inference_mode():
+        z = codec.encode(x[:2]).cpu()
+        ref = cpu_codec.encode(x[:2].cpu())
+    err = (z - ref).abs().max().item()
+    tol = 1e-4 * max(1.0, ref.abs().max().item())
+    print(f"card vs CPU SD-VAE encode (2 images, 128², full width, TF32 off): "
+          f"max_abs_err={err:.3e} (tol {tol:.3e})", flush=True)
+    if not (np.isfinite(err) and err < tol):
+        fail("card and CPU disagree on the SD-VAE encode")
+    torch.backends.cudnn.allow_tf32 = True
+    rec = dict(batch=32, wall_s=wall, peak_mem_gib=peak, card=card, encode_ms=encode_ms,
+               card_vs_cpu_err=err, card_vs_cpu_tol=tol, **prof,
+               **{f"{s}_latents_per_s": r["latents_per_s"] for s, r in splits.items()},
+               **{f"{s}_seconds": r["seconds"] for s, r in splits.items()})
+    print(f"sd_preencode flowers_sd B=32 128² -> 16x16x4: val "
+          f"{splits['val']['latents_per_s']:.2f} latents/s ({splits['val']['seconds']:.3f} s), "
+          f"train {splits['train']['latents_per_s']:.2f} latents/s "
+          f"({splits['train']['seconds']:.3f} s), wall {wall:.1f} s, peak {peak:.2f} GiB; "
+          f"encode {encode_ms:.4f} ms a batch (CUDA events, cuDNN TF32 on); one batch "
+          f"under the profiler: {prof['profiled_batch_s']:.4f} s wall, "
+          f"{prof['device_busy_s']:.4f} s busy, idle share {prof['device_idle_share']:.4f} "
+          f"| card: {card}", flush=True)
+    print("  device time by kernel (ms): " + "; ".join(
+        f"{name[:60]}={ms:.3f}" for name, ms in top), flush=True)
+    del codec, cpu_codec, res, x
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def sd_serve(tmp: str, config_dir: str, card: str, kernels: dict) -> tuple:
+    """flowers_sd served through flocoder_torch.generate_samples.main: 128
+    samples in batches of 64 at 20 grid points (the recipe's 100), RK4,
+    unconditional and CFG 3.0 with 102 classes, decoded through the SD VAE
+    at full width. No kernel of the port runs (launch counts stay 0). Then
+    the decode ms of a batch of 64 (CUDA events), and check_small_input on
+    the class-conditional checkpoint (the SD VAE's encode and decode)."""
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch.config import Config
+
+    print("sd_serve cuts: n_steps 20 (the recipe's 100)", flush=True)
+    paths = write_checkpoints(tmp, config_dir, "flowers_sd")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    for k in kernels.values():
+        k.launches = 0
+    results = []
+    for label, ckpt in (("unconditional", paths["uncond"]), ("CFG n_classes=102", paths["cfg"])):
+        torch.cuda.reset_peak_memory_stats()
+        res = gs.main(["--config-name", "flowers_sd.yaml", f"+flow_checkpoint={ckpt}",
+                       "+n_samples=128", f"+n_steps={HDIT_N_STEPS}", "flow.batch_size=64",
+                       "+seed=0", f"+output_dir={os.path.join(tmp, 'sd_out')}"])
+        imgs, secs = res["images"], res["batch_seconds"]
+        if imgs.shape != (128, 128, 128, 3) or not np.isfinite(imgs).all():
+            fail(f"sd serving {label}: images {imgs.shape}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        results.append(dict(run=label, samples=128, batch=64, nfe=res["nfe"], s_per_batch=secs,
+                            samples_per_s=128 / sum(secs), steady_samples_per_s=64 / secs[-1],
+                            peak_mem_gib=peak, card=card))
+        print(f"sd_serve {label}: 128 samples, nfe={res['nfe']}, s/batch="
+              f"{[round(s, 4) for s in secs]}, {results[-1]['samples_per_s']:.2f} samples/s "
+              f"(last batch {results[-1]['steady_samples_per_s']:.2f}), peak {peak:.2f} GiB "
+              f"| card: {card}", flush=True)
+    launches = {name: k.launches for name, k in kernels.items()}
+    if any(launches.values()):
+        fail(f"sd serving launched {launches}, expected no kernel")
+    b = gs.load_models_once(Config({}), paths["cfg"], torch.device("cuda"))
+    x64 = torch.randn(64, 16, 16, 4, device="cuda", generator=torch.Generator("cuda").manual_seed(22))
+    with torch.inference_mode():
+        decode_ms = cuda_ms(lambda: b["codec"].decode(x64), 5)
+    worst = check_small_input(paths["cfg"], "sd serving ")
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"sd_serve decode of 64 latents: {decode_ms:.4f} ms (CUDA events, cuDNN TF32 on) "
+          f"| card: {card}", flush=True)
+    return dict(runs=results, decode_b64_ms=decode_ms, card_vs_cpu=worst), launches
+
+
+def _adam_mu(state) -> list:
+    return [state.opt.adam.state[p]["exp_avg"] for p in state.model.parameters()]
+
+
+def hold_flow_step_fp32(model, batch: dict, draws: dict) -> dict:
+    """One flow step (OT pairing, forward, backward, clipped Adam at lr
+    1e-4, EMA 0.999) of fp32 copies of ``model`` on the card and on the CPU
+    with ``draws`` passed in and the gate closed, TF32 off. Returns for the
+    loss, the parameters, Adam's first moments and the EMA the worst ratio
+    max |Δ| / (1e-3·max(1, |ref|)) over their tensors, and both losses."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    (sc, ac), (sp, ap) = (_flow_step_on(dev, model, batch, draws, torch.float32)
+                          for dev in ("cuda", "cpu"))
+    worst = {}
+    for name, pairs in (("loss", [(ac["loss"], ap["loss"])]),
+                        ("params", zip(sc.model.parameters(), sp.model.parameters())),
+                        ("adam_mu", zip(_adam_mu(sc), _adam_mu(sp))),
+                        ("ema", zip(sc.ema.parameters(), sp.ema.parameters()))):
+        worst[name] = max((a.detach().float().cpu() - r.detach().float()).abs().max().item()
+                          / (1e-3 * max(1.0, r.detach().abs().max().item())) for a, r in pairs)
+    worst["loss_card"], worst["loss_cpu"] = float(ac["loss"]), float(ap["loss"])
+    return worst
+
+
+def hdit_flow_phase(tmp: str, pe_data: str, card: str, kernels: dict) -> tuple:
+    """flowers_hdit with the recipe's NA variant (flow.hdit_patch_size=2,
+    flow.hdit_attns=[na:7,global]) through flocoder_torch.train_flow.main
+    at full width (widths 256/512, depths 2/4, d_head 64, mapping 2×256,
+    102 classes, batch 256, bf16) on the latents sd_preencode wrote (1,152
+    train, 128 val): 3 epochs (the recipe's 10,000), each with the
+    validation loss and an RK4 + CFG 3.0 evaluation at 20 grid points
+    decoded through the SD VAE. Then serves the EMA checkpoint (64 samples,
+    +bf16=false). K1 and K2 launch counts are held exactly: 4 K1 (K2) per
+    HDiT forward (backward), 4·NFE K1 per sampler call. Then one step under
+    the profiler and one fp32 step, its zero-init weights perturbed, on the
+    card against the CPU."""
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch import train_flow as tf
+    from flocoder_torch.config import parse_cli
+    from flocoder_torch.models.flow_model import build_flow_model
+    from flocoder_torch.training.flow import draw_flow_inputs, make_flow_train_step
+
+    print(f"hdit_flow cuts: 3 epochs (the recipe's 10,000), evaluation and serving n_steps "
+          f"{HDIT_N_STEPS} (the recipe's 100)", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    argv = ["--config-name", "flowers_hdit.yaml", f"data={pe_data}", *HDIT_NA,
+            "flow.epochs=3", f"flow.n_steps={HDIT_N_STEPS}", "flow.ckpt_every=3", "+seed=0",
+            f"+ckpt_dir={os.path.join(tmp, 'hdit_ckpt')}",
+            f"+output_dir={os.path.join(tmp, 'hdit_out')}"]
+    events, step_hook = _hooked()
+    t0 = time.time()
+    res = tf.main(argv, step_hook=step_hook)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = len(events)
+    evals = len(res["eval"])
+    train_launches = {name: k.launches for name, k in kernels.items()}
+    expected = dict.fromkeys(kernels, 0)
+    expected["na2d_fwd"] = HDIT_NA_BLOCKS * (steps + evals * (1 + HDIT_NFE))
+    expected["na2d_bwd"] = HDIT_NA_BLOCKS * steps
+    print(f"hdit_flow training launches: {train_launches} (expected {expected}: {steps} "
+          f"steps x {HDIT_NA_BLOCKS}, {evals} evaluations x {HDIT_NA_BLOCKS} x (1 validation "
+          f"forward + {HDIT_NFE} sampler forwards))", flush=True)
+    if train_launches != expected or steps != 12 or evals != 3:
+        fail(f"hdit_flow training launched {train_launches}, expected {expected}")
+    losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
+    metrics = [v for e in res["eval"] for v in [e["val_loss"], *e["metrics"].values()]
+               if not isinstance(v, str)]
+    if not (np.isfinite(losses).all() and np.isfinite(metrics).all()):
+        fail(f"hdit_flow losses or metrics not finite: {res['epochs']} {res['eval']}")
+
+    for k in kernels.values():
+        k.launches = 0
+    served = gs.main(["--config-name", "flowers_hdit.yaml",
+                      f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=64",
+                      f"+n_steps={HDIT_N_STEPS}", "+seed=0", "+bf16=false",
+                      f"+output_dir={os.path.join(tmp, 'hdit_gen')}"])
+    serve_launches = {name: k.launches for name, k in kernels.items()}
+    expected_serve = dict.fromkeys(kernels, 0)
+    expected_serve["na2d_fwd"] = HDIT_NA_BLOCKS * HDIT_NFE
+    if (served["images"].shape != (64, 128, 128, 3) or not np.isfinite(served["images"]).all()
+            or serve_launches != expected_serve or served["nfe"] != HDIT_NFE):
+        fail(f"serving the HDiT EMA checkpoint: {served['images'].shape}, launches "
+             f"{serve_launches} (expected {expected_serve})")
+
+    batch = _flow_batch(os.path.join(f"{pe_data}_encoded_sd", "train"))
+    state = res["state"]
+    step = make_flow_train_step()
+    gen = torch.Generator("cuda").manual_seed(25)
+    step(state, batch, gen)
+    prof = profile_batch(lambda: step(state, batch, gen))
+    top = prof.pop("top_kernels")
+    cfg = parse_cli(argv, config_dir=gs.CONFIG_DIR)
+    model32 = build_flow_model(cfg, 4, 102).cuda()
+    model32.load_state_dict(state.model.state_dict())
+    with torch.no_grad():       # every zero-init projection carries signal
+        g = torch.Generator("cuda").manual_seed(26)
+        for p in model32.parameters():
+            p.add_(0.02 * torch.randn(p.shape, device="cuda", generator=g))
+    small = {k: v[:64] for k, v in batch.items()}
+    step_check = hold_flow_step_fp32(model32, small, draw_flow_inputs(
+        torch.Generator().manual_seed(24), small["target"].shape))
+    print("card vs CPU HDiT fp32 flow step (B=64, NA k7 on 8x8, zero-init weights perturbed, "
+          "same draws, TF32 off): "
+          "max |Δ| / (1e-3·max(1, |ref|)) " + " ".join(
+              f"{k}={v:.4f}" for k, v in step_check.items() if not k.startswith("loss_"))
+          + f"; loss {step_check['loss_card']:.6f} vs {step_check['loss_cpu']:.6f}", flush=True)
+    if not all(np.isfinite(step_check[k]) and step_check[k] < 1.0
+               for k in ("loss", "params", "adam_mu", "ema")):
+        fail(f"card and CPU disagree on an HDiT flow step: {step_check}")
+
+    intervals = _steady(events)
+    steady = float(np.median(intervals))
+    rec = dict(batch=FLOW_BATCH, wall_s=wall, peak_mem_gib=peak, card=card,
+               step_s=intervals, steady_samples_per_s=FLOW_BATCH / steady,
+               epoch_samples_per_s=[e["samples"] / e["seconds"] for e in res["epoch_seconds"]],
+               epochs=res["epochs"], evals=res["eval"], step_profile=prof,
+               launches_train_eval=train_launches, launches_serve=serve_launches,
+               serve_batch_s=served["batch_seconds"], card_vs_cpu=step_check)
+    print(f"hdit_flow flowers_hdit (patch 2, na:7) B={FLOW_BATCH} bf16: "
+          f"{rec['steady_samples_per_s']:.2f} samples/s over steady steps (median of "
+          f"{len(intervals)} intervals on CUDA events), per epoch "
+          f"{[round(x, 2) for x in rec['epoch_samples_per_s']]} (evaluations excluded), "
+          f"peak {peak:.2f} GiB, wall {wall:.1f} s; steps {[round(x, 4) for x in intervals]} "
+          f"| card: {card}", flush=True)
+    for e in res["eval"]:
+        print(f"  eval epoch {e['epoch']}: s " + " ".join(
+            f"{k}={v:.4f}" for k, v in e["seconds"].items()) +
+            f" total={sum(e['seconds'].values()):.4f}; val_loss {e['val_loss']:.4f}, "
+            f"FID_px {e['metrics']['FID_px']:.3f} | card: {card}", flush=True)
+    print(f"  one train step under the profiler: {prof['profiled_batch_s']:.4f} s wall, "
+          f"{prof['device_busy_s']:.4f} s busy, idle share {prof['device_idle_share']:.4f}, "
+          f"K1+K2 {prof['na2d_kernels_ms']:.4f} ms | card: {card}", flush=True)
+    print("  device time by kernel (ms): " + "; ".join(
+        f"{name[:60]}={ms:.3f}" for name, ms in top), flush=True)
+    print(f"  served the EMA checkpoint in fp32: 64 samples, nfe={served['nfe']}, s/batch "
+          f"{[round(x, 4) for x in served['batch_seconds']]}, launches {serve_launches} "
+          f"| card: {card}", flush=True)
+    launches = {name: train_launches[name] + serve_launches[name] for name in kernels}
+    del res, state, batch, model32
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def hdit_short_phase(tag: str, tmp: str, pe_data: str, card: str, kernels: dict,
+                     overrides: list) -> tuple:
+    """One epoch of flowers_hdit with ``overrides`` through
+    flocoder_torch.train_flow.main, no evaluation: steady samples/s, the
+    launch counts (4 K1 and 4 K2 a step with the NA level, none without),
+    and, with MoE levels, the auxiliary loss and the dropped fraction of a
+    forward on a training batch."""
+    from flocoder_torch import train_flow as tf
+
+    print(f"{tag} cuts: 1 epoch (the recipe's 10,000), no evaluation", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    argv = ["--config-name", "flowers_hdit.yaml", f"data={pe_data}", *overrides,
+            "flow.epochs=1", "flow.no_eval=true", "+seed=0",
+            f"+ckpt_dir={os.path.join(tmp, tag + '_ckpt')}",
+            f"+output_dir={os.path.join(tmp, tag + '_out')}"]
+    events, step_hook = _hooked()
+    res = tf.main(argv, step_hook=step_hook)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {name: k.launches for name, k in kernels.items()}
+    na = any("na:" in o for o in overrides)
+    expected = dict.fromkeys(kernels, 0)
+    if na:
+        expected.update(na2d_fwd=HDIT_NA_BLOCKS * len(events),
+                        na2d_bwd=HDIT_NA_BLOCKS * len(events))
+    (ep,) = res["epochs"]
+    print(f"{tag} launches: {launches} (expected {expected}; {len(events)} steps)", flush=True)
+    if launches != expected or len(events) != 4 or not all(
+            np.isfinite(v) for k, v in ep.items() if k != "epoch"):
+        fail(f"{tag}: launches {launches}, expected {expected}; epoch {ep}")
+    intervals = _steady(events)
+    rec = dict(batch=FLOW_BATCH, peak_mem_gib=peak, card=card, step_s=intervals,
+               steady_samples_per_s=FLOW_BATCH / float(np.median(intervals)), epoch=ep,
+               epoch_samples_per_s=res["epoch_seconds"][0]["samples"]
+               / res["epoch_seconds"][0]["seconds"])
+    extra = ""
+    if "loss_model_aux" in ep:
+        batch = _flow_batch(os.path.join(f"{pe_data}_encoded_sd", "train"))
+        t = torch.full((FLOW_BATCH,), 500.0, device="cuda")
+        with torch.no_grad():
+            _, aux = res["state"].model(batch["target"], t, {"class_cond": batch["class_cond"]},
+                                        return_aux=True)
+        rec.update(loss_model_aux=ep["loss_model_aux"],
+                   moe_aux=aux["moe_aux"].tolist(), moe_dropped=aux["moe_dropped"].tolist())
+        if not np.isfinite(ep["loss_model_aux"]):
+            fail(f"{tag}: the MoE auxiliary loss is not finite")
+        extra = (f"; loss_model_aux {ep['loss_model_aux']:.5f}, dropped fraction by block "
+                 f"{[round(x, 5) for x in rec['moe_dropped']]} (a forward at t=500 on a "
+                 "training batch)")
+    print(f"{tag} B={FLOW_BATCH} bf16: {rec['steady_samples_per_s']:.2f} samples/s over "
+          f"steady steps (median of {len(intervals)}), {rec['epoch_samples_per_s']:.2f} over "
+          f"the epoch, peak {peak:.2f} GiB, loss {ep['loss']:.4f}{extra} | card: {card}",
+          flush=True)
+    del res
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def print_ptxas(source: str) -> None:
     """Each kernel's registers and spills from ptxas's report of the build of
     ``source`` in this run, demangled."""
@@ -1706,6 +2168,11 @@ def main() -> None:
     timing2, train_err = time_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded, na2d, card)
     errs2[torch.float32] = max(errs2[torch.float32], train_err)
     shapes = time_na2d_shapes(na2d_fwd, na2d_bwd, card)
+    hdit_errs = check_hdit_kernels(na2d_fwd, na2d_bwd, na2d_banded, na2d_bwd_banded)
+    for name, errs_of in (("na2d_fwd", errs), ("na2d_bwd", errs2)):
+        for dtype in (torch.float32, torch.bfloat16):
+            errs_of[dtype] = max(errs_of[dtype], hdit_errs[(name, dtype)])
+    shapes += time_hdit_kernels(na2d_fwd, na2d_bwd, card)
     fused_errs = check_fused_vq()
     fused_timing = time_fused_vq(card, args.parent)
 
@@ -1728,46 +2195,59 @@ def main() -> None:
         if any(kernels[name].launches for name in fused):
             fail("serving or training launched a fused VQ kernel: "
                  f"{ {name: kernels[name].launches for name in fused} }")
-        check_small_input(paths)
+        check_small_input(paths["cfg"])
         check_train_small()
         preencode, pre_launches = preencode_flowers(tmp, paths, card, kernels)
         preencode_small = check_preencode_small(tmp, CONFIG_DIR)
         flow, flow_launches = train_flow_phase(tmp, os.path.join(tmp, "pe_images"),
                                                paths, card, kernels)
+        pe_data = os.path.join(tmp, "pe_images")
+        sd_pre, sd_pre_launches = sd_preencode(tmp, pe_data, card, kernels)
+        sd_srv, sd_srv_launches = sd_serve(tmp, CONFIG_DIR, card, kernels)
+        hdit, hdit_launches = hdit_flow_phase(tmp, pe_data, card, kernels)
+        hdit_recipe, recipe_launches = hdit_short_phase("hdit_recipe", tmp, pe_data, card,
+                                                        kernels, [])
+        hdit_moe, moe_launches = hdit_short_phase(
+            "hdit_moe", tmp, pe_data, card, kernels, [*HDIT_NA, "+flow.hdit_moe_experts=[8,0]"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     print(json.dumps({"serving": serving, "breakdown": parts, "training": training,
                       "gan_breakdown": gan_parts, "preencode": preencode,
-                      "preencode_card_vs_cpu": preencode_small, "flow": flow}))
+                      "preencode_card_vs_cpu": preencode_small, "flow": flow,
+                      "sd_preencode": sd_pre, "sd_serve": sd_srv, "hdit_flow": hdit,
+                      "hdit_recipe": hdit_recipe, "hdit_moe": hdit_moe}))
+    later = {"sd_preencode": sd_pre_launches, "sd_serve": sd_srv_launches,
+             "hdit_flow": hdit_launches, "hdit_recipe": recipe_launches,
+             "hdit_moe": moe_launches}
+
+    def by_path(name, first):
+        paths = {**first, **{tag: counts[name] for tag, counts in later.items()}}
+        return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     def fused_entry(name, replaces):
-        by_path = {"serve": 0, "train": 0, "preencode": pre_launches[name],
-                   "flow": flow_launches[name]}
+        first = {"serve": 0, "train": 0, "preencode": pre_launches[name],
+                 "flow": flow_launches[name]}
         return {"name": name, "route": "cuda", "source": "flocoder_torch/csrc/fused_vq.cu",
-                "replaces": replaces, "launches": sum(by_path.values()),
-                "launches_by_path": by_path, **fused_errs[name], **fused_timing[name]}
+                "replaces": replaces, **by_path(name, first), **fused_errs[name],
+                **fused_timing[name]}
 
     print(json.dumps({"kernels": [
         {"name": "na2d_fwd", "route": "cuda",
          "source": "flocoder_torch/csrc/na2d_fwd.cu",
          "replaces": "flocoder_tpu/ops/pallas/na2d.py:40",
-         "launches": (serve_launches + train_launches["na2d_fwd"] + pre_launches["na2d_fwd"]
-                      + flow_launches["na2d_fwd"]),
-         "launches_by_path": {"serve": serve_launches,
-                              "train": train_launches["na2d_fwd"],
-                              "preencode": pre_launches["na2d_fwd"],
-                              "flow": flow_launches["na2d_fwd"]},
+         **by_path("na2d_fwd", {"serve": serve_launches, "train": train_launches["na2d_fwd"],
+                                "preencode": pre_launches["na2d_fwd"],
+                                "flow": flow_launches["na2d_fwd"]}),
          "max_abs_err": errs[torch.float32],
          "max_abs_err_bf16": errs[torch.bfloat16], **timing,
          "per_shape": [r for r in shapes if r["kernel"] == "na2d_fwd"]},
         {"name": "na2d_bwd", "route": "cuda",
          "source": "flocoder_torch/csrc/na2d_bwd.cu",
          "replaces": "flocoder_tpu/ops/pallas/na2d.py:148",
-         "launches": train_launches["na2d_bwd"],
-         "launches_by_path": {"serve": 0, "train": train_launches["na2d_bwd"],
-                              "preencode": pre_launches["na2d_bwd"],
-                              "flow": flow_launches["na2d_bwd"]},
+         **by_path("na2d_bwd", {"serve": 0, "train": train_launches["na2d_bwd"],
+                                "preencode": pre_launches["na2d_bwd"],
+                                "flow": flow_launches["na2d_bwd"]}),
          "max_abs_err": errs2[torch.float32],
          "max_abs_err_bf16": errs2[torch.bfloat16], **timing2,
          "per_shape": [r for r in shapes if r["kernel"] == "na2d_bwd"]},

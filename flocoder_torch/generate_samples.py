@@ -6,12 +6,15 @@ Usage:
         +flow_checkpoint=checkpoints/flowema_100.npz +n_samples=64
 
 Loads the flow and codec checkpoints (npz contract, see
-``training/checkpoint.py``), builds the U-Net from the flow checkpoint's
-embedded config, integrates with RK4/Euler/Heun/midpoint and CFG, decodes,
-and writes PNG grids and individual PNGs. ``+device=cpu`` runs on the CPU;
-without it the run needs a CUDA device. Not ported yet (ROADMAP.md): MIDI
-``.mid`` export, bf16 and int8 serving, HDiT and audio checkpoints, the
-gradio UI and sharded serving.
+``training/checkpoint.py``), builds the velocity field from the flow
+checkpoint's embedded config (the U-Net, or HDiT for ``flow.arch=hdit``;
+``models/flow_model.py``), integrates with RK4/Euler/Heun/midpoint and CFG,
+decodes through the codec (the VQGAN, or the SD VAE of ``flowers_sd``), and
+writes PNG grids and individual PNGs. Serving runs in fp32: a checkpoint
+trained with ``flow.bf16=true`` is served with ``+bf16=false``.
+``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
+Not ported yet (ROADMAP.md): MIDI ``.mid`` export, bf16 and int8 serving,
+audio checkpoints, the gradio UI and sharded serving.
 """
 from __future__ import annotations
 
@@ -25,10 +28,10 @@ import torch
 
 from .config import ldcfg, parse_cli
 from .evaluation import sampler
-from .models.codecs import VQVAE, setup_codec
-from .models.unet import Unet
-from .training.checkpoint import (UNET_PREFIXES, VQVAE_PREFIXES,
-                                  load_checkpoint, load_jax_flat)
+from .models.codecs import VQVAE, load_codec_weights, setup_codec
+from .models.flow_model import build_flow_model
+from .models.sd_vae import SDVAE
+from .training.checkpoint import UNET_PREFIXES, load_checkpoint, load_jax_flat
 from .utils.device import resolve_device
 from .utils.viz import save_img, save_img_grid
 
@@ -58,30 +61,20 @@ def load_models_once(config, flow_ckpt_path: str, device) -> dict:
         raise NotImplementedError("bf16 serving is not ported yet (ROADMAP.md)")
     if str(config.get("quant", "") or "").lower() in ("int8", "true", "1"):
         raise NotImplementedError("int8 serving is not ported yet (ROADMAP.md)")
-    if str(ldcfg(ck_config, "arch", "unet")).lower() == "hdit":
-        raise NotImplementedError("HDiT checkpoints are not ported yet "
-                                  "(ROADMAP.md)")
-
     codec = setup_codec(ck_config, device=device)
     image_size = int(ldcfg(ck_config, "image_size", 128))
     H, W, C = codec.latent_shape(image_size)
     n_classes = int(ldcfg(ck_config, "n_classes", 0))
     meanflow = bool(ldcfg(ck_config, "meanflow", False))
-    model = Unet(dim=H, channels=C,
-                 dim_mults=tuple(ldcfg(ck_config, "dim_mults", [1, 2, 4, 8])),
-                 n_classes=n_classes, dual_time=meanflow).to(device)
+    model = build_flow_model(ck_config, C, n_classes, dual_time=meanflow,
+                             dim=H).to(device)
     load_jax_flat(model, ck["model_state_dict"], UNET_PREFIXES)
     model.eval()
 
-    if isinstance(codec, VQVAE):
-        codec_ckpt = (ck_config.codec.get("checkpoint")
-                      if "codec" in ck_config else None)
-        if codec_ckpt and os.path.exists(str(codec_ckpt)):
-            load_jax_flat(codec, load_checkpoint(str(codec_ckpt))
-                          ["model_state_dict"], VQVAE_PREFIXES)
-        else:
-            print(f"codec checkpoint not found ({codec_ckpt!r}): the codec "
-                  "keeps its untrained weights")
+    if isinstance(codec, (VQVAE, SDVAE)):    # seeded as pre-encoding seeds it
+        codec.init(torch.Generator(device).manual_seed(0))
+    load_codec_weights(codec, ck_config.codec.get("checkpoint")
+                       if "codec" in ck_config else None)
     codec.eval()
 
     bundle = dict(model=model, codec=codec, latent_shape=(H, W, C),

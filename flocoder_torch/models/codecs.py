@@ -14,8 +14,9 @@ NoiseInjection at strength 0.05, and the RVQ bottleneck's EMA update. Its
 randomness comes from the explicit generator; ``deterministic=True`` turns
 dropout and noise off (for parity tests). ``VQVAE.encode_quantize_fused``
 runs the compression tail and the RVQ search as one kernel on the card (K3,
-``ops/fused_vq.py``). Not ported yet (ROADMAP.md): int8 ``quant`` convs,
-ring attention, and the sd / vqgan_plus / dac codecs.
+``ops/fused_vq.py``). ``setup_codec`` also builds the SD VAE
+(``models/sd_vae.py``). Not ported yet (ROADMAP.md): int8 ``quant`` convs,
+ring attention, and the vqgan_plus / dac codecs.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ from .layers import Scope, conv, group_norm, init_params
 
 __all__ = ["gn_groups", "NoOpAE", "SimpleResizeAE", "VQVAE", "VQVAEEncoder",
            "VQVAEDecoder", "AttnBlock", "NATTENBlock", "EncDecResidualBlock",
-           "NoiseInjection", "SpatialNonLocalAttention", "setup_codec"]
+           "NoiseInjection", "SpatialNonLocalAttention", "setup_codec",
+           "load_codec_weights"]
 
 
 def gn_groups(proposed: int, channels: int) -> int:
@@ -482,10 +484,10 @@ class VQVAE(nn.Module):
 # --------------------------------------------------------------------------
 
 def setup_codec(config, device=None) -> nn.Module:
-    """Build a codec from ``config.codec.choice`` ∈ {noop, resize, vqgan}
-    on ``device``, in float32. Weights are the caller's concern
-    (``training.checkpoint``). Other choices and ``codec.bf16`` are not
-    ported yet and raise."""
+    """Build a codec from ``config.codec.choice`` ∈ {noop, resize, vqgan,
+    sd} on ``device``, in float32. Weights are the caller's concern
+    (``load_codec_weights``). Other choices, ``codec.bf16`` and the int8
+    convs are not ported yet and raise."""
     from ..config import ldcfg
     choice = config.codec.choice if "codec" in config else "noop"
     image_size = ldcfg(config, "image_size", 128)
@@ -513,9 +515,43 @@ def setup_codec(config, device=None) -> nn.Module:
             codebook_levels=ldcfg(config, "codebook_levels", 3),
             vq_embedding_dim=ldcfg(config, "vq_embedding_dim", 4),
             commitment_weight=ldcfg(config, "commitment_weight", 0.25))
-    elif choice in ("sd", "vqgan_plus", "dac"):
+    elif choice == "sd":
+        for key in ("quant_decode", "quant_encode"):
+            if str(ldcfg(config, key, "")) == "int8":
+                raise NotImplementedError(f"codec.{key}=int8 is not ported "
+                                          "yet (ROADMAP.md)")
+        from .sd_vae import SDVAE
+        codec = SDVAE(image_size=image_size)
+    elif choice in ("vqgan_plus", "dac"):
         raise NotImplementedError(f"codec '{choice}' is not ported yet "
                                   "(ROADMAP.md)")
     else:
         raise ValueError(f"Unknown codec choice: {choice}")
     return codec.to(device) if device is not None else codec
+
+
+def load_codec_weights(codec: nn.Module, checkpoint=None) -> list:
+    """Load a codec's weights in place, strictly: for the SD VAE first its
+    converted weights file (``SDVAE.weights_path``) when it exists, then,
+    for the SD VAE and the VQVAE, ``checkpoint`` (an npz of the checkpoint
+    contract) when that file exists. A file that does not fit raises.
+    Returns the paths loaded; with none the codec keeps its weights."""
+    import os
+
+    from ..training.checkpoint import (SDVAE_PREFIXES, VQVAE_PREFIXES,
+                                       load_checkpoint, load_jax_flat)
+    from .sd_vae import SDVAE, load_sd_vae_weights
+    prefixes = {SDVAE: SDVAE_PREFIXES, VQVAE: VQVAE_PREFIXES}.get(type(codec))
+    if prefixes is None:            # noop and resize hold no weights
+        return []
+    loaded = []
+    if isinstance(codec, SDVAE) and load_sd_vae_weights(codec, codec.weights_path):
+        loaded.append(codec.weights_path)
+    if checkpoint and os.path.exists(str(checkpoint)):
+        load_jax_flat(codec, load_checkpoint(str(checkpoint))["model_state_dict"],
+                      prefixes)
+        loaded.append(str(checkpoint))
+    print(f"codec weights loaded from {loaded}" if loaded else
+          f"codec checkpoint not found ({checkpoint!r}): the codec keeps its "
+          "seeded random weights")
+    return loaded

@@ -1,0 +1,41 @@
+"""The velocity field a flow config asks for: the U-Net or, with
+``flow.arch=hdit``, the Hourglass DiT. ``train_flow``, ``generate_samples``
+and ``evaluate_model`` build their model here, so an HDiT checkpoint trains,
+serves and evaluates alike."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .hdit import hdit_from_config
+from .unet import Unet
+
+__all__ = ["build_flow_model", "flow_arch"]
+
+
+def flow_arch(config) -> str:
+    """``flow.arch`` (``unet`` or ``hdit``), lower case."""
+    from ..config import ldcfg
+    return str(ldcfg(config, "arch", "unet")).lower()
+
+
+def build_flow_model(config, channels: int, n_classes: int, dual_time: bool = False,
+                     dtype=torch.float32, dim: int = 16) -> nn.Module:
+    """The flow model of ``config`` for latents of ``channels`` channels.
+    ``dim`` is the U-Net's base width (the scripts pass the latent height,
+    as the JAX scripts do). HDiT computes in ``dtype``; the U-Net runs in
+    fp32 only (its bf16 is not ported yet, ROADMAP.md). Parameters are
+    fp32 on the CPU; the caller moves the model and initialises it."""
+    from ..config import ldcfg
+    arch = flow_arch(config)
+    if arch == "hdit":
+        return hdit_from_config(config, channels=channels, n_classes=n_classes,
+                                dtype=dtype, dual_time=dual_time)
+    if arch != "unet":
+        raise ValueError(f"unknown flow.arch {arch!r} (unet or hdit)")
+    if dtype != torch.float32:
+        raise NotImplementedError("the U-Net in bf16 (flow.bf16 with arch=unet) is "
+                                  "not ported yet (ROADMAP.md)")
+    return Unet(dim=dim, channels=channels,
+                dim_mults=tuple(ldcfg(config, "dim_mults", [1, 2, 4, 8])),
+                n_classes=n_classes, dual_time=dual_time)

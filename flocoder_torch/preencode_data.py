@@ -17,11 +17,13 @@ trainer reads either package's latents. ``augs_per`` passes over a split
 give ``augs_per·len(split)//batch_size`` batches. A split that already holds
 files is never overwritten, and writing stops at ``max_storage_gb``.
 
-Encoding: ``codec.encode``; with ``preencoding.quantize=true`` also the RVQ
-(``codec.quantize(...)[0]``); with ``preencoding.fused_vq=true`` as well,
-``encode_quantize_fused``, whose compression tail and RVQ search are one
-launch of K3 on the card. The codec loads ``codec.checkpoint`` strictly
-when that file exists, and keeps seeded random weights otherwise.
+Encoding: ``codec.encode`` (for the SD VAE of ``flowers_sd``, the
+posterior mean); with ``preencoding.quantize=true`` on the VQGAN codec also
+the RVQ (``codec.quantize(...)[0]``); with ``preencoding.fused_vq=true`` as
+well, ``encode_quantize_fused``, whose compression tail and RVQ search are
+one launch of K3 on the card. The codec loads its weights strictly where
+the files exist (``codec.checkpoint``; for the SD VAE first
+``weights/sd_vae_ft_mse.npz``), and keeps seeded random weights otherwise.
 
 A data path is an image folder or, when absent, the synthetic image set.
 ``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
@@ -44,9 +46,8 @@ from .data.datasets import (ImageFolderDataset, InfiniteDataset, Loader,
                             SyntheticImageDataset)
 from .data.transforms import image_transforms
 from .generate_samples import CONFIG_DIR
-from .models.codecs import VQVAE, setup_codec
+from .models.codecs import VQVAE, load_codec_weights, setup_codec
 from .models.layers import init_params
-from .training.checkpoint import VQVAE_PREFIXES, load_checkpoint, load_jax_flat
 from .utils.device import resolve_device
 
 __all__ = ["open_split", "process_dataset", "load_codec", "main"]
@@ -72,18 +73,13 @@ def _refuse_unported(config) -> None:
 
 def load_codec(config, device) -> torch.nn.Module:
     """The recipe's codec on ``device`` with seeded random weights (seed 0),
-    then ``codec.checkpoint`` loaded strictly when that file exists."""
+    then its weights loaded strictly where the files exist
+    (``models.codecs.load_codec_weights``: for the SD VAE
+    ``weights/sd_vae_ft_mse.npz``, then ``codec.checkpoint``)."""
     codec = setup_codec(config, device=device)
     init_params(codec, torch.Generator(device).manual_seed(0))
-    ckpt = config.codec.get("checkpoint") if "codec" in config else None
-    if isinstance(codec, VQVAE):
-        if ckpt and os.path.exists(str(ckpt)):
-            load_jax_flat(codec, load_checkpoint(str(ckpt))["model_state_dict"],
-                          VQVAE_PREFIXES)
-            print(f"loaded codec checkpoint {ckpt}")
-        else:
-            print(f"codec checkpoint not found ({ckpt!r}): the codec keeps seeded "
-                  "random weights")
+    load_codec_weights(codec, config.codec.get("checkpoint") if "codec" in config
+                       else None)
     return codec.eval()
 
 

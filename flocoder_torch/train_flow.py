@@ -7,8 +7,11 @@ Usage:
 
 Reads the latents that the pre-encode pass wrote under
 ``<data>_encoded_<codec>/{train,val}`` (or, with ``flow.pre_encoded=false``,
-encodes image batches in the step with the frozen codec), trains the U-Net
-velocity field with minibatch OT, CFG dropout, clipped Adam on the cosine
+encodes image batches in the step with the frozen codec), trains the
+velocity field (``flow.arch``: the U-Net, or the Hourglass DiT with
+``flow.arch=hdit``, in bf16 with ``flow.bf16=true``, its MoE levels' auxiliary
+loss weighted by ``flow.hdit_moe_aux_weight``, default 1e-2) with minibatch
+OT, CFG dropout, clipped Adam on the cosine
 warm-restart schedule and EMA (``training/flow.py``), and evaluates on the
 JAX script's cadence: at every epoch below 20 and every 10th, unless
 ``flow.no_eval=true``, a validation loss and ``evaluate_model`` (sample,
@@ -22,9 +25,9 @@ state, EMA) and ``flowema_<epoch>.npz``, so that both packages'
 ``checkpoints``) and the grids (``output_<data name>-<H>x<W>``). Unlike the
 JAX script, a validation split smaller than the batch is read as one batch
 of its size. Not ported yet (ROADMAP.md), and refused: meshes and FSDP,
-ring attention, HDiT / MoE / pipeline models, orbax and sharded
-checkpoints, inpainting and reflow datasets, packed shards, audio codecs,
-bf16, wandb logging.
+ring attention, MoE expert parallelism, pipeline parallelism, orbax and
+sharded checkpoints, inpainting and reflow datasets, packed shards, audio
+codecs, the U-Net in bf16, wandb logging.
 """
 from __future__ import annotations
 
@@ -40,12 +43,13 @@ from .config import ldcfg, parse_cli
 from .data.datasets import Loader, PreEncodedDataset, create_image_loaders
 from .evaluation import evaluate_model
 from .generate_samples import CONFIG_DIR
-from .models.codecs import VQVAE, setup_codec
+from .models.codecs import VQVAE, load_codec_weights, setup_codec
+from .models.flow_model import build_flow_model, flow_arch
 from .models.layers import init_params
-from .models.unet import Unet
-from .training.checkpoint import (UNET_PREFIXES, VQVAE_PREFIXES, adam_to_jax_flat,
-                                  load_adam_jax_flat, load_checkpoint, load_jax_flat,
-                                  save_checkpoint, to_jax_flat)
+from .models.sd_vae import SDVAE
+from .training.checkpoint import (UNET_PREFIXES, adam_to_jax_flat, load_adam_jax_flat,
+                                  load_checkpoint, load_jax_flat, save_checkpoint,
+                                  to_jax_flat)
 from .training.flow import create_flow_state, make_flow_eval_step, make_flow_train_step
 from .training.schedules import batch_size_schedule, cosine_warm_restarts_decay
 from .utils.codebook_analysis import CodebookUsageTracker
@@ -55,19 +59,19 @@ __all__ = ["train_flow", "main"]
 
 
 def _refuse_unported(config) -> None:
-    flags = {"fsdp": "FSDP", "ring_attention": "ring attention", "moe_ep": "MoE",
-             "pp": "pipeline parallelism", "orbax_checkpoints": "orbax checkpoints",
-             "sharded_checkpoints": "sharded checkpoints", "bf16": "bf16 flow training",
+    flags = {"fsdp": "FSDP", "ring_attention": "ring attention",
+             "moe_ep": "MoE expert parallelism", "pp": "pipeline parallelism",
+             "orbax_checkpoints": "orbax checkpoints",
+             "sharded_checkpoints": "sharded checkpoints",
              "reflow": "reflow (paired) datasets", "otf_aug": "inpainting OTF augmentation"}
+    if flow_arch(config) != "hdit":
+        flags["bf16"] = "the U-Net in bf16"
     for key, what in flags.items():
         if bool(ldcfg(config, key, False)):
             raise NotImplementedError(f"{what} (flow.{key}) is not ported yet (ROADMAP.md)")
     if int(ldcfg(config, "n_model", 1)) > 1:
         raise NotImplementedError("model-parallel meshes (flow.n_model) are not "
                                   "ported yet (ROADMAP.md)")
-    if str(ldcfg(config, "arch", "unet")).lower() != "unet":
-        raise NotImplementedError("HDiT flow models (flow.arch=hdit) are not ported "
-                                  "yet (ROADMAP.md)")
 
 
 def _sync(device) -> None:
@@ -131,14 +135,10 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
 
     # ---- the frozen codec: the evaluation's decode, the on-the-fly encode
     codec = setup_codec(config, device=device)
-    if isinstance(codec, VQVAE):
+    if isinstance(codec, (VQVAE, SDVAE)):
         codec.init(gen.manual_seed(seed))
-        codec_ckpt = ldcfg(config, "codec_checkpoint", None) or (
-            config.codec.get("checkpoint") if "codec" in config else None)
-        if codec_ckpt and os.path.exists(str(codec_ckpt)):
-            load_jax_flat(codec, load_checkpoint(str(codec_ckpt))["model_state_dict"],
-                          VQVAE_PREFIXES)
-            print(f"loaded codec checkpoint {codec_ckpt}")
+        load_codec_weights(codec, ldcfg(config, "codec_checkpoint", None) or (
+            config.codec.get("checkpoint") if "codec" in config else None))
     codec.eval().requires_grad_(False)
     encode_fn = None
 
@@ -167,9 +167,22 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     os.makedirs(output_dir, exist_ok=True)
 
     # ---- model, optimizer, state
-    model = Unet(dim=H, channels=C, dim_mults=tuple(ldcfg(config, "dim_mults", [1, 2, 4, 8])),
-                 n_classes=n_classes, dual_time=meanflow).to(device)
+    dtype = torch.bfloat16 if bool(ldcfg(config, "bf16", False)) else torch.float32
+    model = build_flow_model(config, C, n_classes, dual_time=meanflow, dtype=dtype,
+                             dim=H).to(device)
     init_params(model, gen.manual_seed(seed + 1))
+    model_apply = None
+    if any(lv.moe_experts for lv in getattr(model, "levels", ())):
+        if meanflow:
+            raise SystemExit("flow.hdit_moe_experts does not combine with "
+                             "flow.meanflow (the MeanFlow identity jvp has no "
+                             "aux-loss channel)")
+        moe_aux_w = float(ldcfg(config, "hdit_moe_aux_weight", 1e-2))
+
+        def model_apply(m, x, t, c):
+            # the MoE blocks' mean auxiliary loss joins the objective
+            v, aux = m(x, t, c, return_aux=True)
+            return v, moe_aux_w * aux["moe_aux"].mean()
     print(f"model params: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M  "
           f"device {device}")
     sched = cosine_warm_restarts_decay(
@@ -200,7 +213,7 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
         curvature_weight=float(ldcfg(config, "curvature_weight", 0.0)),
         meanflow=meanflow, meanflow_ratio=float(ldcfg(config, "meanflow_ratio", 0.25)),
         meanflow_adaptive_p=float(ldcfg(config, "meanflow_adaptive_p", 0.5)),
-        t_scale=t_scale, grad_accum=grad_accum)
+        t_scale=t_scale, grad_accum=grad_accum, model_apply=model_apply)
     train_step = make_flow_train_step(**step_kwargs)
     eval_step = make_flow_eval_step(t_scale=t_scale)
     cb_tracker = CodebookUsageTracker(

@@ -24,8 +24,9 @@ in optax's layout for ``chain(clip_by_global_norm, adam(schedule))``:
 schedule's ``1/1/count`` (``adam_to_jax_flat`` / ``load_adam_jax_flat``). A
 trained codec is
 saved as the JAX trainer saves ``state.params`` (``to_jax_flat(codec,
-VQVAE_PREFIXES)``, prefix ``vqgan_``); a discriminator's flat tree is its
-flax variables, ``params/…`` and ``batch_stats/…`` (``DISC_PREFIXES``), and
+VQVAE_PREFIXES)``, prefix ``vqgan_``; the SD VAE with ``SDVAE_PREFIXES``);
+a discriminator's flat tree is its flax variables, ``params/…`` and
+``batch_stats/…`` (``DISC_PREFIXES``), and
 the VGG16 features' its ``params/…`` (``VGG_PREFIXES``).
 """
 from __future__ import annotations
@@ -42,17 +43,19 @@ from torch import nn
 from ..config import config_from_dict, to_dict
 
 __all__ = ["save_checkpoint", "load_checkpoint", "to_jax_flat",
-           "load_jax_flat", "adam_to_jax_flat", "load_adam_jax_flat", "UNET_PREFIXES", "VQVAE_PREFIXES", "DISC_PREFIXES",
-           "VGG_PREFIXES"]
+           "load_jax_flat", "adam_to_jax_flat", "load_adam_jax_flat", "UNET_PREFIXES",
+           "VQVAE_PREFIXES", "SDVAE_PREFIXES", "DISC_PREFIXES", "VGG_PREFIXES"]
 
 _SEP = "/"
 
 # Where each model's parameters live in the JAX trees the training scripts
 # save: the flow model under {"model": {"params": ...}}, the codec under
-# {"encoder": {"params": ...}, "decoder": {"params": ...}, "vq": RVQState}.
+# {"encoder": {"params": ...}, "decoder": {"params": ...}, "vq": RVQState},
+# the SD VAE under the same two heads without a "vq".
 UNET_PREFIXES = {"": "model/params"}
 VQVAE_PREFIXES = {"encoder": "encoder/params", "decoder": "decoder/params",
                   "vq": "vq"}
+SDVAE_PREFIXES = {"encoder": "encoder/params", "decoder": "decoder/params"}
 DISC_PREFIXES = {"": "params"}
 VGG_PREFIXES = {"": "params"}
 

@@ -19,6 +19,10 @@
   has no counterpart: every step here is its own call.
 - ``curvature_weight`` and MeanFlow take their forward-mode derivative
   with ``torch.func.jvp``; the parameters' gradients flow back through it.
+- ``model_apply(model, x, t, cond)`` (default ``model(x, t, cond)``) may
+  return ``(v, model_aux)``, the JAX step's contract for a model-internal
+  auxiliary loss (HDiT's MoE load balance): it is added to the objective
+  and reported as ``loss_model_aux``, in the curvature branch too.
 - The optimizer is ``ClippedAdam`` (optax's clip-by-global-norm then
   Adam), its learning rate set from the schedule before each step. The
   inpainting mask encoder, its optimizer group and the OTF augmentation
@@ -106,7 +110,7 @@ def make_flow_grads_fn(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 
                        paired_source: bool = False, curvature_weight: float = 0.0,
                        meanflow: bool = False, meanflow_ratio: float = 0.25,
                        meanflow_adaptive_p: float = 0.5, mask_encoder=None,
-                       otf_aug=None) -> Callable:
+                       otf_aug=None, model_apply: Optional[Callable] = None) -> Callable:
     """The per-(micro)batch loss core:
     ``grads_fn(model, batch, drop, draws=None, generator=None,
     loss_scale=1.0) -> aux``. It backpropagates ``loss·loss_scale`` into
@@ -115,6 +119,8 @@ def make_flow_grads_fn(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 
     (paired_source only)}``, or ``'pixels'`` with ``encode_fn``."""
     if mask_encoder is not None or otf_aug is not None:
         _not_ported("inpainting flow training (the mask encoder, OTF augmentation)")
+    if model_apply is None:
+        model_apply = lambda m, x, t, c: m(x, t, c)  # noqa: E731
 
     def grads_fn(model: nn.Module, batch: dict, drop, draws: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None,
@@ -156,7 +162,8 @@ def make_flow_grads_fn(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 
         if meanflow:
             r = t * draws["r_uniform"]
             r = torch.where(draws["sel_uniform"] < meanflow_ratio, r, t)
-            u, u_tgt = meanflow_target(model, _interp(source, target, r), r, t,
+            u, u_tgt = meanflow_target(lambda x_, t_, c_: model_apply(model, x_, t_, c_),
+                                       _interp(source, target, r), r, t,
                                        v_star, cond, t_scale)
             sq = ((u - u_tgt.detach()) ** 2).mean(dim=(1, 2, 3))
             if meanflow_adaptive_p:
@@ -169,13 +176,21 @@ def make_flow_grads_fn(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 
             return aux
 
         x = _interp(source, target, t)
+        model_aux = None
         if curvature_weight:
-            v, dv_dt = torch.func.jvp(lambda xx, tt: model(xx, tt * t_scale, cond),
+            v, dv_dt = torch.func.jvp(lambda xx, tt: model_apply(model, xx, tt * t_scale, cond),
                                       (x, t), (v_star, torch.ones_like(t)))
+            if isinstance(v, tuple):            # the (v, model_aux) contract
+                (v, model_aux), dv_dt = v, dv_dt[0]
         else:
-            v = model(x, t * t_scale, cond)
+            v = model_apply(model, x, t * t_scale, cond)
+            if isinstance(v, tuple):
+                v, model_aux = v
         loss = ((v - v_star) ** 2).mean()
         aux["loss_flow"] = loss.detach()
+        if model_aux is not None:
+            loss = loss + model_aux
+            aux["loss_model_aux"] = model_aux.detach()
         if curvature_weight:
             curv = (dv_dt ** 2).mean()
             loss = loss + curvature_weight * curv
@@ -199,7 +214,8 @@ def make_flow_train_step(cfg_dropout: float = 0.1, eps: float = 1e-3,
                          paired_source: bool = False, curvature_weight: float = 0.0,
                          meanflow: bool = False, meanflow_ratio: float = 0.25,
                          meanflow_adaptive_p: float = 0.5, grad_accum: int = 1,
-                         mask_encoder=None, otf_aug=None, mesh=None):
+                         mask_encoder=None, otf_aug=None, mesh=None,
+                         model_apply: Optional[Callable] = None):
     """``step(state, batch, generator, draws=None, drop=None) -> (state,
     aux)``, updating ``state`` in place: the gradients (over ``grad_accum``
     microbatches), the clipped Adam update, the EMA. ``draws`` is a list of
@@ -218,7 +234,7 @@ def make_flow_train_step(cfg_dropout: float = 0.1, eps: float = 1e-3,
         ot_method=ot_method, ot_block=ot_block, paired_source=paired_source,
         curvature_weight=curvature_weight, meanflow=meanflow,
         meanflow_ratio=meanflow_ratio, meanflow_adaptive_p=meanflow_adaptive_p,
-        mask_encoder=mask_encoder, otf_aug=otf_aug)
+        mask_encoder=mask_encoder, otf_aug=otf_aug, model_apply=model_apply)
 
     def step(state: FlowState, batch: dict, generator: torch.Generator,
              draws=None, drop=None):

@@ -77,6 +77,38 @@ def test_backward_kernel_matches_plain_on_card():
             assert (a - ref).abs().max().item() < 1e-4 * max(1.0, ref.abs().max().item())
 
 
+# HDiT's neighborhood-attention level: flowers_hdit at patch 2 gives 8x8
+# tokens of width 256 (4 heads of 64) under na:7; at patch 4, 4x4 tokens,
+# where the 7x7 window is clamped to 4x4. B=32 here (the recipe's 256 and the
+# evaluation's 512 run in chip_smoke.py).
+HDIT_SHAPES = [(32, 8, 8, 256, 7, 4), (32, 4, 4, 256, 7, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", HDIT_SHAPES, ids=["8x8", "4x4"])
+def test_kernels_at_hdit_shapes_on_card(shape):
+    """K1 and K2 at HDiT's shapes against their plain twins, fp32 and bf16,
+    with the tolerances of the tests above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, W, C, ks, heads = shape
+    g = torch.Generator("cuda").manual_seed(7)
+    for dtype, tol1, rel2 in ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 3e-2)):
+        q, k, v, gr = (torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+                       for _ in range(4))
+        o = na2d_fwd(q, k, v, kernel_size=ks, heads=heads)
+        grads = na2d_bwd(q, k, v, o, gr, kernel_size=ks, heads=heads)
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (q, k, v, o, gr)]
+        ref = na2d_banded(*f32[:3], kernel_size=ks, heads=heads)
+        assert (o.float() - ref).abs().max().item() < tol1, (shape, dtype)
+        refs = na2d_bwd_banded(*f32, kernel_size=ks, heads=heads)
+        for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+            tol = rel2 * max(1.0, r.abs().max().item())
+            assert (a.float() - r).abs().max().item() < tol, (shape, dtype, name)
+
+
 @pytest.mark.gpu
 def test_backward_kernel_is_deterministic_on_card():
     """K2 writes every output once, with no atomics: two calls on the same

@@ -1,8 +1,10 @@
 """flocoder_torch as a package: it imports nothing of JAX or of the JAX
 package (the serving, codec-training, pre-encoding and flow-training
-modules alike), its entry point refuses to run without a card unless asked
-for the CPU, MIDI export refuses until it is ported, and ``python -m flocoder_torch.generate_samples`` serves end to end
-on the CPU from checkpoints in the npz contract."""
+modules, the SD VAE, HDiT and MoE alike), its entry point refuses to run
+without a card unless asked for the CPU, MIDI export and the options of the
+SD-VAE family that are not ported yet refuse, and ``python -m
+flocoder_torch.generate_samples`` serves end to end on the CPU from
+checkpoints in the npz contract."""
 import os
 import pkgutil
 import subprocess
@@ -44,7 +46,8 @@ def test_every_module_imports_without_jax():
               "models.perceptual", "ops.rvq", "data.datasets", "data.transforms",
               "utils.codebook_analysis", "metrics", "preencode_data", "ops.fused_vq",
               "ops.kernels.fused_vq", "train_flow", "evaluate_model", "training.flow",
-              "training.ema", "training.schedules", "ops.ot", "ops.sinkhorn", "ops.fid"):
+              "training.ema", "training.schedules", "ops.ot", "ops.sinkhorn", "ops.fid",
+              "models.sd_vae", "models.hdit", "models.flow_model", "parallel.moe"):
         assert f"flocoder_torch.{m}" in mods, m
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'flax', 'flocoder_tpu'):\n"
@@ -112,3 +115,31 @@ def test_midi_export_raises(tmp_path):
                  "+n_samples=1", "+device=cpu", "data=/data/pop909_midi",
                  f"+output_dir={tmp_path / 'out'}"])
     assert not (tmp_path / "out").exists()
+
+
+@pytest.mark.parametrize("what", ["hdit_pp_stages", "moe_ep", "sd_int8", "unet_bf16"])
+def test_unported_options_of_the_sd_family_raise(what, tmp_path):
+    """HDiT's pipelined mid level, MoE expert parallelism, the SD VAE's int8
+    convs and the U-Net in bf16 wait for later items of ROADMAP.md."""
+    from flocoder_torch import preencode_data as pe
+    from flocoder_torch import train_flow as tf
+    from flocoder_torch.models.flow_model import build_flow_model
+    hdit = ["flow.arch=hdit", "flow.hdit_widths=[16,32]", "flow.hdit_d_head=8"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if what == "hdit_pp_stages":
+            cfg = load_config("flowers_hdit", gs.CONFIG_DIR, [*hdit, "+flow.hdit_pp_stages=2"])
+            build_flow_model(cfg, 4, 0)
+        elif what == "moe_ep":
+            tf.main(["--config-name", "flowers_hdit", "+device=cpu", *hdit,
+                     "+flow.hdit_moe_experts=[4,0]", "+flow.moe_ep=true",
+                     f"data={tmp_path / 'absent'}"])
+        elif what == "sd_int8":
+            pe.main(["--config-name", "flowers_sd", "+device=cpu", "+codec.quant_encode=int8",
+                     f"data={tmp_path / 'absent'}"])
+        else:
+            cfg = load_config("flowers_sd", gs.CONFIG_DIR)
+            with pytest.raises(NotImplementedError, match="U-Net in bf16"):
+                tf.main(["--config-name", "flowers_sd", "+device=cpu", "+flow.bf16=true",
+                         f"data={tmp_path / 'absent'}"])
+            build_flow_model(cfg, 4, 0, dtype=torch.bfloat16)
+    assert not (tmp_path / "absent_encoded_sd").exists()
