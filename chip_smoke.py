@@ -135,6 +135,30 @@
    each, no evaluation: steady samples/s, 0 NA2D launches for the recipe
    and 4 K1 and 4 K2 a step for MoE, its auxiliary loss and dropped
    fraction.
+18. midi_train: midi_vqgan's codec at full width (128² RGB piano rolls,
+   flowers' widths) through flocoder_torch.train_vqgan.main on a seeded
+   corpus of 108 two-track songs written by the port's
+   write_synthetic_corpus (each rolls to three 128² PNGs; the loader
+   converts them): one warmup and one GAN epoch of 4 steps at B=64, one
+   validation batch with the note metrics and their 10 grids; 6 K1 and 6
+   K2 a step, 6 K1 a validation batch, exactly.
+19. midi_preencode: inpainting=true pre-encode of the 324 roll PNGs from
+   step 18's checkpoint, B=32, augs_per 4 (the recipe's 1024): 4 val and
+   36 train batches of triplets, two encodes a batch (10 K1), read back.
+20. midi_flow: the inpainting flow on those triplets (1,152 train, 128 val):
+   masked U-Net and MaskEncoder, B=256, OTF curriculum with blank_latents
+   (5 K1), 3 epochs of 4 steps with an RK4 inpainting evaluation each epoch
+   at 20 grid points (3 decodes, 3 K1); serving the EMA with .mid export
+   (64 samples, 1 K1, every .mid parsed back); one step profiled; one step
+   of B=64 with the mask encoder on the card against the CPU (fp32 within
+   1e-3·max(1, |ref|), float64 changes within 1e-3 of the largest).
+21. midi_inpainting_codec: K1 and K2 at head dim 256 (B=64 and 32, 8x8x2048,
+   8 heads, k 7) against their twins (step 13's gates) and timed beside the
+   bound and SDPA + mask; midi_inpainting's codec (1 channel, 4
+   downsamples, 609.9 M parameters, seeded): create_inpainting_triplet on 32
+   grayscale rolls (10 K1), two held to the CPU at 1e-4·max(1, |ref|), and
+   two reconstruction-only training steps at B=64 (6 K1 and 6 K2 each),
+   timed with peak memory.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -165,6 +189,26 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def _counts(kernels: dict) -> dict:
+    """Each kernel's launches since the last ``_zero``."""
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def _zero(kernels: dict) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+def _expect(kernels: dict, path: str, got: dict, **expected) -> None:
+    """Fails unless ``got`` holds ``expected`` launches and none of the
+    other kernels."""
+    want = dict.fromkeys(kernels, 0)
+    want.update(expected)
+    print(f"{path} launches: {got} (expected {want})", flush=True)
+    if got != want:
+        fail(f"{path} launched {got}, expected {want}")
+
+
 def card_line() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -193,8 +237,8 @@ def device_ms(fn, key: str, iters: int = 10) -> float:
     name holds ``key``, by the profiler over ``iters`` calls after a warm
     one: the kernels' own time, whatever the host spends between launches.
     A window in which the profiler did not see the same number of such
-    kernels in each call is taken again (at most twice more); 0.0 means it
-    never saw one."""
+    kernels in each call is taken again (at most twice more). Where it never
+    saw one, the time is ``queued_ms``'s, and a line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -211,8 +255,30 @@ def device_ms(fn, key: str, iters: int = 10) -> float:
         ms = sum(e.self_device_time_total for e in hits) / 1e3 / iters
         count = sum(e.count for e in hits)
         if count and count % iters == 0:
-            break
+            return ms
+    if count == 0:
+        ms = queued_ms(fn, iters)
+        print(f"device_ms({key}): the profiler saw no such kernel in 3 windows; "
+              f"{ms:.4f} ms by events around {iters} calls queued behind a spin kernel",
+              flush=True)
     return ms
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Milliseconds per call by CUDA events around ``iters`` calls that
+    wait behind a spin kernel of ~50 ms, so the card runs them back to
+    back whatever the host spends launching them: the device's time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _window_mask(H: int, W: int, ks: int):
@@ -579,7 +645,7 @@ def write_checkpoints(tmp: str, config_dir: str, recipe: str = "flowers_vqgan"):
     return paths
 
 
-def serve(tmp: str, paths: dict, card: str, na2d_fwd) -> tuple:
+def serve(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
     from PIL import Image
     from flocoder_torch import generate_samples as gs
 
@@ -593,7 +659,7 @@ def serve(tmp: str, paths: dict, card: str, na2d_fwd) -> tuple:
          [f"+init_image={init_png}", "+init_strength=0.5"], 64, 1, 1),
     ]
     results = []
-    na2d_fwd.launches = 0
+    _zero(kernels)
     expected = 0
     for label, ckpt, extra, n, decodes, encodes in runs:
         torch.cuda.reset_peak_memory_stats()
@@ -617,10 +683,8 @@ def serve(tmp: str, paths: dict, card: str, na2d_fwd) -> tuple:
               f"{peak:.2f} GiB | card: {card}", flush=True)
         results.append(rec)
         expected += decodes + 5 * encodes   # 1 NATTEN block per decode, 5 per encode
-    launches = na2d_fwd.launches
-    print(f"K1 launches in the serving runs: {launches} (expected {expected})")
-    if launches == 0 or launches != expected:
-        fail(f"serving launched K1 {launches} times, expected {expected}")
+    launches = _counts(kernels)
+    _expect(kernels, "serving", launches, na2d_fwd=expected)
     return results, launches
 
 
@@ -737,7 +801,7 @@ def write_pngs(folder: str, n: int = 320, size: int = 128, seed: int = 3) -> str
     return folder
 
 
-def train_flowers(tmp: str, card: str, kernels) -> tuple:
+def train_flowers(tmp: str, card: str, kernels: dict) -> tuple:
     """flowers_vqgan at full width through flocoder_torch.train_vqgan.main:
     one warmup and one GAN epoch of 4 steps at batch 64, one validation
     batch. Checks the kernels' launch counts, the losses and the
@@ -749,8 +813,7 @@ def train_flowers(tmp: str, card: str, kernels) -> tuple:
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    na2d_fwd, na2d_bwd = kernels
-    na2d_fwd.launches = na2d_bwd.launches = 0
+    _zero(kernels)
     t0 = time.time()
     res = tv.main(["--config-name", "flowers_vqgan.yaml", f"data={data}",
                    "codec.epochs=2", "codec.warmup_epochs=1", "+seed=0",
@@ -758,14 +821,13 @@ def train_flowers(tmp: str, card: str, kernels) -> tuple:
                    f"+output_dir={os.path.join(tmp, 'train_out')}"])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {"na2d_fwd": na2d_fwd.launches, "na2d_bwd": na2d_bwd.launches}
+    launches = _counts(kernels)
     n_steps = {ph: len(t) for ph, t in res["step_seconds"].items()}
     steps = sum(n_steps.values())
-    expected = {"na2d_fwd": 6 * steps + 6 * len(res["val"]), "na2d_bwd": 6 * steps}
-    print(f"train launches: {launches} (expected {expected}; {n_steps} steps, "
-          f"{len(res['val'])} validation batch)", flush=True)
-    if launches != expected or min(n_steps.values()) < 4:
-        fail(f"training launched {launches}, expected {expected} ({n_steps} steps)")
+    _expect(kernels, f"train ({n_steps} steps, {len(res['val'])} validation batch)", launches,
+            na2d_fwd=6 * steps + 6 * len(res["val"]), na2d_bwd=6 * steps)
+    if min(n_steps.values()) < 4:
+        fail(f"training ran {n_steps} steps")
     losses = [v for e in res["epochs"] + res["val"] for k, v in e.items()
               if k not in ("epoch", "phase")]
     if not np.isfinite(losses).all():
@@ -1311,8 +1373,7 @@ def preencode_flowers(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    _zero(kernels)
     argv = ["--config-name", "flowers_vqgan.yaml", f"data={data}",
             f"codec.checkpoint={paths['codec']}", "preencoding.quantize=true",
             "preencoding.fused_vq=true", "preencoding.augs_per=4", "+seed=0"]
@@ -1320,17 +1381,14 @@ def preencode_flowers(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
     res = pe.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _counts(kernels)
     peak = torch.cuda.max_memory_allocated() / 2**30
     splits = {s: res[s] for s in ("val", "train")}
     batches = sum(r["batches"] for r in splits.values())
-    expected = dict.fromkeys(kernels, 0)
-    expected.update(na2d_fwd=5 * batches, fused_compress_tail_vq=batches)
-    print(f"pre-encode launches: {launches} (expected {expected}; {batches} batches)",
-          flush=True)
-    if launches != expected or [r["batches"] for r in splits.values()] != [4, 36]:
-        fail(f"pre-encoding launched {launches}, expected {expected} "
-             f"({[r['batches'] for r in splits.values()]} batches)")
+    _expect(kernels, f"pre-encode ({batches} batches)", launches, na2d_fwd=5 * batches,
+            fused_compress_tail_vq=batches)
+    if [r["batches"] for r in splits.values()] != [4, 36]:
+        fail(f"pre-encoding ran {[r['batches'] for r in splits.values()]} batches")
     for split, r in splits.items():
         ds = PreEncodedDataset(r["out_dir"])
         lat = [ds.get(i, np.random.default_rng(0))[0] for i in range(len(ds))]
@@ -1574,8 +1632,7 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    _zero(kernels)
     argv = ["--config-name", "flowers_vqgan.yaml", f"data={pe_data}",
             f"codec.checkpoint={paths['codec']}", "flow.unet.n_classes=102",
             "flow.epochs=3", "flow.n_steps=20", "flow.ckpt_every=3", "+seed=0",
@@ -1588,15 +1645,14 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
     res = tf.main(argv, step_hook=step_hook)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _counts(kernels)
     peak = torch.cuda.max_memory_allocated() / 2**30
     chunks = flow_decode_chunks(DECODE_CHUNK)
-    expected = dict.fromkeys(kernels, 0)
-    expected["na2d_fwd"] = len(res["eval"]) * 2 * len(chunks)
-    print(f"flow training launches: {launches} (expected {expected}: {len(res['eval'])} "
-          f"evaluations x 2 decodes x chunks {chunks})", flush=True)
-    if launches != expected or len(res["eval"]) != 3:
-        fail(f"flow training launched {launches}, expected {expected}")
+    eval_k1 = len(res["eval"]) * 2 * len(chunks)
+    _expect(kernels, f"flow training ({len(res['eval'])} evaluations x 2 decodes x chunks "
+            f"{chunks})", launches, na2d_fwd=eval_k1)
+    if len(res["eval"]) != 3:
+        fail(f"flow training ran {len(res['eval'])} evaluations")
     if (len(events) != 12 or [e["steps"] for e in res["epoch_seconds"]] != [4] * 3
             or [e["samples"] for e in res["epoch_seconds"]] != [4 * FLOW_BATCH] * 3):
         fail(f"flow training ran {len(events)} steps, {res['epoch_seconds']}")
@@ -1610,14 +1666,15 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
         fail("flow training wrote no checkpoint")
 
     # serve the trained EMA checkpoint on the card
-    kernels["na2d_fwd"].launches = 0
+    _zero(kernels)
     served = gs.main(["--config-name", "flowers_vqgan.yaml",
                       f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=64",
                       "+n_steps=20", "+seed=0", f"+output_dir={os.path.join(tmp, 'flow_gen')}"])
-    serve_k1 = kernels["na2d_fwd"].launches
-    if (served["images"].shape != (64, 128, 128, 3) or not np.isfinite(served["images"]).all()
-            or serve_k1 != 1):
-        fail(f"serving the trained flow: {served['images'].shape}, K1 {serve_k1} (expected 1)")
+    serve_k1 = _counts(kernels)
+    _expect(kernels, "serving the trained flow", serve_k1, na2d_fwd=1)
+    serve_k1 = serve_k1["na2d_fwd"]
+    if served["images"].shape != (64, 128, 128, 3) or not np.isfinite(served["images"]).all():
+        fail(f"serving the trained flow: {served['images'].shape}")
     launches["na2d_fwd"] += serve_k1
 
     train_dir = os.path.join(f"{pe_data}_encoded_vqgan", "train")
@@ -1643,7 +1700,7 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
                steady_samples_per_s=FLOW_BATCH / steady,
                epoch_samples_per_s=[e["samples"] / e["seconds"] for e in res["epoch_seconds"]],
                epochs=res["epochs"], evals=res["eval"], ot=ot, step_profile=prof,
-               k1_launches_eval=expected["na2d_fwd"], k1_launches_serve=serve_k1,
+               k1_launches_eval=eval_k1, k1_launches_serve=serve_k1,
                serve_batch_s=served["batch_seconds"], card_vs_cpu=step_check)
     print(f"flow train flowers_vqgan B={FLOW_BATCH} 16x16x4: "
           f"{rec['steady_samples_per_s']:.2f} samples/s over steady steps (median of "
@@ -1689,14 +1746,16 @@ HDIT_NA_BLOCKS = 4             # down_0 and up_0, depth 2 each: K1 (K2) per forw
 HDIT_SHAPES = [(256, 8, 8, 256, 4, 7), (128, 8, 8, 256, 4, 7), (256, 4, 4, 256, 4, 7)]
 
 
-def check_hdit_kernels(na2d_fwd, na2d_bwd, na2d_banded, na2d_bwd_banded) -> dict:
-    """K1 and K2 at HDIT_SHAPES against their plain twins, fp32 and bf16,
-    TF32 off, with the gates of check_k1 and check_k2: K1 1e-4 and 2e-2
-    absolute, K2 1e-4·max(1, |ref|) and 3e-2·max(1, |ref|)."""
+def check_hdit_kernels(na2d_fwd, na2d_bwd, na2d_banded, na2d_bwd_banded,
+                       shapes=HDIT_SHAPES, label: str = "HDiT") -> dict:
+    """K1 and K2 at ``shapes`` (HDIT_SHAPES by default) against their plain
+    twins, fp32 and bf16, TF32 off, with the gates of check_k1 and
+    check_k2: K1 1e-4 and 2e-2 absolute, K2 1e-4·max(1, |ref|) and
+    3e-2·max(1, |ref|)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator("cuda").manual_seed(14)
     errs = {}
-    for B, H, W, C, heads, ks in HDIT_SHAPES:
+    for B, H, W, C, heads, ks in shapes:
         for dtype, tol1, rel2 in ((torch.float32, 1e-4, 1e-4), (torch.bfloat16, 2e-2, 3e-2)):
             q, k, v, gr = (torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
                            for _ in range(4))
@@ -1710,27 +1769,30 @@ def check_hdit_kernels(na2d_fwd, na2d_bwd, na2d_banded, na2d_bwd_banded) -> dict
             tol2 = [rel2 * max(1.0, r.abs().max().item()) for r in refs]
             ok = (np.isfinite(e1) and e1 < tol1
                   and all(np.isfinite(e) and e < t for e, t in zip(e2, tol2)))
-            print(f"K1/K2 check HDiT B={B} {H}x{W} C={C} heads={heads} k={ks} "
+            print(f"K1/K2 check {label} B={B} {H}x{W} C={C} heads={heads} k={ks} "
                   f"{str(dtype)[6:]}: K1 max_abs_err={e1:.3e} (tol {tol1:g}), K2 dq/dk/dv "
                   f"max_abs_err={[f'{e:.3e}' for e in e2]} (tol {[f'{t:.3e}' for t in tol2]}) "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
-                fail(f"K1 or K2 disagrees with its plain twin at HDiT's {(B, H, W, C)} {dtype}")
+                fail(f"K1 or K2 disagrees with its plain twin at {label}'s {(B, H, W, C)} "
+                     f"{dtype}")
             for name, e in (("na2d_fwd", e1), ("na2d_bwd", max(e2))):
                 key = (name, dtype)
                 errs[key] = max(errs.get(key, 0.0), e)
     return errs
 
 
-def time_hdit_kernels(na2d_fwd, na2d_bwd, card: str) -> list:
-    """K1 and K2 at HDIT_SHAPES, fp32 and bf16: the kernels' device time by
-    the profiler, CUDA events over 20 calls, the bound, and the SDPA
-    yardstick with the window mask (forward for K1; forward + backward,
-    against K1 + K2's 'fwd_bwd_ms', for K2)."""
+def time_hdit_kernels(na2d_fwd, na2d_bwd, card: str, shapes=HDIT_SHAPES,
+                      path: str = "hdit", label: str = "HDiT") -> list:
+    """K1 and K2 at ``shapes`` (HDIT_SHAPES by default), fp32 and bf16: the
+    kernels' device time by the profiler, CUDA events over 20 calls, the
+    bound, and the SDPA yardstick with the window mask (forward for K1;
+    forward + backward, against K1 + K2's 'fwd_bwd_ms', for K2). Rows carry
+    ``path``."""
     import torch.nn.functional as F
     rows = []
     g = torch.Generator("cuda").manual_seed(15)
-    for B, H, W, C, heads, ks in HDIT_SHAPES:
+    for B, H, W, C, heads, ks in shapes:
         dh = C // heads
         mask = _window_mask(H, W, ks)
         for dtype in (torch.float32, torch.bfloat16):
@@ -1748,11 +1810,11 @@ def time_hdit_kernels(na2d_fwd, na2d_bwd, card: str) -> list:
             lib_err = (sdpa().detach().transpose(1, 2).reshape(B, H, W, C).float()
                        - o.float()).abs().max().item()
             if not lib_err < (1e-3 if dtype == torch.float32 else 5e-2):
-                fail(f"the SDPA yardstick disagrees with K1 at HDiT's shape ({lib_err:.3e})")
+                fail(f"the SDPA yardstick disagrees with K1 at {label}'s shape ({lib_err:.3e})")
             for name, fn, bound, lib in (("na2d_fwd", fwd, na2d_bound_ms, sdpa),
                                          ("na2d_bwd", bwd, na2d_bwd_bound_ms, sdpa_fb)):
                 row = dict(kernel=name, shape=[B, H, W, C], heads=heads, kernel_size=ks,
-                           dtype=str(dtype)[6:], path="hdit",
+                           dtype=str(dtype)[6:], path=path,
                            device_ms=device_ms(fn, name), ms=cuda_ms(fn, 20),
                            bound_ms=bound(B, H, W, C, ks, dtype)[0],
                            bound_by=bound(B, H, W, C, ks, dtype)[1],
@@ -1760,7 +1822,7 @@ def time_hdit_kernels(na2d_fwd, na2d_bwd, card: str) -> list:
                 if name == "na2d_bwd":
                     row["fwd_bwd_ms"] = cuda_ms(lambda: (fwd(), bwd()), 20)
                 rows.append(row)
-                print(f"{name} HDiT B={B} {H}x{W} C={C} heads={heads} k={ks} {row['dtype']}: "
+                print(f"{name} {label} B={B} {H}x{W} C={C} heads={heads} k={ks} {row['dtype']}: "
                       f"device_ms={row['device_ms']:.4f} ms={row['ms']:.4f} bound_ms="
                       f"{row['bound_ms']:.4f} ({row['bound_by']}) SDPA+mask library_ms="
                       f"{row['library_ms']:.4f}"
@@ -1789,20 +1851,19 @@ def sd_preencode(tmp: str, pe_data: str, card: str, kernels: dict) -> tuple:
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    _zero(kernels)
     argv = ["--config-name", "flowers_sd.yaml", f"data={pe_data}",
             "preencoding.augs_per=4", "+seed=0"]
     t0 = time.time()
     res = pe.main(argv)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = _counts(kernels)
     peak = torch.cuda.max_memory_allocated() / 2**30
     splits = {s: res[s] for s in ("val", "train")}
-    if any(launches.values()) or [r["batches"] for r in splits.values()] != [4, 36]:
-        fail(f"sd pre-encode launched {launches} (expected none), batches "
-             f"{[r['batches'] for r in splits.values()]}")
+    _expect(kernels, "sd pre-encode", launches)
+    if [r["batches"] for r in splits.values()] != [4, 36]:
+        fail(f"sd pre-encode ran {[r['batches'] for r in splits.values()]} batches")
     for split, r in splits.items():
         ds = PreEncodedDataset(r["out_dir"])
         lat = [ds.get(i, np.random.default_rng(0))[0] for i in range(len(ds))]
@@ -1864,8 +1925,7 @@ def sd_serve(tmp: str, config_dir: str, card: str, kernels: dict) -> tuple:
     paths = write_checkpoints(tmp, config_dir, "flowers_sd")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    for k in kernels.values():
-        k.launches = 0
+    _zero(kernels)
     results = []
     for label, ckpt in (("unconditional", paths["uncond"]), ("CFG n_classes=102", paths["cfg"])):
         torch.cuda.reset_peak_memory_stats()
@@ -1883,9 +1943,8 @@ def sd_serve(tmp: str, config_dir: str, card: str, kernels: dict) -> tuple:
               f"{[round(s, 4) for s in secs]}, {results[-1]['samples_per_s']:.2f} samples/s "
               f"(last batch {results[-1]['steady_samples_per_s']:.2f}), peak {peak:.2f} GiB "
               f"| card: {card}", flush=True)
-    launches = {name: k.launches for name, k in kernels.items()}
-    if any(launches.values()):
-        fail(f"sd serving launched {launches}, expected no kernel")
+    launches = _counts(kernels)
+    _expect(kernels, "sd serving", launches)
     b = gs.load_models_once(Config({}), paths["cfg"], torch.device("cuda"))
     x64 = torch.randn(64, 16, 16, 4, device="cuda", generator=torch.Generator("cuda").manual_seed(22))
     with torch.inference_mode():
@@ -1946,8 +2005,7 @@ def hdit_flow_phase(tmp: str, pe_data: str, card: str, kernels: dict) -> tuple:
     torch.backends.cudnn.allow_tf32 = True
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    _zero(kernels)
     argv = ["--config-name", "flowers_hdit.yaml", f"data={pe_data}", *HDIT_NA,
             "flow.epochs=3", f"flow.n_steps={HDIT_N_STEPS}", "flow.ckpt_every=3", "+seed=0",
             f"+ckpt_dir={os.path.join(tmp, 'hdit_ckpt')}",
@@ -1960,34 +2018,31 @@ def hdit_flow_phase(tmp: str, pe_data: str, card: str, kernels: dict) -> tuple:
     peak = torch.cuda.max_memory_allocated() / 2**30
     steps = len(events)
     evals = len(res["eval"])
-    train_launches = {name: k.launches for name, k in kernels.items()}
-    expected = dict.fromkeys(kernels, 0)
-    expected["na2d_fwd"] = HDIT_NA_BLOCKS * (steps + evals * (1 + HDIT_NFE))
-    expected["na2d_bwd"] = HDIT_NA_BLOCKS * steps
-    print(f"hdit_flow training launches: {train_launches} (expected {expected}: {steps} "
-          f"steps x {HDIT_NA_BLOCKS}, {evals} evaluations x {HDIT_NA_BLOCKS} x (1 validation "
-          f"forward + {HDIT_NFE} sampler forwards))", flush=True)
-    if train_launches != expected or steps != 12 or evals != 3:
-        fail(f"hdit_flow training launched {train_launches}, expected {expected}")
+    train_launches = _counts(kernels)
+    _expect(kernels, f"hdit_flow training ({steps} steps x {HDIT_NA_BLOCKS}, {evals} "
+            f"evaluations x {HDIT_NA_BLOCKS} x (1 validation forward + {HDIT_NFE} sampler "
+            "forwards))", train_launches,
+            na2d_fwd=HDIT_NA_BLOCKS * (steps + evals * (1 + HDIT_NFE)),
+            na2d_bwd=HDIT_NA_BLOCKS * steps)
+    if steps != 12 or evals != 3:
+        fail(f"hdit_flow training ran {steps} steps and {evals} evaluations")
     losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
     metrics = [v for e in res["eval"] for v in [e["val_loss"], *e["metrics"].values()]
                if not isinstance(v, str)]
     if not (np.isfinite(losses).all() and np.isfinite(metrics).all()):
         fail(f"hdit_flow losses or metrics not finite: {res['epochs']} {res['eval']}")
 
-    for k in kernels.values():
-        k.launches = 0
+    _zero(kernels)
     served = gs.main(["--config-name", "flowers_hdit.yaml",
                       f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=64",
                       f"+n_steps={HDIT_N_STEPS}", "+seed=0", "+bf16=false",
                       f"+output_dir={os.path.join(tmp, 'hdit_gen')}"])
-    serve_launches = {name: k.launches for name, k in kernels.items()}
-    expected_serve = dict.fromkeys(kernels, 0)
-    expected_serve["na2d_fwd"] = HDIT_NA_BLOCKS * HDIT_NFE
+    serve_launches = _counts(kernels)
+    _expect(kernels, "serving the HDiT EMA checkpoint", serve_launches,
+            na2d_fwd=HDIT_NA_BLOCKS * HDIT_NFE)
     if (served["images"].shape != (64, 128, 128, 3) or not np.isfinite(served["images"]).all()
-            or serve_launches != expected_serve or served["nfe"] != HDIT_NFE):
-        fail(f"serving the HDiT EMA checkpoint: {served['images'].shape}, launches "
-             f"{serve_launches} (expected {expected_serve})")
+            or served["nfe"] != HDIT_NFE):
+        fail(f"serving the HDiT EMA checkpoint: {served['images'].shape}, nfe {served['nfe']}")
 
     batch = _flow_batch(os.path.join(f"{pe_data}_encoded_sd", "train"))
     state = res["state"]
@@ -2060,8 +2115,7 @@ def hdit_short_phase(tag: str, tmp: str, pe_data: str, card: str, kernels: dict,
     print(f"{tag} cuts: 1 epoch (the recipe's 10,000), no evaluation", flush=True)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    _zero(kernels)
     argv = ["--config-name", "flowers_hdit.yaml", f"data={pe_data}", *overrides,
             "flow.epochs=1", "flow.no_eval=true", "+seed=0",
             f"+ckpt_dir={os.path.join(tmp, tag + '_ckpt')}",
@@ -2070,17 +2124,12 @@ def hdit_short_phase(tag: str, tmp: str, pe_data: str, card: str, kernels: dict,
     res = tf.main(argv, step_hook=step_hook)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    launches = {name: k.launches for name, k in kernels.items()}
-    na = any("na:" in o for o in overrides)
-    expected = dict.fromkeys(kernels, 0)
-    if na:
-        expected.update(na2d_fwd=HDIT_NA_BLOCKS * len(events),
-                        na2d_bwd=HDIT_NA_BLOCKS * len(events))
+    launches = _counts(kernels)
+    na = HDIT_NA_BLOCKS * len(events) if any("na:" in o for o in overrides) else 0
+    _expect(kernels, f"{tag} ({len(events)} steps)", launches, na2d_fwd=na, na2d_bwd=na)
     (ep,) = res["epochs"]
-    print(f"{tag} launches: {launches} (expected {expected}; {len(events)} steps)", flush=True)
-    if launches != expected or len(events) != 4 or not all(
-            np.isfinite(v) for k, v in ep.items() if k != "epoch"):
-        fail(f"{tag}: launches {launches}, expected {expected}; epoch {ep}")
+    if len(events) != 4 or not all(np.isfinite(v) for k, v in ep.items() if k != "epoch"):
+        fail(f"{tag}: {len(events)} steps; epoch {ep}")
     intervals = _steady(events)
     rec = dict(batch=FLOW_BATCH, peak_mem_gib=peak, card=card, step_s=intervals,
                steady_samples_per_s=FLOW_BATCH / float(np.median(intervals)), epoch=ep,
@@ -2107,6 +2156,470 @@ def hdit_short_phase(tag: str, tmp: str, pe_data: str, card: str, kernels: dict,
     del res
     torch.cuda.empty_cache()
     return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# MIDI piano rolls and inpainting: midi_vqgan with inpainting=true, and
+# midi_inpainting's codec at its widths
+# ---------------------------------------------------------------------------
+
+MIDI_SONGS = 108               # 98 train songs: 294 rolls, 265 after the 10% val split
+MIDI_CODEC_NATTEN = (5, 1)     # midi_vqgan's codec (flowers' widths): K1 a encode, a decode
+MIDI_OTF = ["flow.otf_aug=true", "+flow.curriculum_epochs=1", "+flow.extend_epochs=2",
+            "+flow.p_ones=0.3", "+flow.p_zeros=0.05"]
+# (B, H, W, C, heads, ks) of midi_inpainting's widest NATTEN blocks: 8x8x2048
+# with 8 heads of 256, at the codec training batch and the pre-encode batch
+MIDI_INP_SHAPES = [(64, 8, 8, 2048, 8, 7), (32, 8, 8, 2048, 8, 7)]
+
+
+def midi_train_codec(tmp: str, card: str, kernels: dict) -> tuple:
+    """midi_vqgan's codec at full width (128² RGB piano rolls, hidden 256,
+    RVQ 4×96×4, VGG16 perceptual loss, patch discriminator) through
+    flocoder_torch.train_vqgan.main on a seeded corpus (the port's
+    write_synthetic_corpus: MIDI_SONGS songs of MELODY and PIANO, each
+    rolling to three 128² images), converted to PNGs by the loader:
+    one warmup and one GAN epoch of 4 steps at batch 64, one validation
+    batch with the note metrics and their grids. 6 K1 and 6 K2 a step, 6 K1
+    a validation batch."""
+    from flocoder_torch import train_vqgan as tv
+    from flocoder_torch.data.midi_io import write_synthetic_corpus
+
+    write_synthetic_corpus(os.path.join(tmp, "midi"), MIDI_SONGS, seed=5)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    t0 = time.time()
+    res = tv.main(["--config-name", "midi_vqgan.yaml", f"data={os.path.join(tmp, 'midi')}",
+                   "codec.epochs=2", "codec.warmup_epochs=1", "+seed=0",
+                   f"+ckpt_dir={os.path.join(tmp, 'midi_ckpt')}",
+                   f"+output_dir={os.path.join(tmp, 'midi_train_out')}"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _counts(kernels)
+    n_steps = {ph: len(t) for ph, t in res["step_seconds"].items()}
+    steps = sum(n_steps.values())
+    enc, dec = MIDI_CODEC_NATTEN
+    _expect(kernels, "midi codec training", launches,
+            na2d_fwd=(enc + dec) * (steps + len(res["val"])), na2d_bwd=(enc + dec) * steps)
+    if n_steps != {"warmup": 4, "gan": 4}:
+        fail(f"midi codec training ran {n_steps} steps, expected 4 an epoch")
+    (val,) = res["val"]
+    values = [v for e in res["epochs"] + res["val"] for k, v in e.items()
+              if k not in ("epoch", "phase")]
+    if not np.isfinite(values).all() or "note_onset_f1" not in val:
+        fail(f"midi codec training: losses or note metrics {res['epochs']} {res['val']}")
+    grids = [f for f in os.listdir(os.path.join(tmp, "midi_train_out")) if f.startswith("metric_")]
+    if len(grids) != 10:
+        fail(f"midi codec training wrote {len(grids)} note-metric grids, expected 10")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = dict(batch=64, wall_s=wall, peak_mem_gib=peak, card=card, epochs=res["epochs"],
+               val=res["val"])
+    for ph, secs in res["step_seconds"].items():
+        (ep,) = [e for e in res["epoch_seconds"] if e["phase"] == ph]
+        rec[ph] = dict(step_s=secs, samples_per_s=64 / float(np.median(secs[1:])),
+                       epoch_samples_per_s=ep["samples"] / ep["seconds"])
+    print("train midi_vqgan B=64 128² piano rolls: " + ", ".join(
+        f"{ph} {rec[ph]['samples_per_s']:.2f} samples/s over steady steps, "
+        f"{rec[ph]['epoch_samples_per_s']:.2f} over the epoch" for ph in ("warmup", "gan"))
+        + f", peak {peak:.2f} GiB, wall {wall:.1f} s (with the corpus's conversion); note "
+        "metrics " + " ".join(f"{k[5:]}={v:.4f}" for k, v in val.items() if k.startswith("note_"))
+        + f" | card: {card}", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def midi_preencode(tmp: str, card: str, kernels: dict) -> tuple:
+    """midi_vqgan pre-encoded with inpainting=true through
+    flocoder_torch.preencode_data.main from the codec training's checkpoint,
+    over the corpus's 324 roll PNGs: batch 32 (the recipe's), augs_per 4
+    (the recipe's 1024): 4 val and 36 train batches, each two encodes (the
+    image and the masked image, masks generate_mask_batch(seed·100003+b)),
+    5 K1 an encode. Reads the triplets back."""
+    from flocoder_torch import preencode_data as pe
+    from flocoder_torch.data.datasets import PreEncodedDataset
+
+    ckpt = os.path.join(tmp, "midi_ckpt", "vqgan_2.npz")
+    data = os.path.join(tmp, "midi_images")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    t0 = time.time()
+    res = pe.main(["--config-name", "midi_vqgan.yaml", f"data={data}",
+                   f"codec.checkpoint={ckpt}", "+inpainting=true", "preencoding.augs_per=4",
+                   "+seed=0"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _counts(kernels)
+    splits = {s: res[s] for s in ("val", "train")}
+    batches = sum(r["batches"] for r in splits.values())
+    _expect(kernels, "midi inpainting pre-encode", launches,
+            na2d_fwd=2 * MIDI_CODEC_NATTEN[0] * batches)
+    if [r["batches"] for r in splits.values()] != [4, 36]:
+        fail(f"midi pre-encode ran {[r['batches'] for r in splits.values()]} batches")
+    for split, r in splits.items():
+        ds = PreEncodedDataset(r["out_dir"])
+        items = [ds.get(i, np.random.default_rng(0))[0] for i in range(len(ds))]
+        ok = len(items) == r["latents"] == 32 * r["batches"] and all(
+            set(t) == {"target_latents", "source_latents", "mask_pixels"}
+            and t["target_latents"].shape == t["source_latents"].shape == (16, 16, 4)
+            and t["mask_pixels"].shape == (128, 128, 1) and t["mask_pixels"].dtype == bool
+            and np.isfinite(t["target_latents"]).all() and np.isfinite(t["source_latents"]).all()
+            for t in items)
+        if not ok:
+            fail(f"midi pre-encode {split}: triplets read back do not hold")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = dict(batch=32, batches=batches, wall_s=wall, peak_mem_gib=peak, card=card,
+               **{f"{s}_triplets_per_s": r["latents_per_s"] for s, r in splits.items()},
+               **{f"{s}_seconds": r["seconds"] for s, r in splits.items()})
+    print(f"pre-encode midi_vqgan inpainting B=32 128²: val {rec['val_triplets_per_s']:.2f} "
+          f"triplets/s ({rec['val_seconds']:.3f} s), train {rec['train_triplets_per_s']:.2f} "
+          f"triplets/s ({rec['train_seconds']:.3f} s), two encodes a triplet; wall "
+          f"{wall:.1f} s, peak {peak:.2f} GiB | card: {card}", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def _inpaint_batch(out_dir: str, n: int) -> dict:
+    from flocoder_torch.data.datasets import PreEncodedDataset
+    ds = PreEncodedDataset(out_dir)
+    items = [ds.get(i, np.random.default_rng(0))[0] for i in range(n)]
+    stack = lambda k: torch.from_numpy(np.stack([t[k] for t in items]).astype(np.float32))  # noqa: E731
+    return {"target": stack("target_latents"), "source": stack("source_latents"),
+            "mask_pixels": stack("mask_pixels"),
+            "class_cond": torch.zeros(n, dtype=torch.long)}
+
+
+def hold_inpaint_flow_step(state, batch: dict, blank) -> dict:
+    """One inpainting flow step (mask encoder, mask blend, OTF curriculum past
+    its ramp, OT pairing, masked U-Net forward and backward, both optimizer
+    groups at lr 1e-4, EMA 0.999) of copies of the trained U-Net and mask
+    encoder on the card and on the CPU, the same draws passed in and the
+    gate closed, held as check_flow_step holds the plain step: in fp32 (TF32
+    off) the loss, parameters, Adam's first moments and EMA of both nets
+    within 1e-3·max(1, |ref|); in float64 the step's changes and the first
+    moments within 1e-3 of the largest on the CPU."""
+    from flocoder_torch.training.flow import (create_flow_state, draw_flow_inputs,
+                                              make_flow_train_step, otf_counts)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    otf = {"curriculum_epochs": 1, "extend_epochs": 2, "p_ones": 0.3, "p_zeros": 0.05,
+           "steps_per_epoch": 4}
+    step_at = 12                               # epoch 4: past the ramp
+    n = batch["target"].shape[0]
+    if min(otf_counts(otf, step_at, n)) < 1:
+        fail("the held inpainting step selects no OTF items")
+    draws = draw_flow_inputs(torch.Generator().manual_seed(21), batch["target"].shape, otf=True)
+
+    def run(dev, dtype):
+        st = create_flow_state(copy.deepcopy(state.model).to(dev, dtype), 1e-4,
+                               mask_encoder=copy.deepcopy(state.mask_encoder).to(dev, dtype))
+        st.step = step_at
+        on = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+              for k, v in batch.items()}
+        d = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
+             for k, v in draws.items()}
+        step = make_flow_train_step(blank_latents=blank.to(dev, dtype), otf_aug=otf)
+        return step(st, on, None, draws=[d], drop=torch.tensor(False, device=dev))
+
+    def params(st):
+        return [*st.model.parameters(), *st.mask_encoder.parameters()]
+
+    def emas(st):
+        return [*st.ema.parameters(), *st.ema_mask_encoder.parameters()]
+
+    def mus(st):
+        return ([st.opt.adam.state[p]["exp_avg"] for p in st.model.parameters()]
+                + [st.mask_opt.adam.state[p]["exp_avg"] for p in st.mask_encoder.parameters()])
+
+    (sc, ac), (sp, ap) = (run(dev, torch.float32) for dev in ("cuda", "cpu"))
+    worst = {}
+    for name, pairs in (("loss", [(ac["loss"], ap["loss"])]),
+                        ("loss_mask", [(ac["loss_mask"], ap["loss_mask"])]),
+                        ("params", zip(params(sc), params(sp))),
+                        ("adam_mu", zip(mus(sc), mus(sp))), ("ema", zip(emas(sc), emas(sp)))):
+        worst[name] = max((a.detach().float().cpu() - r.detach().float()).abs().max().item()
+                          / (1e-3 * max(1.0, r.detach().abs().max().item())) for a, r in pairs)
+    before = [p.detach().cpu().double() for p in (*state.model.parameters(),
+                                                  *state.mask_encoder.parameters())]
+    changes = {}
+    for dev in ("cuda", "cpu"):
+        st, _ = run(dev, torch.float64)
+        changes[dev] = {"param_change": [p.detach().cpu() - b for p, b in zip(params(st), before)],
+                        "ema_change": [e.detach().cpu() - b for e, b in zip(emas(st), before)],
+                        "adam_mu_f64": [m.cpu() for m in mus(st)]}
+    for name, refs in changes["cpu"].items():
+        largest = max(r.abs().max().item() for r in refs)
+        err = max((a - r).abs().max().item() for a, r in zip(changes["cuda"][name], refs))
+        worst[name] = err / (1e-3 * largest) if largest > 0 else float("inf")
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"card vs CPU inpainting flow step (B={n}, mask encoder, OTF, same draws, TF32 "
+          "off): max |Δ| / tolerance " + " ".join(f"{k}={v:.4f}" for k, v in worst.items())
+          + f"; loss {float(ac['loss']):.6f} vs {float(ap['loss']):.6f}", flush=True)
+    if not all(np.isfinite(v) and v < 1.0 for v in worst.values()):
+        fail(f"card and CPU disagree on an inpainting flow step: {worst}")
+    return worst
+
+
+def export_corpus_rolls(tmp: str, n: int = 64) -> dict:
+    """The .mid export of ``n`` corpus piano rolls (the loader's PNGs, in the
+    decoder's [-1, 1] range) through generate_samples.save_sample_batch,
+    timed. Fails unless the notes read back hold some and equal, file by
+    file, those of img2midi_multi on the rect layout of the same rolls."""
+    from PIL import Image
+
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch.data.midi_io import read_midi
+    from flocoder_torch.data.pianoroll import img2midi_multi, square_to_rect
+    from flocoder_torch.utils.viz import _to_uint8_img
+
+    files = sorted(os.path.join(r, f) for r, _, fs in os.walk(os.path.join(tmp, "midi_images"))
+                   for f in fs if f.endswith(".png"))[:n]
+    rolls = np.stack([np.asarray(Image.open(f).convert("RGB"), np.float32) / 127.5 - 1.0
+                      for f in files])
+    t0 = time.time()
+    mids = gs.save_sample_batch(rolls, 0, os.path.join(tmp, "midi_export"), is_midi=True)
+    seconds = time.time() - t0
+
+    def notes(mf):
+        return sorted((n.pitch, n.velocity, n.start, n.end)
+                      for i in mf.instruments for n in i.notes)
+    total = 0
+    for roll, path in zip(rolls, mids):
+        got = notes(read_midi(path))
+        want = notes(img2midi_multi(square_to_rect(Image.fromarray(_to_uint8_img(roll)))))
+        if len(got) != len(want) or any(
+                g[:2] != w[:2] or abs(g[2] - w[2]) > 1e-6 or abs(g[3] - w[3]) > 1e-6
+                for g, w in zip(got, want)):
+            fail(f"the .mid export of {path}: {len(got)} notes read back, img2midi "
+                 f"gives {len(want)}")
+        total += len(got)
+    if len(mids) != n or total == 0:
+        fail(f"the .mid export of {n} corpus rolls wrote {len(mids)} files, {total} notes")
+    return dict(rolls=n, seconds=seconds, notes=total)
+
+
+def midi_flow(tmp: str, card: str, kernels: dict) -> tuple:
+    """The inpainting flow of midi_vqgan through flocoder_torch.train_flow.main on
+    the pre-encoded triplets (1,152 train, 128 val): the mask-conditioned U-Net
+    (dim 16, dim_mults 1,2,4,8) and the MaskEncoder (128² masks → 8² →
+    resized to the 16² latents), batch 256 (the recipe's), OTF curriculum
+    (curriculum 1 epoch, ramp to epoch 2, then p_ones 0.3 and p_zeros 0.05)
+    with blank_latents (one encode: 5 K1), and an RK4 inpainting evaluation
+    each epoch at 20 grid points (the recipe's 100) conditioned on the val
+    batch's masks, from its mask-blended sources: 3 decodes (samples,
+    targets, sources) of 128, 1 K1 each. 3 epochs of 4 steps (the recipe's
+    10,000). Then serves the EMA with .mid export (64 samples, 1 K1) and
+    parses every .mid back (rolls that hold no notes yet), exports corpus
+    rolls that do (export_corpus_rolls); profiles one step; holds a step on
+    the card to the CPU's (hold_inpaint_flow_step)."""
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch import train_flow as tf
+    from flocoder_torch.config import load_config
+    from flocoder_torch.data.midi_io import read_midi
+    from flocoder_torch.generate_samples import CONFIG_DIR
+    from flocoder_torch.preencode_data import load_codec
+    from flocoder_torch.training.flow import make_flow_train_step
+
+    print("midi flow cuts: 3 epochs (the recipe's 10,000), evaluation n_steps 20 (the "
+          "recipe's 100), OTF curriculum over 2 epochs", flush=True)
+    ckpt = os.path.join(tmp, "midi_ckpt", "vqgan_2.npz")
+    data = os.path.join(tmp, "midi_images_encoded_vqgan_inpainting")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    events, step_hook = _hooked()
+    t0 = time.time()
+    res = tf.main(["--config-name", "midi_vqgan.yaml", f"data={data}", f"codec.checkpoint={ckpt}",
+                   "flow.epochs=3", "flow.n_steps=20", "flow.ckpt_every=3", *MIDI_OTF,
+                   "+seed=0", f"+ckpt_dir={os.path.join(tmp, 'midi_flow_ckpt')}",
+                   f"+output_dir={os.path.join(tmp, 'midi_flow_out')}"], step_hook=step_hook)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _expect(kernels, "midi inpainting flow", launches,
+            na2d_fwd=MIDI_CODEC_NATTEN[0] + 3 * len(res["eval"]) * MIDI_CODEC_NATTEN[1])
+    if len(events) != 12 or len(res["eval"]) != 3:
+        fail(f"midi flow ran {len(events)} steps and {len(res['eval'])} evaluations")
+    losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
+    metrics = [v for e in res["eval"] for v in [e["val_loss"], *e["metrics"].values()]
+               if not isinstance(v, str)]
+    if not (np.isfinite(losses).all() and np.isfinite(metrics).all()
+            and all("loss_mask" in e for e in res["epochs"])):
+        fail(f"midi flow losses or metrics: {res['epochs']} {res['eval']}")
+    grids = os.listdir(os.path.join(tmp, "midi_flow_out"))
+    if not all(any(f.startswith(g) for f in grids)
+               for g in ("mask_latents", "mask_pixels", "decoded_source")):
+        fail("the inpainting evaluation wrote no mask or source grids")
+
+    _zero(kernels)
+    served = gs.main(["--config-name", "midi_vqgan.yaml",
+                      f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=64",
+                      "+n_steps=20", "+seed=0",
+                      f"+output_dir={os.path.join(tmp, 'midi_gen')}"])
+    serve_launches = _counts(kernels)
+    _expect(kernels, "midi serving", serve_launches, na2d_fwd=MIDI_CODEC_NATTEN[1])
+    notes = [sum(len(i.notes) for i in read_midi(p).instruments) for p in served["midi_files"]]
+    if served["images"].shape != (64, 128, 128, 3) or len(notes) != 64:
+        fail(f"midi serving: images {served['images'].shape}, {len(notes)} .mid files")
+    export = export_corpus_rolls(tmp)
+
+    state = res["state"]
+    batch = {k: v.cuda() for k, v in _inpaint_batch(os.path.join(data, "train"), 256).items()}
+    codec = load_codec(load_config("midi_vqgan.yaml", CONFIG_DIR, [f"codec.checkpoint={ckpt}"]),
+                       torch.device("cuda"))
+    with torch.no_grad():              # train_flow's blank_latents
+        blank = codec.encode(torch.zeros(1, 128, 128, 3, device="cuda")).cpu()
+    step = make_flow_train_step(blank_latents=blank.cuda(), otf_aug={
+        "curriculum_epochs": 1, "extend_epochs": 2, "p_ones": 0.3, "p_zeros": 0.05,
+        "steps_per_epoch": 4})
+    gen = torch.Generator("cuda").manual_seed(13)
+    step(state, batch, gen)
+    prof = profile_batch(lambda: step(state, batch, gen))
+    top = prof.pop("top_kernels")
+    small = {k: v[:64].cpu() for k, v in batch.items()}
+    step_check = hold_inpaint_flow_step(state, small, blank)
+    intervals = _steady(events)
+    rec = dict(batch=FLOW_BATCH, wall_s=wall, peak_mem_gib=peak, card=card, step_s=intervals,
+               steady_samples_per_s=FLOW_BATCH / float(np.median(intervals)),
+               epoch_samples_per_s=[e["samples"] / e["seconds"] for e in res["epoch_seconds"]],
+               epochs=res["epochs"], evals=res["eval"], step_profile=prof,
+               serve_batch_s=served["batch_seconds"], serve_nfe=served["nfe"],
+               midi_files=len(notes), notes_per_file=notes, corpus_export=export,
+               card_vs_cpu=step_check)
+    print(f"flow train midi_vqgan inpainting B={FLOW_BATCH} 16x16x4: "
+          f"{rec['steady_samples_per_s']:.2f} samples/s over steady steps (median of "
+          f"{len(intervals)}), per epoch {[round(x, 2) for x in rec['epoch_samples_per_s']]}, "
+          f"peak {peak:.2f} GiB, wall {wall:.1f} s | card: {card}", flush=True)
+    for e in res["eval"]:
+        print(f"  inpainting eval epoch {e['epoch']}: s " + " ".join(
+            f"{k}={v:.4f}" for k, v in e["seconds"].items()) +
+            f" total={sum(e['seconds'].values()):.4f}; val_loss {e['val_loss']:.4f}, FID_px "
+            f"{e['metrics']['FID_px']:.3f} | card: {card}", flush=True)
+    print(f"  one train step under the profiler: {prof['profiled_batch_s']:.4f} s wall, "
+          f"{prof['device_busy_s']:.4f} s busy, idle share {prof['device_idle_share']:.4f} "
+          f"| card: {card}", flush=True)
+    print("  device time by kernel (ms): " + "; ".join(
+        f"{name[:60]}={ms:.3f}" for name, ms in top), flush=True)
+    print(f"  served the EMA with .mid export: 64 samples, nfe={served['nfe']}, s/batch "
+          f"{[round(x, 4) for x in served['batch_seconds']]}, 64 .mid files parsed back "
+          f"({sum(notes)} notes: the rolls of a flow trained 12 steps) | card: {card}",
+          flush=True)
+    print(f"  .mid export of 64 corpus rolls through generate_samples.save_sample_batch: "
+          f"{export['seconds']:.4f} s, {export['notes']} notes read back, equal to img2midi's "
+          f"| card: {card}", flush=True)
+    del res, state, batch, codec
+    torch.cuda.empty_cache()
+    return rec, {"midi_flow": launches, "midi_serve": serve_launches}
+
+
+def midi_inpainting_codec(tmp: str, card: str, kernels: dict, k1k2: tuple) -> tuple:
+    """midi_inpainting's codec at its widths (1 channel, hidden 256, 4
+    downsamples, internal 128, 2×32 codes of 4; seeded random weights,
+    609.9 M parameters), whose two widest encoder NATTEN blocks run at
+    8×8×2048 with 8 heads of 256: create_inpainting_triplet on 32 grayscale
+    piano rolls, its first two held to the CPU's (TF32 off, the latents
+    unquantized, 1e-4·max(1, |ref|)); one reconstruction-only training step
+    at B=64 through the port's codec step (the recipe's warmup_epochs 999999
+    trains no GAN), timed with its peak memory (weights, gradients and Adam's
+    two moments of 609.9 M fp32 parameters are ~9.8 GB); K1 and K2 at
+    MIDI_INP_SHAPES held to their twins and timed beside the bound and
+    SDPA + mask."""
+    from PIL import Image
+
+    from flocoder_torch.config import load_config
+    from flocoder_torch.data.transforms import midi_transforms
+    from flocoder_torch.generate_samples import CONFIG_DIR
+    from flocoder_torch.inpainting import create_inpainting_triplet
+    from flocoder_torch.models.codecs import NATTENBlock, setup_codec
+    from flocoder_torch.training.vqgan import create_vqgan_state, make_vqgan_warmup_step
+
+    na2d_fwd, na2d_bwd, na2d_banded, na2d_bwd_banded = k1k2
+    errs = check_hdit_kernels(na2d_fwd, na2d_bwd, na2d_banded, na2d_bwd_banded,
+                              shapes=MIDI_INP_SHAPES, label="midi_inpainting")
+    rows = time_hdit_kernels(na2d_fwd, na2d_bwd, card, shapes=MIDI_INP_SHAPES,
+                             path="midi_inpainting", label="midi_inpainting")
+
+    cfg = load_config("midi_inpainting.yaml", CONFIG_DIR, ["+seed=0"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    codec = setup_codec(cfg, device="cuda")
+    codec.init(torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in [*codec.encoder.parameters(),
+                                       *codec.decoder.parameters()])
+    n_enc = sum(isinstance(m, NATTENBlock) for m in codec.encoder.modules())
+    n_dec = sum(isinstance(m, NATTENBlock) for m in codec.decoder.modules())
+    files = sorted(os.path.join(r, f) for r, _, fs in os.walk(os.path.join(tmp, "midi_images"))
+                   for f in fs if f.endswith(".png"))[:64]
+    tf_gray = midi_transforms(128, grayscale=True)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(np.stack([tf_gray(Image.open(f).convert("RGB"), rng)
+                                   for f in files])).cuda()
+    if tuple(x.shape) != (64, 128, 128, 1):
+        fail(f"grayscale piano rolls of shape {tuple(x.shape)}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    codec.eval()
+    _zero(kernels)
+    t0 = time.time()
+    target, masks, source = create_inpainting_triplet(x[:32], codec, seed=7)
+    torch.cuda.synchronize()
+    triplet_s = time.time() - t0
+    triplet_launches = _counts(kernels)
+    _expect(kernels, "midi_inpainting triplet", triplet_launches, na2d_fwd=2 * n_enc)
+    cpu_codec = copy.deepcopy(codec).cpu()
+    t_cpu, m_cpu, s_cpu = create_inpainting_triplet(x[:2].cpu(), cpu_codec, seed=7)
+    del cpu_codec
+    if not np.array_equal(masks[:2], m_cpu):
+        fail("the triplet's masks differ between the card's batch and the CPU's")
+    worst = max((a[:2].float().cpu() - r).abs().max().item() / (1e-4 * max(1.0, r.abs().max().item()))
+                for a, r in ((target, t_cpu), (source, s_cpu)))
+    print(f"midi_inpainting triplet: 32 grayscale rolls → latents {tuple(target.shape)} in "
+          f"{triplet_s:.3f} s (first call), card vs CPU (2 images, TF32 off) max |Δ| / "
+          f"(1e-4·max(1, |ref|)) = {worst:.4f} | card: {card}", flush=True)
+    if not (np.isfinite(worst) and worst < 1.0):
+        fail(f"midi_inpainting triplet: card and CPU disagree ({worst})")
+    del target, source
+
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
+    codec.train()
+    state = create_vqgan_state(codec, None, float(cfg.codec.get("learning_rate", 1e-4)))
+    step = make_vqgan_warmup_step(cfg, None)
+    gen = torch.Generator("cuda").manual_seed(1)
+    _zero(kernels)
+    secs = []
+    for _ in range(2):
+        t0 = time.time()
+        state, aux, _ = step(state, x, gen)
+        torch.cuda.synchronize()
+        secs.append(time.time() - t0)
+    train_launches = _counts(kernels)
+    _expect(kernels, "midi_inpainting codec step", train_launches,
+            na2d_fwd=2 * (n_enc + n_dec), na2d_bwd=2 * (n_enc + n_dec))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = {k: float(v) for k, v in aux.items()}
+    if not np.isfinite(list(losses.values())).all():
+        fail(f"midi_inpainting codec step: losses {losses}")
+    rec = dict(params=n_params, natten_blocks=[n_enc, n_dec], triplet_first_call_s=triplet_s,
+               triplet_card_vs_cpu=worst, step_s=secs, samples_per_s=64 / secs[-1],
+               peak_mem_gib=peak, losses=losses, card=card,
+               k1k2_max_abs_err={f"{n}_{str(d)[6:]}": e for (n, d), e in errs.items()})
+    print(f"midi_inpainting codec ({n_params / 1e6:.1f} M parameters, NATTEN blocks "
+          f"{n_enc} + {n_dec}): reconstruction step B=64 128² gray, {secs[-1]:.4f} s "
+          f"(first {secs[0]:.4f} s), {rec['samples_per_s']:.2f} samples/s, peak "
+          f"{peak:.2f} GiB, losses " + " ".join(f"{k}={v:.4f}" for k, v in losses.items())
+          + f" | card: {card}", flush=True)
+    del state, codec, x, aux
+    torch.cuda.empty_cache()
+    return rec, rows, errs, {"midi_inp_triplet": triplet_launches,
+                             "midi_inp_codec_step": train_launches}
 
 
 def print_ptxas(source: str) -> None:
@@ -2182,19 +2695,12 @@ def main() -> None:
         torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
         paths = write_checkpoints(tmp, CONFIG_DIR)
         torch.cuda.empty_cache()
-        for name in ("na2d_bwd", *fused):
-            kernels[name].launches = 0
-        serving, serve_launches = serve(tmp, paths, card, na2d_fwd)
-        if na2d_bwd.launches:
-            fail(f"serving launched K2 {na2d_bwd.launches} times")
+        serving, serve_launches = serve(tmp, paths, card, kernels)
         parts = breakdown(paths, card)
-        state, training, train_launches = train_flowers(tmp, card, (na2d_fwd, na2d_bwd))
+        state, training, train_launches = train_flowers(tmp, card, kernels)
         gan_parts = gan_breakdown(state, card)
         del state
         torch.cuda.empty_cache()
-        if any(kernels[name].launches for name in fused):
-            fail("serving or training launched a fused VQ kernel: "
-                 f"{ {name: kernels[name].launches for name in fused} }")
         check_small_input(paths["cfg"])
         check_train_small()
         preencode, pre_launches = preencode_flowers(tmp, paths, card, kernels)
@@ -2209,45 +2715,53 @@ def main() -> None:
                                                         kernels, [])
         hdit_moe, moe_launches = hdit_short_phase(
             "hdit_moe", tmp, pe_data, card, kernels, [*HDIT_NA, "+flow.hdit_moe_experts=[8,0]"])
+        midi_codec, midi_codec_launches = midi_train_codec(tmp, card, kernels)
+        midi_pre, midi_pre_launches = midi_preencode(tmp, card, kernels)
+        midi_fl, midi_flow_launches = midi_flow(tmp, card, kernels)
+        midi_inp, midi_rows, midi_errs, midi_inp_launches = midi_inpainting_codec(
+            tmp, card, kernels, (na2d_fwd, na2d_bwd, na2d_banded, na2d_bwd_banded))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    for name, errs_of in (("na2d_fwd", errs), ("na2d_bwd", errs2)):
+        for dtype in (torch.float32, torch.bfloat16):
+            errs_of[dtype] = max(errs_of[dtype], midi_errs[(name, dtype)])
+    shapes += midi_rows
     print(json.dumps({"serving": serving, "breakdown": parts, "training": training,
                       "gan_breakdown": gan_parts, "preencode": preencode,
                       "preencode_card_vs_cpu": preencode_small, "flow": flow,
                       "sd_preencode": sd_pre, "sd_serve": sd_srv, "hdit_flow": hdit,
-                      "hdit_recipe": hdit_recipe, "hdit_moe": hdit_moe}))
-    later = {"sd_preencode": sd_pre_launches, "sd_serve": sd_srv_launches,
-             "hdit_flow": hdit_launches, "hdit_recipe": recipe_launches,
-             "hdit_moe": moe_launches}
+                      "hdit_recipe": hdit_recipe, "hdit_moe": hdit_moe,
+                      "midi_train": midi_codec, "midi_preencode": midi_pre,
+                      "midi_flow": midi_fl, "midi_inpainting_codec": midi_inp}))
+    by_tag = {"serve": serve_launches, "train": train_launches, "preencode": pre_launches,
+              "flow": flow_launches, "sd_preencode": sd_pre_launches,
+              "sd_serve": sd_srv_launches, "hdit_flow": hdit_launches,
+              "hdit_recipe": recipe_launches, "hdit_moe": moe_launches,
+              "midi_train": midi_codec_launches, "midi_preencode": midi_pre_launches,
+              **midi_flow_launches, **midi_inp_launches}
 
-    def by_path(name, first):
-        paths = {**first, **{tag: counts[name] for tag, counts in later.items()}}
+    def by_path(name):
+        paths = {tag: counts[name] for tag, counts in by_tag.items()}
         return {"launches": sum(paths.values()), "launches_by_path": paths}
 
     def fused_entry(name, replaces):
-        first = {"serve": 0, "train": 0, "preencode": pre_launches[name],
-                 "flow": flow_launches[name]}
         return {"name": name, "route": "cuda", "source": "flocoder_torch/csrc/fused_vq.cu",
-                "replaces": replaces, **by_path(name, first), **fused_errs[name],
+                "replaces": replaces, **by_path(name), **fused_errs[name],
                 **fused_timing[name]}
 
     print(json.dumps({"kernels": [
         {"name": "na2d_fwd", "route": "cuda",
          "source": "flocoder_torch/csrc/na2d_fwd.cu",
          "replaces": "flocoder_tpu/ops/pallas/na2d.py:40",
-         **by_path("na2d_fwd", {"serve": serve_launches, "train": train_launches["na2d_fwd"],
-                                "preencode": pre_launches["na2d_fwd"],
-                                "flow": flow_launches["na2d_fwd"]}),
+         **by_path("na2d_fwd"),
          "max_abs_err": errs[torch.float32],
          "max_abs_err_bf16": errs[torch.bfloat16], **timing,
          "per_shape": [r for r in shapes if r["kernel"] == "na2d_fwd"]},
         {"name": "na2d_bwd", "route": "cuda",
          "source": "flocoder_torch/csrc/na2d_bwd.cu",
          "replaces": "flocoder_tpu/ops/pallas/na2d.py:148",
-         **by_path("na2d_bwd", {"serve": 0, "train": train_launches["na2d_bwd"],
-                                "preencode": pre_launches["na2d_bwd"],
-                                "flow": flow_launches["na2d_bwd"]}),
+         **by_path("na2d_bwd"),
          "max_abs_err": errs2[torch.float32],
          "max_abs_err_bf16": errs2[torch.bfloat16], **timing2,
          "per_shape": [r for r in shapes if r["kernel"] == "na2d_bwd"]},

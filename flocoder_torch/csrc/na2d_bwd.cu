@@ -32,6 +32,11 @@
 //   exp(scale * S^T - lse) masked to the window relation, dP^T = V.G^T,
 //   dS^T = P^T * (dP^T - delta), dK += dS^T.Q, dV += P^T.G, and writes dk
 //   (times scale) and dv once.
+// - A head wider than 128 (dh 256) runs the products into dq, dk and dv in
+//   two 128-column slices, the scores still over the whole dh: pass 1
+//   feeds both slices of dQ from the same registers of dS; pass 2 walks
+//   its query union once per slice, recomputing S^T and dP^T. So the
+//   accumulators take the registers they take at dh 128.
 // - fp32 inputs take m16n8k8 TF32 with the 3xTF32 split, bf16 inputs
 //   m16n8k16 with fp32 accumulation (P and dS cast to bf16 as A operands).
 //
@@ -61,7 +66,7 @@ na2d_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   using O = Op<T>;
   constexpr int NT = kUnionTiles;
   constexpr int NG = NT / O::NG;
-  constexpr int NDT = DHMAX / 8;
+  constexpr int NDT = Slice<DHMAX>::kTiles;     // column tiles of one accumulator slice
   extern __shared__ __align__(16) unsigned char smem[];
   const int srow = O::srow(dh);
   const int halo_px = halo_h * halo_w;
@@ -215,20 +220,26 @@ na2d_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
     }
   }
 
-  // dQ = scale * dS.K.
-  float acc[NDT][4];
+  // dQ = scale * dS.K, in column slices of NDT tiles (two at dh 256).
 #pragma unroll
-  for (int n = 0; n < NDT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int si = 0; si < Slice<DHMAX>::kCount; ++si) {
+    const int cs = Slice<DHMAX>::start(si), dw = Slice<DHMAX>::width(si, dh);
+    if (dw <= 0) break;
+    float acc[NDT][4];
 #pragma unroll
-  for (int kk = 0; kk < NT * 8 / O::KS; ++kk) {
-    if (kk * O::KS < nt * 8)
-      O::mma_rows(acc, O::a_acc(s, kk), sk, O::rows(tab + kk * O::KS, 1, lane), dh, gi);
-  }
+    for (int n = 0; n < NDT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 #pragma unroll
-  for (int n = 0; n < NDT; ++n) {
-    if (n * 8 < dh) {
-      if (live_a) O::store2(dq + offa + n * 8 + 2 * t, acc[n][0] * scale, acc[n][1] * scale);
-      if (live_b) O::store2(dq + offb + n * 8 + 2 * t, acc[n][2] * scale, acc[n][3] * scale);
+    for (int kk = 0; kk < NT * 8 / O::KS; ++kk) {
+      if (kk * O::KS < nt * 8)
+        O::mma_rows(acc, O::a_acc(s, kk), sk + cs, O::rows(tab + kk * O::KS, 1, lane), dw, gi);
+    }
+#pragma unroll
+    for (int n = 0; n < NDT; ++n) {
+      if (n * 8 < dw) {
+        const size_t c = cs + n * 8 + 2 * t;
+        if (live_a) O::store2(dq + offa + c, acc[n][0] * scale, acc[n][1] * scale);
+        if (live_b) O::store2(dq + offb + c, acc[n][2] * scale, acc[n][3] * scale);
+      }
     }
   }
   if (t == 0) {
@@ -254,7 +265,7 @@ na2d_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   using O = Op<T>;
   constexpr int QT = QCH / 8;        // n8 tiles of a chunk
   constexpr int QG = QT / O::NG;
-  constexpr int NDT = DHMAX / 8;
+  constexpr int NDT = Slice<DHMAX>::kTiles;     // column tiles of one accumulator slice
   extern __shared__ __align__(16) unsigned char smem[];
   const int srow = O::srow(dh);
   const int span_px = span_h * span_w;
@@ -330,81 +341,89 @@ na2d_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const size_t offb = (img + (size_t)krb * W + kc) * C + (size_t)hd * dh;
 
   const float scale_log2 = scale * kLog2e;
-  float dka[NDT][4], dva[NDT][4];
-#pragma unroll
-  for (int n = 0; n < NDT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
   // The union in n8 tiles (whole k steps), walked in chunks of QT tiles;
-  // the last chunk is cut to the tiles left.
+  // the last chunk is cut to the tiles left. dK and dV are accumulated in
+  // column slices of NDT tiles: a head of 256 walks its union twice, each
+  // pass recomputing the chunks' S^T and dP^T over the whole dh, so that
+  // dK and dV take the registers they take at dh 128.
   const int nqt = (nq + O::KS - 1) / O::KS * (O::KS / 8);
+#pragma unroll
+  for (int si = 0; si < Slice<DHMAX>::kCount; ++si) {
+    const int cs = Slice<DHMAX>::start(si), dw = Slice<DHMAX>::width(si, dh);
+    if (dw <= 0) break;
+    float dka[NDT][4], dva[NDT][4];
+#pragma unroll
+    for (int n = 0; n < NDT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
 #pragma unroll 1
-  for (int ch = 0; ch * QT < nqt; ++ch) {
-    const int ct = min(QT, nqt - ch * QT);
-    const int2* ctab = tab + ch * QCH;
-    typename O::Cols qcol[QG];
+    for (int ch = 0; ch * QT < nqt; ++ch) {
+      const int ct = min(QT, nqt - ch * QT);
+      const int2* ctab = tab + ch * QCH;
+      typename O::Cols qcol[QG];
 #pragma unroll
-    for (int jg = 0; jg < QG; ++jg)
-      if (jg * O::NG < ct) qcol[jg] = O::cols(ctab, jg, srow, lane, ct);
-    float st[QT][4], dpt[QT][4];
+      for (int jg = 0; jg < QG; ++jg)
+        if (jg * O::NG < ct) qcol[jg] = O::cols(ctab, jg, srow, lane, ct);
+      float st[QT][4], dpt[QT][4];
 #pragma unroll
-    for (int j = 0; j < QT; ++j)
+      for (int j = 0; j < QT; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
 #pragma unroll 1
-    for (int k0 = 0; k0 < dh; k0 += O::KS) {
-      const typename O::A ak = O::a_rows(k + offa, k + offb, k0, dh, t);
-      const typename O::A av = O::a_rows(v + offa, v + offb, k0, dh, t);
+      for (int k0 = 0; k0 < dh; k0 += O::KS) {
+        const typename O::A ak = O::a_rows(k + offa, k + offb, k0, dh, t);
+        const typename O::A av = O::a_rows(v + offa, v + offb, k0, dh, t);
 #pragma unroll
-      for (int jg = 0; jg < QG; ++jg) {
-        if (jg * O::NG < ct) {
-          O::mma_cols(st, jg, ak, sq, qcol[jg], k0, t, ct);
-          O::mma_cols(dpt, jg, av, sg, qcol[jg], k0, t, ct);
+        for (int jg = 0; jg < QG; ++jg) {
+          if (jg * O::NG < ct) {
+            O::mma_cols(st, jg, ak, sq, qcol[jg], k0, t, ct);
+            O::mma_cols(dpt, jg, av, sg, qcol[jg], k0, t, ct);
+          }
         }
       }
-    }
-    // P^T and dS^T of the chunk, in place (tiles past ct stay 0).
+      // P^T and dS^T of the chunk, in place (tiles past ct stay 0).
 #pragma unroll
-    for (int j = 0; j < QT; ++j) {
-      if (j >= ct) continue;
+      for (int j = 0; j < QT; ++j) {
+        if (j >= ct) continue;
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int2 en = ctab[8 * j + 2 * t + e];
-        const int wr = en.y >> 16, wcq = en.y & 0xffff;
-        const bool col = (unsigned)(kc - wcq) < (unsigned)ks;
-        const float l2 = sl[en.x], d = sd[en.x];
-        const float p0 =
-            col && (unsigned)(kra - wr) < (unsigned)ks ? exp2f(st[j][e] * scale_log2 - l2) : 0.f;
-        const float p1 = col && (unsigned)(krb - wr) < (unsigned)ks
-                             ? exp2f(st[j][2 + e] * scale_log2 - l2)
-                             : 0.f;
-        st[j][e] = p0;
-        st[j][2 + e] = p1;
-        dpt[j][e] = p0 * (dpt[j][e] - d);
-        dpt[j][2 + e] = p1 * (dpt[j][2 + e] - d);
+        for (int e = 0; e < 2; ++e) {
+          const int2 en = ctab[8 * j + 2 * t + e];
+          const int wr = en.y >> 16, wcq = en.y & 0xffff;
+          const bool col = (unsigned)(kc - wcq) < (unsigned)ks;
+          const float l2 = sl[en.x], d = sd[en.x];
+          const float p0 =
+              col && (unsigned)(kra - wr) < (unsigned)ks ? exp2f(st[j][e] * scale_log2 - l2) : 0.f;
+          const float p1 = col && (unsigned)(krb - wr) < (unsigned)ks
+                               ? exp2f(st[j][2 + e] * scale_log2 - l2)
+                               : 0.f;
+          st[j][e] = p0;
+          st[j][2 + e] = p1;
+          dpt[j][e] = p0 * (dpt[j][e] - d);
+          dpt[j][2 + e] = p1 * (dpt[j][2 + e] - d);
+        }
+      }
+      // dV += P^T.G, dK += dS^T.Q over the chunk's queries, this slice's
+      // columns.
+#pragma unroll
+      for (int kk = 0; kk < QCH / O::KS; ++kk) {
+        if (kk * O::KS >= ct * 8) break;
+        const typename O::Rows r = O::rows(ctab + kk * O::KS, srow, lane);
+        O::mma_rows(dva, O::a_acc(st, kk), sg + cs, r, dw, gi);
+        O::mma_rows(dka, O::a_acc(dpt, kk), sq + cs, r, dw, gi);
       }
     }
-    // dV += P^T.G, dK += dS^T.Q over the chunk's queries.
 #pragma unroll
-    for (int kk = 0; kk < QCH / O::KS; ++kk) {
-      if (kk * O::KS >= ct * 8) break;
-      const typename O::Rows r = O::rows(ctab + kk * O::KS, srow, lane);
-      O::mma_rows(dva, O::a_acc(st, kk), sg, r, dh, gi);
-      O::mma_rows(dka, O::a_acc(dpt, kk), sq, r, dh, gi);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < NDT; ++n) {
-    if (n * 8 < dh) {
-      const int c = n * 8 + 2 * t;
-      if (live_a) {
-        O::store2(dk + offa + c, dka[n][0] * scale, dka[n][1] * scale);
-        O::store2(dv + offa + c, dva[n][0], dva[n][1]);
-      }
-      if (live_b) {
-        O::store2(dk + offb + c, dka[n][2] * scale, dka[n][3] * scale);
-        O::store2(dv + offb + c, dva[n][2], dva[n][3]);
+    for (int n = 0; n < NDT; ++n) {
+      if (n * 8 < dw) {
+        const int c = cs + n * 8 + 2 * t;
+        if (live_a) {
+          O::store2(dk + offa + c, dka[n][0] * scale, dka[n][1] * scale);
+          O::store2(dv + offa + c, dva[n][0], dva[n][1]);
+        }
+        if (live_b) {
+          O::store2(dk + offb + c, dka[n][2] * scale, dka[n][3] * scale);
+          O::store2(dv + offb + c, dva[n][2], dva[n][3]);
+        }
       }
     }
   }
@@ -482,7 +501,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* o,
                         tile_h, tile_w, halo_h, halo_w, two_buf, smem1, ktile_h, ktile_w, \
                         span_h, span_w, chunk, table2, smem2, scale, s);
   switch (dh_bucket(dh)) {
-    NA2D_CASE(16) NA2D_CASE(32) NA2D_CASE(64) NA2D_CASE(128)
+    NA2D_CASE(16) NA2D_CASE(32) NA2D_CASE(64) NA2D_CASE(128) NA2D_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
@@ -496,7 +515,7 @@ bool valid_tile(int th, int tw) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. dh a multiple of 8 up to 128; ks up to 7.
+// dtype: 0 = float32, 1 = bfloat16. dh a multiple of 8 up to 256; ks up to 7.
 // Pass 1's plan (tile_h, tile_w, halo_h, halo_w, two_buf, smem1) is the
 // forward kernel's; pass 2's (ktile_h, ktile_w, span_h, span_w, chunk,
 // table2, smem2) is the host's plan_keys. The entry checks both against the
@@ -509,7 +528,7 @@ extern "C" int na2d_bwd(const void* q, const void* k, const void* v, const void*
                         int tile_w, int halo_h, int halo_w, int two_buf, int smem1,
                         int ktile_h, int ktile_w, int span_h, int span_w, int chunk,
                         int table2, int smem2, float scale, void* stream) {
-  if (dh % 8 != 0 || dh < 8 || dh > 128 || ks < 1 || ks > kKsMax || ks > H || ks > W ||
+  if (dh % 8 != 0 || dh < 8 || dh > kDhMax || ks < 1 || ks > kKsMax || ks > H || ks > W ||
       !valid_tile(tile_h, tile_w) || !valid_tile(ktile_h, ktile_w) ||
       halo_h != min(tile_h + ks - 1, H) || halo_w != min(tile_w + ks - 1, W) ||
       (two_buf != 0 && two_buf != 1) || smem1 > kSmemMax || smem2 > kSmemMax)

@@ -30,6 +30,10 @@
 //   max and sum over the 4 lanes of a row), then O = P.V by mma.sync (P cast
 //   to bf16 for bf16 inputs, as the TPU kernel does) and divides by the sum.
 //   Each K/V fragment a warp reads from shared memory now serves 16 queries.
+//   A head wider than 128 (dh 256) keeps one set of accumulators: the
+//   scores are taken over the whole dh in k steps, then P.V runs in two
+//   128-column slices from the same registers of P, so the output takes
+//   the registers it takes at dh 128.
 //   The queries' own rows (the A operand) are read from device memory once
 //   per k step: staging them too took shared memory and so blocks per SM,
 //   and timed slower on the card.
@@ -55,7 +59,7 @@ na2d_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   using O = Op<T>;
   constexpr int NT = kUnionTiles;
   constexpr int NG = NT / O::NG;                 // B-operand groups of the union
-  constexpr int NDT = DHMAX / 8;
+  constexpr int NDT = Slice<DHMAX>::kTiles;     // column tiles of one output slice
   extern __shared__ __align__(16) unsigned char smem[];
   const int srow = O::srow(dh);
   const int halo_px = halo_h * halo_w;
@@ -180,22 +184,29 @@ na2d_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   __syncthreads();
   if (!live_patch) return;
 
-  float o[NDT][4];
-#pragma unroll
-  for (int n = 0; n < NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < NT * 8 / O::KS; ++kk) {
-    if (kk * O::KS < nt * 8)
-      O::mma_rows(o, O::a_acc(s, kk), sv, O::rows(tab + kk * O::KS, 1, lane), dh, g);
-  }
+  // O = P.V, in column slices of NDT tiles (one slice up to dh 128, two
+  // at 256): S stays in registers and feeds every slice.
   const float ia = 1.f / la, ib = 1.f / lb;
   T* oa = out + base + ((size_t)qra * W + qc) * C + 2 * t;
   T* ob = out + base + ((size_t)qrb * W + qc) * C + 2 * t;
 #pragma unroll
-  for (int n = 0; n < NDT; ++n) {
-    if (n * 8 < dh) {
-      if (live_a) O::store2(oa + n * 8, o[n][0] * ia, o[n][1] * ia);
-      if (live_b) O::store2(ob + n * 8, o[n][2] * ib, o[n][3] * ib);
+  for (int si = 0; si < Slice<DHMAX>::kCount; ++si) {
+    const int cs = Slice<DHMAX>::start(si), dw = Slice<DHMAX>::width(si, dh);
+    if (dw <= 0) break;
+    float o[NDT][4];
+#pragma unroll
+    for (int n = 0; n < NDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NT * 8 / O::KS; ++kk) {
+      if (kk * O::KS < nt * 8)
+        O::mma_rows(o, O::a_acc(s, kk), sv + cs, O::rows(tab + kk * O::KS, 1, lane), dw, g);
+    }
+#pragma unroll
+    for (int n = 0; n < NDT; ++n) {
+      if (n * 8 < dw) {
+        if (live_a) O::store2(oa + cs + n * 8, o[n][0] * ia, o[n][1] * ia);
+        if (live_b) O::store2(ob + cs + n * 8, o[n][2] * ib, o[n][3] * ib);
+      }
     }
   }
 }
@@ -232,7 +243,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
     return launch<T, N>(q, k, v, out, B, H, W, heads, dh, ks, tile_h, tile_w, halo_h,  \
                         halo_w, two_buf, smem, scale, s);
   switch (dh_bucket(dh)) {
-    NA2D_CASE(16) NA2D_CASE(32) NA2D_CASE(64) NA2D_CASE(128)
+    NA2D_CASE(16) NA2D_CASE(32) NA2D_CASE(64) NA2D_CASE(128) NA2D_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }
@@ -241,7 +252,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. dh a multiple of 8 up to 128; ks up to 7.
+// dtype: 0 = float32, 1 = bfloat16. dh a multiple of 8 up to 256; ks up to 7.
 // (tile_h, tile_w, halo_h, halo_w, two_buf, smem): the host's launch plan;
 // the entry checks that it is consistent and that its layout fits ``smem``
 // bytes. Returns a cudaError_t (0 = launched).
@@ -249,7 +260,7 @@ extern "C" int na2d_fwd(const void* q, const void* k, const void* v, void* out, 
                         int B, int H, int W, int heads, int dh, int ks, int tile_h, int tile_w,
                         int halo_h, int halo_w, int two_buf, int smem, float scale,
                         void* stream) {
-  if (dh % 8 != 0 || dh < 8 || dh > 128 || ks < 1 || ks > kKsMax || ks > H || ks > W ||
+  if (dh % 8 != 0 || dh < 8 || dh > kDhMax || ks < 1 || ks > kKsMax || ks > H || ks > W ||
       tile_h < kPatch || tile_w < kPatch || tile_h % kPatch || tile_w % kPatch ||
       (tile_h / kPatch) * (tile_w / kPatch) > kMaxWarps || halo_h != min(tile_h + ks - 1, H) ||
       halo_w != min(tile_w + ks - 1, W) || (two_buf != 0 && two_buf != 1) || smem > kSmemMax)

@@ -39,6 +39,12 @@ constexpr int kMaxWarps = 8;
 constexpr int kKsMax = 7;      // (3 + 7)^2 = 100 keys of a patch's union <= 14 n8 tiles
 constexpr int kUnionTiles = 14;
 constexpr int kSmemMax = 227 * 1024;
+constexpr int kDhMax = 256;    // widest head slice the kernels take
+// Widest column slice of dh that a warp's output accumulators hold at once
+// (dh / 8 n8 tiles of 4 fp32 registers a lane: 64 at 128). A wider head
+// (dh 256) forms its P.V-type products in slices of kColSlice columns,
+// while the scores are still taken over the whole dh in k steps.
+constexpr int kColSlice = 128;
 
 // First row (or column) of the clamped window of query i on an axis of n.
 __host__ __device__ __forceinline__ int window_start(int i, int n, int ks) {
@@ -336,8 +342,24 @@ __device__ __forceinline__ void stage(T* dst, const T* src, int r0, int c0, int 
   }
 }
 
-// Smallest dh bucket (16, 32, 64, 128) that holds dh; the kernels are
-// instantiated per bucket and loop over dh / 8 column tiles at run time.
-inline int dh_bucket(int dh) { return dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : 128; }
+// Smallest dh bucket (16, 32, 64, 128, 256) that holds dh; the kernels are
+// instantiated per bucket and loop over dh / 8 column tiles at run time
+// (the 256 bucket in two column slices of kColSlice).
+inline int dh_bucket(int dh) {
+  return dh <= 16 ? 16 : dh <= 32 ? 32 : dh <= 64 ? 64 : dh <= 128 ? 128 : 256;
+}
+// n8 column tiles of one slice of the accumulators in the bucket DHMAX.
+// One slice below 256, so that those buckets compile to a single pass with
+// the slice's start 0 and width dh.
+template <int DHMAX>
+struct Slice {
+  static constexpr int kTiles = (DHMAX < kColSlice ? DHMAX : kColSlice) / 8;
+  static constexpr int kCount = (DHMAX + kColSlice - 1) / kColSlice;
+  // Start and width of slice ``i`` of a head of dh.
+  __device__ static int start(int i) { return i * kColSlice; }
+  __device__ static int width(int i, int dh) {
+    return kCount == 1 ? dh : min(dh - i * kColSlice, kColSlice);
+  }
+};
 
 }  // namespace na2d

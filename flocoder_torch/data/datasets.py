@@ -1,15 +1,20 @@
-"""Image datasets and the host input pipeline, the port's own copy of the
-image part of ``flocoder_tpu/data/datasets.py``: ``fast_scandir``,
-``ImageFolderDataset`` (class label = first-level subdirectory, RAM cache),
+"""Datasets and the host input pipeline, the port's own copy of
+``flocoder_tpu/data/datasets.py``: ``fast_scandir``, ``ImageFolderDataset``
+(class label = first-level subdirectory, RAM cache),
 ``SyntheticImageDataset``, ``PairDataset``, ``InfiniteDataset`` (draws with
 replacement, for the pre-encode pass), ``PreEncodedDataset`` (plain latent
-files; the inpainting dicts wait for ROADMAP.md item 8), the thread-pool
-``Loader`` with prefetch (stacked numpy NHWC batches, last partial batch
-dropped) and ``create_image_loaders``.
+files, and the inpainting triplets as ``.npz`` of target, source and mask),
+``MIDIImageDataset`` (a MIDI corpus converted once to piano-roll PNGs by a
+thread pool, split by song number), ``maybe_download_pop909``,
+``InpaintingDataset`` (an image, a generated mask and the masked image),
+the thread-pool ``Loader`` with prefetch (stacked numpy NHWC batches, the
+inpainting ``source`` and ``mask_pixels`` beside the target, last partial
+batch dropped) and ``create_image_loaders``.
 
 There is no torchvision download: a data path that is not a folder takes
 the synthetic set, with a message, as the JAX package does when its
-download fails. MIDI data waits for the MIDI slice (ROADMAP.md) and raises.
+download fails. A MIDI data path that holds ``.mid`` files is converted to
+piano rolls; one that holds images is read as an image folder.
 """
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from PIL import Image
 
 __all__ = ["fast_scandir", "ImageFolderDataset", "SyntheticImageDataset",
            "PairDataset", "InfiniteDataset", "PreEncodedDataset", "Loader",
-           "create_image_loaders"]
+           "create_image_loaders", "MIDIImageDataset", "InpaintingDataset",
+           "maybe_download_pop909", "POP909_URL"]
 
 IMG_EXTS = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 LATENT_EXTS = (".npy", ".npz", ".pt")
@@ -151,9 +157,10 @@ class PreEncodedDataset:
     """Latent files written by the pre-encode pass: class subdirectories are
     labels; a file is a plain latent, HWC, as ``.npy``, as ``.npz`` with the
     one key ``latents``, or as a torch ``.pt`` tensor (CHW, the reference's
-    files, turned to HWC). The inpainting dicts (``.npz`` of target, source
-    and mask) wait for ROADMAP.md item 8 and raise. Loaded latents stay
-    cached in RAM, with random replacement beyond ``cache_size``."""
+    files, turned to HWC); an inpainting triplet is an ``.npz`` of
+    ``target_latents``, ``source_latents`` and ``mask_pixels`` and loads as
+    that dict. Loaded latents stay cached in RAM, with random replacement
+    beyond ``cache_size``."""
 
     def __init__(self, path: str, n_classes: int = 0, cache_size: int = 20000):
         self.path = os.path.expanduser(path)
@@ -174,7 +181,7 @@ class PreEncodedDataset:
         return len(self.files)
 
     @staticmethod
-    def _load(f: str) -> np.ndarray:
+    def _load(f: str):
         ext = os.path.splitext(f)[1].lower()
         if ext == ".npy":
             return np.load(f)
@@ -182,14 +189,14 @@ class PreEncodedDataset:
             with np.load(f) as z:
                 if set(z.files) == {"latents"}:
                     return z["latents"]
-        elif ext == ".pt":
+                return {k: z[k] for k in z.files}
+        if ext == ".pt":
             import torch
             t = torch.load(f, map_location="cpu", weights_only=True)
             if isinstance(t, torch.Tensor):
                 arr = t.detach().float().numpy()
                 return np.transpose(arr, (1, 2, 0)) if arr.ndim == 3 else arr
-        raise NotImplementedError(f"{f} is not a plain latent: inpainting "
-                                  "latents are not ported yet (ROADMAP.md item 8)")
+        raise ValueError(f"unknown latent file {f}")
 
     def get(self, i: int, rng: np.random.Generator):
         f = self.files[i]
@@ -207,7 +214,8 @@ class PreEncodedDataset:
 class Loader:
     """Thread-pool batch loader, two batches ahead. Yields dict batches
     {key, 'class_cond'} (plus 'source', the same array, for
-    ``PairDataset`` items) of stacked float32 NHWC numpy arrays, dropping
+    ``PairDataset`` items; plus 'source' and 'mask_pixels' (B, H, W, 1)
+    float32 for inpainting triplets) of stacked NHWC numpy arrays, dropping
     the last partial batch. Each epoch draws its order (shuffled unless
     ``shuffle=False``) and each item's generator from ``seed + epoch``, in
     the JAX package's order; the item generators are drawn when a batch is
@@ -231,9 +239,16 @@ class Loader:
     def _assemble(self, items) -> dict:
         datas, labels = zip(*items)
         batch: dict = {"class_cond": np.stack(labels)}
-        if isinstance(datas[0], dict):
+        if isinstance(datas[0], dict) and "target" in datas[0]:
             batch[self.key] = np.stack([d["target"] for d in datas]).astype(np.float32)
             batch["source"] = batch[self.key]
+        elif isinstance(datas[0], dict):
+            batch[self.key] = np.stack([d["target_latents"] for d in datas])
+            if "source_latents" in datas[0]:
+                batch["source"] = np.stack([d["source_latents"] for d in datas])
+            if "mask_pixels" in datas[0]:
+                mp = np.stack([np.asarray(d["mask_pixels"], np.float32) for d in datas])
+                batch["mask_pixels"] = mp[..., None] if mp.ndim == 3 else mp
         else:
             batch[self.key] = np.stack(datas).astype(np.float32)
         return batch
@@ -291,15 +306,18 @@ def create_image_loaders(batch_size: int, image_size: int, data_path: str,
                          num_workers: int = 4, is_midi: bool = False,
                          val_frac: float = 0.1, seed: int = 0) -> Tuple[Loader, Loader]:
     """Train/val loaders of ``PairDataset`` items: an existing directory is
-    an image folder; any other path takes the synthetic set. 10% of the
-    items (at least one) go to validation; a split smaller than the batch
-    gets a batch of its size."""
-    if is_midi:
-        raise NotImplementedError("MIDI datasets are not ported yet (ROADMAP.md)")
-    from .transforms import image_transforms
-    tf = image_transforms(image_size)
+    an image folder (with ``is_midi``, the piano-roll transforms; a folder
+    that holds ``.mid`` files is converted to piano rolls first by
+    ``MIDIImageDataset``, its train split); any other path takes the
+    synthetic set. 10% of the items (at least one) go to validation; a
+    split smaller than the batch gets a batch of its size."""
+    from .transforms import image_transforms, midi_transforms
+    tf = midi_transforms(image_size) if is_midi else image_transforms(image_size)
     path = os.path.expanduser(data_path)
-    if os.path.isdir(path):
+    if os.path.isdir(path) and is_midi and fast_scandir(path, (".mid", ".midi"))[1]:
+        dataset = MIDIImageDataset(path, split="train", transform=tf,
+                                   num_workers=num_workers)
+    elif os.path.isdir(path):
         dataset = ImageFolderDataset(path, transform=tf)
     else:
         print(f"data path {path!r} is not a folder (the port downloads "
@@ -314,3 +332,119 @@ def create_image_loaders(batch_size: int, image_size: int, data_path: str,
     val = Loader(PairDataset(_Subset(dataset, idx[:n_val])),
                  max(1, min(batch_size, n_val)), num_workers, seed + 1)
     return train, val
+
+
+POP909_URL = ("https://github.com/music-x-lab/POP909-Dataset/raw/refs/"
+              "heads/master/POP909.zip")
+
+
+def maybe_download_pop909(root: str, url: str = POP909_URL) -> Optional[str]:
+    """Fetch the POP909 zip from ``url`` into ``root`` and extract it;
+    returns the extracted directory, or None on any failure (no egress, a
+    bad archive), so that callers keep the local-corpus path. An already
+    extracted corpus is returned without a fetch; ``file://`` URLs work."""
+    import urllib.request
+    import zipfile
+    name = url.rsplit("/", 1)[-1]
+    out_dir = os.path.join(root, name[:-4] if name.endswith(".zip") else name)
+    if os.path.isdir(out_dir) and fast_scandir(out_dir, (".mid", ".midi"))[1]:
+        return out_dir
+    try:
+        os.makedirs(root, exist_ok=True)
+        zip_path = os.path.join(root, name)
+        if not os.path.isfile(zip_path):
+            with urllib.request.urlopen(url, timeout=60) as r, \
+                    open(zip_path + ".part", "wb") as f:
+                while True:
+                    chunk = r.read(1 << 20)
+                    if not chunk:
+                        break
+                    f.write(chunk)
+            os.replace(zip_path + ".part", zip_path)
+        with zipfile.ZipFile(zip_path) as zf:
+            zf.extractall(root)
+        return out_dir if os.path.isdir(out_dir) else root
+    except Exception as e:  # no egress, a corrupt archive: the local corpus
+        print(f"maybe_download_pop909: {type(e).__name__}: {e}; "
+              "expecting a local MIDI corpus")
+        return None
+
+
+class MIDIImageDataset:
+    """Piano-roll images converted from a MIDI corpus. When ``download`` is
+    set and ``midi_dir`` holds no MIDI files, tries ``maybe_download_pop909``;
+    otherwise ``midi_dir`` is an existing corpus. ``skip_versions`` drops the
+    ``versions/`` alternate takes of each song; ``total_only`` keeps only
+    each song's ``_TOTAL`` roll. The conversion runs once, by a thread pool,
+    into ``image_dir`` (default ``<midi_dir>_images``); a song directory whose
+    number is divisible by ``val_mod`` goes to ``val``, the rest to
+    ``train``. Items are RGB piano rolls through ``transform``."""
+
+    def __init__(self, midi_dir: str, image_dir: Optional[str] = None,
+                 split: str = "train", val_mod: int = 10,
+                 transform: Optional[Callable] = None,
+                 num_workers: int = 4, download: bool = True,
+                 skip_versions: bool = True, total_only: bool = False,
+                 url: str = POP909_URL):
+        from .pianoroll import midi_to_pr_img
+        self.midi_dir = os.path.expanduser(midi_dir)
+        self.image_dir = image_dir or self.midi_dir.rstrip("/") + "_images"
+        _, midis = fast_scandir(self.midi_dir, (".mid", ".midi"))
+        if not midis and download:
+            got = maybe_download_pop909(self.midi_dir, url=url)
+            if got:
+                self.image_dir = image_dir or got.rstrip("/") + "_images"
+                _, midis = fast_scandir(got, (".mid", ".midi"))
+        if skip_versions:
+            midis = [m for m in midis if f"{os.sep}versions{os.sep}" not in m]
+        if not midis:
+            raise FileNotFoundError(f"no MIDI files under {self.midi_dir}")
+        if not os.path.isdir(self.image_dir) or not fast_scandir(self.image_dir, IMG_EXTS)[1]:
+            os.makedirs(self.image_dir, exist_ok=True)
+            with ThreadPoolExecutor(num_workers) as pool:
+                list(pool.map(lambda m: midi_to_pr_img(m, self.image_dir), midis))
+        _, files = fast_scandir(self.image_dir, IMG_EXTS)
+        if total_only:
+            files = [f for f in files if "_TOTAL" in os.path.basename(f)]
+
+        def song_num(f: str) -> int:
+            digits = "".join(c for c in os.path.basename(os.path.dirname(f))
+                             if c.isdigit()) or "0"
+            return int(digits)
+
+        keep_val = split == "val"
+        self.files = [f for f in files if (song_num(f) % val_mod == 0) == keep_val]
+        self.transform = transform
+        self.n_classes = 0
+
+    def __len__(self):
+        return len(self.files)
+
+    def get(self, i: int, rng: np.random.Generator):
+        img = Image.open(self.files[i]).convert("RGB")
+        out = self.transform(img, rng) if self.transform else np.asarray(
+            img, np.float32) / 255.0
+        return out, np.int32(0)
+
+
+class InpaintingDataset:
+    """Items {'target_latents': image, 'source_latents': image·(1 − mask),
+    'mask_pixels': mask (H, W, 1)} of a pixel-space dataset, the mask drawn
+    by ``inpainting.generate_mask`` from the item's generator; the
+    pre-encode pass turns such items into latent triplets."""
+
+    def __init__(self, base, mask_kwargs: Optional[dict] = None):
+        self.base = base
+        self.mask_kwargs = mask_kwargs or {}
+        self.n_classes = getattr(base, "n_classes", 0)
+
+    def __len__(self):
+        return len(self.base)
+
+    def get(self, i: int, rng: np.random.Generator):
+        from ..inpainting import generate_mask
+        img, label = self.base.get(i, rng)
+        img = np.asarray(img, np.float32)
+        mask = generate_mask(img.shape[:2], rng=rng, **self.mask_kwargs)[..., None]
+        return {"target_latents": img, "source_latents": img * (1 - mask),
+                "mask_pixels": mask}, label

@@ -8,8 +8,11 @@ codec and the generator simply live on one device. ``evaluate_model``
 samples, decodes through the codec (K1 in the VQGAN decoder's NATTEN block
 on the card), computes the sample metrics, tracks codebook usage and saves
 grids; a ``mark(name)`` callback, when given, is called after each of its
-parts. The audio evaluation, inpainting masks and the sharded serving
-branch are not ported yet (ROADMAP.md).
+parts. An inpainting evaluation passes the latent masks in
+``cond['mask_cond']``, the mask-blended sources in ``source`` and the pixel
+masks in ``mask_pixels``; their grids are saved beside the others. The
+audio evaluation and the sharded serving branch are not ported yet
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -69,6 +72,8 @@ def _sample_latents(model_apply: Callable, codec, generator: torch.Generator,
         cond["class_cond"] = cols.repeat(-(-batch_size // 10))[:batch_size]
     elif cond.get("class_cond") is not None:
         cond["class_cond"] = cond["class_cond"][:batch_size]
+    if cond.get("mask_cond") is not None:
+        cond["mask_cond"] = cond["mask_cond"][:batch_size]
     if not cond or all(v is None for v in cond.values()):
         cond = None
 
@@ -114,13 +119,12 @@ def evaluate_model(model_apply: Callable, codec, epoch: int, target_latents,
     """Sample ``min(batch_size, len(target_latents))`` latents, decode them
     and the targets (in chunks of 128), compute ``compute_sample_metrics``,
     track the target and generated codes with ``codec_quantize`` into
-    ``cb_tracker``, and save the grids ``{tag}{name}_{method}_{nfe}``.
-    Returns the metrics as floats plus ``FID_feature_backend``. ``mark``
-    is called with "sampler", "decode", "metrics" and "grids"."""
+    ``cb_tracker``, and save the grids ``{tag}{name}_{method}_{nfe}``
+    (with ``source``, also the source latents and their decode; with a
+    mask, ``mask_latents`` and ``mask_pixels``). Returns the metrics as
+    floats plus ``FID_feature_backend``. ``mark`` is called with "sampler",
+    "decode", "metrics" and "grids"."""
     from .ops.fid import default_feature_fn, feature_backend_name
-    if mask_pixels is not None or (cond and cond.get("mask_cond") is not None):
-        raise NotImplementedError("inpainting evaluation is not ported yet "
-                                  "(ROADMAP.md)")
     mark = mark or (lambda name: None)
     batch_size = min(batch_size, target_latents.shape[0])
     target_latents = target_latents[:batch_size]
@@ -151,6 +155,10 @@ def evaluate_model(model_apply: Callable, codec, epoch: int, target_latents,
         images["source_latents"] = source[:batch_size]
         images["decoded_source"] = decode_latents(codec, source[:batch_size],
                                                   is_midi=is_midi, keep_gray=keep_gray)
+    if cond and cond.get("mask_cond") is not None:
+        images["mask_latents"] = cond["mask_cond"][:batch_size]
+    if mask_pixels is not None:
+        images["mask_pixels"] = mask_pixels[:batch_size].float()
     for key, val in images.items():
         save_img_grid(val.float().cpu().numpy(), epoch,
                       tag=f"{tag}{key}_{method}_{nfe}", output_dir=output_dir)

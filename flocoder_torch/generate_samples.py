@@ -10,11 +10,18 @@ Loads the flow and codec checkpoints (npz contract, see
 checkpoint's embedded config (the U-Net, or HDiT for ``flow.arch=hdit``;
 ``models/flow_model.py``), integrates with RK4/Euler/Heun/midpoint and CFG,
 decodes through the codec (the VQGAN, or the SD VAE of ``flowers_sd``), and
-writes PNG grids and individual PNGs. Serving runs in fp32: a checkpoint
-trained with ``flow.bf16=true`` is served with ``+bf16=false``.
-``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
-Not ported yet (ROADMAP.md): MIDI ``.mid`` export, bf16 and int8 serving,
-audio checkpoints, the gradio UI and sharded serving.
+writes PNG grids and individual PNGs. For a MIDI data path (``midi`` or
+``pop909`` in ``data``) every sample PNG is also laid out as a piano roll
+(``square_to_rect_file``) and exported to a ``.mid`` file
+(``img_file_2_midi_file``); ``midi_to_audio`` renders one to WAV through
+``timidity`` and raises where that program is missing. A checkpoint of an
+inpainting run (its U-Net has mask conditioning, its params a
+``mask_encoder``) serves unconditionally: the U-Net gets no mask, which it
+reads as the all-ones mask. Serving runs in fp32: a checkpoint trained
+with ``flow.bf16=true`` is served with ``+bf16=false``. ``+device=cpu``
+runs on the CPU; without it the run needs a CUDA device. Not ported yet
+(ROADMAP.md): bf16 and int8 serving, audio checkpoints, the gradio UI and
+sharded serving.
 """
 from __future__ import annotations
 
@@ -31,11 +38,12 @@ from .evaluation import sampler
 from .models.codecs import VQVAE, load_codec_weights, setup_codec
 from .models.flow_model import build_flow_model
 from .models.sd_vae import SDVAE
-from .training.checkpoint import UNET_PREFIXES, load_checkpoint, load_jax_flat
+from .training.checkpoint import UNET_PREFIXES, load_checkpoint, load_jax_flat, subtree
 from .utils.device import resolve_device
 from .utils.viz import save_img, save_img_grid
 
-__all__ = ["load_models_once", "generate_samples", "main", "CONFIG_DIR"]
+__all__ = ["load_models_once", "generate_samples", "save_sample_batch",
+           "midi_to_audio", "main", "CONFIG_DIR"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs")
@@ -66,9 +74,11 @@ def load_models_once(config, flow_ckpt_path: str, device) -> dict:
     H, W, C = codec.latent_shape(image_size)
     n_classes = int(ldcfg(ck_config, "n_classes", 0))
     meanflow = bool(ldcfg(ck_config, "meanflow", False))
+    params = ck["model_state_dict"]
+    inpainting = any(k.startswith("mask_encoder/") for k in params)
     model = build_flow_model(ck_config, C, n_classes, dual_time=meanflow,
-                             dim=H).to(device)
-    load_jax_flat(model, ck["model_state_dict"], UNET_PREFIXES)
+                             dim=H, mask_cond=inpainting).to(device)
+    load_jax_flat(model, subtree(params, "model/"), UNET_PREFIXES)
     model.eval()
 
     if isinstance(codec, (VQVAE, SDVAE)):    # seeded as pre-encoding seeds it
@@ -85,20 +95,42 @@ def load_models_once(config, flow_ckpt_path: str, device) -> dict:
 
 
 def save_sample_batch(decoded: np.ndarray, batch_idx: int, output_dir: str,
-                      max_individual: int = 100) -> None:
-    """A grid plus up to 100 individual PNGs."""
+                      is_midi: bool = False, max_individual: int = 100) -> list:
+    """A grid plus up to 100 individual PNGs; with ``is_midi`` each PNG is
+    also laid out as a piano roll (``*_rect.png``) and exported to a
+    ``.mid`` file beside it. Returns the ``.mid`` paths."""
+    from .data.pianoroll import img_file_2_midi_file, square_to_rect_file
     os.makedirs(output_dir, exist_ok=True)
     save_img_grid(decoded, epoch=batch_idx, tag=f"samples_b{batch_idx}",
                   output_dir=output_dir)
+    mids = []
     for i in range(min(decoded.shape[0], max_individual)):
-        save_img(decoded[i], os.path.join(output_dir,
-                                          f"sample_{batch_idx:03d}_{i:03d}.png"))
+        path = os.path.join(output_dir, f"sample_{batch_idx:03d}_{i:03d}.png")
+        save_img(decoded[i], path)
+        if is_midi:
+            mids.append(img_file_2_midi_file(square_to_rect_file(path),
+                                             path.replace(".png", ".mid")))
+    return mids
+
+
+def midi_to_audio(midi_path: str) -> str:
+    """MIDI → WAV beside it through the ``timidity`` program; raises a
+    RuntimeError where it is not installed."""
+    import shutil
+    import subprocess
+    wav = midi_path.replace(".mid", ".wav")
+    if shutil.which("timidity") is None:
+        raise RuntimeError("timidity not installed")
+    subprocess.run(["timidity", midi_path, "-Ow", "-o", wav], check=True,
+                   capture_output=True)
+    return wav
 
 
 def generate_samples(config) -> dict:
     """Sample ``+n_samples`` images in batches of ``batch_size`` and write
     them to ``+output_dir``. Returns ``{'images': (N, H, W, 3) array,
-    'batch_seconds': [...], 'nfe': int, 'device': str}``."""
+    'batch_seconds': [...], 'nfe': int, 'midi_files': [.mid paths],
+    'device': str}``."""
     device = resolve_device(config.get("device", None))
     flow_ckpt = str(config.get("flow_checkpoint", "") or
                     ldcfg(config, "flow_checkpoint", ""))
@@ -120,8 +152,6 @@ def generate_samples(config) -> dict:
     output_dir = str(config.get("output_dir", "samples"))
     is_midi = any(s in str(config.get("data", "")).lower()
                   for s in ("midi", "pop909"))
-    if is_midi:
-        raise NotImplementedError("MIDI .mid export is not ported yet (ROADMAP.md)")
     keep_gray = int(ldcfg(config, "in_channels", 3)) == 1
     generator = torch.Generator(device).manual_seed(int(config.get("seed", 0)))
 
@@ -137,7 +167,7 @@ def generate_samples(config) -> dict:
         with torch.inference_mode():
             init_latents = b["codec"].encode(arr.to(device))
 
-    images, seconds, nfe = [], [], 0
+    images, seconds, mids, nfe = [], [], [], 0
     done, batch_idx = 0, 0
     while done < n_samples:
         bs = min(batch_size, n_samples - done)
@@ -156,14 +186,14 @@ def generate_samples(config) -> dict:
         dt = time.time() - t0
         print(f"batch {batch_idx}: {bs} samples, nfe={nfe}, {dt:.2f}s "
               f"({bs / dt:.1f} samples/s)")
-        save_sample_batch(decoded, batch_idx, output_dir)
+        mids += save_sample_batch(decoded, batch_idx, output_dir, is_midi=is_midi)
         images.append(decoded)
         seconds.append(dt)
         done += bs
         batch_idx += 1
     print(f"wrote {done} samples to {output_dir}/")
     return {"images": np.concatenate(images), "batch_seconds": seconds,
-            "nfe": nfe, "device": str(device)}
+            "nfe": nfe, "midi_files": mids, "device": str(device)}
 
 
 def main(argv=None) -> dict:

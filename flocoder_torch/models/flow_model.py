@@ -20,15 +20,21 @@ def flow_arch(config) -> str:
 
 
 def build_flow_model(config, channels: int, n_classes: int, dual_time: bool = False,
-                     dtype=torch.float32, dim: int = 16) -> nn.Module:
+                     dtype=torch.float32, dim: int = 16,
+                     mask_cond: bool = False) -> nn.Module:
     """The flow model of ``config`` for latents of ``channels`` channels.
     ``dim`` is the U-Net's base width (the scripts pass the latent height,
-    as the JAX scripts do). HDiT computes in ``dtype``; the U-Net runs in
-    fp32 only (its bf16 is not ported yet, ROADMAP.md). Parameters are
-    fp32 on the CPU; the caller moves the model and initialises it."""
+    as the JAX scripts do); ``mask_cond`` builds the U-Net's inpainting
+    mask conditioning (a mask of ``channels`` channels). HDiT computes in
+    ``dtype`` and has no mask path; the U-Net runs in fp32 only (its bf16
+    is not ported yet, ROADMAP.md). Parameters are fp32 on the CPU; the
+    caller moves the model and initialises it."""
     from ..config import ldcfg
     arch = flow_arch(config)
     if arch == "hdit":
+        if mask_cond:
+            raise SystemExit("flow.arch=hdit has no mask-conditioning path; use "
+                             "arch=unet for inpainting datasets")
         return hdit_from_config(config, channels=channels, n_classes=n_classes,
                                 dtype=dtype, dual_time=dual_time)
     if arch != "unet":
@@ -38,4 +44,5 @@ def build_flow_model(config, channels: int, n_classes: int, dual_time: bool = Fa
                                   "not ported yet (ROADMAP.md)")
     return Unet(dim=dim, channels=channels,
                 dim_mults=tuple(ldcfg(config, "dim_mults", [1, 2, 4, 8])),
-                n_classes=n_classes, dual_time=dual_time)
+                n_classes=n_classes, dual_time=dual_time, mask_cond=mask_cond,
+                mask_channels=channels)

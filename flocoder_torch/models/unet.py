@@ -9,9 +9,15 @@ key for key.
 Ported: ResnetBlock with FiLM, LinearAttention at every scale, softmax
 Attention at the bottleneck (plain matmul + softmax), pixel-unshuffle
 Downsample and nearest Upsample, the sinusoidal time embedding, the class
-embedding with the null id −1 masked, and ``dual_time`` (MeanFlow). Mask
-conditioning and the sequence-parallel (ring) bottleneck are not ported yet
-and raise (ROADMAP.md).
+embedding with the null id −1 masked, ``dual_time`` (MeanFlow), and mask
+conditioning (``mask_cond``): the input fusion (5×5 → 3×3 → 3×3 convs on the
+stem concatenated with the mask), bypassed for the whole batch when every
+mask value is 1 (a 0-dim ``torch.where``, so the forward never waits on the
+card for it), and the mask resized into the first two down and up scales
+with ``jax.image.resize``'s bilinear weights (antialiased when it shrinks;
+``inpainting.resize_bilinear``). A missing mask is the all-ones mask. The
+sequence-parallel (ring) bottleneck is not ported yet and raises
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..inpainting import resize_bilinear
 from .layers import Scope, conv, group_norm
 
 __all__ = ["Unet", "sinusoidal_embedding", "pixel_shuffle", "pixel_unshuffle"]
@@ -170,27 +177,30 @@ class Upsample(nn.Module):
 
 class Unet(nn.Module):
     """Velocity field v(x, t, cond). ``cond`` is a dict
-    ``{'class_cond': (B,) int or None, 'mask_cond': None}``; a class id < 0
-    is the CFG null token and contributes nothing. NHWC in and out."""
+    ``{'class_cond': (B,) int or None, 'mask_cond': (B, H, W, Cm) or None}``;
+    a class id < 0 is the CFG null token and contributes nothing; the mask
+    is read only with ``mask_cond``. NHWC in and out."""
 
     def __init__(self, dim: int, dim_mults: Sequence[int] = (1, 2, 4, 8),
                  channels: int = 3, resnet_block_groups: int = 4,
                  n_classes: int = 0, mask_cond: bool = False,
-                 dual_time: bool = False, ring_axis_size: int = 1):
+                 mask_channels: int = 1, dual_time: bool = False,
+                 ring_axis_size: int = 1):
         super().__init__()
-        if mask_cond:
-            raise NotImplementedError("Unet mask conditioning is not ported "
-                                      "yet (ROADMAP.md)")
         if ring_axis_size > 1:
             raise NotImplementedError("Unet ring attention is not ported yet "
                                       "(ROADMAP.md)")
         self.dim, self.n_classes, self.dual_time = dim, n_classes, dual_time
+        self.mask_cond, self.mask_channels = mask_cond, mask_channels
         groups = resnet_block_groups
         dims = [dim] + [dim * m for m in dim_mults]
         in_out = list(zip(dims[:-1], dims[1:]))
         time_dim = dim * 8
         s = Scope(self)
         s.conv(channels, dim, 1, name="init_conv")
+        if mask_cond:      # the input fusion: Conv_0, Conv_1, Conv_2
+            self.fusion = [s.conv(dim + mask_channels, 2 * dim, 5),
+                           s.conv(2 * dim, 2 * dim, 3), s.conv(2 * dim, dim, 3)]
         self.time_mlp = [s.dense(dim, time_dim), s.dense(time_dim, time_dim)]
         self.horizon_mlp = ([s.dense(dim, time_dim), s.dense(time_dim, time_dim)]
                             if dual_time else None)
@@ -207,9 +217,11 @@ class Unet(nn.Module):
             r2 = s.add("ResnetBlock", ResnetBlock(dim_in, dim_in, time_dim, groups))
             pre = s.add("PreNormResidual", PreNormResidual(dim_in))
             attn = s.add("LinearAttention", LinearAttention(dim_in))
+            mconv = (s.conv(dim_in + mask_channels, dim_in, 3)
+                     if mask_cond and ind < 2 else None)
             down = (s.add("Downsample", Downsample(dim_in, dim_out)) if not is_last
                     else s.conv(dim_in, dim_out, 3))
-            self.downs.append((r1, r2, pre, attn, down))
+            self.downs.append((r1, r2, pre, attn, mconv, down))
         mid = dims[-1]
         self.mid = (s.add("ResnetBlock", ResnetBlock(mid, mid, time_dim, groups)),
                     s.add("PreNormResidual", PreNormResidual(mid)),
@@ -222,9 +234,11 @@ class Unet(nn.Module):
             r2 = s.add("ResnetBlock", ResnetBlock(dim_out + dim_in, dim_out, time_dim, groups))
             pre = s.add("PreNormResidual", PreNormResidual(dim_out))
             attn = s.add("LinearAttention", LinearAttention(dim_out))
+            mconv = (s.conv(dim_out + mask_channels, dim_out, 3)
+                     if mask_cond and ind < 2 else None)
             up = (s.add("Upsample", Upsample(dim_out, dim_in)) if not is_last
                   else s.conv(dim_out, dim_in, 3))
-            self.ups.append((r1, r2, pre, attn, up))
+            self.ups.append((r1, r2, pre, attn, mconv, up))
         self.final_res = [s.add("ResnetBlock",
                                 ResnetBlock(dim * 2, dim, time_dim, groups))]
         s.conv(dim, channels, 1, name="final_conv")
@@ -233,14 +247,28 @@ class Unet(nn.Module):
     def _mlp(layers, x):
         return layers[1](F.gelu(layers[0](x)))
 
+    @staticmethod
+    def _mask_in(x: torch.Tensor, mask: torch.Tensor, mconv) -> torch.Tensor:
+        """x + silu(conv([x, mask resized to x's scale])), NCHW."""
+        m = resize_bilinear(mask, x.shape[2:4]).permute(0, 3, 1, 2)
+        return x + F.silu(mconv(torch.cat([x, m], dim=1)))
+
     def forward(self, x: torch.Tensor, time: torch.Tensor,
                 cond: Optional[dict] = None) -> torch.Tensor:
         class_cond = cond.get("class_cond") if cond else None
-        if cond and cond.get("mask_cond") is not None:
-            raise NotImplementedError("Unet mask conditioning is not ported "
-                                      "yet (ROADMAP.md)")
+        mask = cond.get("mask_cond") if cond and self.mask_cond else None
         dtype = self.init_conv.weight.dtype
+        if self.mask_cond and mask is None:
+            # the all-ones mask, which the input fusion bypasses
+            mask = torch.ones(*x.shape[:3], self.mask_channels, dtype=dtype,
+                              device=x.device)
         x = self.init_conv(x.to(dtype).permute(0, 3, 1, 2).contiguous())
+        if self.mask_cond:
+            mask = mask.to(dtype)
+            c0, c1, c2 = self.fusion
+            fused = torch.cat([x, mask.permute(0, 3, 1, 2)], dim=1)
+            fused = c2(F.silu(c1(F.silu(c0(fused)))))
+            x = torch.where((mask == 1.0).all(), x, fused)
         r = x
 
         tv = torch.as_tensor(time, dtype=dtype, device=x.device)
@@ -257,20 +285,25 @@ class Unet(nn.Module):
             t = t + ce * (class_cond >= 0).to(dtype)[:, None]
 
         hs = []
-        for r1, r2, pre, attn, down in self.downs:
+        for r1, r2, pre, attn, mconv, down in self.downs:
             x = r1(x, t)
             hs.append(x)
             x = pre(r2(x, t), attn)
             hs.append(x)
+            if mconv is not None:
+                x = self._mask_in(x, mask, mconv)
             x = down(x)
 
         m1, pre, attn, m2 = self.mid
         x = m2(pre(m1(x, t), attn), t)
 
-        for r1, r2, pre, attn, up in self.ups:
+        for r1, r2, pre, attn, mconv, up in self.ups:
             x = r1(torch.cat([x, hs.pop()], dim=1), t)
             x = r2(torch.cat([x, hs.pop()], dim=1), t)
-            x = up(pre(x, attn))
+            x = pre(x, attn)
+            if mconv is not None:
+                x = self._mask_in(x, mask, mconv)
+            x = up(x)
 
         x = self.final_res[0](torch.cat([x, r], dim=1), t)
         out = self.final_conv(x)

@@ -33,9 +33,15 @@ from .build import Kernel
 __all__ = ["NA2DForward", "NA2DBackward", "na2d_fwd", "na2d_bwd",
            "QueryPlan", "KeyPlan", "query_plans", "key_plans", "plan_queries",
            "plan_keys", "window_start",
-           "q_lo", "q_hi", "KS_MAX"]
+           "q_lo", "q_hi", "KS_MAX", "DH_MAX", "COL_SLICE"]
 
 KS_MAX = 7               # the key union of a 4×4 patch, (3+ks)², fits 14 n8 tiles
+DH_MAX = 256             # widest head slice the kernels take
+# Widest column slice of dh a warp's output accumulators hold at once
+# (``kColSlice`` in csrc/na2d_mma.cuh): a wider head forms its P·V-type
+# products (K1's output, K2's dq, dk, dv) in slices of this many columns,
+# so that the registers a lane takes stay those of dh 128.
+COL_SLICE = 128
 PATCH = 4                # a warp's patch: PATCH × PATCH = 16 rows of an mma tile
 _MAX_WARPS = 8
 _SMEM_BLOCK = 227 * 1024     # one block's dynamic shared memory at most
@@ -90,7 +96,9 @@ def key_table(ks: int, bf16: bool) -> int:
 def query_chunk(dh: int) -> int:
     """Queries per chunk of K2's second pass (``kQueryChunk`` in
     csrc/na2d_bwd.cu): 32, four n8 tiles, so that a chunk's Sᵀ and dPᵀ (32
-    registers a lane) sit beside dK and dV (2·dh/8·4)."""
+    registers a lane) sit beside one column slice of dK and dV
+    (2·min(dh, COL_SLICE)/8·4); a head of 256 walks its chunks once per
+    slice."""
     return 32
 
 
@@ -151,9 +159,9 @@ def _check_plan_args(H: int, W: int, dh: int, ks: int) -> None:
     if not (1 <= ks <= min(KS_MAX, H, W)):
         raise ValueError(f"na2d kernel: window {ks} must be within 1..{KS_MAX} "
                          f"and the map {H}x{W}")
-    if dh % 8 or not 8 <= dh <= 128:
+    if dh % 8 or not 8 <= dh <= DH_MAX:
         raise ValueError(f"na2d kernel: head dim {dh} must be a multiple of 8 "
-                         "up to 128")
+                         f"up to {DH_MAX}")
 
 
 def query_plans(H: int, W: int, dh: int, ks: int, bf16: bool):
@@ -332,9 +340,9 @@ def _check(heads: int, **tensors) -> None:
     if heads < 1 or C % heads:
         raise ValueError(f"na2d kernel: C={C} is not divisible by heads={heads}")
     dh = C // heads
-    if dh % 8 or dh > 128:
+    if dh % 8 or dh > DH_MAX:
         raise ValueError(f"na2d kernel: head dim {dh} must be a multiple of 8 "
-                         "and at most 128")
+                         f"and at most {DH_MAX}")
     if min(q.shape) < 1:
         raise ValueError(f"na2d kernel: empty input {tuple(q.shape)}")
 

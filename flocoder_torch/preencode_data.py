@@ -25,11 +25,23 @@ one launch of K3 on the card. The codec loads its weights strictly where
 the files exist (``codec.checkpoint``; for the SD VAE first
 ``weights/sd_vae_ft_mse.npz``), and keeps seeded random weights otherwise.
 
-A data path is an image folder or, when absent, the synthetic image set.
+A data path is an image folder or, when absent, the synthetic image set; a
+path whose name holds ``midi`` or ``pop909`` is a folder of piano-roll
+images and takes the piano-roll transforms (``midi_transforms``).
+
+``inpainting=true`` writes triplets into ``{data}_encoded_{codec.choice}
+_inpainting/{split}``: per batch ``b`` the masks of
+``generate_mask_batch(seed=seed·100003 + b)``, the encode of the images
+(``target_latents``) and of the masked images (``source_latents``), saved
+with the masks (as bool, ``mask_pixels``) in one ``.npz`` per item. A codec
+whose ``in_channels`` differ from the loader's images raises a
+``ValueError`` (the JAX package fails there too, with a shape error;
+ROADMAP.md).
+
 ``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
 Not ported yet (each raises, ROADMAP.md): named torchvision sets,
-``preencoding.device_augs``, ``preencoding.format=shard``, ``inpainting``,
-MIDI and audio data, ``+quant=int8`` and ``codec.bf16``.
+``preencoding.device_augs``, ``preencoding.format=shard``, audio data,
+``+quant=int8`` and ``codec.bf16``.
 """
 from __future__ import annotations
 
@@ -44,8 +56,9 @@ import torch
 from .config import ldcfg, parse_cli
 from .data.datasets import (ImageFolderDataset, InfiniteDataset, Loader,
                             SyntheticImageDataset)
-from .data.transforms import image_transforms
+from .data.transforms import image_transforms, midi_transforms
 from .generate_samples import CONFIG_DIR
+from .inpainting import generate_mask_batch
 from .models.codecs import VQVAE, load_codec_weights, setup_codec
 from .models.layers import init_params
 from .utils.device import resolve_device
@@ -55,13 +68,10 @@ __all__ = ["open_split", "process_dataset", "load_codec", "main"]
 
 def _refuse_unported(config) -> None:
     pe = config.get("preencoding", {})
-    data = str(config.get("data", "")).lower()
     quant = str(config.get("quant", "") or "").lower()
     for what, unported in (
             ("preencoding.device_augs", bool(pe.get("device_augs", False))),
             ("preencoding.format=shard", str(pe.get("format", "files")) == "shard"),
-            ("inpainting", bool(config.get("inpainting", False))),
-            ("MIDI data", any(s in data for s in ("pop909", "midi"))),
             ("audio data (codec.choice=dac)",
              "codec" in config and config.codec.get("choice") == "dac"),
             ("+quant=int8", quant in ("int8", "true", "1")),
@@ -106,7 +116,8 @@ def open_split(config, split: str) -> tuple:
     num_workers = int(pe.get("num_workers", 4))
     seed = int(ldcfg(config, "seed", 0)) + (0 if split == "train" else 1)
 
-    tf = image_transforms(image_size)
+    is_midi = any(s in data_path.lower() for s in ("pop909", "midi"))
+    tf = midi_transforms(image_size) if is_midi else image_transforms(image_size)
     if os.path.isdir(data_path):
         dataset = ImageFolderDataset(data_path, transform=tf)
         print(f"[{split}] image folder {data_path}: {len(dataset)} images")
@@ -153,11 +164,15 @@ def open_split(config, split: str) -> tuple:
 def process_dataset(config, split: str, codec, device) -> dict:
     """Pre-encode one split; returns ``{'split', 'out_dir', 'batches',
     'latents', 'seconds', 'latents_per_s', 'bytes'}``, the seconds by the
-    host clock over the whole split (loader, copies, encodes, writes)."""
+    host clock over the whole split (loader, copies, encodes, writes). With
+    ``inpainting`` a latent is one triplet (two encodes)."""
     _refuse_unported(config)
     data_path = os.path.expanduser(str(config.data))
     max_gb = float(config.get("preencoding", {}).get("max_storage_gb", 60))
-    out_split = os.path.join(f"{data_path}_encoded_{config.codec.choice}", split)
+    inpainting = bool(config.get("inpainting", False))
+    seed = int(ldcfg(config, "seed", 0)) + (0 if split == "train" else 1)
+    out_dir = f"{data_path}_encoded_{config.codec.choice}"
+    out_split = os.path.join(out_dir + ("_inpainting" if inpainting else ""), split)
     if os.path.exists(out_split) and os.listdir(out_split):
         raise SystemExit(f"Refusing to overwrite existing {out_split}")
     dataset, total_batches, batches = open_split(config, split)
@@ -168,14 +183,19 @@ def process_dataset(config, split: str, codec, device) -> dict:
     bytes_written = 0
     lock = threading.Lock()
 
-    def write_one(name: str, latent: np.ndarray, label: int) -> None:
+    def write_one(name: str, latent, label: int) -> None:
         nonlocal bytes_written
         sub = (class_names[label] if class_names and class_names != [""]
                else f"{label:04d}" if n_classes else "data")
         d = os.path.join(out_split, sub)
         os.makedirs(d, exist_ok=True)
-        path = os.path.join(d, name) + ".npy"
-        np.save(path, latent)
+        path = os.path.join(d, name)
+        if isinstance(latent, dict):        # an inpainting triplet
+            np.savez(path, **latent)
+            path += ".npz"
+        else:
+            path += ".npy"
+            np.save(path, latent)
         with lock:
             bytes_written += os.path.getsize(path)
 
@@ -184,9 +204,24 @@ def process_dataset(config, split: str, codec, device) -> dict:
     with ThreadPoolExecutor(8) as writer, torch.inference_mode():
         for b, batch in enumerate(batches):
             x = torch.from_numpy(batch["pixels"]).to(device)
-            z = encode(x).float().cpu().numpy()
+            if x.shape[-1] != getattr(codec, "in_channels", x.shape[-1]):
+                raise ValueError(
+                    f"the codec takes {codec.in_channels}-channel images but the "
+                    f"loader gives {x.shape[-1]}-channel ones (the MIDI loaders give "
+                    "RGB piano rolls; a grayscale loader is not wired in, in either "
+                    "package: ROADMAP.md)")
+            if inpainting:
+                masks = generate_mask_batch(tuple(x.shape[1:3]), batch_size=x.shape[0],
+                                            seed=seed * 100003 + b)
+                masked = x * (1 - torch.from_numpy(masks).to(device))
+                target = encode(x).float().cpu().numpy()
+                source = encode(masked).float().cpu().numpy()
+                items = [{"target_latents": target[i], "source_latents": source[i],
+                          "mask_pixels": masks[i].astype(bool)} for i in range(len(target))]
+            else:
+                items = encode(x).float().cpu().numpy()
             for i, label in enumerate(batch["class_cond"]):
-                writer.submit(write_one, f"b{b:06d}_{i:03d}", z[i], int(label))
+                writer.submit(write_one, f"b{b:06d}_{i:03d}", items[i], int(label))
                 n_saved += 1
             if bytes_written > max_gb * 1e9:
                 print(f"storage cap {max_gb}GB reached")

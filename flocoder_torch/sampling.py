@@ -93,6 +93,8 @@ def cfg_velocity(apply_fn: Callable, cond: Optional[dict], cfg_strength: float,
         cond2 = dict(cond)
         cc = cond["class_cond"]
         cond2["class_cond"] = torch.cat([cc, torch.full_like(cc, -1)])
+        if cond.get("mask_cond") is not None:
+            cond2["mask_cond"] = torch.cat([cond["mask_cond"]] * 2)
         if cond.get("time_horizon") is not None:
             cond2["time_horizon"] = torch.cat([cond["time_horizon"]] * 2)
         v2 = apply_fn(torch.cat([x, x]), t_vec, cond2)

@@ -24,10 +24,20 @@ state, EMA) and ``flowema_<epoch>.npz``, so that both packages'
 ``+ckpt_dir`` and ``+output_dir`` move the checkpoints (default
 ``checkpoints``) and the grids (``output_<data name>-<H>x<W>``). Unlike the
 JAX script, a validation split smaller than the batch is read as one batch
-of its size. Not ported yet (ROADMAP.md), and refused: meshes and FSDP,
-ring attention, MoE expert parallelism, pipeline parallelism, orbax and
-sharded checkpoints, inpainting and reflow datasets, packed shards, audio
-codecs, the U-Net in bf16, wandb logging.
+of its size.
+
+Inpainting: latents pre-encoded with ``inpainting=true`` (``.npz``
+triplets) train the U-Net with mask conditioning and a ``MaskEncoder``
+whose output is resized to the latent size; ``flow.otf_aug=true`` adds the
+curriculum (``flow.curriculum_epochs``, ``extend_epochs``, ``p_ones``,
+``p_zeros``) with ``blank_latents``, the codec's encode of a blank image.
+The evaluation conditions on the validation batch's masks and starts from
+its mask-blended sources. The checkpoints hold the mask encoder beside the
+U-Net and the two optimizer groups in optax's ``multi_transform`` layout.
+Not ported yet (ROADMAP.md), and refused: meshes and FSDP, ring attention,
+MoE expert parallelism, pipeline parallelism, orbax and sharded
+checkpoints, reflow datasets, packed shards, audio codecs, the U-Net in
+bf16, wandb logging.
 """
 from __future__ import annotations
 
@@ -43,13 +53,14 @@ from .config import ldcfg, parse_cli
 from .data.datasets import Loader, PreEncodedDataset, create_image_loaders
 from .evaluation import evaluate_model
 from .generate_samples import CONFIG_DIR
+from .inpainting import MaskEncoder
 from .models.codecs import VQVAE, load_codec_weights, setup_codec
 from .models.flow_model import build_flow_model, flow_arch
 from .models.layers import init_params
 from .models.sd_vae import SDVAE
-from .training.checkpoint import (UNET_PREFIXES, adam_to_jax_flat, load_adam_jax_flat,
-                                  load_checkpoint, load_jax_flat, save_checkpoint,
-                                  to_jax_flat)
+from .training.checkpoint import (MASK_ENCODER_PREFIXES, OPT_GROUPS, UNET_PREFIXES,
+                                  adam_to_jax_flat, load_adam_jax_flat, load_checkpoint,
+                                  load_jax_flat, save_checkpoint, subtree, to_jax_flat)
 from .training.flow import create_flow_state, make_flow_eval_step, make_flow_train_step
 from .training.schedules import batch_size_schedule, cosine_warm_restarts_decay
 from .utils.codebook_analysis import CodebookUsageTracker
@@ -63,7 +74,7 @@ def _refuse_unported(config) -> None:
              "moe_ep": "MoE expert parallelism", "pp": "pipeline parallelism",
              "orbax_checkpoints": "orbax checkpoints",
              "sharded_checkpoints": "sharded checkpoints",
-             "reflow": "reflow (paired) datasets", "otf_aug": "inpainting OTF augmentation"}
+             "reflow": "reflow (paired) datasets"}
     if flow_arch(config) != "hdit":
         flags["bf16"] = "the U-Net in bf16"
     for key, what in flags.items():
@@ -85,6 +96,43 @@ def _to_device(batch: dict, device) -> dict:
         t = torch.from_numpy(np.asarray(v))
         out[k] = (t.long() if k == "class_cond" else t).to(device, non_blocking=True)
     return out
+
+
+def _params_flat(model, mask_encoder) -> dict:
+    """The flat JAX tree of the flow params: the model and, for
+    inpainting, the mask encoder."""
+    flat = to_jax_flat(model, UNET_PREFIXES)
+    if mask_encoder is not None:
+        flat.update(to_jax_flat(mask_encoder, MASK_ENCODER_PREFIXES))
+    return flat
+
+
+def _load_params(model, mask_encoder, flat: dict) -> None:
+    load_jax_flat(model, subtree(flat, "model/"), UNET_PREFIXES)
+    if mask_encoder is not None:
+        load_jax_flat(mask_encoder, subtree(flat, "mask_encoder/"), MASK_ENCODER_PREFIXES)
+
+
+def _opt_flat(state) -> dict:
+    """optax's flat state of the flow optimizer: one Adam state, or with a
+    mask encoder the two groups of ``multi_transform``."""
+    model = adam_to_jax_flat(state.model, state.opt.adam, state.step, UNET_PREFIXES)
+    if state.mask_encoder is None:
+        return model
+    mask = adam_to_jax_flat(state.mask_encoder, state.mask_opt.adam, state.step,
+                            MASK_ENCODER_PREFIXES)
+    return {**{OPT_GROUPS["model"] + k: v for k, v in model.items()},
+            **{OPT_GROUPS["mask"] + k: v for k, v in mask.items()}}
+
+
+def _load_opt(state, flat: dict) -> None:
+    if state.mask_encoder is None:
+        load_adam_jax_flat(state.model, state.opt.adam, flat, UNET_PREFIXES)
+        return
+    load_adam_jax_flat(state.model, state.opt.adam,
+                       subtree(flat, OPT_GROUPS["model"], strip=True), UNET_PREFIXES)
+    load_adam_jax_flat(state.mask_encoder, state.mask_opt.adam,
+                       subtree(flat, OPT_GROUPS["mask"], strip=True), MASK_ENCODER_PREFIXES)
 
 
 def _keep_recent_files(keep: int, directory: str, pattern: str) -> None:
@@ -151,16 +199,23 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
         val_ds = PreEncodedDataset(f"{data_path}/val", n_classes=n_classes)
         train_loader = Loader(train_ds, batch_size, num_workers, seed)
         val_loader = Loader(val_ds, min(batch_size, len(val_ds)), num_workers, seed + 1)
-        H, W, C = next(iter(train_loader))["target"].shape[1:]
+        batch0 = next(iter(train_loader))
+        H, W, C = batch0["target"].shape[1:]
     else:
         train_loader, val_loader = create_image_loaders(
             batch_size, image_size, os.path.expanduser(str(config.data)),
             num_workers=num_workers, is_midi=is_midi, seed=seed)
         train_loader.key = val_loader.key = "pixels"
+        batch0 = {}
         H, W, C = codec.latent_shape(image_size)
         encode_fn = codec.encode
         print(f"on-the-fly mode: encoding {image_size}px images in the step")
-    print(f"latent shape HWC = {(H, W, C)}, n_batches/epoch = {len(train_loader)}")
+    inpainting = "mask_pixels" in batch0
+    if meanflow and inpainting:
+        raise SystemExit("flow.meanflow=true does not combine with inpainting "
+                         "datasets or flow.reflow")
+    print(f"latent shape HWC = {(H, W, C)}, inpainting = {inpainting}, "
+          f"n_batches/epoch = {len(train_loader)}")
     output_dir = str(config.get("output_dir",
                                 f"output_{os.path.basename(data_path)}-{H}x{W}"))
     ckpt_dir = str(config.get("ckpt_dir", "checkpoints"))
@@ -169,8 +224,12 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     # ---- model, optimizer, state
     dtype = torch.bfloat16 if bool(ldcfg(config, "bf16", False)) else torch.float32
     model = build_flow_model(config, C, n_classes, dual_time=meanflow, dtype=dtype,
-                             dim=H).to(device)
+                             dim=H, mask_cond=inpainting).to(device)
     init_params(model, gen.manual_seed(seed + 1))
+    mask_encoder = None
+    if inpainting:
+        mask_encoder = MaskEncoder(output_channels=C, target_hw=(H, W)).to(device)
+        init_params(mask_encoder, gen.manual_seed(seed + 3))
     model_apply = None
     if any(lv.moe_experts for lv in getattr(model, "levels", ())):
         if meanflow:
@@ -183,30 +242,45 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
             # the MoE blocks' mean auxiliary loss joins the objective
             v, aux = m(x, t, c, return_aux=True)
             return v, moe_aux_w * aux["moe_aux"].mean()
-    print(f"model params: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M  "
-          f"device {device}")
+    n_params = sum(p.numel() for m in (model, mask_encoder) if m is not None
+                   for p in m.parameters())
+    print(f"model params: {n_params / 1e6:.2f}M  device {device}")
     sched = cosine_warm_restarts_decay(
         float(ldcfg(config, "learning_rate", 1e-4)), T_0=int(ldcfg(config, "lr_T0", 50)),
         T_mult=int(ldcfg(config, "lr_Tmult", 2)), decay=float(ldcfg(config, "lr_decay", 0.6)),
         steps_per_epoch=max(len(train_loader), 1))
-    state = create_flow_state(model, sched)
+    state = create_flow_state(model, sched, mask_encoder=mask_encoder)
     start_epoch = 1
     resume = ldcfg(config, "load_checkpoint", None)
     if resume and os.path.exists(str(resume)):
         ck = load_checkpoint(str(resume))
-        load_jax_flat(state.model, ck["model_state_dict"], UNET_PREFIXES)
+        _load_params(state.model, state.mask_encoder, ck["model_state_dict"])
         if ck.get("optimizer_state_dict"):
-            load_adam_jax_flat(state.model, state.opt.adam, ck["optimizer_state_dict"],
-                               UNET_PREFIXES)
-        load_jax_flat(state.ema, ck.get("ema_state_dict") or ck["model_state_dict"],
-                      UNET_PREFIXES)
+            _load_opt(state, ck["optimizer_state_dict"])
+        _load_params(state.ema, state.ema_mask_encoder,
+                     ck.get("ema_state_dict") or ck["model_state_dict"])
         state.step = ck["epoch"] * len(train_loader)
         start_epoch = ck["epoch"] + 1
         print(f"resumed from {resume} at epoch {ck['epoch']}")
 
+    # the inpainting curriculum: (p_ones, p_zeros) by epoch from the step
+    # counter; "ones" start from blank_latents, the codec's blank image
+    blank_latents, otf_aug = None, None
+    if inpainting and bool(ldcfg(config, "otf_aug", False)):
+        with torch.no_grad():
+            blank_latents = codec.encode(torch.zeros(1, image_size, image_size,
+                                                     codec.in_channels, device=device))
+        print(f"blank_latents range [{float(blank_latents.min()):.3f}, "
+              f"{float(blank_latents.max()):.3f}]")
+        otf_aug = {"curriculum_epochs": int(ldcfg(config, "curriculum_epochs", 0)),
+                   "extend_epochs": int(ldcfg(config, "extend_epochs", 0)),
+                   "p_ones": float(ldcfg(config, "p_ones", 0.0)),
+                   "p_zeros": float(ldcfg(config, "p_zeros", 0.0)),
+                   "steps_per_epoch": max(len(train_loader), 1)}
     # flow.steps_per_dispatch batches the JAX package's host dispatches;
     # here every step is its own call, so the option changes nothing
     step_kwargs = dict(
+        blank_latents=blank_latents, otf_aug=otf_aug,
         ema_decay=float(ldcfg(config, "ema_decay", 0.999)), encode_fn=encode_fn,
         ot_method=str(ldcfg(config, "ot_method", "parallel")),
         ot_block=int(ldcfg(config, "ot_block", 0)) or None,
@@ -233,7 +307,8 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
             train_loader.batch_size = bs_sched(epoch)
         ep_aux, t_ep = [], time.time()
         for batch in train_loader:
-            batch.pop("source", None)
+            if not inpainting:
+                batch.pop("source", None)
             batch = _to_device(batch, device)
             state, aux = train_step(state, batch, gen)
             if step_hook is not None:
@@ -254,13 +329,22 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
 
         if not bool(ldcfg(config, "no_eval", False)) and (epoch < 20 or epoch % 10 == 0):
             vb = next(iter(val_loader))
-            vb.pop("source", None)
+            if not inpainting:
+                vb.pop("source", None)
             vb = _to_device(vb, device)
             if encode_fn is not None:
                 with torch.no_grad():
                     vb["target"] = encode_fn(vb.pop("pixels"))
-            val_loss = float(eval_step(state.model, vb, gen))
+            val_loss = float(eval_step(state.model, vb, gen, mask_encoder=state.mask_encoder))
             print(f"  val loss {val_loss:.4f}")
+            # inpainting conditions on the val batch's own masks, from its
+            # mask-blended sources
+            eval_mask_cond = eval_source = None
+            if inpainting:
+                with torch.no_grad():
+                    eval_mask_cond = state.mask_encoder(vb["mask_pixels"])
+                    noise = torch.randn(vb["source"].shape, generator=gen, device=device)
+                    eval_source = vb["source"] + eval_mask_cond * (noise - vb["source"])
             runs = [("", state.model)]
             if epoch > 5 and epoch % 2 == 0:
                 runs.append(("ema_", state.ema))
@@ -274,11 +358,13 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
 
                 metrics = evaluate_model(
                     net, codec, epoch, vb["target"], gen,
-                    cond={"class_cond": vb["class_cond"], "mask_cond": None},
+                    cond={"class_cond": vb["class_cond"], "mask_cond": eval_mask_cond},
                     batch_size=min(batch_size, 256), n_classes=n_classes,
                     method=eval_method, n_steps=n_steps_eval, cfg_strength=cfg_strength,
                     is_midi=is_midi, keep_gray=keep_gray, tag=tag, cb_tracker=cb_tracker,
                     codec_quantize=codec_quantize, output_dir=output_dir,
+                    source=eval_source,
+                    mask_pixels=vb["mask_pixels"] if inpainting else None,
                     t_scale=t_scale, mark=mark)
                 evals.append({"epoch": epoch, "tag": tag, "val_loss": val_loss,
                               "metrics": metrics, "seconds": marks})
@@ -288,15 +374,13 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
                 cb_tracker.reset_all()
 
         if epoch % int(ldcfg(config, "ckpt_every", 25)) == 0:
+            ema_flat = _params_flat(state.ema, state.ema_mask_encoder)
             ck_path = save_checkpoint(
-                to_jax_flat(state.model, UNET_PREFIXES), epoch, ckpt_dir=ckpt_dir,
-                prefix="flow_", config=config, keep=5,
-                ema=to_jax_flat(state.ema, UNET_PREFIXES),
-                opt_state=adam_to_jax_flat(state.model, state.opt.adam, state.step,
-                                           UNET_PREFIXES))
-            ema_path = save_checkpoint(to_jax_flat(state.ema, UNET_PREFIXES), epoch,
-                                       ckpt_dir=ckpt_dir, prefix="flowema_",
-                                       config=config, keep=5)
+                _params_flat(state.model, state.mask_encoder), epoch, ckpt_dir=ckpt_dir,
+                prefix="flow_", config=config, keep=5, ema=ema_flat,
+                opt_state=_opt_flat(state))
+            ema_path = save_checkpoint(ema_flat, epoch, ckpt_dir=ckpt_dir,
+                                       prefix="flowema_", config=config, keep=5)
             _keep_recent_files(100, output_dir, "*.png")
             print(f"  checkpoints -> {ck_path}, {ema_path}")
     print(f"done in {time.time() - t_start:.0f}s")

@@ -15,9 +15,13 @@ packages load them. ``+device=cpu`` runs on the CPU; without it the run
 needs a CUDA device. ``+ckpt_dir`` and ``+output_dir`` move the checkpoints
 (default ``checkpoints``) and the grids (``output_vqgan_<data name>``).
 ``codec.grad_accum`` (or ``flow.grad_accum`` through ``ldcfg``) splits each
-batch into that many microbatches. Not ported yet (ROADMAP.md): bf16
-codecs, data and tensor parallelism, wandb logging, MIDI data and note
-metrics, the codebook plots.
+batch into that many microbatches. A data path whose name holds ``midi``
+or ``pop909`` trains on piano rolls (a folder of ``.mid`` files is
+converted to PNGs first, ``data/datasets.py:MIDIImageDataset``), and each
+validation adds the note metrics (``calc_note_metrics``: onset and sustain
+sensitivity, specificity, precision, F1) and their TP/TN/FP/FN grids. Not
+ported yet (ROADMAP.md): bf16 codecs, data and tensor parallelism, wandb
+logging, the codebook plots.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 
 from .config import ldcfg, parse_cli
 from .data.datasets import create_image_loaders
+from .data.pianoroll import calc_note_metrics
 from .generate_samples import CONFIG_DIR
 from .models.codecs import setup_codec
 from .models.discriminator import (VQGANPlusDiscriminator,
@@ -153,11 +158,20 @@ def train_vqgan(config) -> dict:
             recon, vlosses, idx = eval_step(codec, x)
             tracker.update_counts("val", idx.reshape(-1, levels).cpu().numpy())
             vmeans = {k: float(v) for k, v in vlosses.items()}
-            val_history.append({"epoch": epoch, **vmeans})
             print("  val: " + "  ".join(f"{k} {v:.4f}" for k, v in vmeans.items()))
             n_demo = min(10, x.shape[0])
             save_img_grid(torch.cat([x[:n_demo], recon[:n_demo]]).float().cpu().numpy(),
                           epoch, tag="recon", output_dir=output_dir, ncols=n_demo)
+            if is_midi:
+                nm, nm_images = calc_note_metrics(
+                    recon.float().cpu().numpy(), x.float().cpu().numpy(),
+                    keep_gray=in_channels == 1, return_images=True)
+                vmeans.update({f"note_{k}": v for k, v in nm.items()})
+                print("  notes: " + "  ".join(f"{k} {v:.4f}" for k, v in nm.items()))
+                for k, img in nm_images.items():      # TP/TN/FP/FN grids
+                    save_img_grid(img[:n_demo], epoch, tag=f"metric_{k}",
+                                  output_dir=output_dir, ncols=n_demo)
+            val_history.append({"epoch": epoch, **vmeans})
 
         if epoch % 10 == 0:
             analyze_codebooks(tracker, epoch)

@@ -25,6 +25,10 @@ schedule's ``1/1/count`` (``adam_to_jax_flat`` / ``load_adam_jax_flat``). A
 trained codec is
 saved as the JAX trainer saves ``state.params`` (``to_jax_flat(codec,
 VQVAE_PREFIXES)``, prefix ``vqgan_``; the SD VAE with ``SDVAE_PREFIXES``);
+an inpainting flow run saves its mask encoder beside the U-Net
+(``MASK_ENCODER_PREFIXES``, under ``mask_encoder/params``) and, for the
+two optimizer groups of optax's ``multi_transform``, each group's Adam
+state under ``inner_states/{model,mask}/inner_state/`` (``OPT_GROUPS``);
 a discriminator's flat tree is its flax variables, ``params/…`` and
 ``batch_stats/…`` (``DISC_PREFIXES``), and
 the VGG16 features' its ``params/…`` (``VGG_PREFIXES``).
@@ -44,7 +48,8 @@ from ..config import config_from_dict, to_dict
 
 __all__ = ["save_checkpoint", "load_checkpoint", "to_jax_flat",
            "load_jax_flat", "adam_to_jax_flat", "load_adam_jax_flat", "UNET_PREFIXES",
-           "VQVAE_PREFIXES", "SDVAE_PREFIXES", "DISC_PREFIXES", "VGG_PREFIXES"]
+           "VQVAE_PREFIXES", "SDVAE_PREFIXES", "DISC_PREFIXES", "VGG_PREFIXES",
+           "MASK_ENCODER_PREFIXES", "OPT_GROUPS", "subtree"]
 
 _SEP = "/"
 
@@ -56,6 +61,11 @@ UNET_PREFIXES = {"": "model/params"}
 VQVAE_PREFIXES = {"encoder": "encoder/params", "decoder": "decoder/params",
                   "vq": "vq"}
 SDVAE_PREFIXES = {"encoder": "encoder/params", "decoder": "decoder/params"}
+MASK_ENCODER_PREFIXES = {"": "mask_encoder/params"}
+# optax multi_transform's per-group states of the JAX flow optimizer with a
+# mask encoder (training/flow.py:make_flow_optimizer)
+OPT_GROUPS = {"model": "inner_states/model/inner_state/",
+              "mask": "inner_states/mask/inner_state/"}
 DISC_PREFIXES = {"": "params"}
 VGG_PREFIXES = {"": "params"}
 
@@ -141,6 +151,13 @@ def load_jax_flat(module: nn.Module, flat: dict, prefixes: dict) -> nn.Module:
         new[tkey] = torch.tensor(a, dtype=sd[tkey].dtype)
     module.load_state_dict(new, strict=True)
     return module
+
+
+def subtree(flat: dict, prefix: str, strip: bool = False) -> dict:
+    """The entries of a flat tree whose keys start with ``prefix``, with the
+    prefix removed when ``strip``."""
+    return {(k[len(prefix):] if strip else k): v for k, v in flat.items()
+            if k.startswith(prefix)}
 
 
 def adam_to_jax_flat(module: nn.Module, adam: torch.optim.Adam, step: int,

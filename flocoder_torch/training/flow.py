@@ -24,15 +24,26 @@
   auxiliary loss (HDiT's MoE load balance): it is added to the objective
   and reported as ``loss_model_aux``, in the curvature branch too.
 - The optimizer is ``ClippedAdam`` (optax's clip-by-global-norm then
-  Adam), its learning rate set from the schedule before each step. The
-  inpainting mask encoder, its optimizer group and the OTF augmentation
-  are not ported yet (ROADMAP.md) and raise.
+  Adam), its learning rate set from the schedule before each step.
+- Inpainting: with a ``MaskEncoder`` in the state and ``mask_pixels`` in
+  the batch, the mask encoder turns the pixel masks into the latent mask,
+  the source is ``source + mask·(noise − source)`` (the flow noise), the
+  mask conditions the U-Net, and the identity loss pulls the encoder's
+  all-ones and all-zeros outputs to 1 and 0. The mask encoder has its own
+  optimizer group, as optax's ``multi_transform`` of the JAX package: clip
+  at 0.5, then Adam at 0.1× the schedule. ``otf_aug`` adds the curriculum:
+  (p_ones, p_zeros) from the step counter, computed on the host in float32
+  as the JAX step computes them on the device, and an exact count of items
+  chosen by rank threshold over a random permutation (``draws['otf_perm']``,
+  injectable like the other draws); ones become unconditional (mask 1,
+  source ``blank_latents``), zeros identity (mask 0, source the target).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -42,8 +53,8 @@ from .ema import ema_init, ema_update
 from .vqgan import ClippedAdam
 
 __all__ = ["FlowState", "create_flow_state", "make_flow_optimizer",
-           "make_flow_grads_fn", "make_flow_train_step", "make_flow_eval_step",
-           "meanflow_target", "draw_flow_inputs"]
+           "make_mask_optimizer", "make_flow_grads_fn", "make_flow_train_step",
+           "make_flow_eval_step", "meanflow_target", "draw_flow_inputs", "otf_counts"]
 
 
 def _not_ported(what: str):
@@ -63,27 +74,67 @@ def meanflow_target(model: Callable, x_r, r, t_h, v_star, cond: Optional[dict],
     return u, v_star + (t_h - r)[:, None, None, None] * du_dr
 
 
-def make_flow_optimizer(model: nn.Module, learning_rate, mask_encoder: bool = False,
+def make_flow_optimizer(model: nn.Module, learning_rate,
                         grad_clip: float = 1.0) -> ClippedAdam:
     """Clip by global norm at ``grad_clip``, then Adam at ``learning_rate``
     (a float or a ``schedule(step)``)."""
-    if mask_encoder:
-        _not_ported("the inpainting mask-encoder optimizer group")
     return ClippedAdam(model.parameters(), learning_rate, grad_clip)
+
+
+def make_mask_optimizer(mask_encoder: nn.Module, learning_rate,
+                        grad_clip: float = 0.5, lr_scale: float = 0.1) -> ClippedAdam:
+    """The mask encoder's group: clip by its own global norm at
+    ``grad_clip``, then Adam at ``lr_scale`` times the learning rate."""
+    lr = ((lambda count: learning_rate(count) * lr_scale) if callable(learning_rate)
+          else learning_rate * lr_scale)
+    return ClippedAdam(mask_encoder.parameters(), lr, grad_clip)
 
 
 @dataclass
 class FlowState:
+    """The velocity field, its optimizer and EMA, the step counter and,
+    for inpainting, the mask encoder with its optimizer group and EMA."""
     model: nn.Module
     opt: ClippedAdam
     ema: nn.Module
     step: int = 0
+    mask_encoder: Optional[nn.Module] = None
+    mask_opt: Optional[ClippedAdam] = None
+    ema_mask_encoder: Optional[nn.Module] = None
 
 
-def create_flow_state(model: nn.Module, learning_rate, grad_clip: float = 1.0) -> FlowState:
-    return FlowState(model=model, opt=make_flow_optimizer(model, learning_rate,
-                                                          grad_clip=grad_clip),
-                     ema=ema_init(model))
+def create_flow_state(model: nn.Module, learning_rate, grad_clip: float = 1.0,
+                      mask_encoder: Optional[nn.Module] = None) -> FlowState:
+    state = FlowState(model=model, opt=make_flow_optimizer(model, learning_rate,
+                                                           grad_clip=grad_clip),
+                      ema=ema_init(model))
+    if mask_encoder is not None:
+        state.mask_encoder = mask_encoder
+        state.mask_opt = make_mask_optimizer(mask_encoder, learning_rate)
+        state.ema_mask_encoder = ema_init(mask_encoder)
+    return state
+
+
+def otf_counts(otf_aug: dict, step: int, batch: int) -> tuple:
+    """The OTF curriculum's exact counts ``(n_ones, n_zeros)`` at optimizer
+    step ``step``: epoch = step // steps_per_epoch + 1; up to
+    ``curriculum_epochs`` p_ones falls from 1 and p_zeros is 0, up to
+    ``extend_epochs`` they ramp to 0.3 and 0.02, then they hold ``p_ones``
+    and ``p_zeros``; each count is floor(p·batch). float32 throughout, as
+    the JAX step computes it on the device."""
+    f = np.float32
+    ce, ee = f(otf_aug.get("curriculum_epochs", 0)), f(otf_aug.get("extend_epochs", 0))
+    p1f, p0f = f(otf_aug.get("p_ones", 0.0)), f(otf_aug.get("p_zeros", 0.0))
+    spe = max(int(otf_aug.get("steps_per_epoch", 1)), 1)
+    ep = f(step // spe + 1)
+    prog = np.clip((ep - ce) / max(ee - ce, f(1.0)), f(0.0), f(1.0))
+    if ep <= ce:
+        p_ones, p_zeros = (ce - (ep - f(1.0))) / max(ce, f(1.0)), f(0.0)
+    elif ep <= ee:
+        p_ones, p_zeros = f(0.1) + f(0.2) * prog, f(0.02) * prog
+    else:
+        p_ones, p_zeros = p1f, p0f
+    return int(np.floor(f(p_ones) * f(batch))), int(np.floor(f(p_zeros) * f(batch)))
 
 
 def _interp(source, target, t):
@@ -92,8 +143,9 @@ def _interp(source, target, t):
 
 
 def draw_flow_inputs(generator: torch.Generator, shape, meanflow: bool = False,
-                     dtype=torch.float32) -> dict:
-    """One (micro)batch's random inputs, drawn on ``generator``'s device."""
+                     dtype=torch.float32, otf: bool = False) -> dict:
+    """One (micro)batch's random inputs, drawn on ``generator``'s device;
+    with ``otf`` also the OTF selection's permutation ``otf_perm``."""
     kw = dict(generator=generator, dtype=dtype, device=generator.device)
     draws = {"noise": torch.randn(tuple(shape), **kw),
              "t_uniform": torch.rand(shape[0], **kw),
@@ -101,6 +153,9 @@ def draw_flow_inputs(generator: torch.Generator, shape, meanflow: bool = False,
     if meanflow:
         draws["r_uniform"] = torch.rand(shape[0], **kw)
         draws["sel_uniform"] = torch.rand(shape[0], **kw)
+    if otf:
+        draws["otf_perm"] = torch.randperm(shape[0], generator=generator,
+                                           device=generator.device)
     return draws
 
 
@@ -109,24 +164,26 @@ def make_flow_grads_fn(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 
                        ot_method: str = "parallel", ot_block: Optional[int] = None,
                        paired_source: bool = False, curvature_weight: float = 0.0,
                        meanflow: bool = False, meanflow_ratio: float = 0.25,
-                       meanflow_adaptive_p: float = 0.5, mask_encoder=None,
-                       otf_aug=None, model_apply: Optional[Callable] = None) -> Callable:
+                       meanflow_adaptive_p: float = 0.5, mask_identity_weight: float = 1.0,
+                       blank_latents: Optional[torch.Tensor] = None,
+                       otf_aug: Optional[dict] = None,
+                       model_apply: Optional[Callable] = None) -> Callable:
     """The per-(micro)batch loss core:
     ``grads_fn(model, batch, drop, draws=None, generator=None,
-    loss_scale=1.0) -> aux``. It backpropagates ``loss·loss_scale`` into
-    the model's ``.grad`` and returns the detached losses. ``batch``:
-    ``{'target': (B,H,W,C), 'class_cond': (B,) or absent, 'source'
-    (paired_source only)}``, or ``'pixels'`` with ``encode_fn``."""
-    if mask_encoder is not None or otf_aug is not None:
-        _not_ported("inpainting flow training (the mask encoder, OTF augmentation)")
+    loss_scale=1.0, mask_encoder=None, step=0) -> aux``. It backpropagates
+    ``loss·loss_scale`` into the model's (and the mask encoder's) ``.grad``
+    and returns the detached losses. ``batch``: ``{'target': (B,H,W,C),
+    'class_cond': (B,) or absent, 'source' (paired_source, inpainting),
+    'mask_pixels' (inpainting, with ``mask_encoder``)}``, or ``'pixels'``
+    with ``encode_fn``. ``step`` is the optimizer step the OTF curriculum
+    reads."""
     if model_apply is None:
         model_apply = lambda m, x, t, c: m(x, t, c)  # noqa: E731
 
     def grads_fn(model: nn.Module, batch: dict, drop, draws: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None,
-                 loss_scale: float = 1.0) -> dict:
-        if "mask_pixels" in batch:
-            _not_ported("inpainting flow training")
+                 loss_scale: float = 1.0, mask_encoder: Optional[nn.Module] = None,
+                 step: int = 0) -> dict:
         if encode_fn is not None and "pixels" in batch:
             with torch.no_grad():
                 target = encode_fn(batch["pixels"])
@@ -134,11 +191,31 @@ def make_flow_grads_fn(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 
             target = batch["target"]
         class_cond = batch.get("class_cond")
         B = target.shape[0]
+        inpainting = mask_encoder is not None and "mask_pixels" in batch
         if draws is None:
-            draws = draw_flow_inputs(generator, target.shape, meanflow, target.dtype)
+            draws = draw_flow_inputs(generator, target.shape, meanflow, target.dtype,
+                                     otf=inpainting and otf_aug is not None)
         t = warp_time(draws["t_uniform"] * (1 - eps) + eps, s=warp_s)
 
-        if paired_source:
+        mask = None
+        if inpainting:
+            mask_pixels = batch["mask_pixels"].to(target.dtype)
+            src = batch["source"]
+            if otf_aug is not None:
+                n1, n0 = otf_counts(otf_aug, step, B)
+                rank = draws["otf_perm"]
+                sel1 = (rank < n1)[:, None, None, None]
+                sel0 = ((rank >= n1) & (rank < n1 + n0))[:, None, None, None]
+                mask_pixels = torch.where(sel1, 1.0, mask_pixels)
+                mask_pixels = torch.where(sel0, 0.0, mask_pixels)
+                if blank_latents is not None:
+                    src = torch.where(sel1, blank_latents.to(src.dtype), src)
+                src = torch.where(sel0, target, src)
+            mask = mask_encoder(mask_pixels)
+            source = src + mask * (draws["noise"] - src)
+            source = torch.where(drop, draws["cfg_noise"], source)
+            mask = torch.where(drop, torch.ones_like(mask), mask)
+        elif paired_source:
             source = batch["source"].to(target.dtype)
         else:
             source = torch.where(drop, draws["cfg_noise"], draws["noise"])
@@ -157,7 +234,7 @@ def make_flow_grads_fn(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 
             if class_cond is not None:
                 class_cond = class_cond[idx]
         v_star = target - source
-        cond = {"class_cond": class_cond, "mask_cond": None}
+        cond = {"class_cond": class_cond, "mask_cond": mask}
 
         if meanflow:
             r = t * draws["r_uniform"]
@@ -195,6 +272,12 @@ def make_flow_grads_fn(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 
             curv = (dv_dt ** 2).mean()
             loss = loss + curvature_weight * curv
             aux["loss_curvature"] = curv.detach()
+        if inpainting and mask_identity_weight:
+            ones_in = torch.ones_like(batch["mask_pixels"], dtype=target.dtype)
+            mask_loss = (((mask_encoder(ones_in) - 1.0) ** 2).mean()
+                         + (mask_encoder(torch.zeros_like(ones_in)) ** 2).mean())
+            loss = loss + mask_identity_weight * mask_loss
+            aux["loss_mask"] = mask_loss.detach()
         aux["loss"] = loss.detach()
         (loss * loss_scale).backward()
         return aux
@@ -214,14 +297,18 @@ def make_flow_train_step(cfg_dropout: float = 0.1, eps: float = 1e-3,
                          paired_source: bool = False, curvature_weight: float = 0.0,
                          meanflow: bool = False, meanflow_ratio: float = 0.25,
                          meanflow_adaptive_p: float = 0.5, grad_accum: int = 1,
-                         mask_encoder=None, otf_aug=None, mesh=None,
+                         mask_identity_weight: float = 1.0,
+                         blank_latents: Optional[torch.Tensor] = None,
+                         otf_aug: Optional[dict] = None, mesh=None,
                          model_apply: Optional[Callable] = None):
     """``step(state, batch, generator, draws=None, drop=None) -> (state,
     aux)``, updating ``state`` in place: the gradients (over ``grad_accum``
-    microbatches), the clipped Adam update, the EMA. ``draws`` is a list of
-    one dict per microbatch; ``drop`` overrides the gate. ``aux`` holds
-    device scalars: the losses (the microbatches' mean), ``grad_norm``
-    before clipping and, with the parallel OT method, ``ot_rounds``."""
+    microbatches), the clipped Adam updates of the model's group and, when
+    the state holds a mask encoder, of its group, and the EMAs. ``draws`` is
+    a list of one dict per microbatch; ``drop`` overrides the gate. ``aux``
+    holds device scalars: the losses (the microbatches' mean),
+    ``grad_norm`` (the global norm over both groups before clipping) and,
+    with the parallel OT method, ``ot_rounds``."""
     if mesh is not None:
         _not_ported("data-parallel and sharded flow training")
     if meanflow and curvature_weight:
@@ -234,14 +321,20 @@ def make_flow_train_step(cfg_dropout: float = 0.1, eps: float = 1e-3,
         ot_method=ot_method, ot_block=ot_block, paired_source=paired_source,
         curvature_weight=curvature_weight, meanflow=meanflow,
         meanflow_ratio=meanflow_ratio, meanflow_adaptive_p=meanflow_adaptive_p,
-        mask_encoder=mask_encoder, otf_aug=otf_aug, model_apply=model_apply)
+        mask_identity_weight=mask_identity_weight, blank_latents=blank_latents,
+        otf_aug=otf_aug, model_apply=model_apply)
 
     def step(state: FlowState, batch: dict, generator: torch.Generator,
              draws=None, drop=None):
+        if meanflow and state.mask_encoder is not None:
+            raise ValueError("meanflow mode does not combine with curvature_weight "
+                             "or the inpainting mask path")
         if drop is None:
             drop = torch.rand((), generator=generator,
                               device=generator.device) < cfg_dropout
         state.opt.zero_grad()
+        if state.mask_opt is not None:
+            state.mask_opt.zero_grad()
         lead = next(iter(batch.values())).shape[0]
         if lead % grad_accum:
             raise ValueError(f"batch size {lead} is not divisible by "
@@ -249,10 +342,15 @@ def make_flow_train_step(cfg_dropout: float = 0.1, eps: float = 1e-3,
         n = lead // grad_accum
         auxs = [grads_fn(state.model, _slice(batch, i, n) if grad_accum > 1 else batch,
                          drop, draws[i] if draws is not None else None, generator,
-                         1.0 / grad_accum)
+                         1.0 / grad_accum, mask_encoder=state.mask_encoder,
+                         step=state.step)
                 for i in range(grad_accum)]
         aux = {k: sum(a[k] for a in auxs) / grad_accum for k in auxs[0]}
-        aux["grad_norm"] = state.opt.step(state.step)
+        norm = state.opt.step(state.step)
+        if state.mask_opt is not None:
+            norm = torch.sqrt(norm ** 2 + state.mask_opt.step(state.step) ** 2)
+            ema_update(state.ema_mask_encoder, state.mask_encoder, ema_decay)
+        aux["grad_norm"] = norm
         ema_update(state.ema, state.model, ema_decay)
         state.step += 1
         return state, aux
@@ -262,16 +360,17 @@ def make_flow_train_step(cfg_dropout: float = 0.1, eps: float = 1e-3,
 
 def make_flow_eval_step(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 999.0,
                         use_ot: bool = True, ot_method: str = "parallel",
-                        paired_source: bool = False, mask_encoder=None):
+                        paired_source: bool = False):
     """Validation loss on a batch, same path, no update:
-    ``eval_fn(model, batch, generator, draws=None) -> loss`` (a device
-    scalar); ``draws`` holds ``'noise'`` and ``'t_uniform'``."""
-    if mask_encoder is not None:
-        _not_ported("inpainting flow evaluation")
+    ``eval_fn(model, batch, generator, draws=None, mask_encoder=None) ->
+    loss`` (a device scalar); ``draws`` holds ``'noise'`` and
+    ``'t_uniform'``. With ``mask_encoder`` and ``mask_pixels`` in the batch,
+    the source is the mask blend of the batch's source and the noise, and
+    the mask conditions the model."""
 
     @torch.no_grad()
     def eval_fn(model: nn.Module, batch: dict, generator: Optional[torch.Generator] = None,
-                draws: Optional[dict] = None):
+                draws: Optional[dict] = None, mask_encoder: Optional[nn.Module] = None):
         target = batch["target"]
         class_cond = batch.get("class_cond")
         B = target.shape[0]
@@ -279,8 +378,15 @@ def make_flow_eval_step(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float =
             kw = dict(generator=generator, dtype=target.dtype, device=generator.device)
             draws = {"noise": torch.randn(tuple(target.shape), **kw),
                      "t_uniform": torch.rand(B, **kw)}
-        source = (batch["source"].to(target.dtype) if paired_source
-                  else draws["noise"])
+        mask = None
+        if mask_encoder is not None and "mask_pixels" in batch:
+            mask = mask_encoder(batch["mask_pixels"].to(target.dtype))
+            src = batch["source"]
+            source = src + mask * (draws["noise"] - src)
+        elif paired_source:
+            source = batch["source"].to(target.dtype)
+        else:
+            source = draws["noise"]
         if use_ot and not paired_source:
             idx = compute_ot_pairing(source, target, method=ot_method)
             target = target[idx]
@@ -288,7 +394,7 @@ def make_flow_eval_step(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float =
                 class_cond = class_cond[idx]
         t = warp_time(draws["t_uniform"] * (1 - eps) + eps, s=warp_s)
         v = model(_interp(source, target, t), t * t_scale,
-                  {"class_cond": class_cond, "mask_cond": None})
+                  {"class_cond": class_cond, "mask_cond": mask})
         return ((v - (target - source)) ** 2).mean()
 
     return eval_fn

@@ -164,7 +164,7 @@ def _field(xp):
 def test_evaluate_model_on_the_resize_codec_matches_jax(tmp_path):
     """RK4 + CFG on an analytic field from the same source noise, decoded by
     the resize codec (8×8×3 latents → 32² images): every metric key, and
-    the same grids written."""
+    the same grids written; then the same with inpainting masks."""
     rng = np.random.default_rng(8)
     target = rng.normal(size=(12, 8, 8, 3)).astype(np.float32)
     source = rng.normal(size=(10, 8, 8, 3)).astype(np.float32)
@@ -188,6 +188,23 @@ def test_evaluate_model_on_the_resize_codec_matches_jax(tmp_path):
     assert marks == ["sampler", "decode", "metrics", "grids"]
     assert sorted(os.listdir(tmp_path / "torch")) == sorted(os.listdir(tmp_path / "jax"))
     assert "ema_decoded_pred_rk4_16_epoch3.png" in os.listdir(tmp_path / "torch")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teval.evaluate_model(_field(torch), None, 0, torch.from_numpy(target),
-                             torch.Generator(), mask_pixels=torch.zeros(1))
+    # an inpainting evaluation: latent masks ride in cond (doubled under CFG)
+    # and the pixel masks come along; both packages write their grids
+    mask = rng.random((12, 8, 8, 3)).astype(np.float32)
+    mpx = (rng.random((12, 32, 32, 1)) > 0.5).astype(np.float32)
+    ref = jeval.evaluate_model(
+        _field(jnp), jcodec, {}, target_latents=jnp.asarray(target),
+        rng=jax.random.PRNGKey(0),
+        cond={"class_cond": jnp.asarray(cc), "mask_cond": jnp.asarray(mask)},
+        source=jnp.asarray(source), mask_pixels=jnp.asarray(mpx), use_wandb=False,
+        output_dir=str(tmp_path / "jax_inp"), feature_fn=jf, **kw)
+    ours = teval.evaluate_model(
+        _field(torch), tcodecs.SimpleResizeAE(latent_shape=(8, 8, 3), image_size=32),
+        target_latents=torch.from_numpy(target), generator=torch.Generator(),
+        cond={"class_cond": torch.from_numpy(cc).long(), "mask_cond": torch.from_numpy(mask)},
+        source=torch.from_numpy(source), mask_pixels=torch.from_numpy(mpx),
+        output_dir=str(tmp_path / "torch_inp"), feature_fn=tf, **kw)
+    _assert_metrics(ours, ref)
+    files = sorted(os.listdir(tmp_path / "torch_inp"))
+    assert files == sorted(os.listdir(tmp_path / "jax_inp"))
+    assert {"ema_mask_latents_rk4_16_epoch3.png", "ema_mask_pixels_rk4_16_epoch3.png"} <= set(files)

@@ -179,13 +179,16 @@ def test_batch_size_schedule_matches_jax_exactly(kw):
 
 
 def test_not_ported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tflow.make_flow_train_step(mask_encoder=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tflow.make_flow_train_step(otf_aug={"p_ones": 0.1})
+    """Meshes wait for ROADMAP.md; MeanFlow refuses curvature and, as in the
+    JAX package, the inpainting mask path (the mask encoder and OTF
+    augmentation themselves are ported: tests/test_torch_flow_inpaint_step.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tflow.make_flow_train_step(mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tflow.make_flow_optimizer(torch.nn.Linear(1, 1), 1e-3, mask_encoder=True)
     with pytest.raises(ValueError):
         tflow.make_flow_train_step(meanflow=True, curvature_weight=0.1)
+    lin = torch.nn.Linear(1, 1)
+    state = tflow.create_flow_state(lin, 1e-3, mask_encoder=torch.nn.Linear(1, 1))
+    assert state.mask_opt is not None and state.ema_mask_encoder is not None
+    with pytest.raises(ValueError, match="inpainting"):
+        tflow.make_flow_train_step(meanflow=True)(state, {"target": torch.zeros(1)},
+                                                  torch.Generator())

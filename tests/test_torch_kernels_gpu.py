@@ -109,6 +109,54 @@ def test_kernels_at_hdit_shapes_on_card(shape):
             assert (a.float() - r).abs().max().item() < tol, (shape, dtype, name)
 
 
+# Head dim 256: midi_inpainting's codec has two encoder NATTEN blocks at
+# 8x8x2048 with 8 heads (B=8 here; the training batch of 64 and the
+# pre-encode batch of 32 run in chip_smoke.py), a ragged map with 2 heads
+# of 256, and in bf16 a 16x16 map (in fp32 K2's second pass does not fit
+# maps whose border key tiles see 11x11 queries at this width).
+DH256_SHAPES = [((8, 8, 8, 2048, 7, 8), (torch.float32, torch.bfloat16)),
+                ((2, 9, 6, 512, 5, 2), (torch.float32, torch.bfloat16)),
+                ((2, 16, 16, 512, 7, 2), (torch.bfloat16,))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtypes", DH256_SHAPES, ids=["8x8x2048", "9x6x512", "16x16x512"])
+def test_kernels_at_head_dim_256_on_card(shape, dtypes):
+    """K1 and K2 at dh 256 against their plain twins with the tolerances of
+    the tests above, and na2d's gradients on the card (K1, K2 through
+    ``NA2DFunction``) against autograd of the plain version in fp32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, H, W, C, ks, heads = shape
+    g = torch.Generator("cuda").manual_seed(11)
+    tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 3e-2)}
+    for dtype in dtypes:
+        tol1, rel2 = tols[dtype]
+        q, k, v, gr = (torch.randn(B, H, W, C, device="cuda", generator=g).to(dtype)
+                       for _ in range(4))
+        o = na2d_fwd(q, k, v, kernel_size=ks, heads=heads)
+        grads = na2d_bwd(q, k, v, o, gr, kernel_size=ks, heads=heads)
+        torch.cuda.synchronize()
+        f32 = [t.float() for t in (q, k, v, o, gr)]
+        ref = na2d_banded(*f32[:3], kernel_size=ks, heads=heads)
+        assert (o.float() - ref).abs().max().item() < tol1, (shape, dtype)
+        refs = na2d_bwd_banded(*f32, kernel_size=ks, heads=heads)
+        for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+            tol = rel2 * max(1.0, r.abs().max().item())
+            assert (a.float() - r).abs().max().item() < tol, (shape, dtype, name)
+    if torch.float32 in dtypes:
+        q, k, v, gr = (torch.randn(B, H, W, C, device="cuda", generator=g)
+                       for _ in range(4))
+        got = []
+        for fn in (na2d, na2d_banded):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            got.append(torch.autograd.grad(fn(*leaves, kernel_size=ks, heads=heads),
+                                           leaves, gr))
+        for a, ref in zip(*got):
+            assert (a - ref).abs().max().item() < 1e-4 * max(1.0, ref.abs().max().item())
+
+
 @pytest.mark.gpu
 def test_backward_kernel_is_deterministic_on_card():
     """K2 writes every output once, with no atomics: two calls on the same

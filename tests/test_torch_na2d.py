@@ -33,6 +33,13 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
+
+def _col_slices(dh: int) -> list:
+    """The column slices (start, width) in which K1 forms its output and K2
+    its dq, dk and dv: one up to dh 128, two of ``kna.COL_SLICE`` at dh 256."""
+    return [(c, min(kna.COL_SLICE, dh - c)) for c in range(0, dh, kna.COL_SLICE)]
+
+
 ATOL = 1e-5
 
 # (B, H, W, C, kernel_size, heads)
@@ -209,6 +216,73 @@ def test_3xtf32_split_holds_na2d_to_fp32_accuracy(dh):
         errs[split] = np.abs(o - ref).max()
     assert errs[True] < 1e-5, errs
     assert errs[False] > 1e-4, errs
+
+
+@pytest.mark.parametrize("H,W,dh,ks", [(8, 8, 256, 7), (8, 8, 256, 3), (5, 8, 256, 5)])
+def test_query_plan_at_head_dim_256_fits_and_covers_every_window(H, W, dh, ks):
+    """K1's plan at dh 256 (midi_inpainting's 8×8 encoder blocks and two
+    smaller maps) fits the block limits in both dtypes and its halos hold
+    every patch's key union."""
+    test_pick_tile_fits_and_covers_every_window(H, W, dh, ks)
+
+
+def _emulate_k1(q, k, v, ks, heads):
+    """K1 as the kernel runs it, in float64 numpy: per 4×4 query patch, the
+    scores over the union of the patch's windows, masked to each query's
+    window, the exact softmax, then P·V in the column slices of
+    ``_col_slices(dh)`` from the same P."""
+    B, H, W, C = q.shape
+    dh = C // heads
+    ks = min(ks, H, W)
+    sh = lambda x: x.reshape(B, H, W, heads, dh).astype(np.float64)  # noqa: E731
+    q, k, v = map(sh, (q, k, v))
+    rs = np.array([kna.window_start(i, H, ks) for i in range(H)])
+    cs_ = np.array([kna.window_start(i, W, ks) for i in range(W)])
+    out = np.zeros_like(q)
+    for r0 in range(0, H, 4):
+        for c0 in range(0, W, 4):
+            qr, qc = (a.ravel() for a in np.meshgrid(np.arange(r0, min(r0 + 4, H)),
+                                                     np.arange(c0, min(c0 + 4, W)),
+                                                     indexing="ij"))
+            kr, kc = (a.ravel() for a in np.meshgrid(np.arange(rs[r0], rs[qr.max()] + ks),
+                                                     np.arange(cs_[c0], cs_[qc.max()] + ks),
+                                                     indexing="ij"))
+            assert len(kr) <= kna.key_table(ks, False)
+            mask = (((kr[None] >= rs[qr][:, None]) & (kr[None] < rs[qr][:, None] + ks))
+                    & ((kc[None] >= cs_[qc][:, None]) & (kc[None] < cs_[qc][:, None] + ks)))
+            s = np.einsum("bqhd,bkhd->bqhk", q[:, qr, qc], k[:, kr, kc]) * dh ** -0.5
+            s = np.where(mask[None, :, None, :], s, -np.inf)
+            p = np.exp(s - s.max(-1, keepdims=True))
+            p /= p.sum(-1, keepdims=True)
+            for c, w in _col_slices(dh):
+                out[:, qr, qc, :, c:c + w] = np.einsum("bqhk,bkhd->bqhd", p,
+                                                       v[:, kr, kc, :, c:c + w])
+    return out.reshape(B, H, W, C)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 8, 512, 7, 2), (2, 8, 8, 256, 7, 1),
+                                   (1, 9, 6, 256, 5, 1)])
+def test_k1_algorithm_at_head_dim_256_matches_jax_reference(shape):
+    """K1's patch algorithm at dh 256 (two 128-column slices of the output
+    from one P) against the JAX package's ``na2d_reference``."""
+    ks, heads = shape[4:]
+    q, k, v = _qkv(shape, 5)
+    assert len(_col_slices(shape[3] // heads)) == 2
+    ref = np.asarray(jax_reference(*map(jnp.asarray, (q, k, v)), kernel_size=ks,
+                                   heads=heads))
+    np.testing.assert_allclose(_emulate_k1(q, k, v, ks, heads), ref, atol=ATOL)
+
+
+def test_kernel_wrapper_takes_head_dim_256_and_refuses_wider(tmp_path, monkeypatch):
+    """dh 256 passes the wrapper's checks (it then needs nvcc, absent here);
+    dh 264 is refused before any build."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    kernel = kna.NA2DForward(build_dir=str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernel(*(_CudaStub((1, 8, 8, 2048)),) * 3, kernel_size=7, heads=8)
+    with pytest.raises(ValueError, match="at most 256"):
+        kernel(*(_CudaStub((1, 8, 8, 528)),) * 3, kernel_size=7, heads=2)
+    assert kernel.launches == 0
 
 
 class _CudaStub:

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from flocoder_tpu.ops.neighborhood_attention import na2d_banded as jax_banded
+from flocoder_tpu.ops.neighborhood_attention import na2d_reference as jax_reference
 from flocoder_tpu.ops.pallas.na2d import na2d_pallas
 from flocoder_torch.ops import neighborhood_attention as tna
 from flocoder_torch.ops.kernels import na2d as kna
@@ -39,6 +40,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+
+def _col_slices(dh: int) -> list:
+    """The column slices (start, width) in which K1 forms its output and K2
+    its dq, dk and dv: one up to dh 128, two of ``kna.COL_SLICE`` at dh 256."""
+    return [(c, min(kna.COL_SLICE, dh - c)) for c in range(0, dh, kna.COL_SLICE)]
 
 
 ATOL = 1e-5
@@ -185,7 +193,9 @@ def _emulate_k2(q, k, v, o, g, ks, heads):
             p = np.exp(s - m) / l
             dp = np.einsum("bqhd,bkhd->bqhk", g[:, qr, qc], V)
             ds = p * (dp - delta[:, qr, qc][..., None])
-            dq[:, qr, qc] = scale * np.einsum("bqhk,bkhd->bqhd", ds, K)
+            for c1, dw in _col_slices(dh):
+                dq[:, qr, qc, :, c1:c1 + dw] = scale * np.einsum("bqhk,bkhd->bqhd", ds,
+                                                                 K[..., c1:c1 + dw])
 
     chunk = kna.query_chunk(dh)
     for r0 in range(0, H, 4):
@@ -196,16 +206,21 @@ def _emulate_k2(q, k, v, o, g, ks, heads):
             qr, qc = np.meshgrid(np.arange(lo_r, hi_r + 1), np.arange(lo_c, hi_c + 1),
                                  indexing="ij")
             qr, qc = qr.ravel(), qc.ravel()
-            for c in range(0, len(qr), chunk):
-                cr, cc = qr[c:c + chunk], qc[c:c + chunk]
-                mask = in_window(cr, cc, kr, kc).T[None, :, None, :]     # (1, keys, 1, queries)
-                Q, G = q[:, cr, cc], g[:, cr, cc]
-                st = np.einsum("bkhd,bqhd->bkhq", k[:, kr, kc], Q) * scale
-                pt = np.where(mask, np.exp(st - lse[:, cr, cc].transpose(0, 2, 1)[:, None]), 0.0)
-                dpt = np.einsum("bkhd,bqhd->bkhq", v[:, kr, kc], G)
-                dst = pt * (dpt - delta[:, cr, cc].transpose(0, 2, 1)[:, None])
-                dk[:, kr, kc] += scale * np.einsum("bkhq,bqhd->bkhd", dst, Q)
-                dv[:, kr, kc] += np.einsum("bkhq,bqhd->bkhd", pt, G)
+            # one walk of the query union per column slice of dk and dv
+            for c1, dw in _col_slices(dh):
+                cols = slice(c1, c1 + dw)
+                for c in range(0, len(qr), chunk):
+                    cr, cc = qr[c:c + chunk], qc[c:c + chunk]
+                    mask = in_window(cr, cc, kr, kc).T[None, :, None, :]  # (1, keys, 1, queries)
+                    Q, G = q[:, cr, cc], g[:, cr, cc]
+                    st = np.einsum("bkhd,bqhd->bkhq", k[:, kr, kc], Q) * scale
+                    pt = np.where(mask, np.exp(st - lse[:, cr, cc].transpose(0, 2, 1)[:, None]),
+                                  0.0)
+                    dpt = np.einsum("bkhd,bqhd->bkhq", v[:, kr, kc], G)
+                    dst = pt * (dpt - delta[:, cr, cc].transpose(0, 2, 1)[:, None])
+                    dk[:, kr, kc, :, cols] += scale * np.einsum("bkhq,bqhd->bkhd", dst,
+                                                                Q[..., cols])
+                    dv[:, kr, kc, :, cols] += np.einsum("bkhq,bqhd->bkhd", pt, G[..., cols])
     return [x.reshape(B, H, W, C) for x in (dq, dk, dv)]
 
 
@@ -221,6 +236,54 @@ def test_k2_algorithm_matches_jax_grad(shape):
                      q, k, v, g, ks, heads)
     for name, ours, r in zip("qkv", _emulate_k2(q, k, v, o, g, ks, heads), ref):
         np.testing.assert_allclose(ours, r, atol=ATOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 8, 256, 7, 1), (1, 9, 6, 512, 5, 2)])
+def test_k2_algorithm_at_head_dim_256_matches_jax_reference_grad(shape):
+    """K2's passes at dh 256 (two column slices of dq, dk and dv; the second
+    pass walks each key patch's query union once per slice) against
+    ``jax.grad`` of the JAX package's ``na2d_reference``: the codec's 8×8
+    map with a head of 256, and a ragged map smaller than the window with
+    2 heads."""
+    ks, heads = shape[4:]
+    assert len(_col_slices(shape[3] // heads)) == 2
+    q, k, v, g = _inputs(shape, 3)
+    ref_fn = lambda a, b, c: jax_reference(a, b, c, kernel_size=ks, heads=heads)  # noqa: E731
+    o = np.asarray(ref_fn(*map(jnp.asarray, (q, k, v))))
+    ref = _jax_grads(ref_fn, q, k, v, g, ks, heads)
+    for name, ours, r in zip("qkv", _emulate_k2(q, k, v, o, g, ks, heads), ref):
+        np.testing.assert_allclose(ours, r, atol=ATOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_key_plan_at_head_dim_256_covers_the_codec_map(bf16):
+    """K2's second-pass plan at dh 256 for the 8×8 map of
+    midi_inpainting's widest encoder blocks (and, in bf16, maps up to 40):
+    it fits 227 KB, its span holds every tile's query union and its table
+    every patch's."""
+    maps = [(8, 8)] + ([(H, W) for H in range(1, 41, 3) for W in range(1, 41, 5)]
+                       if bf16 else [])
+    for H, W in maps:
+        for ks in range(1, min(7, H, W) + 1):
+            p = kna.plan_keys(H, W, 256, ks, bf16)
+            assert p.smem <= 227 * 1024 and p.table % p.chunk == 0
+            for n, tile, span in ((H, p.tile_h, p.span_h), (W, p.tile_w, p.span_w)):
+                for r0 in range(0, n, tile):
+                    assert kna.q_hi(min(r0 + tile, n) - 1, n, ks) - kna.q_lo(r0, ks) + 1 <= span
+
+
+@pytest.mark.parametrize("ks", [5, 7])
+def test_key_plan_fp32_head_dim_256_stops_past_ten_a_side(ks):
+    """The limit the fp32 dh-256 bucket puts on K2 (the TPU kernel has none):
+    at a window of 5 or 7 the largest square map that K2's second pass plans
+    is 10×10; at 11×11 the query halo of two fp32 rows of 256 no longer fits
+    one block's shared memory, and plan_keys raises. A window of 3 still
+    plans 40×40. A change to this limit shows here."""
+    p = kna.plan_keys(10, 10, 256, ks, False)
+    assert p.smem <= 227 * 1024
+    with pytest.raises(ValueError, match="does not fit in shared memory"):
+        kna.plan_keys(11, 11, 256, ks, False)
+    kna.plan_keys(40, 40, 256, 3, False)
 
 
 def test_function_with_plain_launchers_gives_autograds_grads(monkeypatch):

@@ -105,16 +105,22 @@ def test_generate_samples_serves_on_cpu(tmp_path, overrides, extra):
     assert (out / "sample_001_000.png").exists()
 
 
-def test_midi_export_raises(tmp_path):
-    """The JAX script also writes .mid files for the MIDI recipes; until the
-    port has that export, a MIDI data path raises instead of writing PNGs
-    only."""
+def test_midi_export_raises(tmp_path, monkeypatch):
+    """A MIDI data path makes ``generate_samples`` export every sample PNG
+    to a ``.mid`` file that parses back; ``midi_to_audio`` raises where the
+    ``timidity`` program is missing, as the JAX one does."""
+    from flocoder_torch.data.midi_io import read_midi
     flow = _write_checkpoints(tmp_path, [])
-    with pytest.raises(NotImplementedError, match="MIDI .mid export.*ROADMAP"):
-        gs.main(["--config-name", "smoke_vqgan", f"+flow_checkpoint={flow}",
-                 "+n_samples=1", "+device=cpu", "data=/data/pop909_midi",
-                 f"+output_dir={tmp_path / 'out'}"])
-    assert not (tmp_path / "out").exists()
+    res = gs.main(["--config-name", "smoke_vqgan", f"+flow_checkpoint={flow}",
+                   "+n_samples=2", "+n_steps=3", "+device=cpu",
+                   "data=/data/pop909_midi", f"+output_dir={tmp_path / 'out'}"])
+    assert len(res["midi_files"]) == 2
+    for path in res["midi_files"]:
+        assert path.endswith(".mid") and os.path.exists(path.replace(".mid", "_rect.png"))
+        read_midi(path)
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    with pytest.raises(RuntimeError, match="timidity"):
+        gs.midi_to_audio(res["midi_files"][0])
 
 
 @pytest.mark.parametrize("what", ["hdit_pp_stages", "moe_ep", "sd_int8", "unet_bf16"])

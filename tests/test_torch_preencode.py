@@ -172,8 +172,8 @@ def test_preencode_refuses_to_overwrite_a_split(encoded):
 
 
 @pytest.mark.parametrize("override", [
-    "preencoding.device_augs=true", "preencoding.format=shard", "+inpainting=true",
-    "data=/nowhere/midi_rolls", "+quant=int8", "codec.bf16=true", "codec.choice=dac",
+    "preencoding.device_augs=true", "preencoding.format=shard",
+    "+quant=int8", "codec.bf16=true", "codec.choice=dac",
 ])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -188,7 +188,8 @@ def test_preencode_without_card_raises(monkeypatch):
 
 def test_preencoded_dataset_reads_plain_latents_as_jax_does(tmp_path):
     """.npy, .npz with one 'latents' array and the reference's CHW .pt
-    tensors, read by both packages; an inpainting dict raises in the port."""
+    tensors, read by both packages; an inpainting triplet is read as the
+    same dict by both."""
     rng = np.random.default_rng(3)
     lat = {c: rng.standard_normal((4, 4, 2)).astype(np.float32) for c in "abc"}
     for c in "abc":
@@ -205,10 +206,15 @@ def test_preencoded_dataset_reads_plain_latents_as_jax_does(tmp_path):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, lat["abc"[i]])
         assert la == lb == i
-    np.savez(tmp_path / "a" / "y.npz", target_latents=lat["a"], source_latents=lat["a"])
-    ours = PreEncodedDataset(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8"):
-        ours.get(ours.files.index(str(tmp_path / "a" / "y.npz")), g)
+    np.savez(tmp_path / "a" / "y.npz", target_latents=lat["a"], source_latents=lat["b"],
+             mask_pixels=np.ones((16, 16, 1), bool))
+    ours, ref = PreEncodedDataset(str(tmp_path)), JaxPreEncodedDataset(str(tmp_path))
+    i = ours.files.index(str(tmp_path / "a" / "y.npz"))
+    (a, la), (b, lb) = ours.get(i, g), ref.get(i, g)
+    assert set(a) == set(b) == {"target_latents", "source_latents", "mask_pixels"}
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k])
+    assert la == lb == 0
 
 
 class _Draws:

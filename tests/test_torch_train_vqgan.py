@@ -99,8 +99,11 @@ def test_loaders_split_and_fall_back_to_synthetic(tmp_path, capsys):
     assert len(train) == 2 and val.batch_size == 2
     train, _ = create_image_loaders(4, 16, str(tmp_path / "absent"), num_workers=1)
     assert "synthetic" in capsys.readouterr().out and len(train) == 57
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_image_loaders(4, 16, str(data), is_midi=True)
+    # is_midi: the piano-roll transforms, which keep [0, 1] (no normalising)
+    train, _ = create_image_loaders(4, 16, str(data), is_midi=True, num_workers=1)
+    batch = next(iter(train))
+    assert batch["target"].shape == (4, 16, 16, 3)
+    assert batch["target"].min() >= 0 and batch["target"].max() <= 1
 
 
 def test_train_vqgan_without_card_raises(tmp_path, monkeypatch):
