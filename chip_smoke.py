@@ -147,8 +147,8 @@
    36 train batches of triplets, two encodes a batch (10 K1), read back.
 20. midi_flow: the inpainting flow on those triplets (1,152 train, 128 val):
    masked U-Net and MaskEncoder, B=256, OTF curriculum with blank_latents
-   (5 K1), 3 epochs of 4 steps with an RK4 inpainting evaluation each epoch
-   at 20 grid points (3 decodes, 3 K1); serving the EMA with .mid export
+   (5 K1), 2 epochs of 4 steps with an RK4 inpainting evaluation each
+   epoch at 20 grid points (3 decodes, 3 K1); serving the EMA with .mid export
    (64 samples, 1 K1, every .mid parsed back); one step profiled; one step
    of B=64 with the mask encoder on the card against the CPU (fp32 within
    1e-3·max(1, |ref|), float64 changes within 1e-3 of the largest).
@@ -159,6 +159,25 @@
    grayscale rolls (10 K1), two held to the CPU at 1e-4·max(1, |ref|), and
    two reconstruction-only training steps at B=64 (6 K1 and 6 K2 each),
    timed with peak memory.
+22. pe_host (after step 10): step 10's pre-encode again through the host
+   pipeline, preencoding.device_augs=true preencoding.format=shard (fused_vq,
+   B=32, augs_per 4, the same 320 500² PNGs): the host decodes each image
+   once to 160² (the C++ decoder of flocoder_torch/csrc/fcimage.cpp where it
+   builds, else PIL; the decoder is printed), the card augments to 128²
+   and encodes, and each split is one packed shard. 5 K1 and 1 K3 a batch,
+   exactly; the augment on the card against its CPU twin on the same draws
+   (max |Δ| < 1e-5); the native gather (csrc/fcloader.cpp) against its
+   memmap twin on every record, bitwise; latents/s per split printed beside
+   step 10's files-format PIL path of the same run.
+23. flow_shard (after step 12): flowers_vqgan's flow (B=256, 2 epochs of 4
+   steps, no evaluation in the loop) on pe_host's shards, then its one RK4
+   + CFG evaluation at 20 grid points by flocoder_torch.evaluate_model on
+   the val shard; no kernel in training, K1 twice in the evaluation,
+   exactly.
+24. tpu_demo (last): configs/tpu_demo.yaml as composed (the resize codec,
+   synthetic 128² data, device_augs, shard; the U-Net in bf16 at B=256,
+   2 epochs of its 40, evaluation at 20 of its 50 grid points), then its
+   EMA served with +bf16=false; no kernel launches.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -2411,7 +2430,7 @@ def midi_flow(tmp: str, card: str, kernels: dict) -> tuple:
     with blank_latents (one encode: 5 K1), and an RK4 inpainting evaluation
     each epoch at 20 grid points (the recipe's 100) conditioned on the val
     batch's masks, from its mask-blended sources: 3 decodes (samples,
-    targets, sources) of 128, 1 K1 each. 3 epochs of 4 steps (the recipe's
+    targets, sources) of 128, 1 K1 each. 2 epochs of 4 steps (the recipe's
     10,000). Then serves the EMA with .mid export (64 samples, 1 K1) and
     parses every .mid back (rolls that hold no notes yet), exports corpus
     rolls that do (export_corpus_rolls); profiles one step; holds a step on
@@ -2424,7 +2443,7 @@ def midi_flow(tmp: str, card: str, kernels: dict) -> tuple:
     from flocoder_torch.preencode_data import load_codec
     from flocoder_torch.training.flow import make_flow_train_step
 
-    print("midi flow cuts: 3 epochs (the recipe's 10,000), evaluation n_steps 20 (the "
+    print("midi flow cuts: 2 epochs (the recipe's 10,000), evaluation n_steps 20 (the "
           "recipe's 100), OTF curriculum over 2 epochs", flush=True)
     ckpt = os.path.join(tmp, "midi_ckpt", "vqgan_2.npz")
     data = os.path.join(tmp, "midi_images_encoded_vqgan_inpainting")
@@ -2436,7 +2455,7 @@ def midi_flow(tmp: str, card: str, kernels: dict) -> tuple:
     events, step_hook = _hooked()
     t0 = time.time()
     res = tf.main(["--config-name", "midi_vqgan.yaml", f"data={data}", f"codec.checkpoint={ckpt}",
-                   "flow.epochs=3", "flow.n_steps=20", "flow.ckpt_every=3", *MIDI_OTF,
+                   "flow.epochs=2", "flow.n_steps=20", "flow.ckpt_every=2", *MIDI_OTF,
                    "+seed=0", f"+ckpt_dir={os.path.join(tmp, 'midi_flow_ckpt')}",
                    f"+output_dir={os.path.join(tmp, 'midi_flow_out')}"], step_hook=step_hook)
     torch.cuda.synchronize()
@@ -2445,7 +2464,7 @@ def midi_flow(tmp: str, card: str, kernels: dict) -> tuple:
     peak = torch.cuda.max_memory_allocated() / 2**30
     _expect(kernels, "midi inpainting flow", launches,
             na2d_fwd=MIDI_CODEC_NATTEN[0] + 3 * len(res["eval"]) * MIDI_CODEC_NATTEN[1])
-    if len(events) != 12 or len(res["eval"]) != 3:
+    if len(events) != 8 or len(res["eval"]) != 2:
         fail(f"midi flow ran {len(events)} steps and {len(res['eval'])} evaluations")
     losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
     metrics = [v for e in res["eval"] for v in [e["val_loss"], *e["metrics"].values()]
@@ -2509,7 +2528,7 @@ def midi_flow(tmp: str, card: str, kernels: dict) -> tuple:
         f"{name[:60]}={ms:.3f}" for name, ms in top), flush=True)
     print(f"  served the EMA with .mid export: 64 samples, nfe={served['nfe']}, s/batch "
           f"{[round(x, 4) for x in served['batch_seconds']]}, 64 .mid files parsed back "
-          f"({sum(notes)} notes: the rolls of a flow trained 12 steps) | card: {card}",
+          f"({sum(notes)} notes: the rolls of a flow trained 8 steps) | card: {card}",
           flush=True)
     print(f"  .mid export of 64 corpus rolls through generate_samples.save_sample_batch: "
           f"{export['seconds']:.4f} s, {export['notes']} notes read back, equal to img2midi's "
@@ -2622,6 +2641,292 @@ def midi_inpainting_codec(tmp: str, card: str, kernels: dict, k1k2: tuple) -> tu
                              "midi_inp_codec_step": train_launches}
 
 
+# ---------------------------------------------------------------------------
+# The host pipeline: device augmentation on the card, the native image
+# decoder and packed latent shards (pe_host, flow_shard), and tpu_demo as
+# composed
+# ---------------------------------------------------------------------------
+
+PE_HOST = ["preencoding.quantize=true", "preencoding.fused_vq=true",
+           "preencoding.device_augs=true", "preencoding.format=shard",
+           "preencoding.augs_per=4"]
+
+
+def hold_device_augment(x_src: torch.Tensor, image_size: int) -> dict:
+    """The device augment (flocoder_torch.data.device_augs) on the card
+    against its CPU twin on the same host batch and the same draws (drawn
+    on the card): max |Δ| < 1e-5. Times the augment of the batch by CUDA
+    events."""
+    from flocoder_torch.data.device_augs import draw_params, make_device_augment, warp
+
+    params = draw_params(x_src.shape[0], torch.Generator("cuda").manual_seed(7919))
+    out = warp(x_src, params, image_size)
+    ref = warp(x_src.cpu(), type(params)(*(t.cpu() for t in params)), image_size)
+    err = (out.cpu() - ref).abs().max().item()
+    print(f"device augment {tuple(x_src.shape)} -> {tuple(out.shape)}, card vs CPU twin "
+          f"on the same draws: max_abs_err={err:.3e} (tol 1e-5)", flush=True)
+    if not (np.isfinite(err) and err < 1e-5):
+        fail("the device augment disagrees with its CPU twin")
+    augment = make_device_augment(image_size)
+    gen = torch.Generator("cuda").manual_seed(1)
+    ms = cuda_ms(lambda: augment(x_src, gen), 20)
+    return {"max_abs_err": err, "augment_ms_per_batch": ms, "batch": x_src.shape[0]}
+
+
+def hold_shard_gather(path: str, batch: int = 256) -> dict:
+    """Every record of the shard at ``path`` by the native gather
+    (csrc/fcloader.cpp) and by its numpy memmap twin, bitwise; then the host
+    ms of one shuffled gather of ``batch`` records each way (best of 20)."""
+    from flocoder_torch.data.shard import ShardReader
+
+    native, plain = ShardReader(path), ShardReader(path, use_native=False)
+    idx = np.arange(native.n)
+    a, la = native.gather(idx)
+    b, lb = plain.gather(idx)
+    if not (native.is_native and la.tobytes() == lb.tobytes()
+            and all(a[k].tobytes() == b[k].tobytes() for k in b)):
+        fail(f"the native gather of {path} differs from the memmap twin")
+    order = np.random.default_rng(0).permutation(native.n)[:batch]
+    times = {}
+    for name, reader in (("native", native), ("memmap", plain)):
+        best = float("inf")
+        for _ in range(20):
+            t0 = time.perf_counter()
+            reader.gather(order)
+            best = min(best, time.perf_counter() - t0)
+        times[f"{name}_gather_ms"] = best * 1e3
+    native.close()
+    return {"records": int(idx.size), "record_bytes": native.record_bytes,
+            "gather_batch": len(order), **times}
+
+
+def pe_host(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
+    """flowers_vqgan at full width pre-encoded through
+    flocoder_torch.preencode_data.main with the host pipeline: fused_vq,
+    device_augs (the host decodes each 500² PNG once to 160², natively where
+    the C++ decoder builds, and the card augments to 128²) and
+    format=shard, batch 32, augs_per 4, over the 320 PNGs of the files-format
+    phase (a link to the same folder, so that the outputs do not collide):
+    4 val and 36 train batches. The launch counts are zeroed before and read
+    after: 5 K1 and 1 K3 a batch, nothing else. Holds the augment on the card
+    to its CPU twin for the same draws, the native gather to the memmap twin
+    on both shards, and reads the latents back."""
+    from flocoder_torch import preencode_data as pe
+    from flocoder_torch.data.device_augs import make_device_augment
+    from flocoder_torch.data.shard import ShardReader
+
+    data = os.path.join(tmp, "pe_host_images")
+    os.symlink(os.path.join(tmp, "pe_images"), data)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    argv = ["--config-name", "flowers_vqgan.yaml", f"data={data}",
+            f"codec.checkpoint={paths['codec']}", *PE_HOST, "+seed=0"]
+    t0 = time.time()
+    res = pe.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    splits = {s: res[s] for s in ("val", "train")}
+    batches = sum(r["batches"] for r in splits.values())
+    _expect(kernels, f"pe_host ({batches} batches)", launches, na2d_fwd=5 * batches,
+            fused_compress_tail_vq=batches)
+    if [r["batches"] for r in splits.values()] != [4, 36]:
+        fail(f"pe_host ran {[r['batches'] for r in splits.values()]} batches")
+    gathers = {}
+    for split, r in splits.items():
+        path = os.path.join(r["out_dir"], "data.fcshard")
+        if r["format"] != "shard" or os.listdir(r["out_dir"]) != ["data.fcshard"]:
+            fail(f"pe_host {split} wrote {os.listdir(r['out_dir'])}")
+        reader = ShardReader(path)
+        fields, _ = reader.gather(np.arange(reader.n))
+        lat = fields["target"]
+        if reader.n != r["latents"] or r["latents"] != 32 * r["batches"] or \
+                lat.shape[1:] != (16, 16, 4) or not np.isfinite(lat).all():
+            fail(f"pe_host {split}: {reader.n} records of {r['latents']}, {lat.shape}")
+        gathers[split] = hold_shard_gather(path)
+    decoder = splits["train"]["decoder"]
+    batches_host = rebuilt_batches(argv, "val")
+    x_src = torch.from_numpy(next(batches_host)["pixels"]).cuda()
+    batches_host.close()
+    aug = hold_device_augment(x_src, 128)
+    codec = res["codec"]
+    with torch.inference_mode():
+        aug_x = make_device_augment(128)(x_src, torch.Generator("cuda").manual_seed(0))
+        encode_ms = cuda_ms(lambda: codec.encode_quantize_fused(aug_x), 10)
+    rec = dict(batch=32, batches=batches, wall_s=wall, peak_mem_gib=peak, card=card,
+               decoder=decoder, encode_fused_ms=encode_ms, augment=aug, gather=gathers,
+               **{f"{s}_latents_per_s": r["latents_per_s"] for s, r in splits.items()},
+               **{f"{s}_seconds": r["seconds"] for s, r in splits.items()})
+    print(f"pe_host flowers_vqgan B=32 (fused_vq, device_augs, shard; decoder {decoder}): "
+          f"val {splits['val']['latents_per_s']:.2f} latents/s "
+          f"({splits['val']['seconds']:.3f} s), train {splits['train']['latents_per_s']:.2f}"
+          f" latents/s ({splits['train']['seconds']:.3f} s), wall {wall:.1f} s, peak "
+          f"{peak:.2f} GiB; encode per batch {encode_ms:.4f} ms, augment per batch "
+          f"{aug['augment_ms_per_batch']:.4f} ms (CUDA events); gather of 256 records "
+          f"native {gathers['train']['native_gather_ms']:.4f} ms, memmap "
+          f"{gathers['train']['memmap_gather_ms']:.4f} ms (host clock) | card: {card}",
+          flush=True)
+    del codec, res, aug_x, x_src
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def flow_shard(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
+    """flowers_vqgan's flow through flocoder_torch.train_flow.main on
+    pe_host's shards (1,152 train, 128 val records, read by the native
+    gather): U-Net dim 16, 102 classes, B=256, 2 epochs of 4 steps (the
+    recipe's 10,000) with flow.no_eval=true; then its one RK4 + CFG
+    evaluation, at n_steps 20 (the recipe's 100), by
+    flocoder_torch.evaluate_model on the val shard with the EMA checkpoint.
+    The launch counts are zeroed before and read after each: no kernel in
+    training, K1 in the evaluation's two decodes (chunks of
+    evaluation.DECODE_CHUNK)."""
+    from flocoder_torch import evaluate_model as tev
+    from flocoder_torch import train_flow as tf
+    from flocoder_torch.evaluation import DECODE_CHUNK
+
+    print("flow_shard cuts: 2 epochs (the recipe's 10,000), one evaluation (by "
+          "evaluate_model) at n_steps 20 (the recipe's 100)", flush=True)
+    data = os.path.join(tmp, "pe_host_images")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    ckpt_dir = os.path.join(tmp, "flow_shard_ckpt")
+    argv = ["--config-name", "flowers_vqgan.yaml", f"data={data}",
+            f"codec.checkpoint={paths['codec']}", "flow.unet.n_classes=102",
+            "flow.epochs=2", "flow.no_eval=true", "flow.ckpt_every=2", "+seed=0",
+            f"+ckpt_dir={ckpt_dir}", f"+output_dir={os.path.join(tmp, 'flow_shard_out')}"]
+    events, step_hook = _hooked()
+    t0 = time.time()
+    res = tf.main(argv, step_hook=step_hook)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    chunks = flow_decode_chunks(DECODE_CHUNK)
+    _expect(kernels, "flow_shard training", launches)
+    if res["eval"] or len(events) != 8 or \
+            [e["samples"] for e in res["epoch_seconds"]] != [4 * FLOW_BATCH] * 2:
+        fail(f"flow_shard ran {len(events)} steps, {len(res['eval'])} evaluations")
+    losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
+    if not np.isfinite(losses).all():
+        fail(f"flow_shard losses not finite: {res['epochs']}")
+
+    _zero(kernels)
+    metrics = tev.main(["--config-name", "flowers_vqgan.yaml", f"data={data}",
+                        f"codec.checkpoint={paths['codec']}",
+                        f"+flow_checkpoint={res['ema_checkpoint']}", "+n_steps=20",
+                        "+seed=0", f"+output_dir={os.path.join(tmp, 'flow_shard_eval')}"])
+    ev_launches = _counts(kernels)
+    _expect(kernels, f"evaluate_model on the val shard (2 decodes x chunks {chunks})",
+            ev_launches, na2d_fwd=2 * len(chunks))
+    if not all(np.isfinite(v) for v in metrics.values() if isinstance(v, float)):
+        fail(f"evaluate_model on the val shard: {metrics}")
+    launches["na2d_fwd"] += ev_launches["na2d_fwd"]
+    steps = _steady(events)
+    rec = dict(batch=FLOW_BATCH, wall_s=wall, peak_mem_gib=peak, card=card, step_s=steps,
+               steady_samples_per_s=FLOW_BATCH / float(np.median(steps)),
+               epoch_samples_per_s=[e["samples"] / e["seconds"] for e in res["epoch_seconds"]],
+               epochs=res["epochs"], evaluate_model=metrics,
+               k1_launches_evaluate_model=ev_launches["na2d_fwd"])
+    print(f"flow_shard flowers_vqgan B={FLOW_BATCH} on the shard: "
+          f"{rec['steady_samples_per_s']:.2f} samples/s over steady steps (median of "
+          f"{len(steps)}), per epoch {[round(x, 2) for x in rec['epoch_samples_per_s']]}, "
+          f"peak {peak:.2f} GiB, wall {wall:.1f} s; evaluate_model FID_px "
+          f"{metrics['FID_px']:.3f} | card: {card}", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def tpu_demo(tmp: str, card: str, kernels: dict) -> tuple:
+    """configs/tpu_demo.yaml as composed: the resize codec, the synthetic
+    set at 128² (256 images), device_augs and format=shard in pre-encoding
+    (B=64, augs_per 48: 48 val batches of 25, 173 train batches of 64), then
+    the U-Net (dim 16, dim_mults 1,2,4,8, 4 classes) in bf16 at B=256 with
+    lr 1e-3 and an RK4 + CFG 2.0 evaluation each epoch; its EMA served with
+    +bf16=false (bf16 serving is not ported). Cut: 2 epochs (the recipe's 40)
+    and evaluation n_steps 20 (its 50); flow.ckpt_every=2 (its 20) so that
+    the cut run writes the checkpoint it serves. No kernel of the port runs:
+    the resize codec has no NATTEN."""
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch import preencode_data as pe
+    from flocoder_torch import train_flow as tf
+
+    print("tpu_demo cuts: 2 epochs (the recipe's 40), evaluation n_steps 20 (its 50); "
+          "flow.ckpt_every=2 (its 20) to write the served checkpoint", flush=True)
+    data = os.path.join(tmp, "fc_tpu_demo")          # absent: the synthetic set
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    t0 = time.time()
+    enc = pe.main(["--config-name", "tpu_demo.yaml", f"data={data}"])
+    pe_wall = time.time() - t0
+    pe_peak = torch.cuda.max_memory_allocated() / 2**30
+    if [enc[s]["batches"] for s in ("val", "train")] != [48, 173] or any(
+            enc[s]["format"] != "shard" for s in ("val", "train")):
+        fail(f"tpu_demo pre-encode: {[(enc[s]['batches'], enc[s]['format']) for s in ('val', 'train')]}")
+
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--config-name", "tpu_demo.yaml", f"data={data}", "flow.epochs=2",
+            "flow.n_steps=20", "flow.ckpt_every=2", f"+ckpt_dir={os.path.join(tmp, 'demo_ckpt')}",
+            f"+output_dir={os.path.join(tmp, 'demo_out')}"]
+    events, step_hook = _hooked()
+    t0 = time.time()
+    res = tf.main(argv, step_hook=step_hook)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model = res["state"].model
+    n_train = enc["train"]["latents"]
+    if model.dtype != torch.bfloat16 or any(p.dtype != torch.float32
+                                            for p in model.parameters()):
+        fail("tpu_demo's U-Net did not train in bf16 over fp32 parameters")
+    if [e["steps"] for e in res["epoch_seconds"]] != [n_train // FLOW_BATCH] * 2 or \
+            len(res["eval"]) != 2:
+        fail(f"tpu_demo ran {res['epoch_seconds']}, {len(res['eval'])} evaluations")
+    losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
+    metrics = [v for e in res["eval"] for v in [e["val_loss"], *e["metrics"].values()]
+               if not isinstance(v, str)]
+    if not (np.isfinite(losses).all() and np.isfinite(metrics).all()):
+        fail(f"tpu_demo losses or metrics not finite: {res['epochs']}")
+    served = gs.main(["--config-name", "tpu_demo.yaml", "+bf16=false",
+                      f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=64",
+                      "+n_steps=20", "+seed=0",
+                      f"+output_dir={os.path.join(tmp, 'demo_gen')}"])
+    if served["images"].shape != (64, 128, 128, 3) or not np.isfinite(served["images"]).all():
+        fail(f"tpu_demo serving: {served['images'].shape}")
+    launches = _counts(kernels)
+    _expect(kernels, "tpu_demo (resize codec)", launches)
+    steps = _steady(events)
+    rec = dict(batch=FLOW_BATCH, card=card, pe_wall_s=pe_wall, pe_peak_mem_gib=pe_peak,
+               decoder=enc["train"]["decoder"],
+               **{f"pe_{s}_latents_per_s": enc[s]["latents_per_s"] for s in ("val", "train")},
+               wall_s=wall, peak_mem_gib=peak, step_s=steps,
+               steady_samples_per_s=FLOW_BATCH / float(np.median(steps)),
+               epoch_samples_per_s=[e["samples"] / e["seconds"] for e in res["epoch_seconds"]],
+               epochs=res["epochs"], evals=res["eval"], serve_batch_s=served["batch_seconds"])
+    print(f"tpu_demo pre-encode (synthetic 128², device_augs, shard, decoder "
+          f"{rec['decoder']}): val {rec['pe_val_latents_per_s']:.2f}, train "
+          f"{rec['pe_train_latents_per_s']:.2f} latents/s, peak {pe_peak:.2f} GiB; U-Net bf16 "
+          f"B={FLOW_BATCH}: {rec['steady_samples_per_s']:.2f} samples/s over steady steps "
+          f"(median of {len(steps)}), per epoch "
+          f"{[round(x, 2) for x in rec['epoch_samples_per_s']]}, peak {peak:.2f} GiB; served "
+          f"64 in fp32, s/batch {[round(x, 4) for x in served['batch_seconds']]} | card: "
+          f"{card}", flush=True)
+    del res, model
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def print_ptxas(source: str) -> None:
     """Each kernel's registers and spills from ptxas's report of the build of
     ``source`` in this run, demangled."""
@@ -2648,6 +2953,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
+    t_start = time.time()
     card = card_line()
     print(f"card: {card}", flush=True)
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2690,6 +2996,14 @@ def main() -> None:
     fused_timing = time_fused_vq(card, args.parent)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    phase_s = {}
+    t_phase = [t_start]
+
+    def lap(name):
+        phase_s[name] = time.time() - t_phase[0]
+        t_phase[0] = time.time()
+
+    lap("kernel_checks")
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
@@ -2703,10 +3017,23 @@ def main() -> None:
         torch.cuda.empty_cache()
         check_small_input(paths["cfg"])
         check_train_small()
+        lap("serve_and_codec_training")
         preencode, pre_launches = preencode_flowers(tmp, paths, card, kernels)
+        lap("preencode")
+        pe_host_rec, pe_host_launches = pe_host(tmp, paths, card, kernels)
+        print(f"pre-encode flowers_vqgan B=32, train latents/s in this run: host pipeline "
+              f"(device_augs, decoder {pe_host_rec['decoder']}, shard) "
+              f"{pe_host_rec['train_latents_per_s']:.2f} against files with the PIL "
+              f"transforms {preencode['train_latents_per_s']:.2f}; val "
+              f"{pe_host_rec['val_latents_per_s']:.2f} against "
+              f"{preencode['val_latents_per_s']:.2f} | card: {card}", flush=True)
+        lap("pe_host")
         preencode_small = check_preencode_small(tmp, CONFIG_DIR)
         flow, flow_launches = train_flow_phase(tmp, os.path.join(tmp, "pe_images"),
                                                paths, card, kernels)
+        lap("flow")
+        shard_flow, shard_flow_launches = flow_shard(tmp, paths, card, kernels)
+        lap("flow_shard")
         pe_data = os.path.join(tmp, "pe_images")
         sd_pre, sd_pre_launches = sd_preencode(tmp, pe_data, card, kernels)
         sd_srv, sd_srv_launches = sd_serve(tmp, CONFIG_DIR, card, kernels)
@@ -2715,13 +3042,19 @@ def main() -> None:
                                                         kernels, [])
         hdit_moe, moe_launches = hdit_short_phase(
             "hdit_moe", tmp, pe_data, card, kernels, [*HDIT_NA, "+flow.hdit_moe_experts=[8,0]"])
+        lap("sd_family")
         midi_codec, midi_codec_launches = midi_train_codec(tmp, card, kernels)
         midi_pre, midi_pre_launches = midi_preencode(tmp, card, kernels)
         midi_fl, midi_flow_launches = midi_flow(tmp, card, kernels)
         midi_inp, midi_rows, midi_errs, midi_inp_launches = midi_inpainting_codec(
             tmp, card, kernels, (na2d_fwd, na2d_bwd, na2d_banded, na2d_bwd_banded))
+        lap("midi")
+        demo, demo_launches = tpu_demo(tmp, card, kernels)
+        lap("tpu_demo")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    print("phase seconds (host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; total {time.time() - t_start:.1f}", flush=True)
 
     for name, errs_of in (("na2d_fwd", errs), ("na2d_bwd", errs2)):
         for dtype in (torch.float32, torch.bfloat16):
@@ -2733,13 +3066,16 @@ def main() -> None:
                       "sd_preencode": sd_pre, "sd_serve": sd_srv, "hdit_flow": hdit,
                       "hdit_recipe": hdit_recipe, "hdit_moe": hdit_moe,
                       "midi_train": midi_codec, "midi_preencode": midi_pre,
-                      "midi_flow": midi_fl, "midi_inpainting_codec": midi_inp}))
+                      "midi_flow": midi_fl, "midi_inpainting_codec": midi_inp,
+                      "pe_host": pe_host_rec, "flow_shard": shard_flow, "tpu_demo": demo,
+                      "phase_s": phase_s}))
     by_tag = {"serve": serve_launches, "train": train_launches, "preencode": pre_launches,
               "flow": flow_launches, "sd_preencode": sd_pre_launches,
               "sd_serve": sd_srv_launches, "hdit_flow": hdit_launches,
               "hdit_recipe": recipe_launches, "hdit_moe": moe_launches,
               "midi_train": midi_codec_launches, "midi_preencode": midi_pre_launches,
-              **midi_flow_launches, **midi_inp_launches}
+              **midi_flow_launches, **midi_inp_launches, "pe_host": pe_host_launches,
+              "flow_shard": shard_flow_launches, "tpu_demo": demo_launches}
 
     def by_path(name):
         paths = {tag: counts[name] for tag, counts in by_tag.items()}

@@ -9,7 +9,11 @@ thread pool, split by song number), ``maybe_download_pop909``,
 ``InpaintingDataset`` (an image, a generated mask and the masked image),
 the thread-pool ``Loader`` with prefetch (stacked numpy NHWC batches, the
 inpainting ``source`` and ``mask_pixels`` beside the target, last partial
-batch dropped) and ``create_image_loaders``.
+batch dropped; a packed shard, ``data/shard.py:ShardDataset``, gives each
+batch from one native gather) and ``create_image_loaders``.
+``ImageFolderDataset`` hands a transform with ``wants_path`` (the C++
+decoder, ``data/native_image.py:NativeLoadResized``) the file's path
+instead of a decoded image.
 
 There is no torchvision download: a data path that is not a folder takes
 the synthetic set, with a message, as the JAX package does when its
@@ -49,7 +53,9 @@ def fast_scandir(path: str, exts: Sequence[str]) -> Tuple[List[str], List[str]]:
 class ImageFolderDataset:
     """Images under a directory tree; class label = first-level subdir name
     when subdirs exist, else 0. The decoded images stay cached in RAM. A
-    file that fails to load is replaced by another draw."""
+    transform with ``wants_path`` gets the file's path and decodes it
+    itself (nothing is cached). A file that fails to load is replaced by
+    another draw."""
 
     def __init__(self, path: str, transform: Optional[Callable] = None):
         self.path = os.path.expanduser(path)
@@ -72,8 +78,19 @@ class ImageFolderDataset:
     def __len__(self):
         return len(self.files)
 
+    def _redraw(self, i: int, f: str, e: Exception, rng: np.random.Generator):
+        print(f"ImageFolderDataset: failed to load {f} ({e}); redrawing")
+        j = int(rng.integers(0, len(self.files)))
+        return self.get(j if j != i else (i + 1) % len(self.files), rng)
+
     def get(self, i: int, rng: np.random.Generator):
         f = self.files[i]
+        label = np.int32(self.class_map[self._top(f)])
+        if getattr(self.transform, "wants_path", False):
+            try:
+                return self.transform(f, rng), label
+            except OSError as e:
+                return self._redraw(i, f, e, rng)
         try:
             if f in self._cache:
                 img = self._cache[f]
@@ -82,11 +99,9 @@ class ImageFolderDataset:
                 img.load()
                 self._cache[f] = img
         except OSError as e:
-            print(f"ImageFolderDataset: failed to load {f} ({e}); redrawing")
-            j = int(rng.integers(0, len(self.files)))
-            return self.get(j if j != i else (i + 1) % len(self.files), rng)
+            return self._redraw(i, f, e, rng)
         out = self.transform(img, rng) if self.transform else np.asarray(img)
-        return out, np.int32(self.class_map[self._top(f)])
+        return out, label
 
 
 class SyntheticImageDataset:
@@ -219,7 +234,10 @@ class Loader:
     the last partial batch. Each epoch draws its order (shuffled unless
     ``shuffle=False``) and each item's generator from ``seed + epoch``, in
     the JAX package's order; the item generators are drawn when a batch is
-    queued, so the streams do not depend on thread timing."""
+    queued, so the streams do not depend on thread timing. A dataset with
+    ``get_batch`` (a packed shard) gives each batch of the order from one
+    call, the batches prefetched on their own pool (keys as ``get_batch``
+    names them)."""
 
     prefetch = 2
 
@@ -260,10 +278,18 @@ class Loader:
         if self.shuffle:
             rng.shuffle(order)
         n_batches = len(self)
+        batch_pool = ThreadPoolExecutor(self.prefetch)
+        if hasattr(self.dataset, "get_batch"):      # a packed shard: one gather a batch
+            try:
+                yield from self._ahead(n_batches, lambda b: batch_pool.submit(
+                    self.dataset.get_batch,
+                    order[b * self.batch_size:(b + 1) * self.batch_size]))
+            finally:
+                batch_pool.shutdown(wait=False, cancel_futures=True)
+            return
         # Item loaders and batch assemblers in separate pools: nesting them
         # in one pool deadlocks when every worker waits on item futures.
         item_pool = ThreadPoolExecutor(self.num_workers)
-        batch_pool = ThreadPoolExecutor(self.prefetch)
         try:
             def make_batch(idxs, item_rngs):
                 return self._assemble(list(item_pool.map(
@@ -274,20 +300,25 @@ class Loader:
                 idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
                 item_rngs = [np.random.default_rng(rng.integers(2 ** 31))
                              for _ in idxs]
-                pending.put(batch_pool.submit(make_batch, idxs, item_rngs))
+                return batch_pool.submit(make_batch, idxs, item_rngs)
 
-            pending: "queue.Queue" = queue.Queue()
-            n_ahead = min(self.prefetch, n_batches)
-            for b in range(n_ahead):
-                submit(b)
-            for b in range(n_batches):
-                fut = pending.get()
-                if b + n_ahead < n_batches:
-                    submit(b + n_ahead)
-                yield fut.result()
+            yield from self._ahead(n_batches, submit)
         finally:
             batch_pool.shutdown(wait=False, cancel_futures=True)
             item_pool.shutdown(wait=False, cancel_futures=True)
+
+    def _ahead(self, n_batches: int, submit) -> Iterator[dict]:
+        """The results of ``submit(b)`` (a future) for b in range(n_batches),
+        each submitted ``prefetch`` batches ahead, in order."""
+        pending: "queue.Queue" = queue.Queue()
+        n_ahead = min(self.prefetch, n_batches)
+        for b in range(n_ahead):
+            pending.put(submit(b))
+        for b in range(n_batches):
+            fut = pending.get()
+            if b + n_ahead < n_batches:
+                pending.put(submit(b + n_ahead))
+            yield fut.result()
 
 
 class _Subset:

@@ -9,8 +9,9 @@ Usage:
 
 Without ``+flow_checkpoint`` the newest ``checkpoints/flowema_*`` (else
 ``flow_*``) is taken. ``+device=cpu`` runs on the CPU; without it the run
-needs a CUDA device. Grids go to ``+output_dir`` (``eval_out``). Packed
-latent shards are not ported yet (ROADMAP.md).
+needs a CUDA device. Grids go to ``+output_dir`` (``eval_out``). The
+validation latents are the split's packed shard (``val/data.fcshard``)
+where one exists, else its latent files.
 """
 from __future__ import annotations
 
@@ -19,9 +20,10 @@ import os
 import torch
 
 from .config import ldcfg, parse_cli
-from .data.datasets import Loader, PreEncodedDataset
+from .data.datasets import Loader
 from .evaluation import evaluate_model
 from .generate_samples import CONFIG_DIR, _latest_checkpoint, load_models_once
+from .train_flow import latent_dataset
 from .utils.device import resolve_device
 
 __all__ = ["main"]
@@ -42,11 +44,8 @@ def main(argv=None) -> dict:
     data_path = os.path.expanduser(str(config.data))
     if "encoded" not in data_path:
         data_path = f"{data_path}_encoded_{config.codec.choice}"
-    val_dir = os.path.join(data_path, "val")
-    if os.path.exists(os.path.join(val_dir, "data.fcshard")):
-        raise NotImplementedError("packed latent shards are not ported yet (ROADMAP.md)")
     n_samples = int(config.get("n_samples", 256))
-    ds = PreEncodedDataset(val_dir)
+    ds = latent_dataset(os.path.join(data_path, "val"))
     vb = next(iter(Loader(ds, batch_size=min(n_samples, len(ds)), num_workers=2, seed=0)))
     target = torch.from_numpy(vb["target"]).to(device)
     metrics = evaluate_model(

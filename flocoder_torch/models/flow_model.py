@@ -25,9 +25,8 @@ def build_flow_model(config, channels: int, n_classes: int, dual_time: bool = Fa
     """The flow model of ``config`` for latents of ``channels`` channels.
     ``dim`` is the U-Net's base width (the scripts pass the latent height,
     as the JAX scripts do); ``mask_cond`` builds the U-Net's inpainting
-    mask conditioning (a mask of ``channels`` channels). HDiT computes in
-    ``dtype`` and has no mask path; the U-Net runs in fp32 only (its bf16
-    is not ported yet, ROADMAP.md). Parameters are fp32 on the CPU; the
+    mask conditioning (a mask of ``channels`` channels). Both compute in
+    ``dtype``; HDiT has no mask path. Parameters are fp32 on the CPU; the
     caller moves the model and initialises it."""
     from ..config import ldcfg
     arch = flow_arch(config)
@@ -39,10 +38,7 @@ def build_flow_model(config, channels: int, n_classes: int, dual_time: bool = Fa
                                 dtype=dtype, dual_time=dual_time)
     if arch != "unet":
         raise ValueError(f"unknown flow.arch {arch!r} (unet or hdit)")
-    if dtype != torch.float32:
-        raise NotImplementedError("the U-Net in bf16 (flow.bf16 with arch=unet) is "
-                                  "not ported yet (ROADMAP.md)")
     return Unet(dim=dim, channels=channels,
                 dim_mults=tuple(ldcfg(config, "dim_mults", [1, 2, 4, 8])),
                 n_classes=n_classes, dual_time=dual_time, mask_cond=mask_cond,
-                mask_channels=channels)
+                mask_channels=channels, dtype=dtype)

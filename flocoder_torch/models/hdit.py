@@ -37,16 +37,16 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..ops.neighborhood_attention import na2d
 from ..parallel.moe import (geglu, load_balance_loss, moe_capacity,
                             moe_geglu_apply, moe_routing)
+from .layers import Dense
 from .unet import sinusoidal_embedding
 
 __all__ = ["HDiT", "LevelSpec", "MappingSpec", "GlobalAttentionSpec",
-           "NeighborhoodAttentionSpec", "Dense", "RMSNorm", "AdaRMSNorm",
+           "NeighborhoodAttentionSpec", "RMSNorm", "AdaRMSNorm",
            "SelfAttentionBlock", "FeedForwardBlock", "MoEFeedForwardBlock",
            "TokenMerge", "TokenSplit", "MappingMLP", "hdit_from_config"]
 
@@ -80,27 +80,6 @@ class MappingSpec:
     width: int = 256
     d_ff: int = 768
     dropout: float = 0.0
-
-
-class Dense(nn.Linear):
-    """flax ``nn.Dense`` with a compute dtype: the input, the fp32 weight
-    and the bias are cast to ``compute_dtype``. ``zero_init`` marks the
-    projections the JAX module initialises to zero."""
-
-    def __init__(self, cin: int, cout: int, bias: bool = False,
-                 dtype=torch.float32, zero_init: bool = False):
-        super().__init__(cin, cout, bias=bias)
-        self.compute_dtype, self.zero_init = dtype, zero_init
-
-    def init_special_(self, generator):
-        if self.zero_init:
-            self.weight.data.zero_()
-
-    def forward(self, x):
-        dt = self.compute_dtype
-        y = F.linear(x.to(dt), self.weight.to(dt))
-        # the bias is added after the product is rounded to dtype, as flax does
-        return y if self.bias is None else y + self.bias.to(dt)
 
 
 def _rms_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -1,19 +1,29 @@
-"""Shared pieces of the port's models: linen-style submodule naming and a
-seeded parameter init.
+"""Shared pieces of the port's models: linen-style submodule naming, flax's
+compute-dtype layers and a seeded parameter init.
 
 Submodules are registered under the names flax linen gives the JAX
 package's modules (``Conv_0``, ``GroupNorm_1``, ``ResnetBlock_3``, ...), so a
 torch ``state_dict`` key is the JAX parameter path with ``.`` for ``/``, and
 the weight bridge (``training/checkpoint.py``) needs no table of names.
+
+``Conv``, ``Dense`` and ``GroupNorm`` follow flax's ``dtype=`` semantics
+where a ``compute_dtype`` other than the parameters' is set: the parameters
+stay fp32; Conv and Dense cast the input, the weight and the bias to the
+compute dtype and add the bias after the product is rounded; GroupNorm takes
+its statistics and normalises in fp32 and gives the compute dtype. With no
+compute dtype (None) or the parameters' own they are the plain torch
+layers, in whatever dtype the parameters are (a float64 copy computes in
+float64).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Scope", "conv", "group_norm", "init_params"]
+__all__ = ["Scope", "Conv", "Dense", "GroupNorm", "conv", "group_norm", "init_params"]
 
 
 class Scope:
@@ -34,26 +44,83 @@ class Scope:
         return module
 
     def conv(self, cin: int, cout: int, kernel: int, stride: int = 1,
-             bias: bool = True, name: str = None) -> nn.Conv2d:
-        return self.add("Conv", conv(cin, cout, kernel, stride, bias), name)
+             bias: bool = True, name: str = None, dtype=None) -> nn.Conv2d:
+        return self.add("Conv", conv(cin, cout, kernel, stride, bias, dtype), name)
 
     def gn(self, groups: int, channels: int, eps: float) -> nn.GroupNorm:
         return self.add("GroupNorm", group_norm(groups, channels, eps))
 
-    def dense(self, cin: int, cout: int, bias: bool = True) -> nn.Linear:
-        return self.add("Dense", nn.Linear(cin, cout, bias=bias))
+    def dense(self, cin: int, cout: int, bias: bool = True, dtype=None) -> nn.Linear:
+        return self.add("Dense", Dense(cin, cout, bias=bias, dtype=dtype))
+
+
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``compute_dtype`` (None: the parameters'
+    dtype), with flax's casts and the bias added after rounding."""
+
+    compute_dtype = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None or dt == self.weight.dtype:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` whose statistics and normalisation run in fp32 and
+    whose output is ``compute_dtype`` (None: the input's dtype), as flax's
+    ``GroupNorm(dtype=...)``."""
+
+    compute_dtype = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None or dt == x.dtype == self.weight.dtype:
+            return super().forward(x)
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                            self.eps).to(dt)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense`` with a compute dtype: the input, the fp32 weight
+    and the bias are cast to ``compute_dtype`` (None: the weight's dtype),
+    and the bias is added after the product is rounded to it, as flax does.
+    ``zero_init`` marks the projections the JAX module initialises to
+    zero."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = False,
+                 dtype=torch.float32, zero_init: bool = False):
+        super().__init__(cin, cout, bias=bias)
+        self.compute_dtype, self.zero_init = dtype, zero_init
+
+    def init_special_(self, generator):
+        if self.zero_init:
+            self.weight.data.zero_()
+
+    def forward(self, x):
+        dt = self.compute_dtype or self.weight.dtype
+        if dt == self.weight.dtype:
+            return F.linear(x.to(dt), self.weight, self.bias)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1,
-         bias: bool = True) -> nn.Conv2d:
+         bias: bool = True, dtype=None) -> Conv:
     """A flax ``nn.Conv`` as used by the JAX package: 1×1 kernels unpadded,
-    3×3 and 5×5 padded to 'same' size (``padding=1``/``2``)."""
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
-                     bias=bias)
+    3×3 and 5×5 padded to 'same' size (``padding=1``/``2``); ``dtype`` the
+    compute dtype (None: the parameters')."""
+    c = Conv(cin, cout, kernel, stride=stride, padding=kernel // 2, bias=bias)
+    c.compute_dtype = dtype
+    return c
 
 
-def group_norm(groups: int, channels: int, eps: float) -> nn.GroupNorm:
-    return nn.GroupNorm(groups, channels, eps=eps)
+def group_norm(groups: int, channels: int, eps: float, dtype=None) -> GroupNorm:
+    g = GroupNorm(groups, channels, eps=eps)
+    g.compute_dtype = dtype
+    return g
 
 
 @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and host libraries.
 
 Each kernel is one ``.cu`` file under ``flocoder_torch/csrc/`` with a plain C
 interface; sources may include the shared headers (``*.cuh``) beside them.
@@ -8,6 +8,11 @@ The library's file name carries a hash of its source, every header under
 ``csrc/`` and the flags, so an edited source or header is rebuilt and a
 stale library is never loaded. ptxas's report (registers, shared memory,
 spills of each kernel) is kept beside the library (``build_log``).
+
+The host pipeline's C++ libraries (``csrc/fcloader.cpp``, the shard gather,
+and ``csrc/fcimage.cpp``, the image decoder) take the same path through
+``build_host_library``: ``g++`` with ``GXX_FLAGS`` and the libraries to link,
+hashed into the file name the same way.
 """
 from __future__ import annotations
 
@@ -18,14 +23,16 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "find_nvcc", "library_path",
-           "build_library", "build_log", "Kernel"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "GXX_FLAGS", "find_nvcc",
+           "library_path", "build_library", "build_host_library", "build_log",
+           "Kernel"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread", "-std=c++17")
 
 
 def find_nvcc() -> str:
@@ -45,44 +52,68 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str, build_dir: str = BUILD_DIR,
-                 csrc_dir: str = CSRC_DIR) -> str:
+                 csrc_dir: str = CSRC_DIR, flags: tuple = NVCC_FLAGS) -> str:
     """``<build_dir>/lib<stem>_<hash>.so``, the hash over ``<csrc_dir>/<source>``,
-    every ``*.cuh`` header in ``csrc_dir`` (by name, in sorted order) and the
-    nvcc flags."""
+    for a ``.cu`` source every ``*.cuh`` header in ``csrc_dir`` (by name, in
+    sorted order), and the compiler flags."""
     h = hashlib.sha256()
-    headers = sorted(f for f in os.listdir(csrc_dir) if f.endswith(".cuh"))
+    headers = (sorted(f for f in os.listdir(csrc_dir) if f.endswith(".cuh"))
+               if source.endswith(".cu") else [])
     for name in [source, *headers]:
         with open(os.path.join(csrc_dir, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read() + b"\0")
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(build_dir, f"lib{stem}_{h.hexdigest()[:12]}.so")
+
+
+def _compile(cmd: list, source: str, out: str, build_dir: str, log: bool) -> str:
+    """Runs ``cmd + ['-o', tmp]`` and moves ``tmp`` to ``out`` atomically, so
+    that a concurrent build never sees half a file; with ``log`` the
+    compiler's stderr is kept beside the library."""
+    os.makedirs(build_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+    os.close(fd)
+    try:
+        res = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed on {source}:\n"
+                               f"{res.stderr}")
+        if log:
+            with open(out + ".ptxas.txt", "w") as f:
+                f.write(res.stderr)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
 
 
 def build_library(source: str, build_dir: str = BUILD_DIR) -> str:
     """Compile ``csrc/<source>`` into ``library_path(source, build_dir)``
     unless that file already exists; returns its path. Raises RuntimeError
     when nvcc is missing or fails."""
-    src = os.path.join(CSRC_DIR, source)
     out = library_path(source, build_dir)
     if os.path.isfile(out):
         return out
-    nvcc = find_nvcc()
-    os.makedirs(build_dir, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
-    try:
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, src],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{res.stderr}")
-        with open(out + ".ptxas.txt", "w") as f:
-            f.write(res.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    return _compile([find_nvcc(), *NVCC_FLAGS, os.path.join(CSRC_DIR, source)],
+                    source, out, build_dir, log=True)
+
+
+def build_host_library(source: str, libs: tuple = (), build_dir: str = BUILD_DIR) -> str:
+    """Compile the host C++ ``csrc/<source>`` with ``g++`` (``GXX_FLAGS``,
+    then ``libs`` such as ``-ljpeg``) into ``library_path`` unless that file
+    already exists; returns its path. Raises RuntimeError when g++ is
+    missing or fails (a missing header or library, for instance)."""
+    flags = (*GXX_FLAGS, *libs)
+    out = library_path(source, build_dir, flags=flags)
+    if os.path.isfile(out):
+        return out
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError(f"g++ not found: {source} is built at first use")
+    src = os.path.join(CSRC_DIR, source)
+    return _compile([gxx, *GXX_FLAGS, src, *libs], source, out, build_dir, log=False)
 
 
 def build_log(source: str, build_dir: str = BUILD_DIR) -> str:

@@ -33,15 +33,30 @@ images and takes the piano-roll transforms (``midi_transforms``).
 _inpainting/{split}``: per batch ``b`` the masks of
 ``generate_mask_batch(seed=seed·100003 + b)``, the encode of the images
 (``target_latents``) and of the masked images (``source_latents``), saved
-with the masks (as bool, ``mask_pixels``) in one ``.npz`` per item. A codec
-whose ``in_channels`` differ from the loader's images raises a
-``ValueError`` (the JAX package fails there too, with a shape error;
-ROADMAP.md).
+with the masks (as bool, ``mask_pixels``) in one ``.npz`` per item. A
+learned codec whose ``in_channels`` differ from the loader's images raises
+a ``ValueError`` (the JAX package fails there too, with a shape error;
+ROADMAP.md); the resize and noop codecs take any channels.
+
+``preencoding.device_augs=true`` (image data only; MIDI rolls keep the host
+transforms, as in the JAX script): the host decodes each image once and
+resizes it to ``S0 = ⌈1.25·image_size⌉`` (the C++ decoder of
+``data/native_image.py`` where its library builds, else PIL; the run prints
+which and why, and each split's result names it), and the card makes the
+frozen augmentations (``data/device_augs.py``) after the copy and before the
+encode, its draws from one ``torch.Generator`` seeded with ``seed + 7919``.
+With ``inpainting=true`` the masks are drawn after the augment, at
+``image_size``.
+
+``preencoding.format=shard`` writes one packed file per split,
+``{split}/data.fcshard`` (``data/shard.py``, the JAX package's FCS1
+format: HWC float32 records, int32 labels; triplets carry
+``source_latents`` and ``mask_pixels`` (S, S, 1) as extra fields), instead
+of one file per latent.
 
 ``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
-Not ported yet (each raises, ROADMAP.md): named torchvision sets,
-``preencoding.device_augs``, ``preencoding.format=shard``, audio data,
-``+quant=int8`` and ``codec.bf16``.
+Not ported yet (each raises, ROADMAP.md): named torchvision sets, audio
+data, ``+quant=int8`` and ``codec.bf16``.
 """
 from __future__ import annotations
 
@@ -54,24 +69,26 @@ import numpy as np
 import torch
 
 from .config import ldcfg, parse_cli
+from .data import native_image
 from .data.datasets import (ImageFolderDataset, InfiniteDataset, Loader,
                             SyntheticImageDataset)
+from .data.device_augs import default_src_size, load_resized, make_device_augment
+from .data.shard import ShardWriter
 from .data.transforms import image_transforms, midi_transforms
 from .generate_samples import CONFIG_DIR
 from .inpainting import generate_mask_batch
-from .models.codecs import VQVAE, load_codec_weights, setup_codec
+from .models.codecs import (VQVAE, NoOpAE, SimpleResizeAE, load_codec_weights,
+                            setup_codec)
 from .models.layers import init_params
 from .utils.device import resolve_device
 
-__all__ = ["open_split", "process_dataset", "load_codec", "main"]
+__all__ = ["open_split", "process_dataset", "load_codec", "host_decoder", "main"]
 
 
 def _refuse_unported(config) -> None:
     pe = config.get("preencoding", {})
     quant = str(config.get("quant", "") or "").lower()
     for what, unported in (
-            ("preencoding.device_augs", bool(pe.get("device_augs", False))),
-            ("preencoding.format=shard", str(pe.get("format", "files")) == "shard"),
             ("audio data (codec.choice=dac)",
              "codec" in config and config.codec.get("choice") == "dac"),
             ("+quant=int8", quant in ("int8", "true", "1")),
@@ -103,11 +120,35 @@ def _encoder(config, codec):
     return codec.encode
 
 
+def _is_midi(config) -> bool:
+    return any(s in str(config.data).lower() for s in ("pop909", "midi"))
+
+
+def _device_augs(config) -> bool:
+    """``preencoding.device_augs``, which MIDI data never takes."""
+    return bool(config.get("preencoding", {}).get("device_augs", False)) and not _is_midi(config)
+
+
+def host_decoder(config) -> tuple:
+    """``(name, why)`` of the host's image decoder for this config:
+    ``'native'`` (``data/native_image.py``'s C++ decode and resize),
+    ``'pil'`` (PIL's decode, then ``device_augs.load_resized``, when the
+    native library does not build) or ``'pil+transforms'`` (the host
+    transforms, without device_augs)."""
+    if not _device_augs(config):
+        return "pil+transforms", "preencoding.device_augs is off"
+    if native_image.available():
+        return "native", f"built {native_image.library_file()}"
+    return "pil", f"the native decoder did not build: {native_image.why_unavailable()}"
+
+
 def open_split(config, split: str) -> tuple:
     """One split as ``process_dataset`` encodes it: ``(dataset, n_batches,
     batches)``, with ``batches`` a generator of the split's ``n_batches``
     batches ({'pixels', 'class_cond'}) in order. The same config gives the
-    same pixels, so a caller can rebuild what was encoded."""
+    same pixels, so a caller can rebuild what was encoded. With
+    ``device_augs`` the pixels are the host's (B, S0, S0, 3) sources in
+    [0, 1], which ``process_dataset`` augments on the device."""
     data_path = os.path.expanduser(str(config.data))
     image_size = int(ldcfg(config, "image_size", 128))
     pe = config.get("preencoding", {})
@@ -116,8 +157,15 @@ def open_split(config, split: str) -> tuple:
     num_workers = int(pe.get("num_workers", 4))
     seed = int(ldcfg(config, "seed", 0)) + (0 if split == "train" else 1)
 
-    is_midi = any(s in data_path.lower() for s in ("pop909", "midi"))
-    tf = midi_transforms(image_size) if is_midi else image_transforms(image_size)
+    if _device_augs(config):
+        src_size = default_src_size(image_size)
+        if host_decoder(config)[0] == "native":
+            tf = native_image.NativeLoadResized(src_size)
+        else:
+            def tf(img, rng):
+                return load_resized(img, src_size)
+    else:
+        tf = midi_transforms(image_size) if _is_midi(config) else image_transforms(image_size)
     if os.path.isdir(data_path):
         dataset = ImageFolderDataset(data_path, transform=tf)
         print(f"[{split}] image folder {data_path}: {len(dataset)} images")
@@ -163,21 +211,35 @@ def open_split(config, split: str) -> tuple:
 
 def process_dataset(config, split: str, codec, device) -> dict:
     """Pre-encode one split; returns ``{'split', 'out_dir', 'batches',
-    'latents', 'seconds', 'latents_per_s', 'bytes'}``, the seconds by the
-    host clock over the whole split (loader, copies, encodes, writes). With
-    ``inpainting`` a latent is one triplet (two encodes)."""
+    'latents', 'seconds', 'latents_per_s', 'bytes', 'format', 'decoder'}``,
+    the seconds by the host clock over the whole split (loader, copies,
+    augments, encodes, writes), ``decoder`` the host's image decoder
+    (``host_decoder``). With ``inpainting`` a latent is one triplet (two
+    encodes)."""
     _refuse_unported(config)
     data_path = os.path.expanduser(str(config.data))
-    max_gb = float(config.get("preencoding", {}).get("max_storage_gb", 60))
+    pe = config.get("preencoding", {})
+    max_gb = float(pe.get("max_storage_gb", 60))
+    fmt = str(pe.get("format", "files"))
+    if fmt not in ("files", "shard"):
+        raise ValueError(f"preencoding.format={fmt!r}: files or shard")
     inpainting = bool(config.get("inpainting", False))
+    image_size = int(ldcfg(config, "image_size", 128))
     seed = int(ldcfg(config, "seed", 0)) + (0 if split == "train" else 1)
     out_dir = f"{data_path}_encoded_{config.codec.choice}"
     out_split = os.path.join(out_dir + ("_inpainting" if inpainting else ""), split)
     if os.path.exists(out_split) and os.listdir(out_split):
         raise SystemExit(f"Refusing to overwrite existing {out_split}")
+    decoder, why = host_decoder(config)
+    print(f"[{split}] host decoder: {decoder} ({why})")
     dataset, total_batches, batches = open_split(config, split)
     os.makedirs(out_split, exist_ok=True)
     encode = _encoder(config, codec)
+    augment = aug_gen = None
+    if _device_augs(config):
+        augment = make_device_augment(image_size)
+        aug_gen = torch.Generator(device).manual_seed(seed + 7919)
+    shard = None
     class_names = getattr(dataset, "class_names", None)
     n_classes = getattr(dataset, "n_classes", 0)
     bytes_written = 0
@@ -204,7 +266,12 @@ def process_dataset(config, split: str, codec, device) -> dict:
     with ThreadPoolExecutor(8) as writer, torch.inference_mode():
         for b, batch in enumerate(batches):
             x = torch.from_numpy(batch["pixels"]).to(device)
-            if x.shape[-1] != getattr(codec, "in_channels", x.shape[-1]):
+            if augment is not None:
+                x = augment(x, aug_gen)
+            # the resize and noop codecs take any channels (the resize codec's
+            # in_channels is its latent width, as in the JAX package)
+            if not isinstance(codec, (SimpleResizeAE, NoOpAE)) and \
+                    x.shape[-1] != getattr(codec, "in_channels", x.shape[-1]):
                 raise ValueError(
                     f"the codec takes {codec.in_channels}-channel images but the "
                     f"loader gives {x.shape[-1]}-channel ones (the MIDI loaders give "
@@ -216,13 +283,26 @@ def process_dataset(config, split: str, codec, device) -> dict:
                 masked = x * (1 - torch.from_numpy(masks).to(device))
                 target = encode(x).float().cpu().numpy()
                 source = encode(masked).float().cpu().numpy()
-                items = [{"target_latents": target[i], "source_latents": source[i],
-                          "mask_pixels": masks[i].astype(bool)} for i in range(len(target))]
+                extras = {"source_latents": source, "mask_pixels": masks}
             else:
-                items = encode(x).float().cpu().numpy()
-            for i, label in enumerate(batch["class_cond"]):
-                writer.submit(write_one, f"b{b:06d}_{i:03d}", items[i], int(label))
-                n_saved += 1
+                target, extras = encode(x).float().cpu().numpy(), None
+            labels = np.asarray(batch["class_cond"])
+            if fmt == "shard":
+                if shard is None:       # the record shape is the first batch's
+                    shard = ShardWriter(
+                        os.path.join(out_split, "data.fcshard"), target.shape[1:],
+                        extra_fields=None if extras is None else {
+                            "source_latents": target.shape[1:],
+                            "mask_pixels": (image_size, image_size, 1)})
+                bytes_written += shard.add_batch(target, labels, extras)
+                n_saved += len(target)
+            else:
+                for i, label in enumerate(labels):
+                    item = target[i] if extras is None else {
+                        "target_latents": target[i], "source_latents": source[i],
+                        "mask_pixels": masks[i].astype(bool)}
+                    writer.submit(write_one, f"b{b:06d}_{i:03d}", item, int(label))
+                    n_saved += 1
             if bytes_written > max_gb * 1e9:
                 print(f"storage cap {max_gb}GB reached")
                 batches.close()
@@ -231,13 +311,15 @@ def process_dataset(config, split: str, codec, device) -> dict:
                 print(f"  [{split}] batch {b}/{total_batches}  {n_saved} latents  "
                       f"{n_saved / max(time.time() - t0, 1e-9):.0f}/s  "
                       f"{bytes_written / 1e9:.2f}GB")
+    if shard is not None:
+        shard.close()
     seconds = time.time() - t0
     rate = n_saved / max(seconds, 1e-9)
     print(f"[{split}] done: {n_saved} latents in {seconds:.1f}s ({rate:.1f} "
-          f"latents/s) -> {out_split}")
+          f"latents/s, {fmt}, decoder {decoder}) -> {out_split}")
     return {"split": split, "out_dir": out_split, "batches": b + 1,
             "latents": n_saved, "seconds": seconds, "latents_per_s": rate,
-            "bytes": bytes_written}
+            "bytes": bytes_written, "format": fmt, "decoder": decoder}
 
 
 def main(argv=None) -> dict:

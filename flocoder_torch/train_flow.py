@@ -6,11 +6,15 @@ Usage:
         [data=/path/to/images] [flow.epochs=N] [key=value ...]
 
 Reads the latents that the pre-encode pass wrote under
-``<data>_encoded_<codec>/{train,val}`` (or, with ``flow.pre_encoded=false``,
-encodes image batches in the step with the frozen codec), trains the
-velocity field (``flow.arch``: the U-Net, or the Hourglass DiT with
-``flow.arch=hdit``, in bf16 with ``flow.bf16=true``, its MoE levels' auxiliary
-loss weighted by ``flow.hdit_moe_aux_weight``, default 1e-2) with minibatch
+``<data>_encoded_<codec>/{train,val}``: a packed shard,
+``{split}/data.fcshard``, where one exists (one native gather a batch,
+``data/shard.py``; plain latents and inpainting triplets), else the latent
+files (or, with ``flow.pre_encoded=false``, encodes image batches in the
+step with the frozen codec), trains the velocity field (``flow.arch``: the
+U-Net, or the Hourglass DiT with ``flow.arch=hdit``; either computes in
+bf16 with ``flow.bf16=true``, parameters and optimizer in fp32, the codec
+in fp32; HDiT's MoE levels' auxiliary loss weighted by
+``flow.hdit_moe_aux_weight``, default 1e-2) with minibatch
 OT, CFG dropout, clipped Adam on the cosine
 warm-restart schedule and EMA (``training/flow.py``), and evaluates on the
 JAX script's cadence: at every epoch below 20 and every 10th, unless
@@ -34,10 +38,11 @@ curriculum (``flow.curriculum_epochs``, ``extend_epochs``, ``p_ones``,
 The evaluation conditions on the validation batch's masks and starts from
 its mask-blended sources. The checkpoints hold the mask encoder beside the
 U-Net and the two optimizer groups in optax's ``multi_transform`` layout.
-Not ported yet (ROADMAP.md), and refused: meshes and FSDP, ring attention,
-MoE expert parallelism, pipeline parallelism, orbax and sharded
-checkpoints, reflow datasets, packed shards, audio codecs, the U-Net in
-bf16, wandb logging.
+The JAX-only dispatch knobs ``flow.steps_per_dispatch`` and ``rng_impl``
+are accepted and change nothing here (ROADMAP.md). Not ported yet
+(ROADMAP.md), and refused: meshes and FSDP, ring attention, MoE expert
+parallelism, pipeline parallelism, orbax and sharded checkpoints, reflow
+datasets, audio codecs, wandb logging.
 """
 from __future__ import annotations
 
@@ -51,11 +56,12 @@ import torch
 
 from .config import ldcfg, parse_cli
 from .data.datasets import Loader, PreEncodedDataset, create_image_loaders
+from .data.shard import ShardDataset
 from .evaluation import evaluate_model
 from .generate_samples import CONFIG_DIR
 from .inpainting import MaskEncoder
 from .models.codecs import VQVAE, load_codec_weights, setup_codec
-from .models.flow_model import build_flow_model, flow_arch
+from .models.flow_model import build_flow_model
 from .models.layers import init_params
 from .models.sd_vae import SDVAE
 from .training.checkpoint import (MASK_ENCODER_PREFIXES, OPT_GROUPS, UNET_PREFIXES,
@@ -66,7 +72,7 @@ from .training.schedules import batch_size_schedule, cosine_warm_restarts_decay
 from .utils.codebook_analysis import CodebookUsageTracker
 from .utils.device import resolve_device
 
-__all__ = ["train_flow", "main"]
+__all__ = ["train_flow", "latent_dataset", "main"]
 
 
 def _refuse_unported(config) -> None:
@@ -75,14 +81,25 @@ def _refuse_unported(config) -> None:
              "orbax_checkpoints": "orbax checkpoints",
              "sharded_checkpoints": "sharded checkpoints",
              "reflow": "reflow (paired) datasets"}
-    if flow_arch(config) != "hdit":
-        flags["bf16"] = "the U-Net in bf16"
     for key, what in flags.items():
         if bool(ldcfg(config, key, False)):
             raise NotImplementedError(f"{what} (flow.{key}) is not ported yet (ROADMAP.md)")
     if int(ldcfg(config, "n_model", 1)) > 1:
         raise NotImplementedError("model-parallel meshes (flow.n_model) are not "
                                   "ported yet (ROADMAP.md)")
+
+
+def latent_dataset(split_dir: str, n_classes: int = 0):
+    """The latents of one pre-encoded split: its packed shard
+    (``data.fcshard``, read by the native gather) where one exists, else
+    its latent files."""
+    shard_path = os.path.join(split_dir, "data.fcshard")
+    if os.path.exists(shard_path):
+        ds = ShardDataset(shard_path, n_classes=n_classes)
+        print(f"[{os.path.basename(split_dir)}] packed shard "
+              f"({'native' if ds.reader.is_native else 'numpy'} gather), {len(ds)} records")
+        return ds
+    return PreEncodedDataset(split_dir, n_classes=n_classes)
 
 
 def _sync(device) -> None:
@@ -192,11 +209,8 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
 
     # ---- data
     if pre_encoded:
-        if glob.glob(os.path.join(data_path, "*", "data.fcshard")):
-            raise NotImplementedError("packed latent shards are not ported yet "
-                                      "(ROADMAP.md)")
-        train_ds = PreEncodedDataset(f"{data_path}/train", n_classes=n_classes)
-        val_ds = PreEncodedDataset(f"{data_path}/val", n_classes=n_classes)
+        train_ds = latent_dataset(f"{data_path}/train", n_classes)
+        val_ds = latent_dataset(f"{data_path}/val", n_classes)
         train_loader = Loader(train_ds, batch_size, num_workers, seed)
         val_loader = Loader(val_ds, min(batch_size, len(val_ds)), num_workers, seed + 1)
         batch0 = next(iter(train_loader))

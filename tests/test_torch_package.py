@@ -1,12 +1,15 @@
 """flocoder_torch as a package: it imports nothing of JAX or of the JAX
 package (the serving, codec-training, pre-encoding and flow-training
-modules, the SD VAE, HDiT and MoE alike), its entry point refuses to run
-without a card unless asked for the CPU, MIDI export and the options of the
-SD-VAE family that are not ported yet refuse, and ``python -m
-flocoder_torch.generate_samples`` serves end to end on the CPU from
-checkpoints in the npz contract."""
+modules, the SD VAE, HDiT and MoE, the host pipeline's shard, decoder and
+device augmentation alike) and builds its native libraries under
+``flocoder_torch/build/``, never from ``native/``; its entry point refuses
+to run without a card unless asked for the CPU, MIDI export and the options
+of the SD-VAE family that are not ported yet refuse (the U-Net in bf16 now
+runs), and ``python -m flocoder_torch.generate_samples`` serves end to end
+on the CPU from checkpoints in the npz contract."""
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -47,13 +50,18 @@ def test_every_module_imports_without_jax():
               "utils.codebook_analysis", "metrics", "preencode_data", "ops.fused_vq",
               "ops.kernels.fused_vq", "train_flow", "evaluate_model", "training.flow",
               "training.ema", "training.schedules", "ops.ot", "ops.sinkhorn", "ops.fid",
-              "models.sd_vae", "models.hdit", "models.flow_model", "parallel.moe"):
+              "models.sd_vae", "models.hdit", "models.flow_model", "parallel.moe",
+              "data.shard", "data.native_image", "data.device_augs"):
         assert f"flocoder_torch.{m}" in mods, m
+    # the native libraries build and load with the JAX package blocked
     code = ("import sys, importlib\n"
             "for name in ('jax', 'jaxlib', 'flax', 'flocoder_tpu'):\n"
             "    sys.modules[name] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
+            "from flocoder_torch.data import shard, native_image\n"
+            "print(shard.library_file())\n"
+            "print(native_image.library_file() if native_image.available() else '')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'flocoder_tpu') and sys.modules[m] is not None]\n"
             "assert not bad, bad\n")
@@ -61,6 +69,33 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=300,
                          env={**os.environ, "PYTHONPATH": REPO})
     assert res.returncode == 0, res.stderr
+    libs = [line for line in res.stdout.splitlines() if line.endswith(".so")]
+    assert libs
+    build = os.path.realpath(os.path.join(REPO, "flocoder_torch", "build")) + os.sep
+    native = os.path.realpath(os.path.join(REPO, "native")) + os.sep
+    for lib in libs:
+        assert os.path.realpath(lib).startswith(build), lib
+        assert not os.path.realpath(lib).startswith(native), lib
+
+
+def test_no_port_library_path_points_into_native():
+    """The port's sources and built libraries live under flocoder_torch/;
+    nothing of it names the JAX package's native/ directory as a path."""
+    from flocoder_torch.ops.kernels import build
+    assert os.path.realpath(build.CSRC_DIR) == os.path.join(REPO, "flocoder_torch", "csrc")
+    for src in ("fcloader.cpp", "fcimage.cpp"):
+        assert os.path.isfile(os.path.join(build.CSRC_DIR, src))
+        path = build.library_path(src, flags=build.GXX_FLAGS)
+        assert os.path.dirname(os.path.realpath(path)) == os.path.realpath(build.BUILD_DIR)
+    pkg = os.path.join(REPO, "flocoder_torch")
+    for root, _, names in os.walk(pkg):
+        if os.path.basename(root) in ("build", "__pycache__"):
+            continue
+        for name in names:
+            if name.endswith((".py", ".cpp", ".cu", ".cuh")):
+                with open(os.path.join(root, name)) as f:
+                    text = f.read()
+                assert not re.search(r"""["']native["']\s*\)|native/\w""", text), name
 
 
 def _write_checkpoints(tmp_path, overrides):
@@ -125,12 +160,25 @@ def test_midi_export_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("what", ["hdit_pp_stages", "moe_ep", "sd_int8", "unet_bf16"])
 def test_unported_options_of_the_sd_family_raise(what, tmp_path):
-    """HDiT's pipelined mid level, MoE expert parallelism, the SD VAE's int8
-    convs and the U-Net in bf16 wait for later items of ROADMAP.md."""
+    """HDiT's pipelined mid level, MoE expert parallelism and the SD VAE's
+    int8 convs wait for later items of ROADMAP.md. The U-Net in bf16 is
+    ported since: ``flowers_sd``'s U-Net builds in bf16 and computes a
+    finite fp32 velocity."""
     from flocoder_torch import preencode_data as pe
     from flocoder_torch import train_flow as tf
     from flocoder_torch.models.flow_model import build_flow_model
     hdit = ["flow.arch=hdit", "flow.hdit_widths=[16,32]", "flow.hdit_d_head=8"]
+    if what == "unet_bf16":
+        cfg = load_config("flowers_sd", gs.CONFIG_DIR, ["+flow.bf16=true"])
+        model = init_params(build_flow_model(cfg, 4, 0, dtype=torch.bfloat16, dim=8),
+                            torch.Generator().manual_seed(0))
+        assert isinstance(model, Unet) and model.dtype == torch.bfloat16
+        assert all(p.dtype == torch.float32 for p in model.parameters())
+        with torch.no_grad():
+            v = model(torch.randn(2, 8, 8, 4), torch.tensor([10.0, 900.0]), None)
+        assert v.dtype == torch.float32 and v.shape == (2, 8, 8, 4)
+        assert torch.isfinite(v).all()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "hdit_pp_stages":
             cfg = load_config("flowers_hdit", gs.CONFIG_DIR, [*hdit, "+flow.hdit_pp_stages=2"])
@@ -139,13 +187,7 @@ def test_unported_options_of_the_sd_family_raise(what, tmp_path):
             tf.main(["--config-name", "flowers_hdit", "+device=cpu", *hdit,
                      "+flow.hdit_moe_experts=[4,0]", "+flow.moe_ep=true",
                      f"data={tmp_path / 'absent'}"])
-        elif what == "sd_int8":
+        else:
             pe.main(["--config-name", "flowers_sd", "+device=cpu", "+codec.quant_encode=int8",
                      f"data={tmp_path / 'absent'}"])
-        else:
-            cfg = load_config("flowers_sd", gs.CONFIG_DIR)
-            with pytest.raises(NotImplementedError, match="U-Net in bf16"):
-                tf.main(["--config-name", "flowers_sd", "+device=cpu", "+flow.bf16=true",
-                         f"data={tmp_path / 'absent'}"])
-            build_flow_model(cfg, 4, 0, dtype=torch.bfloat16)
     assert not (tmp_path / "absent_encoded_sd").exists()
