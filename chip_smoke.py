@@ -7,9 +7,10 @@
 2. Builds the hand-written kernels from the sources in this checkout, one
    nvcc each, started together: K1, the NA2D forward
    (flocoder_torch/csrc/na2d_fwd.cu), K2, the NA2D backward
-   (flocoder_torch/csrc/na2d_bwd.cu), and K3, K4 and K5, the fused
-   compression tail and RVQ search (flocoder_torch/csrc/fused_vq.cu), and
-   prints each fused kernel's registers and spills from ptxas's report.
+   (flocoder_torch/csrc/na2d_bwd.cu), and K3 (fp32 h and its bf16 case,
+   counted apart), K4 and K5, the fused compression tail and RVQ search
+   (flocoder_torch/csrc/fused_vq.cu), and prints each fused kernel's
+   registers and spills from ptxas's report.
 3. Holds K1 against its plain PyTorch version (na2d_banded) on the card, TF32
    off: the codec's shapes at B=8 (32²×512 with head dim 64, 16²×1024 with
    head dim 128, 16²×128 with head dim 16) and at the main paths' batches
@@ -74,7 +75,14 @@
    its twin, the unfused torch path (the yardstick) and its bound; K3 and
    K5 at every cluster size, K3's empty-launch floor, and with --parent DIR
    another checkout's kernels on the same inputs in turns (parent, this,
-   this, parent).
+   this, parent). Then K3's bf16 case against its twin on the same bf16 h
+   (picks and z_q equal) and against K3 fp32 on h widened (bit for bit) at
+   the pre-encode shape, both layouts, every cluster size, and a ragged
+   map; the W8A8 int8 convolution (im2col + torch._int_mm, not a TPU
+   kernel) against its float64 twin (codes equal, within 1e-6 of the
+   largest |ref|) at an SD-decoder and a VQGAN-decoder shape; K3 bf16 timed
+   in turns with K3 fp32 on h widened, and the int8 convolution beside
+   cuDNN's bf16 and fp32 convolutions at the SD decoder's 3×3 shapes.
 10. Pre-encodes flowers_vqgan at full width through the port's entry point
    (flocoder_torch.preencode_data.main) with preencoding.quantize=true
    preencoding.fused_vq=true, batch 32, augs_per 4, over 320 seeded random
@@ -90,8 +98,8 @@
 12. Trains flowers_vqgan's flow at full width through the port's entry point
    (flocoder_torch.train_flow.main) on the latents step 10 wrote (1,152
    train, 128 val): U-Net dim 16, dim_mults 1,2,4,8, 102 classes, batch 256,
-   parallel OT, EMA, cosine warm restarts, 3 epochs (the recipe's 10,000)
-   with an RK4 + CFG evaluation each epoch at n_steps 20 (the recipe's
+   parallel OT, EMA, cosine warm restarts, 1 epoch (the recipe's 10,000)
+   with an RK4 + CFG evaluation at n_steps 20 (the recipe's
    100). The launch counts are zeroed before and read after: K1 twice per
    evaluation (the sampled and the target latents' decodes, one chunk of
    128 each), nothing else. Serves the trained EMA checkpoint through
@@ -122,9 +130,9 @@
    kernel launches; samples/s, the decode ms a batch; two samples on the
    card and on the CPU within 1e-3·max(1, |ref|).
 16. hdit_flow: trains flowers_hdit with the NA variant at full width (bf16,
-   batch 256) for 3 epochs on step 14's latents, with an RK4 + CFG
-   evaluation each epoch (20 grid points, decoded through the SD VAE), then
-   serves the EMA checkpoint with +bf16=false. K1 and K2 are counted
+   batch 256) for 1 epoch on step 14's latents, with an RK4 + CFG
+   evaluation (20 grid points, decoded through the SD VAE), then
+   serves the EMA checkpoint as trained, in bf16. K1 and K2 are counted
    exactly: 4 K1 (K2) per HDiT forward (backward), 4·NFE K1 per sampler
    call. Steady samples/s, per-epoch samples/s, evaluation seconds by part,
    one step's idle share, peak memory; one fp32 step, zero-init weights
@@ -143,12 +151,12 @@
    validation batch with the note metrics and their 10 grids; 6 K1 and 6
    K2 a step, 6 K1 a validation batch, exactly.
 19. midi_preencode: inpainting=true pre-encode of the 324 roll PNGs from
-   step 18's checkpoint, B=32, augs_per 4 (the recipe's 1024): 4 val and
-   36 train batches of triplets, two encodes a batch (10 K1), read back.
-20. midi_flow: the inpainting flow on those triplets (1,152 train, 128 val):
+   step 18's checkpoint, B=32, augs_per 2 (the recipe's 1024): 2 val and
+   18 train batches of triplets, two encodes a batch (10 K1), read back.
+20. midi_flow: the inpainting flow on those triplets (576 train, 64 val):
    masked U-Net and MaskEncoder, B=256, OTF curriculum with blank_latents
-   (5 K1), 2 epochs of 4 steps with an RK4 inpainting evaluation each
-   epoch at 20 grid points (3 decodes, 3 K1); serving the EMA with .mid export
+   (5 K1), 1 epoch of 2 steps with an RK4 inpainting evaluation at 20
+   grid points (3 decodes, 3 K1); serving the EMA with .mid export
    (64 samples, 1 K1, every .mid parsed back); one step profiled; one step
    of B=64 with the mask encoder on the card against the CPU (fp32 within
    1e-3·max(1, |ref|), float64 changes within 1e-3 of the largest).
@@ -175,9 +183,21 @@
    the val shard; no kernel in training, K1 twice in the evaluation,
    exactly.
 24. tpu_demo (last): configs/tpu_demo.yaml as composed (the resize codec,
-   synthetic 128² data, device_augs, shard; the U-Net in bf16 at B=256,
-   2 epochs of its 40, evaluation at 20 of its 50 grid points), then its
-   EMA served with +bf16=false; no kernel launches.
+   synthetic 128² data, device_augs at augs_per 24 of its 48, shard; the
+   U-Net in bf16 at B=256,
+   1 epoch of its 40, evaluation at 20 of its 50 grid points), then its
+   EMA served as trained, in bf16; no kernel launches.
+25. tpu_vqgan (after step 23): configs/tpu_vqgan.yaml as composed
+   (codec.bf16) at full width on the codec checkpoint of step 6:
+   pre-encode with preencoding.fused_vq=true (B=32, augs_per 1: 1 val and
+   9 train batches; 5 K1 in bf16 and 1 K3 bf16 a batch, exactly), again
+   with +quant=int8 (W8A8 encoder convolutions) over 96 PNGs, one flow epoch
+   (flow.bf16, B=256) with its evaluation decoded in bf16 (2 K1), and the
+   EMA served as trained (bf16, 1 K1) and with +quant=int8; latents/s
+   and s/batch printed. Then flowers_vqgan and flowers_sd served with
+   +quant=int8 (1 and 0 K1), the decode of 64 by both codecs in fp32,
+   fp32 + int8, bf16 and bf16 + int8, and K1 held inside the VQGAN's bf16
+   decode (against na2d_banded in fp32 on the same bf16 values, 2e-2).
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -1298,7 +1318,7 @@ def time_fused_vq(card: str, parent: str | None = None) -> dict:
         zq, idx = fvq.fused_compress_tail_vq(h, *tail, cb, groups)
     hold_picks("K3 against the unfused torch path (its yardstick)", zq, idx, lib_zq,
                lib_idx, fvq.compress_tail_oracle(h, *tail, groups)[2], cb, rel=1e-4)
-    measure("fused_compress_tail_vq", "tail_kernel<4, true>",
+    measure("fused_compress_tail_vq", "tail_kernel<4, true",
             lambda: fvk.fused_compress_tail_vq(h, *tail, cb, groups),
             lambda: fvq.fused_compress_tail_vq_plain(h, *tail, cb, groups),
             lambda: rvq_apply(st, unfused_tail(h_nchw).permute(0, 2, 3, 1)
@@ -1312,7 +1332,7 @@ def time_fused_vq(card: str, parent: str | None = None) -> dict:
 
     n5 = 4 * H * W
     h5, tail5, _ = fvq.random_tail_inputs(g, 4, H, W, 256, D, 1, 1, groups)
-    measure("compress_tail_debug", "tail_kernel<4, false>",
+    measure("compress_tail_debug", "tail_kernel<4, false",
             lambda: fvk.compress_tail_debug(h5, *tail5, groups),
             lambda: fvq.compress_tail_debug_plain(h5, *tail5, groups),
             lambda: F.conv2d(F.silu(F.group_norm(F.conv2d(h5.permute(0, 3, 1, 2), tail5[0],
@@ -1331,10 +1351,10 @@ def time_fused_vq(card: str, parent: str | None = None) -> dict:
         print(f"parent's fused_vq.cu ({parent}) build: {time.time() - t0:.1f} s", flush=True)
         runs = {"fused_compress_vq": ("compress_vq_kernel", lambda m: m.fused_compress_vq(
                     z, w, b, cb4)),
-                "fused_compress_tail_vq": ("tail_kernel<4, true>",
+                "fused_compress_tail_vq": ("tail_kernel<4, true",
                                            lambda m: m.fused_compress_tail_vq(
                                                h, *tail, cb, groups)),
-                "compress_tail_debug": ("tail_kernel<4, false>",
+                "compress_tail_debug": ("tail_kernel<4, false",
                                         lambda m: m.compress_tail_debug(h5, *tail5, groups))}
         with torch.inference_mode():
             for name, (key, call) in runs.items():
@@ -1633,7 +1653,7 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
     on the latents the pre-encode phase wrote (1,152 train, 128 val): U-Net
     dim 16, dim_mults 1,2,4,8, 102 classes, batch 256, lr 1e-4 on cosine warm
     restarts (T0 50, Tmult 2, decay 0.6), EMA 0.999, parallel OT, RK4 + CFG
-    3.0 evaluations. Cut for time: 3 epochs (the recipe's 10,000) and eval
+    3.0 evaluation. Cut for time: 1 epoch (the recipe's 10,000) and eval
     n_steps 20 (the recipe's 100). The launch counts are zeroed before and
     read after: K1 runs in every evaluation's two decodes (the samples and
     the targets, chunks of 128) and nothing else runs. Then serves the
@@ -1645,7 +1665,7 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
     from flocoder_torch.ops.ot import pairwise_sqdist, parallel_assign
     from flocoder_torch.training.flow import make_flow_train_step
 
-    print("flow phase cuts: 3 epochs (the recipe's 10,000), evaluation n_steps 20 "
+    print("flow phase cuts: 1 epoch (the recipe's 10,000), evaluation n_steps 20 "
           "(the recipe's 100)", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
@@ -1654,7 +1674,7 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
     _zero(kernels)
     argv = ["--config-name", "flowers_vqgan.yaml", f"data={pe_data}",
             f"codec.checkpoint={paths['codec']}", "flow.unet.n_classes=102",
-            "flow.epochs=3", "flow.n_steps=20", "flow.ckpt_every=3", "+seed=0",
+            "flow.epochs=1", "flow.n_steps=20", "flow.ckpt_every=1", "+seed=0",
             f"+ckpt_dir={os.path.join(tmp, 'flow_ckpt')}",
             f"+output_dir={os.path.join(tmp, 'flow_out')}"]
     # an event after each step is queued: the step times come from the
@@ -1670,10 +1690,10 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
     eval_k1 = len(res["eval"]) * 2 * len(chunks)
     _expect(kernels, f"flow training ({len(res['eval'])} evaluations x 2 decodes x chunks "
             f"{chunks})", launches, na2d_fwd=eval_k1)
-    if len(res["eval"]) != 3:
+    if len(res["eval"]) != 1:
         fail(f"flow training ran {len(res['eval'])} evaluations")
-    if (len(events) != 12 or [e["steps"] for e in res["epoch_seconds"]] != [4] * 3
-            or [e["samples"] for e in res["epoch_seconds"]] != [4 * FLOW_BATCH] * 3):
+    if (len(events) != 4 or [e["steps"] for e in res["epoch_seconds"]] != [4]
+            or [e["samples"] for e in res["epoch_seconds"]] != [4 * FLOW_BATCH]):
         fail(f"flow training ran {len(events)} steps, {res['epoch_seconds']}")
     steps = _steady(events)
     losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
@@ -2005,10 +2025,11 @@ def hdit_flow_phase(tmp: str, pe_data: str, card: str, kernels: dict) -> tuple:
     flow.hdit_attns=[na:7,global]) through flocoder_torch.train_flow.main
     at full width (widths 256/512, depths 2/4, d_head 64, mapping 2×256,
     102 classes, batch 256, bf16) on the latents sd_preencode wrote (1,152
-    train, 128 val): 3 epochs (the recipe's 10,000), each with the
+    train, 128 val): 1 epoch (the recipe's 10,000), with the
     validation loss and an RK4 + CFG 3.0 evaluation at 20 grid points
-    decoded through the SD VAE. Then serves the EMA checkpoint (64 samples,
-    +bf16=false). K1 and K2 launch counts are held exactly: 4 K1 (K2) per
+    decoded through the SD VAE. Then serves the EMA checkpoint as trained
+    (64 samples, in bf16: its flow.bf16, no flag; the SD VAE too). K1 and K2
+    launch counts are held exactly: 4 K1 (K2) per
     HDiT forward (backward), 4·NFE K1 per sampler call. Then one step under
     the profiler and one fp32 step, its zero-init weights perturbed, on the
     card against the CPU."""
@@ -2018,7 +2039,7 @@ def hdit_flow_phase(tmp: str, pe_data: str, card: str, kernels: dict) -> tuple:
     from flocoder_torch.models.flow_model import build_flow_model
     from flocoder_torch.training.flow import draw_flow_inputs, make_flow_train_step
 
-    print(f"hdit_flow cuts: 3 epochs (the recipe's 10,000), evaluation and serving n_steps "
+    print(f"hdit_flow cuts: 1 epoch (the recipe's 10,000), evaluation and serving n_steps "
           f"{HDIT_N_STEPS} (the recipe's 100)", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
@@ -2026,7 +2047,7 @@ def hdit_flow_phase(tmp: str, pe_data: str, card: str, kernels: dict) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     _zero(kernels)
     argv = ["--config-name", "flowers_hdit.yaml", f"data={pe_data}", *HDIT_NA,
-            "flow.epochs=3", f"flow.n_steps={HDIT_N_STEPS}", "flow.ckpt_every=3", "+seed=0",
+            "flow.epochs=1", f"flow.n_steps={HDIT_N_STEPS}", "flow.ckpt_every=1", "+seed=0",
             f"+ckpt_dir={os.path.join(tmp, 'hdit_ckpt')}",
             f"+output_dir={os.path.join(tmp, 'hdit_out')}"]
     events, step_hook = _hooked()
@@ -2043,7 +2064,7 @@ def hdit_flow_phase(tmp: str, pe_data: str, card: str, kernels: dict) -> tuple:
             "forwards))", train_launches,
             na2d_fwd=HDIT_NA_BLOCKS * (steps + evals * (1 + HDIT_NFE)),
             na2d_bwd=HDIT_NA_BLOCKS * steps)
-    if steps != 12 or evals != 3:
+    if steps != 4 or evals != 1:
         fail(f"hdit_flow training ran {steps} steps and {evals} evaluations")
     losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
     metrics = [v for e in res["eval"] for v in [e["val_loss"], *e["metrics"].values()]
@@ -2054,14 +2075,15 @@ def hdit_flow_phase(tmp: str, pe_data: str, card: str, kernels: dict) -> tuple:
     _zero(kernels)
     served = gs.main(["--config-name", "flowers_hdit.yaml",
                       f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=64",
-                      f"+n_steps={HDIT_N_STEPS}", "+seed=0", "+bf16=false",
+                      f"+n_steps={HDIT_N_STEPS}", "+seed=0",
                       f"+output_dir={os.path.join(tmp, 'hdit_gen')}"])
     serve_launches = _counts(kernels)
     _expect(kernels, "serving the HDiT EMA checkpoint", serve_launches,
             na2d_fwd=HDIT_NA_BLOCKS * HDIT_NFE)
     if (served["images"].shape != (64, 128, 128, 3) or not np.isfinite(served["images"]).all()
-            or served["nfe"] != HDIT_NFE):
-        fail(f"serving the HDiT EMA checkpoint: {served['images'].shape}, nfe {served['nfe']}")
+            or served["nfe"] != HDIT_NFE or not served["bf16"]):
+        fail(f"serving the HDiT EMA checkpoint as trained (bf16): {served['images'].shape}, "
+             f"nfe {served['nfe']}, bf16 {served['bf16']}")
 
     batch = _flow_batch(os.path.join(f"{pe_data}_encoded_sd", "train"))
     state = res["state"]
@@ -2113,7 +2135,7 @@ def hdit_flow_phase(tmp: str, pe_data: str, card: str, kernels: dict) -> tuple:
           f"K1+K2 {prof['na2d_kernels_ms']:.4f} ms | card: {card}", flush=True)
     print("  device time by kernel (ms): " + "; ".join(
         f"{name[:60]}={ms:.3f}" for name, ms in top), flush=True)
-    print(f"  served the EMA checkpoint in fp32: 64 samples, nfe={served['nfe']}, s/batch "
+    print(f"  served the EMA checkpoint as trained (bf16): 64 samples, nfe={served['nfe']}, s/batch "
           f"{[round(x, 4) for x in served['batch_seconds']]}, launches {serve_launches} "
           f"| card: {card}", flush=True)
     launches = {name: train_launches[name] + serve_launches[name] for name in kernels}
@@ -2253,8 +2275,8 @@ def midi_train_codec(tmp: str, card: str, kernels: dict) -> tuple:
 def midi_preencode(tmp: str, card: str, kernels: dict) -> tuple:
     """midi_vqgan pre-encoded with inpainting=true through
     flocoder_torch.preencode_data.main from the codec training's checkpoint,
-    over the corpus's 324 roll PNGs: batch 32 (the recipe's), augs_per 4
-    (the recipe's 1024): 4 val and 36 train batches, each two encodes (the
+    over the corpus's 324 roll PNGs: batch 32 (the recipe's), augs_per 2
+    (the recipe's 1024): 2 val and 18 train batches, each two encodes (the
     image and the masked image, masks generate_mask_batch(seed·100003+b)),
     5 K1 an encode. Reads the triplets back."""
     from flocoder_torch import preencode_data as pe
@@ -2267,7 +2289,7 @@ def midi_preencode(tmp: str, card: str, kernels: dict) -> tuple:
     _zero(kernels)
     t0 = time.time()
     res = pe.main(["--config-name", "midi_vqgan.yaml", f"data={data}",
-                   f"codec.checkpoint={ckpt}", "+inpainting=true", "preencoding.augs_per=4",
+                   f"codec.checkpoint={ckpt}", "+inpainting=true", "preencoding.augs_per=2",
                    "+seed=0"])
     torch.cuda.synchronize()
     wall = time.time() - t0
@@ -2276,7 +2298,7 @@ def midi_preencode(tmp: str, card: str, kernels: dict) -> tuple:
     batches = sum(r["batches"] for r in splits.values())
     _expect(kernels, "midi inpainting pre-encode", launches,
             na2d_fwd=2 * MIDI_CODEC_NATTEN[0] * batches)
-    if [r["batches"] for r in splits.values()] != [4, 36]:
+    if [r["batches"] for r in splits.values()] != [2, 18]:
         fail(f"midi pre-encode ran {[r['batches'] for r in splits.values()]} batches")
     for split, r in splits.items():
         ds = PreEncodedDataset(r["out_dir"])
@@ -2423,14 +2445,14 @@ def export_corpus_rolls(tmp: str, n: int = 64) -> dict:
 
 def midi_flow(tmp: str, card: str, kernels: dict) -> tuple:
     """The inpainting flow of midi_vqgan through flocoder_torch.train_flow.main on
-    the pre-encoded triplets (1,152 train, 128 val): the mask-conditioned U-Net
+    the pre-encoded triplets (576 train, 64 val): the mask-conditioned U-Net
     (dim 16, dim_mults 1,2,4,8) and the MaskEncoder (128² masks → 8² →
     resized to the 16² latents), batch 256 (the recipe's), OTF curriculum
     (curriculum 1 epoch, ramp to epoch 2, then p_ones 0.3 and p_zeros 0.05)
     with blank_latents (one encode: 5 K1), and an RK4 inpainting evaluation
     each epoch at 20 grid points (the recipe's 100) conditioned on the val
     batch's masks, from its mask-blended sources: 3 decodes (samples,
-    targets, sources) of 128, 1 K1 each. 2 epochs of 4 steps (the recipe's
+    targets, sources) of 64, 1 K1 each. 1 epoch of 2 steps (the recipe's
     10,000). Then serves the EMA with .mid export (64 samples, 1 K1) and
     parses every .mid back (rolls that hold no notes yet), exports corpus
     rolls that do (export_corpus_rolls); profiles one step; holds a step on
@@ -2443,8 +2465,8 @@ def midi_flow(tmp: str, card: str, kernels: dict) -> tuple:
     from flocoder_torch.preencode_data import load_codec
     from flocoder_torch.training.flow import make_flow_train_step
 
-    print("midi flow cuts: 2 epochs (the recipe's 10,000), evaluation n_steps 20 (the "
-          "recipe's 100), OTF curriculum over 2 epochs", flush=True)
+    print("midi flow cuts: 1 epoch (the recipe's 10,000), evaluation n_steps 20 (the "
+          "recipe's 100), the OTF curriculum's first epoch", flush=True)
     ckpt = os.path.join(tmp, "midi_ckpt", "vqgan_2.npz")
     data = os.path.join(tmp, "midi_images_encoded_vqgan_inpainting")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2455,7 +2477,7 @@ def midi_flow(tmp: str, card: str, kernels: dict) -> tuple:
     events, step_hook = _hooked()
     t0 = time.time()
     res = tf.main(["--config-name", "midi_vqgan.yaml", f"data={data}", f"codec.checkpoint={ckpt}",
-                   "flow.epochs=2", "flow.n_steps=20", "flow.ckpt_every=2", *MIDI_OTF,
+                   "flow.epochs=1", "flow.n_steps=20", "flow.ckpt_every=1", *MIDI_OTF,
                    "+seed=0", f"+ckpt_dir={os.path.join(tmp, 'midi_flow_ckpt')}",
                    f"+output_dir={os.path.join(tmp, 'midi_flow_out')}"], step_hook=step_hook)
     torch.cuda.synchronize()
@@ -2464,7 +2486,7 @@ def midi_flow(tmp: str, card: str, kernels: dict) -> tuple:
     peak = torch.cuda.max_memory_allocated() / 2**30
     _expect(kernels, "midi inpainting flow", launches,
             na2d_fwd=MIDI_CODEC_NATTEN[0] + 3 * len(res["eval"]) * MIDI_CODEC_NATTEN[1])
-    if len(events) != 8 or len(res["eval"]) != 2:
+    if len(events) != 2 or len(res["eval"]) != 1:
         fail(f"midi flow ran {len(events)} steps and {len(res['eval'])} evaluations")
     losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
     metrics = [v for e in res["eval"] for v in [e["val_loss"], *e["metrics"].values()]
@@ -2848,19 +2870,22 @@ def flow_shard(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
 def tpu_demo(tmp: str, card: str, kernels: dict) -> tuple:
     """configs/tpu_demo.yaml as composed: the resize codec, the synthetic
     set at 128² (256 images), device_augs and format=shard in pre-encoding
-    (B=64, augs_per 48: 48 val batches of 25, 173 train batches of 64), then
+    (B=64, augs_per 24 of the recipe's 48: 24 val batches of 25, 86 train
+    batches of 64), then
     the U-Net (dim 16, dim_mults 1,2,4,8, 4 classes) in bf16 at B=256 with
-    lr 1e-3 and an RK4 + CFG 2.0 evaluation each epoch; its EMA served with
-    +bf16=false (bf16 serving is not ported). Cut: 2 epochs (the recipe's 40)
-    and evaluation n_steps 20 (its 50); flow.ckpt_every=2 (its 20) so that
-    the cut run writes the checkpoint it serves. No kernel of the port runs:
-    the resize codec has no NATTEN."""
+    lr 1e-3 and an RK4 + CFG 2.0 evaluation each epoch; its EMA served as
+    trained, in bf16 (the checkpoint's flow.bf16, no flag). Cut: 1 epoch
+    (the recipe's 40) and evaluation
+    n_steps 20 (its 50); flow.ckpt_every=1 (its 20) so that the cut run
+    writes the checkpoint it serves. No kernel of the port runs: the resize
+    codec has no NATTEN."""
     from flocoder_torch import generate_samples as gs
     from flocoder_torch import preencode_data as pe
     from flocoder_torch import train_flow as tf
 
-    print("tpu_demo cuts: 2 epochs (the recipe's 40), evaluation n_steps 20 (its 50); "
-          "flow.ckpt_every=2 (its 20) to write the served checkpoint", flush=True)
+    print("tpu_demo cuts: pre-encode augs_per 24 (the recipe's 48), 1 epoch (its 40), "
+          "evaluation n_steps 20 (its 50); flow.ckpt_every=1 (its 20) to write the served "
+          "checkpoint", flush=True)
     data = os.path.join(tmp, "fc_tpu_demo")          # absent: the synthetic set
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
@@ -2868,16 +2893,16 @@ def tpu_demo(tmp: str, card: str, kernels: dict) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     _zero(kernels)
     t0 = time.time()
-    enc = pe.main(["--config-name", "tpu_demo.yaml", f"data={data}"])
+    enc = pe.main(["--config-name", "tpu_demo.yaml", f"data={data}", "preencoding.augs_per=24"])
     pe_wall = time.time() - t0
     pe_peak = torch.cuda.max_memory_allocated() / 2**30
-    if [enc[s]["batches"] for s in ("val", "train")] != [48, 173] or any(
+    if [enc[s]["batches"] for s in ("val", "train")] != [24, 86] or any(
             enc[s]["format"] != "shard" for s in ("val", "train")):
         fail(f"tpu_demo pre-encode: {[(enc[s]['batches'], enc[s]['format']) for s in ('val', 'train')]}")
 
     torch.cuda.reset_peak_memory_stats()
-    argv = ["--config-name", "tpu_demo.yaml", f"data={data}", "flow.epochs=2",
-            "flow.n_steps=20", "flow.ckpt_every=2", f"+ckpt_dir={os.path.join(tmp, 'demo_ckpt')}",
+    argv = ["--config-name", "tpu_demo.yaml", f"data={data}", "flow.epochs=1",
+            "flow.n_steps=20", "flow.ckpt_every=1", f"+ckpt_dir={os.path.join(tmp, 'demo_ckpt')}",
             f"+output_dir={os.path.join(tmp, 'demo_out')}"]
     events, step_hook = _hooked()
     t0 = time.time()
@@ -2890,20 +2915,22 @@ def tpu_demo(tmp: str, card: str, kernels: dict) -> tuple:
     if model.dtype != torch.bfloat16 or any(p.dtype != torch.float32
                                             for p in model.parameters()):
         fail("tpu_demo's U-Net did not train in bf16 over fp32 parameters")
-    if [e["steps"] for e in res["epoch_seconds"]] != [n_train // FLOW_BATCH] * 2 or \
-            len(res["eval"]) != 2:
+    if [e["steps"] for e in res["epoch_seconds"]] != [n_train // FLOW_BATCH] or \
+            len(res["eval"]) != 1:
         fail(f"tpu_demo ran {res['epoch_seconds']}, {len(res['eval'])} evaluations")
     losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
     metrics = [v for e in res["eval"] for v in [e["val_loss"], *e["metrics"].values()]
                if not isinstance(v, str)]
     if not (np.isfinite(losses).all() and np.isfinite(metrics).all()):
         fail(f"tpu_demo losses or metrics not finite: {res['epochs']}")
-    served = gs.main(["--config-name", "tpu_demo.yaml", "+bf16=false",
+    served = gs.main(["--config-name", "tpu_demo.yaml",
                       f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=64",
                       "+n_steps=20", "+seed=0",
                       f"+output_dir={os.path.join(tmp, 'demo_gen')}"])
     if served["images"].shape != (64, 128, 128, 3) or not np.isfinite(served["images"]).all():
         fail(f"tpu_demo serving: {served['images'].shape}")
+    if not served["bf16"]:
+        fail("tpu_demo's flow.bf16 checkpoint did not serve in bf16")
     launches = _counts(kernels)
     _expect(kernels, "tpu_demo (resize codec)", launches)
     steps = _steady(events)
@@ -2920,11 +2947,378 @@ def tpu_demo(tmp: str, card: str, kernels: dict) -> tuple:
           f"B={FLOW_BATCH}: {rec['steady_samples_per_s']:.2f} samples/s over steady steps "
           f"(median of {len(steps)}), per epoch "
           f"{[round(x, 2) for x in rec['epoch_samples_per_s']]}, peak {peak:.2f} GiB; served "
-          f"64 in fp32, s/batch {[round(x, 4) for x in served['batch_seconds']]} | card: "
+          f"64 as trained (bf16), s/batch {[round(x, 4) for x in served['batch_seconds']]} | card: "
           f"{card}", flush=True)
     del res, model
     torch.cuda.empty_cache()
     return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# The bf16 and int8 slice: tpu_vqgan as composed, serving as trained, the
+# int8 decode, K3 on bf16 activations
+# ---------------------------------------------------------------------------
+
+TPU_VQGAN_PE = ["preencoding.quantize=true", "preencoding.fused_vq=true",
+                "preencoding.augs_per=1", "preencoding.batch_size=32"]
+# B, C, H, W of the SD decoder's 3×3 convolutions at the serving batch; the
+# last is also the VQGAN decoder's 32²×512
+SD_DECODER_CONVS = [(64, 128, 128, 128), (64, 256, 64, 64), (64, 512, 32, 32)]
+
+
+def check_bf16_slice_kernels(card: str) -> dict:
+    """K3's bf16 case against its plain twin on the same bf16 h, TF32 off, at
+    the pre-encode shape (B=32, 16²×128 → D=4, 4×96 codes) in both layouts
+    of h and every cluster size, and at a ragged 5×7 map: the picks equal
+    and z_q equal (bf16); and against K3's fp32 case on h widened, bit for
+    bit. Then the W8A8 convolution on the card (im2col + torch._int_mm)
+    against its float64 twin on the CPU at an SD-decoder shape (128²×128 →
+    128, k 3, B=2) and a VQGAN decoder shape (32²×512 → 512, k 3, B=2): the
+    int8 codes equal, the output within 1e-6 of the largest |ref|."""
+    from flocoder_torch.ops import fused_vq as fvq
+    from flocoder_torch.ops import quant
+    from flocoder_torch.ops.kernels import fused_vq as fvk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator("cuda").manual_seed(31)
+    out = {}
+    for B, H, W, Din, nchw, cs in ((32, 16, 16, 128, True, None), (32, 16, 16, 128, False, None),
+                                   *((32, 16, 16, 128, True, c) for c in fvk.CLUSTER_SIZES),
+                                   (3, 5, 7, 16, True, None), (3, 5, 7, 16, False, None)):
+        h, tail, cb = fvq.random_tail_inputs(g, B, H, W, Din, 4, 4, 96, 2, nchw)
+        hb = h.to(torch.bfloat16)
+        zq, idx = fvk.fused_compress_tail_vq_bf16(hb, *tail, cb, 2, cluster=cs)
+        torch.cuda.synchronize()
+        zq_t, idx_t = fvq.fused_compress_tail_vq_plain(hb, *tail, cb, 2)
+        zq32, idx32 = fvk.fused_compress_tail_vq(hb.float(), *tail, cb, 2, cluster=cs)
+        differ = int((idx != idx_t).any(-1).sum())
+        err = (zq.float() - zq_t.float()).abs().max().item()
+        ok = (differ == 0 and err == 0.0 and zq.dtype == torch.bfloat16
+              and torch.equal(idx, idx32) and torch.equal(zq, zq32.to(torch.bfloat16)))
+        print(f"K3 bf16 check B={B} {H}x{W}x{Din} {'NCHW' if nchw else 'NHWC'} cluster {cs}: "
+              f"{differ} of {B * H * W} tokens pick other codes than the twin, z_q "
+              f"max_abs_err={err:.3e} (equal asked); equal to K3 fp32 on h widened "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail("K3's bf16 case disagrees with its twin or with K3 on h widened")
+    out["fused_compress_tail_vq_bf16"] = {"max_abs_err": 0.0}
+    worst = 0.0
+    for B, C, S, Co in ((2, 128, 128, 128), (2, 512, 32, 512)):
+        x = torch.randn(B, C, S, S, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(Co, C, 3, 3, device="cuda", generator=g) / (9 * C) ** 0.5
+        b = torch.randn(Co, device="cuda", generator=g) * 0.1
+        y = quant.int8_conv(x, w, b, 1, 1, torch.bfloat16)
+        torch.cuda.synchronize()
+        codes = (torch.equal(quant.quantize_activations(x)[0].cpu(),
+                             quant.quantize_activations(x.cpu())[0])
+                 and torch.equal(quant.quantize_weight(w)[0].cpu(),
+                                 quant.quantize_weight(w.cpu())[0]))
+        ref = quant.int8_conv(x.cpu(), w.cpu(), b.cpu(), 1, 1, torch.bfloat16).float()
+        err = (y.cpu().float() - ref).abs().max().item()
+        tol = 1e-6 * ref.abs().max().item()
+        print(f"int8_conv check {B}x{C}x{S}x{S} -> {Co}, k 3: codes equal {codes}; "
+              f"max_abs_err={err:.3e} (tol {tol:.3e}) {'ok' if codes and err <= tol else 'FAIL'}",
+              flush=True)
+        if not (codes and err <= tol):
+            fail("the int8 convolution on the card disagrees with its float64 twin")
+        worst = max(worst, err)
+    out["int8_conv"] = {"max_abs_err": worst}
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_bf16_slice(card: str) -> dict:
+    """K3's bf16 case at the pre-encode shape (device ms by the profiler,
+    CUDA events) beside K3's fp32 case on the same h widened, in turns
+    (fp32, bf16, bf16, fp32), the twin on the card, the unfused torch path
+    on h widened (the yardstick: no single PyTorch call computes K3) and
+    its bound (h read as bf16, z_q written as bf16). Then the W8A8
+    convolution (im2col + torch._int_mm) beside cuDNN's bf16 and fp32
+    convolutions at the SD decoder's 3×3 shapes at B=64 (32²×512 is the
+    VQGAN decoder's too)."""
+    import torch.nn.functional as F
+    from flocoder_torch.ops import fused_vq as fvq
+    from flocoder_torch.ops import quant
+    from flocoder_torch.ops.kernels import fused_vq as fvk
+    from flocoder_torch.ops.rvq import RVQState, rvq_apply
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator("cuda").manual_seed(32)
+    B, H, W, Din, D, L, K, groups = 32, 16, 16, 128, 4, 4, 96, 2
+    n = B * H * W
+    h, tail, cb = fvq.random_tail_inputs(g, B, H, W, Din, D, L, K, groups)
+    hb = h.to(torch.bfloat16)
+    hw = hb.float()
+    w1, b1, gs, gb, cw, cbias = tail
+    st = RVQState(L, K, D).cuda()
+    st.codebooks.copy_(cb)
+
+    def unfused():
+        y = F.silu(F.group_norm(F.conv2d(hw.permute(0, 3, 1, 2), w1, b1), groups, gs, gb, 1e-5))
+        y = F.conv2d(y, cw, cbias, padding=1).permute(0, 2, 3, 1).reshape(-1, D)
+        return rvq_apply(st, y)[:2]
+
+    bf16 = lambda: fvk.fused_compress_tail_vq_bf16(hb, *tail, cb, groups)  # noqa: E731
+    fp32 = lambda: fvk.fused_compress_tail_vq(hw, *tail, cb, groups)  # noqa: E731
+    with torch.inference_mode():
+        ms = cuda_ms(bf16, 200, warmup=5)
+        turns = [(who, device_ms(fn, key, iters=20)) for who, fn, key in (
+            ("fp32", fp32, "tail_kernel<4, true"), ("bf16", bf16, "tail_kernel<4, true"),
+            ("bf16", bf16, "tail_kernel<4, true"), ("fp32", fp32, "tail_kernel<4, true"))]
+        plain_ms = cuda_ms(lambda: fvq.fused_compress_tail_vq_plain(hb, *tail, cb, groups), 50)
+        library_ms = cuda_ms(unfused, 50)
+    dev = float(np.mean([t for who, t in turns if who == "bf16"]))
+    n_bytes = 2 * n * Din + 4 * (D * Din + 4 * D + 9 * D * D + L * K * D) + 2 * n * D + 4 * n * L
+    n_ops = n * (2 * Din * D + 18 * D * D + 10 * D) + n * L * (K * (2 * D + 3) + 2 * D)
+    bound_ms, bound_by = fused_vq_bound_ms(n_bytes, n_ops)
+    rec = {"fused_compress_tail_vq_bf16": dict(
+        ms=ms, device_ms=dev, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+        bound_by=bound_by, fp32_turns_device_ms=turns)}
+    print(f"K3 bf16 h time: kernel_ms={ms:.5f} device_ms={dev:.5f} plain_ms={plain_ms:.5f} "
+          f"library_ms={library_ms:.5f} (unfused torch path on h widened) bound_ms="
+          f"{bound_ms:.5f} ({bound_by}; {n_bytes / 1e6:.3f} MB); device ms in turns "
+          f"(K3 fp32 on h widened, bf16, bf16, fp32): "
+          + ", ".join(f"{who} {t:.5f}" for who, t in turns) + f" | card: {card}", flush=True)
+
+    convs = []
+    for B, C, S, _ in SD_DECODER_CONVS:
+        x = torch.randn(B, C, S, S, device="cuda", generator=g).to(torch.bfloat16)
+        w = torch.randn(C, C, 3, 3, device="cuda", generator=g) / (9 * C) ** 0.5
+        b = torch.zeros(C, device="cuda")
+        wb, bb, x32 = w.to(torch.bfloat16), b.to(torch.bfloat16), x.float()
+        with torch.inference_mode():
+            t_int8 = cuda_ms(lambda: quant.int8_conv(x, w, b, 1, 1, torch.bfloat16), 10, 2)
+            t_bf16 = cuda_ms(lambda: F.conv2d(x, wb, bb, padding=1), 10, 2)
+            t_fp32 = cuda_ms(lambda: F.conv2d(x32, w, b, padding=1), 10, 2)
+        row = dict(shape=[B, C, S, S], k=3, int8_ms=t_int8, cudnn_bf16_ms=t_bf16,
+                   cudnn_fp32_ms=t_fp32, int8_bound_ms=max(
+                       2 * B * S * S * C * C * 9 / 1.979e15, (2 * 2 * B * C * S * S) / HBM_BYTES_PER_S) * 1e3)
+        convs.append(row)
+        print(f"conv 3x3 {B}x{C}x{S}x{S} -> {C}: int8 (im2col + _int_mm, quantize and "
+              f"dequantize included) {t_int8:.4f} ms, cuDNN bf16 {t_bf16:.4f} ms, cuDNN fp32 "
+              f"(TF32 off) {t_fp32:.4f} ms | card: {card}", flush=True)
+        del x, x32
+        torch.cuda.empty_cache()
+    rec["int8_conv"] = convs
+    return rec
+
+
+def hold_k1_in_decode(codec, z, kernels: dict) -> float:
+    """K1 on the q, k, v that the decoder's NATTEN block computes while
+    ``codec`` (bf16) decodes ``z``: K1 against na2d_banded in fp32 on the
+    same bf16 values, max |Δ| < 2e-2 (the bf16 gate of check_k1). Returns
+    the error."""
+    import torch.nn.functional as F
+    from flocoder_torch.models.codecs import NATTENBlock
+    from flocoder_torch.ops.neighborhood_attention import na2d_banded
+    blocks = [m for m in codec.decoder.modules() if isinstance(m, NATTENBlock)]
+    seen = []
+    handle = blocks[0].register_forward_pre_hook(lambda m, a: seen.append(a[0]))
+    with torch.inference_mode():
+        codec.decode(z)
+        handle.remove()
+        blk = blocks[0]
+        x = seen[0]
+        c = x.shape[1]
+        xn = blk.GroupNorm_0(x).permute(0, 2, 3, 1)
+        w = blk.Dense_0.weight.to(x.dtype)
+        q, k, v = (F.linear(xn.to(x.dtype), w[i * c:(i + 1) * c]) for i in range(3))
+        out = kernels["na2d_fwd"](q, k, v, kernel_size=blk.kernel_size, heads=blk.num_heads)
+        torch.cuda.synchronize()
+        ref = na2d_banded(q.float(), k.float(), v.float(), kernel_size=blk.kernel_size,
+                          heads=blk.num_heads)
+    err = (out.float() - ref).abs().max().item()
+    print(f"K1 check inside the bf16 decode {tuple(q.shape)} dh {c // blk.num_heads} "
+          f"{q.dtype}: max_abs_err={err:.3e} (tol 2e-2) {'ok' if err < 2e-2 else 'FAIL'}",
+          flush=True)
+    if not (np.isfinite(err) and err < 2e-2):
+        fail("K1 inside the bf16 decode disagrees with its plain version")
+    return err
+
+
+def time_decodes(paths: dict, sd_paths: dict, card: str, kernels: dict) -> dict:
+    """The decode of 64 latents (16×16×4) by flowers_vqgan's codec (its
+    checkpoint) and flowers_sd's SD VAE (seeded), each in fp32, bf16 and
+    bf16 with the int8 decoder (CUDA events over 3 decodes after 1, cuDNN's
+    TF32 on as the scripts leave it; the bf16 codecs take the fp32 one's
+    weights); and K1 held inside the VQGAN's bf16 decode."""
+    from flocoder_torch.config import load_config
+    from flocoder_torch.generate_samples import CONFIG_DIR
+    from flocoder_torch.models.codecs import load_codec_weights, setup_codec
+    torch.backends.cudnn.allow_tf32 = True
+    z = torch.randn(64, 16, 16, 4, device="cuda", generator=torch.Generator("cuda").manual_seed(33))
+    rec, k1_err = {}, 0.0
+    for recipe, ckpt in (("flowers_vqgan", paths["codec"]), ("flowers_sd", None)):
+        cfg = load_config(recipe, CONFIG_DIR, [f"codec.checkpoint={ckpt}"] if ckpt else [])
+        row, weights = {}, None
+        for mode, dtype, q in (("fp32", torch.float32, False), ("bf16", torch.bfloat16, False),
+                               ("bf16_int8", torch.bfloat16, True)):
+            codec = setup_codec(cfg, device="cuda", dtype=dtype, quant_decode=q)
+            if weights is None:
+                codec.init(torch.Generator("cuda").manual_seed(0))
+                load_codec_weights(codec, ckpt)
+                weights = codec.state_dict()
+            else:
+                codec.load_state_dict(weights)
+            codec.eval()
+            with torch.inference_mode():
+                row[mode] = cuda_ms(lambda: codec.decode(z), 3, warmup=1)
+            if recipe == "flowers_vqgan" and mode == "bf16":
+                k1_err = hold_k1_in_decode(codec, z, kernels)
+            del codec
+            torch.cuda.empty_cache()
+        del weights
+        rec[recipe] = row
+        print(f"decode of 64 (16x16x4 -> 128²) {recipe}: " + ", ".join(
+            f"{m} {t:.3f} ms" for m, t in row.items()) + f" | card: {card}", flush=True)
+    rec["k1_in_bf16_decode_err"] = k1_err
+    return rec
+
+
+def tpu_vqgan_phase(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
+    """configs/tpu_vqgan.yaml as composed (codec.bf16: the codec computes in
+    bf16 over fp32 parameters; rng_impl rbg accepted and ignored) at its full
+    widths (hidden 256, internal 128, 4×96 codebooks, 128² images), the
+    codec's weights the seeded checkpoint of the serving phase (the same
+    architecture). Pre-encodes the pre-encode phase's 320 500² PNGs with
+    preencoding.fused_vq=true at B=32, augs_per 1 (the recipe's 1024): 1 val
+    and 9 train batches, 5 K1 (bf16) and 1 K3 (its bf16 case) a batch,
+    exactly; then with +quant=int8 (the encoder's convolutions W8A8, the same
+    launches a batch beside the int8 products) over 96 such PNGs (1 val and 2
+    train batches). Trains the flow (flow.bf16,
+    B=256) for one epoch on the bf16 latents (1 step) with its RK4 + CFG
+    evaluation at 20 grid points decoded in bf16 (2 K1), then serves the EMA
+    checkpoint as trained (bf16; 1 K1) and with +quant=int8 (1 K1)."""
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch import preencode_data as pe
+    from flocoder_torch import train_flow as tf
+    from flocoder_torch.data.datasets import PreEncodedDataset
+    from flocoder_torch.ops import quant
+
+    print("tpu_vqgan cuts: pre-encode augs_per 1 (the recipe's 1024), flow 1 epoch (its "
+          "10,000), evaluation and serving n_steps 20 (its 100)", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    rec, launches = {"card": card}, dict.fromkeys(kernels, 0)
+
+    def add(got):
+        for name in kernels:
+            launches[name] += got[name]
+
+    write_pngs(os.path.join(tmp, "tpu_vqgan_int8_images"), n=96, size=500, seed=5)
+    for tag, extra, images, n_batches in (
+            ("bf16", [], "pe_images", 10),
+            ("bf16_int8", ["+quant=int8"], "tpu_vqgan_int8_images", 3)):
+        data = os.path.join(tmp, f"tpu_vqgan_{tag}")
+        os.symlink(os.path.join(tmp, images), data)
+        _zero(kernels)
+        quant.int_mm_calls.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        enc = pe.main(["--config-name", "tpu_vqgan.yaml", f"data={data}",
+                       f"codec.checkpoint={paths['codec']}", *TPU_VQGAN_PE, *extra])
+        wall = time.time() - t0
+        got = _counts(kernels)
+        batches = enc["val"]["batches"] + enc["train"]["batches"]
+        if enc["codec"].dtype != torch.bfloat16 or batches != n_batches:
+            fail(f"tpu_vqgan pre-encode {tag}: codec {enc['codec'].dtype}, {batches} batches")
+        _expect(kernels, f"tpu_vqgan pre-encode {tag} ({batches} batches x (5 K1 bf16 + 1 K3 "
+                "bf16))", got, na2d_fwd=5 * batches, fused_compress_tail_vq_bf16=batches)
+        mm = quant.int_mm_calls.launches
+        if (mm > 0) != bool(extra):
+            fail(f"tpu_vqgan pre-encode {tag}: {mm} int8 products")
+        add(got)
+        ds = PreEncodedDataset(enc["train"]["out_dir"])
+        lat = np.stack([ds.get(i, None)[0] for i in range(len(ds))])
+        if lat.dtype != np.float32 or lat.shape[1:] != (16, 16, 4) or not np.isfinite(lat).all():
+            fail(f"tpu_vqgan latents {tag}: {lat.dtype} {lat.shape}")
+        rec[f"preencode_{tag}"] = dict(
+            wall_s=wall, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+            int8_products=mm, **{f"{s}_latents_per_s": enc[s]["latents_per_s"]
+                                 for s in ("val", "train")})
+        print(f"tpu_vqgan pre-encode {tag} B=32 (fused: K3 on bf16 h): val "
+              f"{enc['val']['latents_per_s']:.2f}, train {enc['train']['latents_per_s']:.2f} "
+              f"latents/s, wall {wall:.1f} s, {mm} int8 products, peak "
+              f"{rec[f'preencode_{tag}']['peak_mem_gib']:.2f} GiB | card: {card}", flush=True)
+
+    _zero(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = tf.main(["--config-name", "tpu_vqgan.yaml", f"data={os.path.join(tmp, 'tpu_vqgan_bf16')}",
+                   f"codec.checkpoint={paths['codec']}", "flow.unet.n_classes=102",
+                   "flow.bf16=true", "flow.epochs=1", "flow.n_steps=20", "flow.ckpt_every=1",
+                   "+seed=0", f"+ckpt_dir={os.path.join(tmp, 'tpu_vqgan_ckpt')}",
+                   f"+output_dir={os.path.join(tmp, 'tpu_vqgan_out')}"])
+    wall = time.time() - t0
+    got = _counts(kernels)
+    _expect(kernels, "tpu_vqgan flow (1 evaluation x 2 decodes of 32 in bf16)", got, na2d_fwd=2)
+    add(got)
+    metrics = [v for e in res["eval"] for v in [e["val_loss"], *e["metrics"].values()]
+               if not isinstance(v, str)]
+    if len(res["eval"]) != 1 or not np.isfinite(metrics).all():
+        fail(f"tpu_vqgan flow evaluation: {res['eval']}")
+    rec["flow"] = dict(wall_s=wall, epochs=res["epochs"], evals=res["eval"])
+    print(f"tpu_vqgan flow 1 epoch (bf16 U-Net, bf16 codec): wall {wall:.1f} s, evaluation s "
+          + " ".join(f"{k}={v:.4f}" for k, v in res["eval"][0]["seconds"].items())
+          + f", FID_px {res['eval'][0]['metrics']['FID_px']:.3f} | card: {card}", flush=True)
+
+    for tag, extra in (("bf16", []), ("bf16_int8", ["+quant=int8"])):
+        _zero(kernels)
+        quant.int_mm_calls.launches = 0
+        served = gs.main(["--config-name", "tpu_vqgan.yaml",
+                          f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=64",
+                          "+n_steps=20", "+seed=0",
+                          f"+output_dir={os.path.join(tmp, f'tpu_vqgan_gen_{tag}')}", *extra])
+        got = _counts(kernels)
+        _expect(kernels, f"tpu_vqgan serving {tag} (1 decode)", got, na2d_fwd=1)
+        add(got)
+        if (served["images"].shape != (64, 128, 128, 3) or not np.isfinite(served["images"]).all()
+                or not served["bf16"] or served["quant"] != bool(extra)
+                or (quant.int_mm_calls.launches > 0) != bool(extra)):
+            fail(f"tpu_vqgan serving {tag}: {served['images'].shape}, bf16 {served['bf16']}, "
+                 f"quant {served['quant']}, {quant.int_mm_calls.launches} int8 products")
+        rec[f"serve_{tag}"] = dict(s_per_batch=served["batch_seconds"], nfe=served["nfe"],
+                                   int8_products=quant.int_mm_calls.launches)
+        print(f"tpu_vqgan served as trained ({tag}): 64 samples, nfe {served['nfe']}, s/batch "
+              f"{[round(x, 4) for x in served['batch_seconds']]}, "
+              f"{quant.int_mm_calls.launches} int8 products | card: {card}", flush=True)
+    del res
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+def int8_serving(tmp: str, paths: dict, sd_paths: dict, card: str, kernels: dict) -> tuple:
+    """flowers_vqgan and flowers_sd served with +quant=int8 through
+    generate_samples (the unconditional seeded checkpoints; 64 samples, 20
+    grid points): the decoders' W8A8 convolutions run (torch._int_mm), K1
+    once in the VQGAN's decode (fp32: the recipe is not bf16), none in the
+    SD VAE's."""
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch.ops import quant
+    rec, launches = {}, dict.fromkeys(kernels, 0)
+    for recipe, ckpt, k1 in (("flowers_vqgan", paths["uncond"], 1),
+                             ("flowers_sd", sd_paths["uncond"], 0)):
+        _zero(kernels)
+        quant.int_mm_calls.launches = 0
+        served = gs.main(["--config-name", f"{recipe}.yaml", f"+flow_checkpoint={ckpt}",
+                          "+n_samples=64", "+n_steps=20", "+seed=0", "+quant=int8",
+                          f"+output_dir={os.path.join(tmp, f'int8_{recipe}')}"])
+        got = _counts(kernels)
+        _expect(kernels, f"{recipe} serving with +quant=int8", got, na2d_fwd=k1)
+        for name in kernels:
+            launches[name] += got[name]
+        mm = quant.int_mm_calls.launches
+        if (served["images"].shape != (64, 128, 128, 3) or not np.isfinite(served["images"]).all()
+                or not served["quant"] or mm == 0):
+            fail(f"{recipe} int8 serving: {served['images'].shape}, quant {served['quant']}, "
+                 f"{mm} int8 products")
+        rec[recipe] = dict(s_per_batch=served["batch_seconds"], int8_products=mm)
+        print(f"{recipe} served with +quant=int8: 64 samples, s/batch "
+              f"{[round(x, 4) for x in served['batch_seconds']]}, {mm} int8 products | card: "
+              f"{card}", flush=True)
+    return rec, launches
+
 
 
 def print_ptxas(source: str) -> None:
@@ -2966,18 +3360,19 @@ def main() -> None:
     kernels = {"na2d_fwd": na2d_fwd, "na2d_bwd": na2d_bwd,
                "fused_compress_vq": fvk.fused_compress_vq,
                "fused_compress_tail_vq": fvk.fused_compress_tail_vq,
+               "fused_compress_tail_vq_bf16": fvk.fused_compress_tail_vq_bf16,
                "compress_tail_debug": fvk.compress_tail_debug}
-    fused = ("fused_compress_vq", "fused_compress_tail_vq", "compress_tail_debug")
+    fused = ("fused_compress_vq", "fused_compress_tail_vq", "fused_compress_tail_vq_bf16",
+             "compress_tail_debug")
 
     t0 = time.time()
-    with ThreadPoolExecutor(3) as pool:      # one nvcc per source, together
-        for f in [pool.submit(k.build) for k in (na2d_fwd, na2d_bwd,
-                                                  fvk.fused_compress_tail_vq)]:
-            f.result()
-    for name in fused:                       # the library fused_vq.cu built
-        kernels[name].build()
-    print(f"K1 + K2 + K3/K4/K5 build: {time.time() - t0:.1f} s", flush=True)
-    print_ptxas("fused_vq.cu")
+    # one nvcc per source, started together; K1 and K2's checks run while
+    # fused_vq.cu (the longest build) still compiles
+    pool = ThreadPoolExecutor(3)
+    builds = [pool.submit(k.build) for k in (na2d_fwd, na2d_bwd, fvk.fused_compress_tail_vq)]
+    for f in builds[:2]:
+        f.result()
+    print(f"K1 + K2 build: {time.time() - t0:.1f} s", flush=True)
     from flocoder_torch.evaluation import DECODE_CHUNK
     errs = check_k1(na2d_fwd, na2d_banded, flow_decode_chunks(DECODE_CHUNK))
     errs2 = check_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded)
@@ -2992,8 +3387,19 @@ def main() -> None:
         for dtype in (torch.float32, torch.bfloat16):
             errs_of[dtype] = max(errs_of[dtype], hdit_errs[(name, dtype)])
     shapes += time_hdit_kernels(na2d_fwd, na2d_bwd, card)
+    builds[2].result()
+    pool.shutdown()
+    for name in fused:                       # the library fused_vq.cu built
+        kernels[name].build()
+    print(f"K3/K4/K5 build (started with K1 + K2): done {time.time() - t0:.1f} s after "
+          "the start", flush=True)
+    print_ptxas("fused_vq.cu")
     fused_errs = check_fused_vq()
     fused_timing = time_fused_vq(card, args.parent)
+    slice_errs = check_bf16_slice_kernels(card)
+    slice_timing = time_bf16_slice(card)
+    fused_errs["fused_compress_tail_vq_bf16"] = slice_errs["fused_compress_tail_vq_bf16"]
+    fused_timing["fused_compress_tail_vq_bf16"] = slice_timing["fused_compress_tail_vq_bf16"]
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     phase_s = {}
@@ -3011,13 +3417,15 @@ def main() -> None:
         torch.cuda.empty_cache()
         serving, serve_launches = serve(tmp, paths, card, kernels)
         parts = breakdown(paths, card)
+        lap("serve")
         state, training, train_launches = train_flowers(tmp, card, kernels)
         gan_parts = gan_breakdown(state, card)
         del state
         torch.cuda.empty_cache()
+        lap("codec_training")
         check_small_input(paths["cfg"])
         check_train_small()
-        lap("serve_and_codec_training")
+        lap("card_vs_cpu_small")
         preencode, pre_launches = preencode_flowers(tmp, paths, card, kernels)
         lap("preencode")
         pe_host_rec, pe_host_launches = pe_host(tmp, paths, card, kernels)
@@ -3034,6 +3442,14 @@ def main() -> None:
         lap("flow")
         shard_flow, shard_flow_launches = flow_shard(tmp, paths, card, kernels)
         lap("flow_shard")
+        tpu_vqgan, tpu_vqgan_launches = tpu_vqgan_phase(tmp, paths, card, kernels)
+        lap("tpu_vqgan")
+        sd_paths = write_checkpoints(tmp, CONFIG_DIR, "flowers_sd")
+        int8_srv, int8_launches = int8_serving(tmp, paths, sd_paths, card, kernels)
+        lap("int8_serving")
+        decodes = time_decodes(paths, sd_paths, card, kernels)
+        errs[torch.bfloat16] = max(errs[torch.bfloat16], decodes["k1_in_bf16_decode_err"])
+        lap("decodes")
         pe_data = os.path.join(tmp, "pe_images")
         sd_pre, sd_pre_launches = sd_preencode(tmp, pe_data, card, kernels)
         sd_srv, sd_srv_launches = sd_serve(tmp, CONFIG_DIR, card, kernels)
@@ -3068,6 +3484,9 @@ def main() -> None:
                       "midi_train": midi_codec, "midi_preencode": midi_pre,
                       "midi_flow": midi_fl, "midi_inpainting_codec": midi_inp,
                       "pe_host": pe_host_rec, "flow_shard": shard_flow, "tpu_demo": demo,
+                      "tpu_vqgan": tpu_vqgan, "int8_serving": int8_srv, "decode_ms_64": decodes,
+                      "int8_conv": {**slice_errs["int8_conv"],
+                                    "timing": slice_timing["int8_conv"]},
                       "phase_s": phase_s}))
     by_tag = {"serve": serve_launches, "train": train_launches, "preencode": pre_launches,
               "flow": flow_launches, "sd_preencode": sd_pre_launches,
@@ -3075,7 +3494,8 @@ def main() -> None:
               "hdit_recipe": recipe_launches, "hdit_moe": moe_launches,
               "midi_train": midi_codec_launches, "midi_preencode": midi_pre_launches,
               **midi_flow_launches, **midi_inp_launches, "pe_host": pe_host_launches,
-              "flow_shard": shard_flow_launches, "tpu_demo": demo_launches}
+              "flow_shard": shard_flow_launches, "tpu_demo": demo_launches,
+              "tpu_vqgan": tpu_vqgan_launches, "int8_serving": int8_launches}
 
     def by_path(name):
         paths = {tag: counts[name] for tag, counts in by_tag.items()}
@@ -3102,6 +3522,7 @@ def main() -> None:
          "max_abs_err_bf16": errs2[torch.bfloat16], **timing2,
          "per_shape": [r for r in shapes if r["kernel"] == "na2d_bwd"]},
         fused_entry("fused_compress_tail_vq", "flocoder_tpu/ops/pallas/fused_vq.py:134"),
+        fused_entry("fused_compress_tail_vq_bf16", "flocoder_tpu/ops/pallas/fused_vq.py:134"),
         fused_entry("fused_compress_vq", "flocoder_tpu/ops/pallas/fused_vq.py:80"),
         fused_entry("compress_tail_debug", "benchmarks/fused_probe.py:129")]}))
     print(card_line())

@@ -13,11 +13,15 @@
 //   intermediates y1 (after the 1x1), y2 (after GroupNorm + SiLU) and out
 //   (after the 3x3). Replaces benchmarks/fused_probe.py:dbg_kernel.
 //
-// K3 and K5 are one templated kernel (tail_kernel<D, kSearch>); K3 and K4
-// share one search (group_search). Every value is fp32 end to end, and the
-// distances are ||r||^2 + ||c||^2 - 2 r.c with the first minimum on ties, as
-// in the TPU kernels, so the picks agree with an fp64 oracle up to ties
-// inside fp32 rounding.
+// K3 and K5 are one templated kernel (tail_kernel<D, kSearch, T>); K3 and K4
+// share one search (group_search). K3 reads h in fp32 or bf16 (T; a bf16
+// codec hands over bf16 activations), as the TPU kernel does, and widens each
+// value to fp32 where the 1x1 projection reads it from shared memory; its
+// z_q is stored in h's dtype (bf16 rounded to nearest even). Every other
+// value is fp32 end to end, and the distances are ||r||^2 + ||c||^2 - 2 r.c
+// with the first minimum on ties, as in the TPU kernels, so the picks agree
+// with an fp64 oracle up to ties inside fp32 rounding; from the same bf16 h
+// the arithmetic is that of the fp32 kernel on h widened.
 //
 // What bounds them on an H100: at the pre-encode shape (B=32, 16x16, Din=128,
 // D=4, L=4, K=96) K3 reads 4.2 MB of activations and writes 0.25 MB, about
@@ -34,9 +38,10 @@
 //   two per SM; the band plan comes from the wrapper,
 //   flocoder_torch/ops/kernels/fused_vq.py:plan_bands, and is checked here).
 //   Each block starts two groups of asynchronous copies (cp.async): first
-//   its band of h (16-byte runs of 4 tokens for NCHW memory, what the
-//   codec's convolutions leave; 4-byte copies through the strides
-//   otherwise; in chunks of channels that fit 64 KB), w1 and the small
+//   its band of h (16-byte runs of 4 fp32 or 8 bf16 tokens for NCHW memory,
+//   what the codec's convolutions leave; 4-byte copies through the strides
+//   otherwise, or plain loads of 2-byte bf16 values, which cp.async cannot
+//   copy one at a time; in chunks of channels that fit 64 KB), w1 and the small
 //   parameters, then the 3x3 weights and the codebooks. The 1x1 projection multiplies 4-token x D
 //   tiles out of shared memory, the threads of a tile splitting Din and
 //   reducing with shuffles and then across warps in warp order, into the
@@ -91,6 +96,7 @@
 // (FUSED_VQ_CASES); any other D returns cudaErrorInvalidValue.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -151,7 +157,7 @@ __device__ __forceinline__ void load_row(const float* p, float (&c)[D]) {
 
 // Asynchronous copies from device to shared memory (cp.async), 16 or 4
 // bytes; cp_async_wait_all waits for this thread's copies.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
@@ -227,12 +233,18 @@ __device__ __forceinline__ void code_norms(const float* s_cb, int n_codes, float
 // live[t] at zq + tok[t]*D and idx + tok[t]*L, spread over the group's
 // lanes. Every lane of the warp must call it (it shuffles with the full
 // mask).
-template <int D, int G>
+// z_q in fp32 or bf16 (rounded to nearest even): the stored value.
+__device__ __forceinline__ void store_value(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_value(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <int D, int G, typename ZT>
 __device__ __forceinline__ void group_search(float (&r)[kTok][D], int j, const float* s_cb,
                                              const float* s_c2, int L, int Kp,
                                              const bool (&live)[kTok],
                                              const long long (&tok)[kTok],
-                                             float* __restrict__ zq, int* __restrict__ idx) {
+                                             ZT* __restrict__ zq, int* __restrict__ idx) {
   float acc[kTok][D];
 #pragma unroll
   for (int t = 0; t < kTok; ++t)
@@ -314,7 +326,7 @@ __device__ __forceinline__ void group_search(float (&r)[kTok][D], int j, const f
     if (live[t]) {
 #pragma unroll
       for (int d = 0; d < D; ++d)
-        if (d % G == j) zq[tok[t] * D + d] = acc[t][d];
+        if (d % G == j) store_value(zq + tok[t] * D + d, acc[t][d]);
     }
   }
 }
@@ -418,7 +430,7 @@ compress_vq_kernel(const float* __restrict__ z, const float* __restrict__ w,
     for (int d = 0; d < D; ++d) r[t][d] = acc[t][d] + s_b[d];
   code_norms<D>(s_cb, L * Kp, s_c2);
   __syncthreads();
-  group_search<D, kK4Lanes>(r, j, s_cb, s_c2, L, Kp, live, tok, zq, idx);
+  group_search<D, kK4Lanes, float>(r, j, s_cb, s_c2, L, Kp, live, tok, zq, idx);
 }
 
 // ---------------------------------------------------------------- K3, K5
@@ -433,14 +445,19 @@ compress_vq_kernel(const float* __restrict__ z, const float* __restrict__ w,
 // right, so that the 3x3 reads its neighbourhood without a branch), the
 // convolution's output [D][rows*W] (K3 only), the projection's reduction
 // scratch [kThreads][4][D], and a chunk of CC of the band's h channels
-// [CC][BT] (all of them when kHChunk floats hold them).
-constexpr int kHChunk = 16384;                     // 64 KB
+// [CC][BT] in h's type of `esize` bytes (all of them when kHChunk bytes hold
+// them; a channel's row is a whole number of 16-byte runs). Offsets are in
+// floats up to h; `bytes` is the total.
+constexpr int kHChunk = 65536;                     // bytes
 struct TailLayout {
-  size_t cb, c2, cw, w1, prm, part, gn, y, out, red, h, total;
+  size_t cb, c2, cw, w1, prm, part, gn, y, out, red, h, bytes;
   int BT, CC;
-  __host__ __device__ TailLayout(int D, int rows, int W, int Din, int L, int Kp, bool search) {
-    BT = (int)round4((size_t)rows * W);
-    CC = kHChunk / BT < Din ? (kHChunk / BT > 1 ? kHChunk / BT : 1) : Din;
+  __host__ __device__ TailLayout(int D, int rows, int W, int Din, int L, int Kp, bool search,
+                                 int esize) {
+    const size_t run = 16 / esize;                 // values a 16-byte run holds
+    BT = (int)(((size_t)rows * W + run - 1) / run * run);
+    const int fit = kHChunk / (BT * esize);
+    CC = fit < Din ? (fit > 1 ? fit : 1) : Din;
     cb = 0;
     c2 = cb + round4((size_t)L * Kp * D);
     cw = c2 + round4((size_t)L * Kp);
@@ -452,7 +469,7 @@ struct TailLayout {
     out = y + round4((size_t)D * (rows + 2) * (W + 2));
     red = out + (search ? round4((size_t)D * rows * W) : 0);
     h = red + (size_t)kThreads * 4 * D;
-    total = h + (size_t)CC * BT;
+    bytes = sizeof(float) * h + (size_t)CC * BT * esize;
   }
 };
 
@@ -480,29 +497,38 @@ __device__ __forceinline__ void group_totals(const float (&tot)[D], int gsz, flo
   }
 }
 
+// One value of h into shared memory: a 4-byte cp.async for fp32; a plain
+// load and store for bf16 (cp.async copies 4, 8 or 16 bytes), which the
+// __syncthreads after the copies' wait makes visible alike.
+__device__ __forceinline__ void stage_value(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void stage_value(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  *dst = *src;
+}
+
 // Starts copying channels [0, nc) of the band's h (n_tok tokens, read as
 // hb[c*sc + t*sp], t the token's place in the band) into s_h [nc][BT]:
-// 16-byte copies of 4 tokens when vec (sp == 1, 16-byte aligned runs), else
-// 4-byte copies in the order of the smaller stride, so that neighbouring
-// threads read neighbouring addresses.
-__device__ __forceinline__ void stage_band(const float* __restrict__ hb, long long sc,
-                                           long long sp, int n_tok, int nc, int BT, bool vec,
-                                           float* s_h) {
+// 16-byte copies of 16 / sizeof(T) tokens when vec (sp == 1, 16-byte
+// aligned runs), else a value at a time in the order of the smaller stride,
+// so that neighbouring threads read neighbouring addresses.
+template <typename T>
+__device__ __forceinline__ void stage_band(const T* __restrict__ hb, long long sc, long long sp,
+                                           int n_tok, int nc, int BT, bool vec, T* s_h) {
   if (vec) {
-    const int nq = n_tok / 4;
+    constexpr int E = 16 / sizeof(T);
+    const int nq = n_tok / E;
     if (nq == 0) return;
     const float inv = 1.f / (float)nq;
     for (int i = threadIdx.x; i < nc * nq; i += kThreads) {
       const int c = div_by(i, nq, inv);
       const int q = i - c * nq;
-      cp_async16(s_h + c * BT + 4 * q, hb + c * sc + 4 * q);
+      cp_async16(s_h + c * BT + E * q, hb + c * sc + E * q);
     }
   } else if (sc == 1) {
     const float inv = 1.f / (float)nc;
     for (int i = threadIdx.x; i < nc * n_tok; i += kThreads) {
       const int t = div_by(i, nc, inv);
       const int c = i - t * nc;
-      cp_async4(s_h + c * BT + t, hb + t * sp + c);
+      stage_value(s_h + c * BT + t, hb + t * sp + c);
     }
   } else {
     if (n_tok == 0) return;
@@ -510,14 +536,33 @@ __device__ __forceinline__ void stage_band(const float* __restrict__ hb, long lo
     for (int i = threadIdx.x; i < nc * n_tok; i += kThreads) {
       const int c = div_by(i, n_tok, inv);
       const int t = i - c * n_tok;
-      cp_async4(s_h + c * BT + t, hb + c * sc + t * sp);
+      stage_value(s_h + c * BT + t, hb + c * sc + t * sp);
     }
   }
 }
 
+// Four consecutive staged values of h, widened to fp32 (16 bytes of fp32, 8
+// of bf16, aligned to their size).
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = b.x;
+  v[3] = b.y;
+}
+
 // One chunk of the 1x1 projection, channels [c0, c0 + nc) staged in s_h
-// [nc][BT]. A unit is 4 consecutive tokens, read as a float4 of each
-// channel's row; Q units (a power of two up to 32) per pass, and the
+// [nc][BT]. A unit is 4 consecutive tokens, read together from each
+// channel's row and widened to fp32 (load4); Q units (a power of two up to 32) per pass, and the
 // kThreads / Q threads that share a unit split the chunk into runs of
 // consecutive channels, each thread multiplying its run into a 4 x D tile
 // of partial sums. Those are added with shuffles inside each warp and then
@@ -525,8 +570,8 @@ __device__ __forceinline__ void stage_band(const float* __restrict__ hb, long lo
 // at token t's place in the padded map, yb[d*SW + (t/W)*(W+2) + t%W], later
 // chunks add to it; the last chunk adds b1 (and writes y1 in K5). Every
 // thread of the block calls it.
-template <int D, bool kDebug>
-__device__ __forceinline__ void project_chunk(const float* s_h, int BT, int n_tok, int W,
+template <int D, bool kDebug, typename T>
+__device__ __forceinline__ void project_chunk(const T* s_h, int BT, int n_tok, int W,
                                               int Din, int c0, int nc, const float* s_w1,
                                               const float* s_b1, float* yb, int SW,
                                               float* s_red, float* __restrict__ y1_out) {
@@ -552,8 +597,8 @@ __device__ __forceinline__ void project_chunk(const float* s_h, int BT, int n_to
     if (u < n_units) {
 #pragma unroll 4
       for (int c = c_lo; c < c_hi; ++c) {
-        const float4 x = *reinterpret_cast<const float4*>(s_h + c * BT + 4 * u);
-        const float v[4] = {x.x, x.y, x.z, x.w};
+        float v[4];
+        load4(s_h + c * BT + 4 * u, v);
 #pragma unroll
         for (int d = 0; d < D; ++d) {
           const float wd = s_w1[d * Din + c0 + c];
@@ -599,11 +644,11 @@ __device__ __forceinline__ void project_chunk(const float* s_h, int BT, int n_to
 // The search of a band's n_tok tokens, their 3x3 outputs in s_out
 // [D][RW]: G lanes for every kTok tokens, as many tokens a pass as the
 // block holds. Every thread of the block calls it.
-template <int D, int G>
+template <int D, int G, typename ZT>
 __device__ __forceinline__ void search_band(const float* s_out, int RW, int n_tok,
                                             long long tok0, const float* s_cb,
                                             const float* s_c2, int L, int Kp,
-                                            float* __restrict__ zq, int* __restrict__ idx) {
+                                            ZT* __restrict__ zq, int* __restrict__ idx) {
   constexpr int kGroups = kThreads / G;
   const int j = threadIdx.x & (G - 1);
   for (int t0 = 0; t0 < n_tok; t0 += kGroups * kTok) {
@@ -618,27 +663,28 @@ __device__ __forceinline__ void search_band(const float* s_out, int RW, int n_to
 #pragma unroll
       for (int d = 0; d < D; ++d) r[a][d] = live[a] ? s_out[d * RW + t] : 0.f;
     }
-    group_search<D, G>(r, j, s_cb, s_c2, L, Kp, live, tok, zq, idx);
+    group_search<D, G, ZT>(r, j, s_cb, s_c2, L, Kp, live, tok, zq, idx);
   }
 }
 
 // K3 (kSearch) and K5 (!kSearch): a cluster of blocks per image, each block
 // a band of `rows` rows (fewer for the last band, none past the image). h is
-// read as h[img*sb + c*sc + p*sp] with p = y*W + x; vec says that sp == 1
-// and that every band row starts 16-byte aligned. w1 is the 1x1 conv's (D,
+// read as h[img*sb + c*sc + p*sp] with p = y*W + x, in T (fp32 or bf16);
+// z_q is written in T; vec says that sp == 1 and that every band row starts
+// 16-byte aligned. w1 is the 1x1 conv's (D,
 // Din) weight, cw the 3x3 conv's OIHW (D, D, 3, 3) weight. The search uses
 // `lanes` lanes for every kTok tokens. Every thread reaches both cluster
 // barriers; a block writes into the other blocks' shared memory only before
 // the second, and never reads it, so after the second barrier no block
 // depends on another and each exits when it is done.
-template <int D, bool kSearch>
+template <int D, bool kSearch, typename T>
 __global__ void __launch_bounds__(kThreads, 4)
-tail_kernel(const float* __restrict__ h, long long sb, long long sc, long long sp, int H, int W,
+tail_kernel(const T* __restrict__ h, long long sb, long long sc, long long sp, int H, int W,
             int Din, int rows, int lanes, bool vec, const float* __restrict__ w1,
             const float* __restrict__ b1, const float* __restrict__ gs,
             const float* __restrict__ gb, const float* __restrict__ cw,
             const float* __restrict__ cbias, const float* __restrict__ cb, int L, int K,
-            int groups, float eps, float* __restrict__ zq, int* __restrict__ idx,
+            int groups, float eps, T* __restrict__ zq, int* __restrict__ idx,
             float* __restrict__ y1_out, float* __restrict__ y2_out,
             float* __restrict__ conv_out) {
   extern __shared__ float4 smem4[];
@@ -655,7 +701,7 @@ tail_kernel(const float* __restrict__ h, long long sb, long long sc, long long s
   const int SW = (rows + 2) * PW;                  // a channel's stride in s_y
   const int RW = rows * W;                         // a channel's stride in s_out
   const int Kp = kSearch ? padded_codes(K, lanes) : 0;
-  const TailLayout lay(D, rows, W, Din, kSearch ? L : 0, Kp, kSearch);
+  const TailLayout lay(D, rows, W, Din, kSearch ? L : 0, Kp, kSearch, (int)sizeof(T));
   float* s_cb = smem + lay.cb;
   float* s_c2 = smem + lay.c2;
   float* s_cw = smem + lay.cw;
@@ -666,14 +712,14 @@ tail_kernel(const float* __restrict__ h, long long sb, long long sc, long long s
   float* s_y = smem + lay.y;
   float* s_out = smem + lay.out;
   float* s_red = smem + lay.red;
-  float* s_h = smem + lay.h;
+  T* s_h = reinterpret_cast<T*>(smem + lay.h);
   const int tid = threadIdx.x;
   const long long tok0 = img * H * W + (long long)r0 * W;   // the band's first token
   const float inv_w = 1.f / (float)W;
   const float inv_n = n_tok > 0 ? 1.f / (float)n_tok : 0.f;
 
   // copies in two groups: what the projection needs first, then the rest
-  const float* hb = h + img * sb + (long long)r0 * W * sp;
+  const T* hb = h + img * sb + (long long)r0 * W * sp;
   const int CC = lay.CC;
   stage_band(hb, sc, sp, n_tok, min(CC, Din), lay.BT, vec, s_h);
   copy_async(s_w1, w1, D * Din);
@@ -836,12 +882,12 @@ tail_kernel(const float* __restrict__ h, long long sb, long long sc, long long s
 
   // the search: `lanes` lanes for every kTok tokens
   switch (lanes) {
-    case 1: search_band<D, 1>(s_out, RW, n_tok, tok0, s_cb, s_c2, L, Kp, zq, idx); break;
-    case 2: search_band<D, 2>(s_out, RW, n_tok, tok0, s_cb, s_c2, L, Kp, zq, idx); break;
-    case 4: search_band<D, 4>(s_out, RW, n_tok, tok0, s_cb, s_c2, L, Kp, zq, idx); break;
-    case 8: search_band<D, 8>(s_out, RW, n_tok, tok0, s_cb, s_c2, L, Kp, zq, idx); break;
-    case 16: search_band<D, 16>(s_out, RW, n_tok, tok0, s_cb, s_c2, L, Kp, zq, idx); break;
-    default: search_band<D, 32>(s_out, RW, n_tok, tok0, s_cb, s_c2, L, Kp, zq, idx); break;
+    case 1: search_band<D, 1, T>(s_out, RW, n_tok, tok0, s_cb, s_c2, L, Kp, zq, idx); break;
+    case 2: search_band<D, 2, T>(s_out, RW, n_tok, tok0, s_cb, s_c2, L, Kp, zq, idx); break;
+    case 4: search_band<D, 4, T>(s_out, RW, n_tok, tok0, s_cb, s_c2, L, Kp, zq, idx); break;
+    case 8: search_band<D, 8, T>(s_out, RW, n_tok, tok0, s_cb, s_c2, L, Kp, zq, idx); break;
+    case 16: search_band<D, 16, T>(s_out, RW, n_tok, tok0, s_cb, s_c2, L, Kp, zq, idx); break;
+    default: search_band<D, 32, T>(s_out, RW, n_tok, tok0, s_cb, s_c2, L, Kp, zq, idx); break;
   }
 }
 
@@ -879,20 +925,21 @@ int launch_compress_vq(const float* z, const float* w, const float* b, const flo
   return (int)cudaGetLastError();
 }
 
-template <int D, bool kSearch>
-int launch_tail(const float* h, long long sb, long long sc, long long sp, int B, int H, int W,
+template <int D, bool kSearch, typename T>
+int launch_tail(const T* h, long long sb, long long sc, long long sp, int B, int H, int W,
                 int Din, int cluster, int rows, int lanes, const float* w1, const float* b1,
                 const float* gs, const float* gb, const float* cw, const float* cbias,
-                const float* cb, int L, int K, int groups, float eps, float* zq, int* idx,
+                const float* cb, int L, int K, int groups, float eps, T* zq, int* idx,
                 float* y1, float* y2, float* out, cudaStream_t s) {
   static size_t allowed[kMaxDevices] = {};
   const int Kp = kSearch ? padded_codes(K, lanes) : 0;
   const size_t smem =
-      sizeof(float) * TailLayout(D, rows, W, Din, kSearch ? L : 0, Kp, kSearch).total;
-  const int err = allow_smem(tail_kernel<D, kSearch>, smem, allowed);
+      TailLayout(D, rows, W, Din, kSearch ? L : 0, Kp, kSearch, (int)sizeof(T)).bytes;
+  const int err = allow_smem(tail_kernel<D, kSearch, T>, smem, allowed);
   if (err != 0) return err;
   if ((long long)B * cluster > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  const bool vec = sp == 1 && W % 4 == 0 && sc % 4 == 0 && sb % 4 == 0 &&
+  constexpr int E = 16 / sizeof(T);                // values in a 16-byte run
+  const bool vec = sp == 1 && W % E == 0 && sc % E == 0 && sb % E == 0 &&
                    ((uintptr_t)h & 15) == 0;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(B * cluster), 1, 1);
@@ -906,7 +953,7 @@ int launch_tail(const float* h, long long sb, long long sc, long long sp, int B,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, tail_kernel<D, kSearch>, h, sb, sc, sp, H, W,
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, tail_kernel<D, kSearch, T>, h, sb, sc, sp, H, W,
                                            Din, rows, lanes, vec, w1, b1, gs, gb, cw, cbias, cb,
                                            L, K, groups, eps, zq, idx, y1, y2, out);
   if (e != cudaSuccess) return (int)e;
@@ -955,27 +1002,26 @@ extern "C" int fused_compress_vq(const void* z, const void* w, const void* b, co
 #undef FUSED_VQ_K4
 }
 
-// K3. h (B, H, W, Din) read by the strides sb (image), sc (channel) and sp
-// (pixel, p = y*W + x); w1 (D, Din); b1, gs, gb, cbias (D,); cw (D, D, 3, 3)
-// OIHW; cb (L, K, D); the band plan (cluster, rows, lanes) -> zq (B*H*W, D)
-// fp32, idx (B*H*W, L) int32.
-extern "C" int fused_compress_tail_vq(const void* h, long long sb, long long sc, long long sp,
-                                      int B, int H, int W, int Din, int cluster, int rows,
-                                      int lanes, const void* w1, const void* b1, const void* gs,
-                                      const void* gb, const void* cw, const void* cbias,
-                                      const void* cb, int D, int L, int K, int groups, float eps,
-                                      void* zq, void* idx, void* stream) {
+namespace {
+
+// K3 for h of type T: the D switch of both entries below.
+template <typename T>
+int fused_tail_vq(const void* h, long long sb, long long sc, long long sp, int B, int H, int W,
+                  int Din, int cluster, int rows, int lanes, const void* w1, const void* b1,
+                  const void* gs, const void* gb, const void* cw, const void* cbias,
+                  const void* cb, int D, int L, int K, int groups, float eps, void* zq,
+                  void* idx, void* stream) {
   if (!tail_args_ok(B, H, W, Din, D, groups, cluster, rows, lanes) || L < 1 || K < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FUSED_VQ_K3(N_)                                                                         \
-  case N_:                                                                                      \
-    return launch_tail<N_, true>(                                                               \
-        static_cast<const float*>(h), sb, sc, sp, B, H, W, Din, cluster, rows, lanes,           \
-        static_cast<const float*>(w1), static_cast<const float*>(b1),                           \
-        static_cast<const float*>(gs), static_cast<const float*>(gb),                           \
-        static_cast<const float*>(cw), static_cast<const float*>(cbias),                        \
-        static_cast<const float*>(cb), L, K, groups, eps, static_cast<float*>(zq),              \
+#define FUSED_VQ_K3(N_)                                                                          \
+  case N_:                                                                                       \
+    return launch_tail<N_, true, T>(                                                             \
+        static_cast<const T*>(h), sb, sc, sp, B, H, W, Din, cluster, rows, lanes,                \
+        static_cast<const float*>(w1), static_cast<const float*>(b1),                            \
+        static_cast<const float*>(gs), static_cast<const float*>(gb),                            \
+        static_cast<const float*>(cw), static_cast<const float*>(cbias),                         \
+        static_cast<const float*>(cb), L, K, groups, eps, static_cast<T*>(zq),                   \
         static_cast<int*>(idx), nullptr, nullptr, nullptr, s);
   switch (D) {
     FUSED_VQ_CASES(FUSED_VQ_K3)
@@ -983,6 +1029,35 @@ extern "C" int fused_compress_tail_vq(const void* h, long long sb, long long sc,
       return (int)cudaErrorInvalidValue;
   }
 #undef FUSED_VQ_K3
+}
+
+}  // namespace
+
+// K3. h (B, H, W, Din) read by the strides sb (image), sc (channel) and sp
+// (pixel, p = y*W + x); w1 (D, Din); b1, gs, gb, cbias (D,); cw (D, D, 3, 3)
+// OIHW; cb (L, K, D), all fp32; the band plan (cluster, rows, lanes) -> zq
+// (B*H*W, D), idx (B*H*W, L) int32. fused_compress_tail_vq takes h and gives
+// zq in fp32, fused_compress_tail_vq_bf16 in bf16.
+extern "C" int fused_compress_tail_vq(const void* h, long long sb, long long sc, long long sp,
+                                      int B, int H, int W, int Din, int cluster, int rows,
+                                      int lanes, const void* w1, const void* b1, const void* gs,
+                                      const void* gb, const void* cw, const void* cbias,
+                                      const void* cb, int D, int L, int K, int groups, float eps,
+                                      void* zq, void* idx, void* stream) {
+  return fused_tail_vq<float>(h, sb, sc, sp, B, H, W, Din, cluster, rows, lanes, w1, b1, gs, gb,
+                              cw, cbias, cb, D, L, K, groups, eps, zq, idx, stream);
+}
+
+extern "C" int fused_compress_tail_vq_bf16(const void* h, long long sb, long long sc,
+                                           long long sp, int B, int H, int W, int Din,
+                                           int cluster, int rows, int lanes, const void* w1,
+                                           const void* b1, const void* gs, const void* gb,
+                                           const void* cw, const void* cbias, const void* cb,
+                                           int D, int L, int K, int groups, float eps, void* zq,
+                                           void* idx, void* stream) {
+  return fused_tail_vq<__nv_bfloat16>(h, sb, sc, sp, B, H, W, Din, cluster, rows, lanes, w1, b1,
+                                      gs, gb, cw, cbias, cb, D, L, K, groups, eps, zq, idx,
+                                      stream);
 }
 
 // K5. Inputs as K3 without the codebooks -> y1, y2, out, each (B*H*W, D) fp32.
@@ -996,7 +1071,7 @@ extern "C" int compress_tail_debug(const void* h, long long sb, long long sc, lo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FUSED_VQ_K5(N_)                                                                         \
   case N_:                                                                                      \
-    return launch_tail<N_, false>(                                                              \
+    return launch_tail<N_, false, float>(                                                       \
         static_cast<const float*>(h), sb, sc, sp, B, H, W, Din, cluster, rows, lanes,           \
         static_cast<const float*>(w1), static_cast<const float*>(b1),                           \
         static_cast<const float*>(gs), static_cast<const float*>(gb),                           \

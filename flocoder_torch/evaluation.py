@@ -132,10 +132,12 @@ def evaluate_model(model_apply: Callable, codec, epoch: int, target_latents,
         model_apply, codec, generator, method, batch_size, n_steps, cond, n_classes,
         target_latents.shape[-3:], cfg_strength, source, None, None, 0.0, t_scale)
     mark("sampler")
+    # a bf16 codec decodes to bf16 pixels; the metrics take them widened to
+    # fp32 (exactly), where the JAX evaluation computes on the bf16 values
     decoded_pred = decode_latents(codec, pred_latents, is_midi=is_midi,
-                                  keep_gray=keep_gray)
+                                  keep_gray=keep_gray).float()
     decoded_target = decode_latents(codec, target_latents, is_midi=is_midi,
-                                    keep_gray=keep_gray)
+                                    keep_gray=keep_gray).float()
     mark("decode")
     if feature_fn is None:
         feature_fn = default_feature_fn(image_size=decoded_target.shape[1])

@@ -17,11 +17,18 @@ writes PNG grids and individual PNGs. For a MIDI data path (``midi`` or
 ``timidity`` and raises where that program is missing. A checkpoint of an
 inpainting run (its U-Net has mask conditioning, its params a
 ``mask_encoder``) serves unconditionally: the U-Net gets no mask, which it
-reads as the all-ones mask. Serving runs in fp32: a checkpoint trained
-with ``flow.bf16=true`` is served with ``+bf16=false``. ``+device=cpu``
-runs on the CPU; without it the run needs a CUDA device. Not ported yet
-(ROADMAP.md): bf16 and int8 serving, audio checkpoints, the gradio UI and
-sharded serving.
+reads as the all-ones mask.
+
+Serving dtype: a checkpoint trained with ``flow.bf16=true`` serves in bf16,
+the velocity field and the codec alike (the codec built at that dtype, so
+the decode runs in bf16 too); ``+bf16=true`` or ``+bf16=false`` overrides
+the checkpoint's flag in either direction. Parameters stay fp32.
+``+quant=int8`` (also ``true`` or ``1``), or the checkpoint config's
+``codec.quant_decode: int8``, builds the decoder with W8A8 int8
+convolutions (``ops/quant.py``); ``+quant=false`` turns the latter off.
+``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
+Not ported yet (ROADMAP.md): audio checkpoints, the gradio UI and sharded
+serving.
 """
 from __future__ import annotations
 
@@ -58,25 +65,32 @@ def _latest_checkpoint(ckpt_dir: str, prefix: str) -> Optional[str]:
 
 def load_models_once(config, flow_ckpt_path: str, device) -> dict:
     """Build and load the flow model and codec on ``device``, cached per
-    (checkpoint path, device)."""
-    key = (flow_ckpt_path, str(device))
+    (checkpoint path, device, ``+bf16``, ``+quant``) as the JAX script's
+    cache is: None defers to the checkpoint's own flag, and the bundle is
+    also filed under the flags it resolved to."""
+    bf16_cli = config.get("bf16", None)
+    quant_cli = config.get("quant", None)
+    quant_req = (None if quant_cli is None
+                 else str(quant_cli).lower() in ("int8", "true", "1"))
+    key = (flow_ckpt_path, str(device), None if bf16_cli is None else bool(bf16_cli),
+           quant_req)
     if key in _MODEL_CACHE:
         return _MODEL_CACHE[key]
     ck = load_checkpoint(flow_ckpt_path)
     ck_config = ck["config"] or config
-    bf16 = config.get("bf16", None)
-    if bool(bf16) if bf16 is not None else bool(ldcfg(ck_config, "bf16", False)):
-        raise NotImplementedError("bf16 serving is not ported yet (ROADMAP.md)")
-    if str(config.get("quant", "") or "").lower() in ("int8", "true", "1"):
-        raise NotImplementedError("int8 serving is not ported yet (ROADMAP.md)")
-    codec = setup_codec(ck_config, device=device)
+    ck_bf16 = bool(ldcfg(ck_config, "bf16", False))
+    ck_quant = str(ldcfg(ck_config, "quant_decode", "")) == "int8"
+    bf16 = bool(bf16_cli) if bf16_cli is not None else ck_bf16
+    quant = quant_req if quant_req is not None else ck_quant
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    codec = setup_codec(ck_config, device=device, dtype=dtype, quant_decode=quant)
     image_size = int(ldcfg(ck_config, "image_size", 128))
     H, W, C = codec.latent_shape(image_size)
     n_classes = int(ldcfg(ck_config, "n_classes", 0))
     meanflow = bool(ldcfg(ck_config, "meanflow", False))
     params = ck["model_state_dict"]
     inpainting = any(k.startswith("mask_encoder/") for k in params)
-    model = build_flow_model(ck_config, C, n_classes, dual_time=meanflow,
+    model = build_flow_model(ck_config, C, n_classes, dual_time=meanflow, dtype=dtype,
                              dim=H, mask_cond=inpainting).to(device)
     load_jax_flat(model, subtree(params, "model/"), UNET_PREFIXES)
     model.eval()
@@ -88,9 +102,12 @@ def load_models_once(config, flow_ckpt_path: str, device) -> dict:
     codec.eval()
 
     bundle = dict(model=model, codec=codec, latent_shape=(H, W, C),
-                  n_classes=n_classes, config=ck_config,
+                  n_classes=n_classes, config=ck_config, bf16=bf16, quant=quant,
                   t_scale=1.0 if meanflow else 999.0)
     _MODEL_CACHE[key] = bundle
+    _MODEL_CACHE[(flow_ckpt_path, str(device), bf16, quant)] = bundle
+    if bf16 == ck_bf16 and quant == ck_quant:
+        _MODEL_CACHE[(flow_ckpt_path, str(device), None, None)] = bundle
     return bundle
 
 
@@ -130,7 +147,8 @@ def generate_samples(config) -> dict:
     """Sample ``+n_samples`` images in batches of ``batch_size`` and write
     them to ``+output_dir``. Returns ``{'images': (N, H, W, 3) array,
     'batch_seconds': [...], 'nfe': int, 'midi_files': [.mid paths],
-    'device': str}``."""
+    'device': str, 'bf16': bool, 'quant': bool}``, the last two the serving
+    dtype and int8 decode in use."""
     device = resolve_device(config.get("device", None))
     flow_ckpt = str(config.get("flow_checkpoint", "") or
                     ldcfg(config, "flow_checkpoint", ""))
@@ -193,7 +211,8 @@ def generate_samples(config) -> dict:
         batch_idx += 1
     print(f"wrote {done} samples to {output_dir}/")
     return {"images": np.concatenate(images), "batch_seconds": seconds,
-            "nfe": nfe, "midi_files": mids, "device": str(device)}
+            "nfe": nfe, "midi_files": mids, "device": str(device), "bf16": b["bf16"],
+            "quant": b["quant"]}
 
 
 def main(argv=None) -> dict:

@@ -15,8 +15,18 @@ randomness comes from the explicit generator; ``deterministic=True`` turns
 dropout and noise off (for parity tests). ``VQVAE.encode_quantize_fused``
 runs the compression tail and the RVQ search as one kernel on the card (K3,
 ``ops/fused_vq.py``). ``setup_codec`` also builds the SD VAE
-(``models/sd_vae.py``). Not ported yet (ROADMAP.md): int8 ``quant`` convs,
-ring attention, and the vqgan_plus / dac codecs.
+(``models/sd_vae.py``).
+
+Compute dtype: every block takes ``dtype`` with flax's ``dtype=`` semantics
+(``layers.Conv``, ``Dense`` and ``GroupNorm``): fp32 parameters, the
+convolutions and projections computed in ``dtype``, GroupNorm's statistics
+in fp32. Attention logits stay fp32 and the softmax is cast to ``dtype``.
+NATTEN's ``gamma`` is the one parameter held in ``dtype``, as the JAX module
+declares it. ``setup_codec`` builds the codec in bf16 when ``codec.bf16``
+is set (or ``dtype=`` says so). ``quant_encode`` / ``quant_decode`` route
+the convolutions the JAX package routes to its W8A8 ``QuantConv``
+(``ops/quant.py``) there; the compression and output heads stay plain. Not
+ported yet (ROADMAP.md): ring attention, and the vqgan_plus / dac codecs.
 """
 from __future__ import annotations
 
@@ -29,8 +39,9 @@ from torch import nn
 
 from ..ops.fused_vq import fused_compress_tail_vq
 from ..ops.neighborhood_attention import na2d
+from ..ops.quant import conv_or_quant
 from ..ops.rvq import RVQState, rvq_apply
-from .layers import Scope, conv, group_norm, init_params
+from .layers import Dense, Scope, SiLU, conv, group_norm, init_params, silu
 
 __all__ = ["gn_groups", "NoOpAE", "SimpleResizeAE", "VQVAE", "VQVAEEncoder",
            "VQVAEDecoder", "AttnBlock", "NATTENBlock", "EncDecResidualBlock",
@@ -120,41 +131,55 @@ def _untokens(t, h, w):
     return t.transpose(1, 2).reshape(t.shape[0], -1, h, w)
 
 
+def _acc(t):
+    """At least fp32: attention logits accumulate there (a float64 copy of
+    a model stays float64)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _attend(q, k, v, scale: float):
+    """softmax(q·kᵀ·scale) · v over (b, n, c) tokens: fp32 logits and
+    softmax, the weights cast to v's dtype, as flax's
+    ``preferred_element_type`` einsum and ``.astype(dtype)``."""
+    logits = torch.einsum("bnc,bmc->bnm", _acc(q), _acc(k)) * scale
+    return torch.einsum("bnm,bmc->bnc", logits.softmax(dim=-1).to(v.dtype), v)
+
+
 class AttnBlock(nn.Module):
     """VQGAN-style single-head non-local block: GroupNorm → 1×1 q/k/v →
     softmax attention over all tokens → 1×1 out, residual."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, dtype=None):
         super().__init__()
-        self.GroupNorm_0 = group_norm(gn_groups(32, c), c, 1e-6)
-        self.Conv_0 = conv(c, c, 1)
-        self.Conv_1 = conv(c, c, 1)
-        self.Conv_2 = conv(c, c, 1)
-        self.Conv_3 = conv(c, c, 1)
+        self.GroupNorm_0 = group_norm(gn_groups(32, c), c, 1e-6, dtype)
+        self.Conv_0 = conv(c, c, 1, dtype=dtype)
+        self.Conv_1 = conv(c, c, 1, dtype=dtype)
+        self.Conv_2 = conv(c, c, 1, dtype=dtype)
+        self.Conv_3 = conv(c, c, 1, dtype=dtype)
 
     def forward(self, x):
         b, c, h, w = x.shape
         hn = self.GroupNorm_0(x)
         q, k, v = (_tokens(m(hn)) for m in (self.Conv_0, self.Conv_1, self.Conv_2))
-        attn = (torch.einsum("bnc,bmc->bnm", q, k) * c ** -0.5).softmax(dim=-1)
-        out = _untokens(torch.einsum("bnm,bmc->bnc", attn, v), h, w)
-        return x + self.Conv_3(out)
+        return x + self.Conv_3(_untokens(_attend(q, k, v, c ** -0.5), h, w))
 
 
 class NATTENBlock(nn.Module):
     """Neighborhood-attention block: GroupNorm → qkv projection → k×k
     window attention (``na2d``) → out projection, residual gated by a
-    zero-init gamma."""
+    zero-init gamma. ``gamma`` is a parameter in the compute dtype (the
+    JAX module declares it so): a bf16 block holds a bf16 gamma, and loading
+    an fp32 checkpoint rounds it."""
 
     def __init__(self, c: int, kernel_size: int = 7, num_heads: int = 8,
-                 init_scale: float = 0.02):
+                 init_scale: float = 0.02, dtype=None):
         super().__init__()
         self.kernel_size, self.num_heads = kernel_size, num_heads
         self.init_scale = init_scale
-        self.GroupNorm_0 = group_norm(gn_groups(8, c), c, 1e-5)
-        self.Dense_0 = nn.Linear(c, 3 * c, bias=False)
-        self.Dense_1 = nn.Linear(c, c, bias=False)
-        self.gamma = nn.Parameter(torch.zeros(1))
+        self.GroupNorm_0 = group_norm(gn_groups(8, c), c, 1e-5, dtype)
+        self.Dense_0 = Dense(c, 3 * c, bias=False, dtype=dtype)
+        self.Dense_1 = Dense(c, c, bias=False, dtype=dtype)
+        self.gamma = nn.Parameter(torch.zeros(1, dtype=dtype or torch.float32))
 
     def init_special_(self, generator):
         for lin in (self.Dense_0, self.Dense_1):
@@ -168,8 +193,9 @@ class NATTENBlock(nn.Module):
         xn = self.GroupNorm_0(x).permute(0, 2, 3, 1)          # NHWC
         # q, k, v as three products with row blocks of the fused weight:
         # each comes out contiguous, as the kernel requires, with no copy
-        w = self.Dense_0.weight
-        q, k, v = (F.linear(xn, w[i * c:(i + 1) * c]) for i in range(3))
+        dt = self.Dense_0.compute_dtype or self.Dense_0.weight.dtype
+        w = self.Dense_0.weight.to(dt)
+        q, k, v = (F.linear(xn.to(dt), w[i * c:(i + 1) * c]) for i in range(3))
         out = na2d(q, k, v, kernel_size=self.kernel_size, heads=self.num_heads)
         out = self.Dense_1(out) * self.gamma
         return x + out.permute(0, 3, 1, 2)
@@ -188,47 +214,49 @@ def _dropout(x, rate: float, generator):
 class EncDecResidualBlock(nn.Module):
     """Strided residual block with optional attention:
     conv3×3(stride)→GN→SiLU→dropout→[attn]→conv3×3→GN → +skip(1×1 proj if
-    needed) → SiLU → dropout. Dropout runs only when a generator is given."""
+    needed) → SiLU → dropout. Dropout runs only when a generator is given.
+    ``quant``: the three convolutions are W8A8 (``ops/quant.py``)."""
 
     def __init__(self, c_in: int, out_channels: int, stride: int = 1,
-                 attention=None, dropout_rate: float = 0.0):
+                 attention=None, dropout_rate: float = 0.0, dtype=None,
+                 quant: bool = False):
         super().__init__()
         self.dropout_rate = dropout_rate
         g = gn_groups(8, out_channels)
-        self.Conv_0 = conv(c_in, out_channels, 3, stride=stride)
-        self.GroupNorm_0 = group_norm(g, out_channels, 1e-5)
+        self.Conv_0 = conv_or_quant(quant, c_in, out_channels, 3, stride, dtype=dtype)
+        self.GroupNorm_0 = group_norm(g, out_channels, 1e-5, dtype)
         if attention == "natten":
-            self.NATTENBlock_0 = NATTENBlock(out_channels)
+            self.NATTENBlock_0 = NATTENBlock(out_channels, dtype=dtype)
         elif attention == "full":
-            self.AttnBlock_0 = AttnBlock(out_channels)
+            self.AttnBlock_0 = AttnBlock(out_channels, dtype)
         self.attn = ({"natten": "NATTENBlock_0", "full": "AttnBlock_0"}
                      .get(attention))
-        self.Conv_1 = conv(out_channels, out_channels, 3)
-        self.GroupNorm_1 = group_norm(g, out_channels, 1e-5)
+        self.Conv_1 = conv_or_quant(quant, out_channels, out_channels, 3, dtype=dtype)
+        self.GroupNorm_1 = group_norm(g, out_channels, 1e-5, dtype)
         self.project = stride != 1 or c_in != out_channels
         if self.project:
-            self.Conv_2 = conv(c_in, out_channels, 1, stride=stride)
-            self.GroupNorm_2 = group_norm(g, out_channels, 1e-5)
+            self.Conv_2 = conv_or_quant(quant, c_in, out_channels, 1, stride, dtype=dtype)
+            self.GroupNorm_2 = group_norm(g, out_channels, 1e-5, dtype)
 
     def forward(self, x, generator=None):
-        h = F.silu(self.GroupNorm_0(self.Conv_0(x)))
+        h = silu(self.GroupNorm_0(self.Conv_0(x)))
         h = _dropout(h, self.dropout_rate, generator)
         if self.attn is not None:
             h = getattr(self, self.attn)(h)
         h = self.GroupNorm_1(self.Conv_1(h))
         if self.project:
             x = self.GroupNorm_2(self.Conv_2(x))
-        return _dropout(F.silu(h + x), self.dropout_rate, generator)
+        return _dropout(silu(h + x), self.dropout_rate, generator)
 
 
 class NoiseInjection(nn.Module):
     """Learned spatially-varying noise, x + s·(noise·scale(x) + bias(x)),
     with zero-init 1×1 convs; the identity at strength 0 (serving)."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, dtype=None):
         super().__init__()
-        self.Conv_0 = conv(c, c, 1)
-        self.Conv_1 = conv(c, c, 1)
+        self.Conv_0 = conv(c, c, 1, dtype=dtype)
+        self.Conv_1 = conv(c, c, 1, dtype=dtype)
 
     def init_special_(self, generator):
         for m in (self.Conv_0, self.Conv_1):
@@ -244,15 +272,18 @@ class NoiseInjection(nn.Module):
 
 
 def _rope_1d(x: torch.Tensor, max_log: float = math.log(10000.0)) -> torch.Tensor:
-    """1-D RoPE over flattened spatial tokens (b, n, c)."""
+    """1-D RoPE over flattened spatial tokens (b, n, c), computed in x's
+    dtype; the constants are rounded to it first, as JAX does with a Python
+    scalar (a weak type takes the array's dtype)."""
     b, n, c = x.shape
     c_pad = c + (c % 2)
     if c_pad != c:
         x = F.pad(x, (0, 1))
     half = c_pad // 2
+    const = lambda v: torch.tensor(v, dtype=x.dtype, device=x.device)  # noqa: E731
     pos = torch.arange(n, device=x.device).to(x.dtype)[:, None]
     inv_freq = torch.exp(-torch.arange(half, device=x.device).to(x.dtype)
-                         * max_log / half)
+                         * const(max_log) / const(half))
     ang = pos * inv_freq[None, :]
     sin, cos = torch.sin(ang)[None], torch.cos(ang)[None]
     x_even, x_odd = x[..., 0::2], x[..., 1::2]
@@ -265,13 +296,13 @@ class SpatialNonLocalAttention(nn.Module):
     """Full attention over flattened H·W tokens with 1-D RoPE on q/k;
     zero-init output projection so the block starts as identity; residual."""
 
-    def __init__(self, c: int, reduction_factor: int = 2):
+    def __init__(self, c: int, reduction_factor: int = 2, dtype=None):
         super().__init__()
         rd = max(1, c // reduction_factor)
-        self.Conv_0 = conv(c, rd, 1)
-        self.Conv_1 = conv(c, rd, 1)
-        self.Conv_2 = conv(c, c, 1)
-        self.Conv_3 = conv(c, c, 1)
+        self.Conv_0 = conv(c, rd, 1, dtype=dtype)
+        self.Conv_1 = conv(c, rd, 1, dtype=dtype)
+        self.Conv_2 = conv(c, c, 1, dtype=dtype)
+        self.Conv_3 = conv(c, c, 1, dtype=dtype)
 
     def init_special_(self, generator):
         # flax variance_scaling(1e-4, "fan_avg", "uniform") on q/k/v
@@ -288,8 +319,7 @@ class SpatialNonLocalAttention(nn.Module):
         q = _rope_1d(_tokens(self.Conv_0(x)))
         k = _rope_1d(_tokens(self.Conv_1(x)))
         v = _tokens(self.Conv_2(x))
-        logits = torch.einsum("bnc,bmc->bnm", q, k) * (q.shape[-1] ** -0.5)
-        out = torch.einsum("bnm,bmc->bnc", logits.softmax(dim=-1), v)
+        out = _attend(q, k, v, q.shape[-1] ** -0.5)
         return x + self.Conv_3(_untokens(out, h, w))
 
 
@@ -301,31 +331,35 @@ class VQVAEEncoder(nn.Module):
     """Per scale a stride-2 block plus a stride-1 block, neighborhood
     attention on the last two scales; then a block to internal_dim, a 1×1
     and the 1×1→GN→SiLU→3×3 compression to vq_embedding_dim.
-    NHWC in and out."""
+    NHWC in and out. ``quant``: the blocks' convolutions and the 1×1 are
+    W8A8; the compression head stays in ``dtype``."""
 
     def __init__(self, in_channels: int = 3, hidden_channels: int = 256,
                  num_downsamples: int = 3, internal_dim: int = 128,
-                 vq_embedding_dim: int = 4, use_attention: bool = True):
+                 vq_embedding_dim: int = 4, use_attention: bool = True,
+                 dtype=None, quant: bool = False):
         super().__init__()
         s = Scope(self)
         blocks, c, attention = [], in_channels, None
+        kw = dict(dtype=dtype, quant=quant)
         for i in range(num_downsamples):
             out_ch = hidden_channels * (2 ** i)
             attention = ("natten" if use_attention and i >= num_downsamples - 2
                          else None)
             blocks.append(s.add("EncDecResidualBlock", EncDecResidualBlock(
-                c, out_ch, stride=2, attention=attention, dropout_rate=0.05)))
+                c, out_ch, stride=2, attention=attention, dropout_rate=0.05, **kw)))
             blocks.append(s.add("EncDecResidualBlock", EncDecResidualBlock(
                 out_ch, out_ch, stride=1, attention=attention,
-                dropout_rate=0.15)))
+                dropout_rate=0.15, **kw)))
             c = out_ch
         blocks.append(s.add("EncDecResidualBlock", EncDecResidualBlock(
-            c, internal_dim, stride=1, attention=attention, dropout_rate=0.15)))
+            c, internal_dim, stride=1, attention=attention, dropout_rate=0.15, **kw)))
         self.blocks = blocks
-        s.conv(internal_dim, internal_dim, 1)
-        s.conv(internal_dim, vq_embedding_dim, 1)
-        s.gn(gn_groups(2, vq_embedding_dim), vq_embedding_dim, 1e-5)
-        s.conv(vq_embedding_dim, vq_embedding_dim, 3)
+        s.add("Conv", conv_or_quant(quant, internal_dim, internal_dim, 1, dtype=dtype))
+        s.conv(internal_dim, vq_embedding_dim, 1, dtype=dtype)
+        s.add("GroupNorm", group_norm(gn_groups(2, vq_embedding_dim), vq_embedding_dim,
+                                      1e-5, dtype))
+        s.conv(vq_embedding_dim, vq_embedding_dim, 3, dtype=dtype)
 
     def forward(self, x, generator=None, stop_before_compress: bool = False):
         """``generator``: dropout's randomness; none means deterministic.
@@ -338,7 +372,7 @@ class VQVAEEncoder(nn.Module):
         h = self.Conv_0(h)
         if stop_before_compress:
             return h.permute(0, 2, 3, 1)
-        h = self.Conv_2(F.silu(self.GroupNorm_0(self.Conv_1(h))))
+        h = self.Conv_2(silu(self.GroupNorm_0(self.Conv_1(h))))
         return h.permute(0, 2, 3, 1)
 
 
@@ -346,26 +380,31 @@ class VQVAEDecoder(nn.Module):
     """RoPE non-local attention at latent resolution, 1×1 expansion, then per
     scale conv→SiLU→PixelShuffle2× → NoiseInjection → two residual blocks
     (neighborhood attention in the first at the coarsest upsampled scale);
-    3×3 head to pixels. NHWC in and out."""
+    3×3 head to pixels. NHWC in and out. ``quant``: the expansion, the
+    per-scale and the residual blocks' convolutions are W8A8; attention,
+    NoiseInjection and the output head stay in ``dtype``."""
 
     def __init__(self, in_channels: int = 3, hidden_channels: int = 256,
                  num_downsamples: int = 3, internal_dim: int = 128,
                  vq_embedding_dim: int = 4, decoder_nonlocal: bool = True,
-                 use_attention: bool = True):
+                 use_attention: bool = True, dtype=None, quant: bool = False):
         super().__init__()
         s = Scope(self)
-        noise = lambda c: s.add("NoiseInjection", NoiseInjection(c))  # noqa: E731
+        noise = lambda c: s.add("NoiseInjection", NoiseInjection(c, dtype))  # noqa: E731
         block = lambda *a, **kw: s.add("EncDecResidualBlock",  # noqa: E731
-                                       EncDecResidualBlock(*a, **kw))
+                                       EncDecResidualBlock(*a, **kw, dtype=dtype,
+                                                           quant=quant))
+        qconv = lambda *a: s.add("Conv", conv_or_quant(quant, *a, dtype=dtype))  # noqa: E731
         ops = []
         if decoder_nonlocal:
             ops.append(s.add("SpatialNonLocalAttention",
-                             SpatialNonLocalAttention(vq_embedding_dim)))
+                             SpatialNonLocalAttention(vq_embedding_dim, dtype=dtype)))
         cur = hidden_channels * (2 ** (num_downsamples - 1))
-        ops += [s.conv(vq_embedding_dim, internal_dim, 1),
-                s.gn(gn_groups(vq_embedding_dim, internal_dim), internal_dim, 1e-5),
-                nn.SiLU(),
-                s.conv(internal_dim, cur, 1),
+        ops += [qconv(vq_embedding_dim, internal_dim, 1),
+                s.add("GroupNorm", group_norm(gn_groups(vq_embedding_dim, internal_dim),
+                                              internal_dim, 1e-5, dtype)),
+                SiLU(),
+                qconv(internal_dim, cur, 1),
                 noise(cur)]
         first_attn = "full" if decoder_nonlocal else (
             "natten" if use_attention else None)
@@ -376,14 +415,14 @@ class VQVAEDecoder(nn.Module):
                 out_ch = hidden_channels
             attn = ("natten" if use_attention and i > num_downsamples - 2
                     else None)
-            ops += [s.conv(cur, cur * 4, 3), nn.SiLU(), nn.PixelShuffle(2),
+            ops += [qconv(cur, cur * 4, 3), SiLU(), nn.PixelShuffle(2),
                     noise(cur),
                     block(cur, out_ch, attention=attn),
                     noise(out_ch),
                     block(out_ch, out_ch, attention=None)]
             cur = out_ch
-        ops += [noise(cur), s.conv(cur, 64, 3), nn.SiLU(), noise(64),
-                s.conv(64, in_channels, 3)]
+        ops += [noise(cur), qconv(cur, 64, 3), SiLU(), noise(64),
+                s.conv(64, in_channels, 3, dtype=dtype)]
         self.ops = ops
 
     def forward(self, z, generator=None, noise_strength: float = 0.0):
@@ -408,19 +447,22 @@ class VQVAE(nn.Module):
     def __init__(self, in_channels=3, hidden_channels=256, num_downsamples=3,
                  vq_num_embeddings=512, internal_dim=256, codebook_levels=3,
                  vq_embedding_dim=4, commitment_weight=0.25, use_attention=True,
-                 decoder_nonlocal=True):
+                 decoder_nonlocal=True, dtype=torch.float32, quant_decode=False,
+                 quant_encode=False):
         super().__init__()
         self.in_channels = in_channels
         self.num_downsamples = num_downsamples
         self.vq_embedding_dim = vq_embedding_dim
         self.commitment_weight = commitment_weight
+        self.dtype = dtype
+        dt = None if dtype == torch.float32 else dtype     # fp32: the parameters' dtype
         self.encoder = VQVAEEncoder(in_channels, hidden_channels,
                                     num_downsamples, internal_dim,
-                                    vq_embedding_dim, use_attention)
+                                    vq_embedding_dim, use_attention, dt, quant_encode)
         self.decoder = VQVAEDecoder(in_channels, hidden_channels,
                                     num_downsamples, internal_dim,
                                     vq_embedding_dim, decoder_nonlocal,
-                                    use_attention)
+                                    use_attention, dt, quant_decode)
         self.vq = RVQState(codebook_levels, vq_num_embeddings, vq_embedding_dim)
 
     def init(self, generator: torch.Generator) -> "VQVAE":
@@ -443,10 +485,13 @@ class VQVAE(nn.Module):
     def encode_quantize_fused(self, x):
         """Inference encode + quantize with the compression tail (1×1 →
         GroupNorm → SiLU → 3×3) and the RVQ search fused: one launch of K3
-        on the card, its plain twin on the CPU (``ops/fused_vq.py``). fp32
-        throughout, so the picks agree with an fp64 oracle up to ties inside
-        fp32 rounding. Unlike the JAX method there is no ``tile_b``: one
-        block per image, and no batch padding. Returns (z_q (B,h,w,D),
+        on the card, its plain twin on the CPU (``ops/fused_vq.py``). A bf16
+        encoder hands over its bf16 activations, which the tail widens to
+        fp32, as the JAX method does; the tail's weights and codebooks are
+        fp32 and so is its arithmetic, so the picks agree with an fp64
+        oracle up to ties inside fp32 rounding; z_q comes back in the
+        activations' dtype. Unlike the JAX method there is no ``tile_b``:
+        one block per image, and no batch padding. Returns (z_q (B,h,w,D),
         indices (B,h,w,L) int32)."""
         enc = self.encoder
         h = enc(x, stop_before_compress=True)
@@ -483,17 +528,25 @@ class VQVAE(nn.Module):
 # Factory
 # --------------------------------------------------------------------------
 
-def setup_codec(config, device=None) -> nn.Module:
+def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module:
     """Build a codec from ``config.codec.choice`` ∈ {noop, resize, vqgan,
-    sd} on ``device``, in float32. Weights are the caller's concern
-    (``load_codec_weights``). Other choices, ``codec.bf16`` and the int8
-    convs are not ported yet and raise."""
+    sd} on ``device``. Weights are the caller's concern
+    (``load_codec_weights``). Compute dtype: ``dtype`` when given, else
+    bf16 if and only if ``codec.bf16`` is set (never because of
+    ``flow.bf16``). ``codec.quant_encode`` / ``codec.quant_decode`` =
+    ``int8`` build the W8A8 encoder / decoder (``ops/quant.py``);
+    ``quant_decode`` (a bool), when given, overrides the latter, as serving's
+    ``+quant`` does. Other choices raise."""
     from ..config import ldcfg
     choice = config.codec.choice if "codec" in config else "noop"
     image_size = ldcfg(config, "image_size", 128)
     in_channels = ldcfg(config, "in_channels", 3)
-    if "codec" in config and bool(config.codec.get("bf16", False)):
-        raise NotImplementedError("bf16 codecs are not ported yet (ROADMAP.md)")
+    if dtype is None:
+        bf16 = "codec" in config and bool(config.codec.get("bf16", False))
+        dtype = torch.bfloat16 if bf16 else torch.float32
+    if quant_decode is None:
+        quant_decode = str(ldcfg(config, "quant_decode", "")) == "int8"
+    quant_encode = str(ldcfg(config, "quant_encode", "")) == "int8"
     if choice == "noop":
         codec = NoOpAE(in_channels=in_channels)
     elif choice == "resize":
@@ -502,10 +555,6 @@ def setup_codec(config, device=None) -> nn.Module:
                                image_size=config.codec.get("image_size",
                                                            image_size))
     elif choice == "vqgan":
-        for key in ("quant_decode", "quant_encode"):
-            if str(ldcfg(config, key, "")) == "int8":
-                raise NotImplementedError(f"codec.{key}=int8 is not ported "
-                                          "yet (ROADMAP.md)")
         codec = VQVAE(
             in_channels=in_channels,
             hidden_channels=ldcfg(config, "hidden_channels", 256),
@@ -514,14 +563,12 @@ def setup_codec(config, device=None) -> nn.Module:
             internal_dim=ldcfg(config, "internal_dim", 256),
             codebook_levels=ldcfg(config, "codebook_levels", 3),
             vq_embedding_dim=ldcfg(config, "vq_embedding_dim", 4),
-            commitment_weight=ldcfg(config, "commitment_weight", 0.25))
+            commitment_weight=ldcfg(config, "commitment_weight", 0.25),
+            dtype=dtype, quant_decode=quant_decode, quant_encode=quant_encode)
     elif choice == "sd":
-        for key in ("quant_decode", "quant_encode"):
-            if str(ldcfg(config, key, "")) == "int8":
-                raise NotImplementedError(f"codec.{key}=int8 is not ported "
-                                          "yet (ROADMAP.md)")
         from .sd_vae import SDVAE
-        codec = SDVAE(image_size=image_size)
+        codec = SDVAE(image_size=image_size, dtype=dtype, quant_decode=quant_decode,
+                      quant_encode=quant_encode)
     elif choice in ("vqgan_plus", "dac"):
         raise NotImplementedError(f"codec '{choice}' is not ported yet "
                                   "(ROADMAP.md)")

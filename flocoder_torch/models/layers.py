@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Scope", "Conv", "Dense", "GroupNorm", "conv", "group_norm", "init_params"]
+__all__ = ["Scope", "Conv", "Dense", "GroupNorm", "SiLU", "silu", "conv", "group_norm",
+           "init_params"]
 
 
 class Scope:
@@ -105,6 +106,23 @@ class Dense(nn.Linear):
             return F.linear(x.to(dt), self.weight, self.bias)
         y = F.linear(x.to(dt), self.weight.to(dt))
         return y if self.bias is None else y + self.bias.to(dt)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: ``x · (1 / (1 + exp(-x)))``. In bf16 every operation
+    rounds to bf16, as XLA computes it there (``F.silu`` rounds once and
+    differs in about a third of the values); in fp32 and wider ``F.silu``."""
+    if x.dtype != torch.bfloat16:
+        return F.silu(x)
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return x * (one / (one + torch.exp(-x)))
+
+
+class SiLU(nn.Module):
+    """``silu`` as a module."""
+
+    def forward(self, x):
+        return silu(x)
 
 
 def conv(cin: int, cout: int, kernel: int, stride: int = 1,

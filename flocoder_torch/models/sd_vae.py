@@ -20,8 +20,14 @@ package reads (HWIO kernels) strictly, and raises when it does not fit.
 ``convert_sd_vae_state_dict`` maps a diffusers ``AutoencoderKL`` state dict
 onto this module's ``state_dict``. Fetching that checkpoint needs diffusers
 and the network and is not ported; without a weights file the codec runs
-from a seeded random init. The W8A8 int8 convs (``quant``) are not ported
-yet (ROADMAP.md).
+from a seeded random init.
+
+``dtype`` is the compute dtype, with flax's ``dtype=`` semantics
+(``layers``): fp32 parameters, convolutions and projections in ``dtype``,
+GroupNorm statistics and attention logits in fp32. ``quant_encode`` /
+``quant_decode`` make the convolutions the JAX package routes to its W8A8
+``QuantConv`` int8 (``ops/quant.py``; those under 32 channels stay plain);
+the attention block and the decoder's output head stay in ``dtype``.
 """
 from __future__ import annotations
 
@@ -33,8 +39,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .codecs import gn_groups
-from .layers import Scope, group_norm, init_params
+from ..ops.quant import conv_or_quant
+from .codecs import _attend, gn_groups
+from .layers import Scope, group_norm, init_params, silu
 
 __all__ = ["SDVAE", "SDVAEEncoder", "SDVAEDecoder", "load_sd_vae_weights",
            "convert_sd_vae_state_dict", "SD_VAE_WEIGHTS"]
@@ -44,27 +51,27 @@ _EPS = 1e-6          # every GroupNorm of the SD VAE
 SD_VAE_WEIGHTS = "weights/sd_vae_ft_mse.npz"
 
 
-def _gn(channels: int) -> nn.GroupNorm:
-    return group_norm(gn_groups(32, channels), channels, _EPS)
+def _gn(channels: int, dtype=None) -> nn.GroupNorm:
+    return group_norm(gn_groups(32, channels), channels, _EPS, dtype)
 
 
 class _Resnet(nn.Module):
     """GN → SiLU → 3×3 → GN → SiLU → 3×3, plus a 1×1 shortcut when the
     width changes."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, dtype=None, quant: bool = False):
         super().__init__()
         s = Scope(self)
-        s.add("GroupNorm", _gn(in_ch))
-        s.conv(in_ch, out_ch, 3)
-        s.add("GroupNorm", _gn(out_ch))
-        s.conv(out_ch, out_ch, 3)
+        s.add("GroupNorm", _gn(in_ch, dtype))
+        s.add("Conv", conv_or_quant(quant, in_ch, out_ch, 3, dtype=dtype))
+        s.add("GroupNorm", _gn(out_ch, dtype))
+        s.add("Conv", conv_or_quant(quant, out_ch, out_ch, 3, dtype=dtype))
         if in_ch != out_ch:
-            s.conv(in_ch, out_ch, 1)
+            s.add("Conv", conv_or_quant(quant, in_ch, out_ch, 1, dtype=dtype))
 
     def forward(self, x):
-        h = self.Conv_0(F.silu(self.GroupNorm_0(x)))
-        h = self.Conv_1(F.silu(self.GroupNorm_1(h)))
+        h = self.Conv_0(silu(self.GroupNorm_0(x)))
+        h = self.Conv_1(silu(self.GroupNorm_1(h)))
         if hasattr(self, "Conv_2"):
             x = self.Conv_2(x)
         return x + h
@@ -74,19 +81,18 @@ class _Attn(nn.Module):
     """Single-head self-attention over the pixels: fp32 logits, scale
     c^-0.5, residual output projection."""
 
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, dtype=None):
         super().__init__()
         s = Scope(self)
-        s.add("GroupNorm", _gn(ch))
+        s.add("GroupNorm", _gn(ch, dtype))
         for _ in range(4):
-            s.dense(ch, ch)
+            s.dense(ch, ch, dtype=dtype)
 
     def forward(self, x):
         b, c, hh, ww = x.shape
         h = self.GroupNorm_0(x).flatten(2).transpose(1, 2)          # (b, n, c)
         q, k, v = self.Dense_0(h), self.Dense_1(h), self.Dense_2(h)
-        logits = torch.einsum("bnc,bmc->bnm", q.float(), k.float()) * (c ** -0.5)
-        out = torch.einsum("bnm,bmc->bnc", logits.softmax(dim=-1).to(v.dtype), v)
+        out = _attend(q, k, v, c ** -0.5)
         return x + self.Dense_3(out).transpose(1, 2).reshape(b, c, hh, ww)
 
 
@@ -94,27 +100,29 @@ class SDVAEEncoder(nn.Module):
     """Pixels (NHWC) → the 2·latent_channels moments (NHWC)."""
 
     def __init__(self, latent_channels: int = 4, channels: tuple = _CH,
-                 in_channels: int = 3):
+                 in_channels: int = 3, dtype=None, quant: bool = False):
         super().__init__()
         ch = tuple(channels)
         s = Scope(self)
-        s.conv(in_channels, ch[0], 3)
+        qconv = lambda *a, **kw: s.add("Conv", conv_or_quant(  # noqa: E731
+            quant, *a, **kw, dtype=dtype))
+        qconv(in_channels, ch[0], 3)
         ops, prev = [], ch[0]
         for i, c in enumerate(ch):
-            ops.append(s.add("_Resnet", _Resnet(prev, c)))
-            ops.append(s.add("_Resnet", _Resnet(c, c)))
+            ops.append(s.add("_Resnet", _Resnet(prev, c, dtype, quant)))
+            ops.append(s.add("_Resnet", _Resnet(c, c, dtype, quant)))
             prev = c
             if i < len(ch) - 1:
                 # diffusers' downsample: pad (0, 1) on H and W, VALID stride 2
-                ops.append(s.add("Conv", nn.Conv2d(c, c, 3, stride=2, padding=0)))
-        ops.append(s.add("_Resnet", _Resnet(prev, prev)))
-        ops.append(s.add("_Attn", _Attn(prev)))
-        ops.append(s.add("_Resnet", _Resnet(prev, prev)))
+                ops.append(qconv(c, c, 3, 2, padding=0))
+        ops.append(s.add("_Resnet", _Resnet(prev, prev, dtype, quant)))
+        ops.append(s.add("_Attn", _Attn(prev, dtype)))
+        ops.append(s.add("_Resnet", _Resnet(prev, prev, dtype, quant)))
         self.ops = ops
-        s.add("GroupNorm", _gn(prev))
+        s.add("GroupNorm", _gn(prev, dtype))
         # conv_out and quant_conv (a list, so that they keep linen's names)
-        self.head = [s.conv(prev, 2 * latent_channels, 3),
-                     s.conv(2 * latent_channels, 2 * latent_channels, 1)]
+        self.head = [qconv(prev, 2 * latent_channels, 3),
+                     qconv(2 * latent_channels, 2 * latent_channels, 1)]
 
     def forward(self, x):
         h = self.Conv_0(x.permute(0, 3, 1, 2))
@@ -124,7 +132,7 @@ class SDVAEEncoder(nn.Module):
             else:
                 h = op(h)
         conv_out, quant_conv = self.head
-        h = conv_out(F.silu(self.GroupNorm_0(h)))
+        h = conv_out(silu(self.GroupNorm_0(h)))
         return quant_conv(h).permute(0, 2, 3, 1)
 
 
@@ -132,25 +140,26 @@ class SDVAEDecoder(nn.Module):
     """Latents (NHWC) → pixels (NHWC)."""
 
     def __init__(self, out_channels: int = 3, latent_channels: int = 4,
-                 channels: tuple = _CH):
+                 channels: tuple = _CH, dtype=None, quant: bool = False):
         super().__init__()
         ch = tuple(channels)
         s = Scope(self)
-        s.conv(latent_channels, latent_channels, 1)          # post_quant_conv
-        s.conv(latent_channels, ch[-1], 3)
-        ops = [s.add("_Resnet", _Resnet(ch[-1], ch[-1])),
-               s.add("_Attn", _Attn(ch[-1])),
-               s.add("_Resnet", _Resnet(ch[-1], ch[-1]))]
+        qconv = lambda *a: s.add("Conv", conv_or_quant(quant, *a, dtype=dtype))  # noqa: E731
+        qconv(latent_channels, latent_channels, 1)          # post_quant_conv
+        qconv(latent_channels, ch[-1], 3)
+        ops = [s.add("_Resnet", _Resnet(ch[-1], ch[-1], dtype, quant)),
+               s.add("_Attn", _Attn(ch[-1], dtype)),
+               s.add("_Resnet", _Resnet(ch[-1], ch[-1], dtype, quant))]
         prev = ch[-1]
         for i, c in enumerate(reversed(ch)):
             for _ in range(3):
-                ops.append(s.add("_Resnet", _Resnet(prev, c)))
+                ops.append(s.add("_Resnet", _Resnet(prev, c, dtype, quant)))
                 prev = c
             if i < len(ch) - 1:
-                ops.append(s.conv(c, c, 3))                   # after a 2× upsample
+                ops.append(qconv(c, c, 3))                   # after a 2× upsample
         self.ops = ops
-        s.add("GroupNorm", _gn(prev))
-        self.head = [s.conv(prev, out_channels, 3)]
+        s.add("GroupNorm", _gn(prev, dtype))
+        self.head = [s.conv(prev, out_channels, 3, dtype=dtype)]   # output head: plain
 
     def forward(self, z):
         h = self.Conv_1(self.Conv_0(z.permute(0, 3, 1, 2)))
@@ -160,7 +169,7 @@ class SDVAEDecoder(nn.Module):
                 h = op(F.interpolate(h, scale_factor=2, mode="nearest"))
             else:
                 h = op(h)
-        h = self.head[0](F.silu(self.GroupNorm_0(h)))
+        h = self.head[0](silu(self.GroupNorm_0(h)))
         return h.permute(0, 2, 3, 1)
 
 
@@ -171,14 +180,20 @@ class SDVAE(nn.Module):
     in_channels = 3
 
     def __init__(self, image_size: int = 128, latent_channels: int = 4,
-                 channels: tuple = _CH, weights_path: str = SD_VAE_WEIGHTS):
+                 channels: tuple = _CH, weights_path: str = SD_VAE_WEIGHTS,
+                 dtype=torch.float32, quant_decode: bool = False,
+                 quant_encode: bool = False):
         super().__init__()
         self.image_size = image_size
         self.latent_channels = latent_channels
         self.channels = tuple(channels)
         self.weights_path = weights_path
-        self.encoder = SDVAEEncoder(latent_channels, self.channels)
-        self.decoder = SDVAEDecoder(3, latent_channels, self.channels)
+        self.dtype = dtype
+        dt = None if dtype == torch.float32 else dtype     # fp32: the parameters' dtype
+        self.encoder = SDVAEEncoder(latent_channels, self.channels, dtype=dt,
+                                    quant=quant_encode)
+        self.decoder = SDVAEDecoder(3, latent_channels, self.channels, dtype=dt,
+                                    quant=quant_decode)
 
     def init(self, generator: torch.Generator) -> "SDVAE":
         """Seeded random init (``layers.init_params``); returns self."""

@@ -5,8 +5,10 @@ port of ``flocoder_tpu/ops/pallas/fused_vq.py`` and of the debug tail in
 - ``fused_compress_vq`` (K4), ``fused_compress_tail_vq`` (K3) and
   ``compress_tail_debug`` (K5) dispatch by device: a CPU tensor runs the
   plain twin, any other runs the hand-written kernel
-  (``ops/kernels/fused_vq.py``), which launches or raises. There is no
-  fallback from a kernel to a twin.
+  (``ops/kernels/fused_vq.py``; K3's bf16 case for bf16 ``h``), which
+  launches or raises. There is no fallback from a kernel to a twin.
+- K3 takes ``h`` in fp32 or bf16, as the TPU kernel does: bf16 is widened
+  to fp32 before the tail, and ``z_q`` comes back in ``h``'s dtype.
 - The twins, ``*_plain``, are plain torch ops in fp32 with the TPU kernels'
   arithmetic: distances ``r2 + c2 - 2·(r @ cᵀ)``, the first minimum (a
   NaN token picks nothing: index 0, nothing added), the pick subtracted
@@ -92,13 +94,15 @@ def compress_tail_debug_plain(h, w1, b1, gn_scale, gn_bias, conv_w, conv_b,
 
 def fused_compress_tail_vq_plain(h, w1, b1, gn_scale, gn_bias, conv_w, conv_b,
                                  codebooks, groups: int, eps: float = 1e-5) -> tuple:
-    """K3's twin: K5's tail, then the RVQ search. Returns ``(z_q (B, H, W,
-    D), idx (B, H, W, L) int32)``."""
+    """K3's twin: K5's tail on ``h`` widened to at least fp32, then the RVQ
+    search. Returns ``(z_q (B, H, W, D) in h's dtype, idx (B, H, W, L)
+    int32)``."""
     B, H, W, _ = h.shape
-    out = compress_tail_debug_plain(h, w1, b1, gn_scale, gn_bias, conv_w, conv_b,
+    wide = h.to(torch.promote_types(h.dtype, torch.float32))
+    out = compress_tail_debug_plain(wide, w1, b1, gn_scale, gn_bias, conv_w, conv_b,
                                     groups, eps)[2]
     z_q, idx = rvq_search_plain(out, codebooks)
-    return z_q.reshape(B, H, W, -1), idx.reshape(B, H, W, -1)
+    return z_q.reshape(B, H, W, -1).to(h.dtype), idx.reshape(B, H, W, -1)
 
 
 def fused_compress_vq(z, w, b, codebooks) -> tuple:
@@ -113,14 +117,16 @@ def fused_compress_vq(z, w, b, codebooks) -> tuple:
 def fused_compress_tail_vq(h, w1, b1, gn_scale, gn_bias, conv_w, conv_b,
                            codebooks, groups: int, eps: float = 1e-5) -> tuple:
     """The codec's whole compression tail and the RVQ search: ``h`` (B, H,
-    W, Din) → ``(z_q (B, H, W, D), idx (B, H, W, L) int32)``; on the CPU the
-    twin, on the card K3 (a cluster of blocks per image; ``h`` contiguous
-    NHWC or an NHWC view of NCHW memory)."""
+    W, Din) → ``(z_q (B, H, W, D) in h's dtype, idx (B, H, W, L) int32)``;
+    on the CPU the twin, on the card K3 (a cluster of blocks per image; ``h``
+    contiguous NHWC or an NHWC view of NCHW memory; bf16 ``h`` launches K3's
+    bf16 case)."""
     if h.device.type == "cpu":
         return fused_compress_tail_vq_plain(h, w1, b1, gn_scale, gn_bias, conv_w,
                                             conv_b, codebooks, groups, eps)
-    return _kernels.fused_compress_tail_vq(h, w1, b1, gn_scale, gn_bias, conv_w,
-                                           conv_b, codebooks, groups, eps)
+    kernel = (_kernels.fused_compress_tail_vq_bf16 if h.dtype == torch.bfloat16
+              else _kernels.fused_compress_tail_vq)
+    return kernel(h, w1, b1, gn_scale, gn_bias, conv_w, conv_b, codebooks, groups, eps)
 
 
 def compress_tail_debug(h, w1, b1, gn_scale, gn_bias, conv_w, conv_b,

@@ -3,13 +3,16 @@ tail and residual VQ, all in ``flocoder_torch/csrc/fused_vq.cu``:
 
 - K4, launched by ``fused_compress_vq`` (a ``FusedCompressVQ``): replaces the
   Pallas TPU kernel ``flocoder_tpu/ops/pallas/fused_vq.py:_kernel``;
-- K3, launched by ``fused_compress_tail_vq`` (a ``FusedCompressTailVQ``):
-  replaces ``fused_vq.py:_tail_kernel``;
+- K3, launched by ``fused_compress_tail_vq`` (a ``FusedCompressTailVQ``)
+  on fp32 ``h`` and by ``fused_compress_tail_vq_bf16`` (its bf16 case, a
+  ``FusedCompressTailVQBF16``, counted apart) on bf16 ``h``: replaces
+  ``fused_vq.py:_tail_kernel``;
 - K5, launched by ``compress_tail_debug`` (a ``CompressTailDebug``): replaces
   ``benchmarks/fused_probe.py:dbg_kernel``.
 
 Each wrapper validates its inputs and raises on what its kernel does not
-take, in this order: a dtype other than float32 (``TypeError``), shapes that
+take, in this order: a dtype other than float32 (``TypeError``; K3's bf16
+case takes bf16 ``h`` and float32 for everything else), shapes that
 disagree, a D that the source does not instantiate (``BUILT_D``: the latent
 widths of the repo's configs) or groups that do not divide D, a tensor that
 is not contiguous, and a tensor that is not on one CUDA device
@@ -32,8 +35,9 @@ import torch
 
 from .build import Kernel
 
-__all__ = ["FusedCompressVQ", "FusedCompressTailVQ", "CompressTailDebug",
-           "fused_compress_vq", "fused_compress_tail_vq", "compress_tail_debug",
+__all__ = ["FusedCompressVQ", "FusedCompressTailVQ", "FusedCompressTailVQBF16",
+           "CompressTailDebug", "fused_compress_vq", "fused_compress_tail_vq",
+           "fused_compress_tail_vq_bf16", "compress_tail_debug",
            "plan_bands", "band_layout", "BUILT_D", "CLUSTER_SIZES"]
 
 BUILT_D = (3, 4, 8)       # FUSED_VQ_CASES in the source
@@ -45,13 +49,17 @@ _SOURCE = "fused_vq.cu"
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
-def _check(kernel: str, shapes: dict, tensors: dict, D: int, groups: int) -> None:
-    """dtype, then each tensor's shape against ``shapes`` (None: any size),
-    then D and groups, then contiguity (``h`` may also be an NHWC view of
-    NCHW memory), then one CUDA device."""
+def _check(kernel: str, shapes: dict, tensors: dict, D: int, groups: int,
+           h_dtype: torch.dtype = torch.float32) -> None:
+    """dtype (``h`` in ``h_dtype``, every other tensor float32), then each
+    tensor's shape against ``shapes`` (None: any size), then D and groups,
+    then contiguity (``h`` may also be an NHWC view of NCHW memory), then
+    one CUDA device."""
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel} kernel: {name} has dtype {t.dtype}; it takes float32")
+        want = h_dtype if name == "h" else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"{kernel} kernel: {name} has dtype {t.dtype}; it takes "
+                            f"{str(want).removeprefix('torch.')}")
     for name, t in tensors.items():
         want = shapes[name]
         if t.dim() != len(want) or any(w is not None and s != w
@@ -169,7 +177,7 @@ class FusedCompressVQ(Kernel):
 
 
 def _tail_inputs(kernel: str, h, w1, b1, gn_scale, gn_bias, conv_w, conv_b,
-                 groups: int, codebooks=None) -> tuple:
+                 groups: int, codebooks=None, h_dtype=torch.float32) -> tuple:
     """Validates K3's or K5's inputs; returns (B, H, W, Din, D, image
     stride, channel stride, pixel stride) with h read as
     h[b·sb + c·sc + p·sp], p = y·W + x."""
@@ -182,7 +190,7 @@ def _tail_inputs(kernel: str, h, w1, b1, gn_scale, gn_bias, conv_w, conv_b,
     if codebooks is not None:
         tensors["codebooks"] = codebooks
         shapes["codebooks"] = (None, None, D)
-    _check(kernel, shapes, tensors, D, groups)
+    _check(kernel, shapes, tensors, D, groups, h_dtype)
     if h.is_contiguous():                       # NHWC memory
         strides = (H * W * Din, 1, Din)
     else:                                       # an NHWC view of NCHW memory
@@ -198,21 +206,23 @@ class FusedCompressTailVQ(Kernel):
     codec's NCHW activations gives; read without a copy, coalesced); ``w1``
     and ``conv_w`` are the 1×1 and 3×3 convolutions' OIHW weights, (D, Din,
     1, 1) and (D, D, 3, 3). A cluster of ``cluster`` blocks per image
-    (``plan_bands``; by default its choice)."""
+    (``plan_bands``; by default its choice). h and z_q are float32 here,
+    bfloat16 in ``FusedCompressTailVQBF16``."""
 
     _source = _SOURCE
     _entry = "fused_compress_tail_vq"
     _argtypes = [_P, _LL, _LL, _LL] + [_I] * 7 + [_P] * 7 + [_I] * 4 + [_F, _P, _P, _P]
+    h_dtype = torch.float32
 
     def __call__(self, h, w1, b1, gn_scale, gn_bias, conv_w, conv_b, codebooks,
                  groups: int, eps: float = 1e-5, cluster: int | None = None) -> tuple:
         B, H, W, Din, D, sb, sc, sp = _tail_inputs(
             self._entry, h, w1, b1, gn_scale, gn_bias, conv_w, conv_b, groups,
-            codebooks)
+            codebooks, self.h_dtype)
         L, K = codebooks.shape[:2]
         cs, rows, lanes = plan_bands(H, W, cluster, B, _sm_count(h.device))
         fn = self.build()
-        z_q = torch.empty(B, H, W, D, device=h.device, dtype=torch.float32)
+        z_q = torch.empty(B, H, W, D, device=h.device, dtype=self.h_dtype)
         idx = torch.empty(B, H, W, L, device=h.device, dtype=torch.int32)
         with torch.cuda.device(h.device):
             stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -225,6 +235,16 @@ class FusedCompressTailVQ(Kernel):
                     f"an image's {H}x{W}x{D} map in bands of {rows} rows over a cluster "
                     f"of {cs}, Din={Din} and the {L}x{K} codebooks")
         return z_q, idx
+
+
+class FusedCompressTailVQBF16(FusedCompressTailVQ):
+    """K3's bf16 case: ``h`` bf16 (the activations of a bf16 codec), widened
+    to fp32 where the kernel reads it; the weights and codebooks float32;
+    z_q bf16 (the fp32 sum of the picked codes rounded to nearest even),
+    idx int32. Its launches are counted apart from the fp32 case's."""
+
+    _entry = "fused_compress_tail_vq_bf16"
+    h_dtype = torch.bfloat16
 
 
 class CompressTailDebug(Kernel):
@@ -259,4 +279,5 @@ class CompressTailDebug(Kernel):
 
 fused_compress_vq = FusedCompressVQ()
 fused_compress_tail_vq = FusedCompressTailVQ()
+fused_compress_tail_vq_bf16 = FusedCompressTailVQBF16()
 compress_tail_debug = CompressTailDebug()

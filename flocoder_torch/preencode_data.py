@@ -54,9 +54,18 @@ format: HWC float32 records, int32 labels; triplets carry
 ``source_latents`` and ``mask_pixels`` (S, S, 1) as extra fields), instead
 of one file per latent.
 
+``codec.bf16`` builds the codec in bf16 (``setup_codec``); its bf16
+latents are written widened to float32, exactly, in files and shards alike.
+(The JAX script's ``np.save`` of a bf16 latent writes an opaque ``<V2``
+array that its own loader cannot read; ROADMAP.md.) With the fused path the
+bf16 encoder hands its bf16 activations to K3's bf16 case. ``+quant=int8``
+(also ``true`` or ``1``) sets ``codec.quant_encode: int8``, as the JAX
+script does: the encoder's convolutions run W8A8 int8 (``ops/quant.py``),
+the compression head stays plain.
+
 ``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
-Not ported yet (each raises, ROADMAP.md): named torchvision sets, audio
-data, ``+quant=int8`` and ``codec.bf16``.
+Not ported yet (each raises, ROADMAP.md): named torchvision sets and audio
+data.
 """
 from __future__ import annotations
 
@@ -86,16 +95,18 @@ __all__ = ["open_split", "process_dataset", "load_codec", "host_decoder", "main"
 
 
 def _refuse_unported(config) -> None:
-    pe = config.get("preencoding", {})
-    quant = str(config.get("quant", "") or "").lower()
-    for what, unported in (
-            ("audio data (codec.choice=dac)",
-             "codec" in config and config.codec.get("choice") == "dac"),
-            ("+quant=int8", quant in ("int8", "true", "1")),
-            ("codec.bf16", "codec" in config and bool(config.codec.get("bf16", False)))):
-        if unported:
-            raise NotImplementedError(f"pre-encoding with {what} is not ported yet "
-                                      "(ROADMAP.md)")
+    if "codec" in config and config.codec.get("choice") == "dac":
+        raise NotImplementedError("pre-encoding with audio data (codec.choice=dac) is "
+                                  "not ported yet (ROADMAP.md)")
+
+
+def _quant_flag(config) -> None:
+    """``+quant=int8`` (``true``, ``1``) requests the W8A8 encode: it sets
+    ``codec.quant_encode``, as the JAX script does."""
+    if str(config.get("quant", "") or "").lower() in ("int8", "true", "1"):
+        if "codec" not in config:
+            config["codec"] = {}
+        config.codec["quant_encode"] = "int8"
 
 
 def load_codec(config, device) -> torch.nn.Module:
@@ -103,6 +114,7 @@ def load_codec(config, device) -> torch.nn.Module:
     then its weights loaded strictly where the files exist
     (``models.codecs.load_codec_weights``: for the SD VAE
     ``weights/sd_vae_ft_mse.npz``, then ``codec.checkpoint``)."""
+    _quant_flag(config)
     codec = setup_codec(config, device=device)
     init_params(codec, torch.Generator(device).manual_seed(0))
     load_codec_weights(codec, config.codec.get("checkpoint") if "codec" in config

@@ -12,8 +12,9 @@ Reads the latents that the pre-encode pass wrote under
 files (or, with ``flow.pre_encoded=false``, encodes image batches in the
 step with the frozen codec), trains the velocity field (``flow.arch``: the
 U-Net, or the Hourglass DiT with ``flow.arch=hdit``; either computes in
-bf16 with ``flow.bf16=true``, parameters and optimizer in fp32, the codec
-in fp32; HDiT's MoE levels' auxiliary loss weighted by
+bf16 with ``flow.bf16=true``, parameters and optimizer in fp32; the codec
+in bf16 with ``codec.bf16`` (``setup_codec``), else fp32, whatever
+``flow.bf16`` says; HDiT's MoE levels' auxiliary loss weighted by
 ``flow.hdit_moe_aux_weight``, default 1e-2) with minibatch
 OT, CFG dropout, clipped Adam on the cosine
 warm-restart schedule and EMA (``training/flow.py``), and evaluates on the

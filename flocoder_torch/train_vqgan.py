@@ -20,8 +20,8 @@ or ``pop909`` trains on piano rolls (a folder of ``.mid`` files is
 converted to PNGs first, ``data/datasets.py:MIDIImageDataset``), and each
 validation adds the note metrics (``calc_note_metrics``: onset and sustain
 sensitivity, specificity, precision, F1) and their TP/TN/FP/FN grids. Not
-ported yet (ROADMAP.md): bf16 codecs, data and tensor parallelism, wandb
-logging, the codebook plots.
+ported yet (ROADMAP.md): bf16 codec training (``codec.bf16`` raises, item
+11b), data and tensor parallelism, wandb logging, the codebook plots.
 """
 from __future__ import annotations
 

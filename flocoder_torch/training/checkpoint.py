@@ -106,8 +106,10 @@ def _entries(module: nn.Module, prefixes: dict) -> dict:
 
 def _to_jax(t: torch.Tensor, kind: str) -> np.ndarray:
     """A copy in flax layout: never a view of the module's memory, which
-    an optimizer updates in place."""
-    a = t.detach().cpu().numpy()
+    an optimizer updates in place. A bf16 tensor (numpy has no bf16) is
+    written widened to float32, exactly; loading casts it back."""
+    t = t.detach().cpu()
+    a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     if kind == "conv":
         return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
     if kind == "dense":
@@ -131,9 +133,21 @@ def to_jax_flat(module: nn.Module, prefixes: dict) -> dict:
             for tkey, (jkey, kind) in _entries(module, prefixes).items()}
 
 
+def _tensor(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """``a`` cast to ``dtype``, as the JAX ``load_into_tree`` casts each array
+    to its template's dtype (an fp32 value into a bf16 parameter rounds to
+    nearest even). A bfloat16 array of the JAX package (ml_dtypes, or the
+    two-byte void that ``np.save`` writes for it) is read by its bits."""
+    if a.dtype.itemsize == 2 and (a.dtype.kind == "V" or a.dtype.name == "bfloat16"):
+        bits = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(dtype)
+    return torch.tensor(a, dtype=dtype)
+
+
 def load_jax_flat(module: nn.Module, flat: dict, prefixes: dict) -> nn.Module:
-    """Load a flat JAX tree into ``module`` in place. Strict: a key missing
-    on either side, or a shape that disagrees, raises."""
+    """Load a flat JAX tree into ``module`` in place, each array cast to its
+    parameter's dtype. Strict: a key missing on either side, or a shape that
+    disagrees, raises."""
     entries = _entries(module, prefixes)
     wanted = {jkey for jkey, _ in entries.values()}
     missing = sorted(wanted - set(flat))
@@ -148,7 +162,7 @@ def load_jax_flat(module: nn.Module, flat: dict, prefixes: dict) -> nn.Module:
         if tuple(a.shape) != tuple(sd[tkey].shape):
             raise ValueError(f"shape mismatch for {jkey}: {a.shape} vs "
                              f"{tuple(sd[tkey].shape)}")
-        new[tkey] = torch.tensor(a, dtype=sd[tkey].dtype)
+        new[tkey] = _tensor(a, sd[tkey].dtype)
     module.load_state_dict(new, strict=True)
     return module
 

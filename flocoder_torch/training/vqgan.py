@@ -107,7 +107,10 @@ def create_vqgan_state(codec, disc, learning_rate: float, **kw) -> VQGANState:
     return VQGANState(codec=codec, opt_g=opt_g, disc=disc, opt_d=opt_d)
 
 
-def _not_ported(mesh, grad_accum: int) -> None:
+def _not_ported(config, mesh, grad_accum: int) -> None:
+    if "codec" in config and bool(config.codec.get("bf16", False)):
+        raise NotImplementedError("bf16 codec training (codec.bf16) is not ported yet "
+                                  "(ROADMAP.md item 11b)")
     if mesh is not None:
         raise NotImplementedError("data- and tensor-parallel codec training is "
                                   "not ported yet (ROADMAP.md)")
@@ -137,7 +140,7 @@ def make_vqgan_warmup_step(config, perceptual_fn: Optional[Callable] = None,
                            deterministic: bool = False):
     """Reconstruction-only phase: ``step(state, batch, generator) ->
     (state, aux, indices)``; ``state`` is updated in place."""
-    _not_ported(mesh, grad_accum)
+    _not_ported(config, mesh, grad_accum)
 
     def step(state: VQGANState, batch, generator):
         codec = state.codec
@@ -170,7 +173,7 @@ def make_vqgan_gan_step(config, perceptual_fn: Optional[Callable] = None,
     forward through the updated discriminator. ``mark(name)``, when given,
     is called after each part of the step ("codec_forward", "d_step",
     "g_loss_backward", "optimizers"), for a breakdown of its time."""
-    _not_ported(mesh, grad_accum)
+    _not_ported(config, mesh, grad_accum)
     share_real_features = bool(config.codec.get("share_real_features", False))
 
     def step(state: VQGANState, batch, generator, mark=None):

@@ -7,7 +7,7 @@ the bridge's converter (HWIO → OIHW).
 
 Tolerances (fp32): indices exact; z_q within 1e-5 for K4 and 2e-5 for K3
 (a pick equal on both sides gives the same codes, summed in the same
-order); the tail's intermediates within 1e-5 of the Pallas debug kernel and
+order); with bf16 h (K3's bf16 case) indices exact and z_q equal in bf16; the tail's intermediates within 1e-5 of the Pallas debug kernel and
 of ``benchmarks/fused_probe.py``'s fp64 oracle. Codebooks are scaled to the
 spread of what they quantize, so that the picks spread over the codes.
 """
@@ -100,6 +100,48 @@ def test_compress_tail_vq_twin_matches_pallas(D, groups):
     assert idx.dtype == torch.int32
     np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_ref))
     np.testing.assert_allclose(zq.numpy(), np.asarray(zq_ref), atol=2e-5)
+
+
+@pytest.mark.parametrize("D,groups", [(4, 2), (3, 1)])
+def test_compress_tail_vq_twin_takes_bf16_h_as_pallas_does(D, groups):
+    """K3 on bf16 activations (a bf16 codec's): the Pallas kernel widens h
+    to fp32 in its body and writes z_q in h's dtype; the twin widens h and
+    casts z_q, so from the same bf16 h the picks are equal and z_q is equal
+    in bf16. The twin on bf16 h is the twin on h widened, z_q rounded."""
+    B, H, W, Din, L, K = 3, 8, 8, 16, 3, 8
+    a = _tail_inputs(D + 10, B, H, W, Din, D)
+    hb = jnp.asarray(a["h"], jnp.bfloat16)
+    args = list(_port_tail_args(a))
+    args[0] = torch.from_numpy(np.array(hb.astype(jnp.float32))).to(torch.bfloat16)
+    spread = float(fvq.compress_tail_debug_plain(args[0].float(), *args[1:], groups)[2].std())
+    cb = (np.random.default_rng(8).standard_normal((L, K, D)) * spread).astype(np.float32)
+    zq_ref, idx_ref = jax_tail_vq(
+        hb, *map(jnp.asarray, (a["w1"], a["b1"], a["gs"], a["gb"], a["cw"], a["cb_"], cb)),
+        groups=groups, tile_b=2)
+    assert zq_ref.dtype == jnp.bfloat16
+    zq, idx = fvq.fused_compress_tail_vq(*args, torch.from_numpy(cb), groups)
+    assert zq.dtype == torch.bfloat16 and idx.dtype == torch.int32
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_ref))
+    assert len(np.unique(idx.numpy()[..., 0])) > K // 2
+    np.testing.assert_array_equal(zq.float().numpy(), np.asarray(zq_ref.astype(jnp.float32)))
+    zq32, idx32 = fvq.fused_compress_tail_vq(args[0].float(), *args[1:],
+                                             torch.from_numpy(cb), groups)
+    assert torch.equal(idx32, idx) and torch.equal(zq32.to(torch.bfloat16), zq)
+
+
+def test_bf16_wrapper_takes_bf16_h_alone():
+    """K3's bf16 case takes bf16 h and float32 weights and codebooks, as
+    the JAX call passes them; bf16 weights raise a TypeError, and so does
+    fp32 h, which is the fp32 case's. Nothing launches."""
+    ins = list(_wrapper_inputs(4))
+    k = kernels.fused_compress_tail_vq_bf16
+    with pytest.raises(TypeError, match="w1 has dtype torch.bfloat16; it takes float32"):
+        k(ins[0].bfloat16(), ins[1].bfloat16(), *ins[2:8], groups=2)
+    with pytest.raises(TypeError, match="h has dtype torch.float32; it takes bfloat16"):
+        k(*ins[:8], groups=2)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        k(ins[0].bfloat16(), *ins[1:8], groups=2)
+    assert k.launches == 0 and kernels.fused_compress_tail_vq.launches == 0
 
 
 def test_compress_tail_debug_twin_matches_pallas_and_oracle():
@@ -226,7 +268,8 @@ def test_wrappers_raise_and_cpu_calls_launch_nothing(case, error, match):
     fvq.compress_tail_debug(*ins[:7], groups=2)
     fvq.fused_compress_vq(*ins[8:], ins[7])
     assert [k.launches for k in (kernels.fused_compress_vq, kernels.fused_compress_tail_vq,
-                                 kernels.compress_tail_debug)] == [0, 0, 0]
+                                 kernels.fused_compress_tail_vq_bf16,
+                                 kernels.compress_tail_debug)] == [0, 0, 0, 0]
 
 
 def test_wrapper_refuses_groups_and_oversized_maps():

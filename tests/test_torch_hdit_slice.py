@@ -10,8 +10,8 @@ Then the port's entry points on the CPU (``+device=cpu``): pre-encoding
 ``flowers_sd`` (the full-width SD VAE on 32² images), training
 ``flowers_hdit`` in bf16 with MoE at the outer level for one epoch with its
 evaluation, resuming from its checkpoint, and serving the EMA checkpoint
-with ``+bf16=false`` through the SD VAE; each finishes with finite
-outputs. The evaluation's FID features are the rp features at 256
+through the SD VAE as trained (bf16) and with ``+bf16=false``; each
+finishes with finite outputs. The evaluation's FID features are the rp features at 256
 dimensions, as in ``test_torch_train_flow.py``.
 """
 import glob
@@ -150,7 +150,10 @@ def test_sd_preencode_hdit_train_and_serve_on_cpu(tmp_path, monkeypatch):
     serve = ["--config-name", "flowers_hdit", "+device=cpu",
              f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=2", "+n_steps=2",
              f"+output_dir={tmp_path}/samples"]
-    with pytest.raises(NotImplementedError, match="bf16 serving.*ROADMAP"):
-        gs.main(serve)
+    # served as trained: the checkpoint's flow.bf16 serves in bf16 (the SD
+    # VAE too), and +bf16=false in fp32
+    out = gs.main(serve)
+    assert out["bf16"] and out["images"].shape == (2, 32, 32, 3)
+    assert np.isfinite(out["images"]).all()
     out = gs.main(serve + ["+bf16=false"])
     assert out["images"].shape == (2, 32, 32, 3) and np.isfinite(out["images"]).all()

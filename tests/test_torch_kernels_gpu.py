@@ -1,6 +1,8 @@
 """The hand-written kernels against their plain versions on the card: K1 and
 K2 (the NA2D forward and backward), K3, K4 and K5 (the fused compression
-tail and RVQ search). Marked ``gpu``: it skips without a CUDA device. This file imports
+tail and RVQ search; K3 also on bf16 h), and the W8A8 int8 convolution
+(``ops/quant.py`` over ``torch._int_mm``, not a TPU kernel) against its
+float64 twin. Marked ``gpu``: it skips without a CUDA device. This file imports
 neither jax nor flocoder_tpu, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
@@ -291,3 +293,78 @@ def test_fused_vq_kernels_match_twins_on_card():
     with pytest.raises(ValueError, match="shared memory"):     # bands of 64 rows: 540 KB
         kernels.compress_tail_debug(h, *tail, 2)
     assert kernels.compress_tail_debug.launches == before
+
+
+@pytest.mark.gpu
+def test_fused_tail_vq_on_bf16_h_matches_twin_on_card():
+    """K3's bf16 case against its plain twin on the same bf16 h, TF32 off:
+    the picks equal and z_q equal in bf16 (the twin widens h and runs the
+    fp32 tail); and against K3's fp32 case on h widened: the same picks
+    and z_q rounded, bit for bit. At the pre-encode shape (B=32, 16²×128,
+    D=4, L=4, K=96) in both layouts of h and every cluster size; a ragged
+    5×7 map (no 16-byte runs: values staged one at a time), D=3 and 8, a
+    1×1 map and a 3-row map in a cluster of 8."""
+    from flocoder_torch.ops import fused_vq as fvq
+    from flocoder_torch.ops.kernels import fused_vq as kernels
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator("cuda").manual_seed(5)
+    for B, H, W, Din, D, L, K, groups, nchw, cs in (
+            (32, 16, 16, 128, 4, 4, 96, 2, True, None), (32, 16, 16, 128, 4, 4, 96, 2, False, None),
+            (32, 16, 16, 128, 4, 4, 96, 2, True, 1), (32, 16, 16, 128, 4, 4, 96, 2, True, 2),
+            (32, 16, 16, 128, 4, 4, 96, 2, True, 4), (32, 16, 16, 128, 4, 4, 96, 2, True, 8),
+            (3, 5, 7, 16, 4, 3, 8, 2, True, None), (3, 5, 7, 16, 4, 3, 8, 2, False, None),
+            (2, 16, 16, 32, 3, 2, 16, 1, True, None), (2, 16, 16, 32, 8, 2, 16, 2, True, None),
+            (1, 1, 1, 16, 4, 2, 16, 2, True, 8), (2, 3, 8, 32, 4, 2, 16, 2, True, 8)):
+        h, tail, cb = fvq.random_tail_inputs(g, B, H, W, Din, D, L, K, groups, nchw)
+        hb = h.to(torch.bfloat16)
+        before = kernels.fused_compress_tail_vq_bf16.launches
+        zq, idx = fvq.fused_compress_tail_vq(hb, *tail, cb, groups)
+        if cs is not None:
+            zq, idx = kernels.fused_compress_tail_vq_bf16(hb, *tail, cb, groups, cluster=cs)
+        torch.cuda.synchronize()
+        case = (B, H, W, Din, D, L, K, groups, nchw, cs)
+        assert kernels.fused_compress_tail_vq_bf16.launches == before + (1 if cs is None else 2)
+        assert zq.dtype == torch.bfloat16 and idx.dtype == torch.int32, case
+        zq_t, idx_t = fvq.fused_compress_tail_vq_plain(hb, *tail, cb, groups)
+        assert torch.equal(idx, idx_t) and torch.equal(zq, zq_t), case
+        zq32, idx32 = kernels.fused_compress_tail_vq(hb.float(), *tail, cb, groups, cluster=cs)
+        assert torch.equal(idx, idx32) and torch.equal(zq, zq32.to(torch.bfloat16)), case
+    with pytest.raises(TypeError, match="float32"):
+        kernels.fused_compress_tail_vq_bf16(hb, *(t.bfloat16() for t in tail), cb, groups)
+
+
+@pytest.mark.gpu
+def test_int8_conv_matches_its_twin_on_card():
+    """The W8A8 convolution on the card (im2col + ``torch._int_mm``) against
+    its float64 twin on the CPU: the int8 codes equal, the output within
+    1e-6 of the largest |ref|; at an SD-decoder shape (128²×128, k 3, B=4,
+    cut in chunks), a VQGAN decoder shape (32²×512 → 512, k 3), a stride-2
+    SAME conv and a 1×1 in bf16; a shape ``_int_mm`` does not take raises."""
+    from flocoder_torch.ops import quant
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    g = torch.Generator("cuda").manual_seed(3)
+    for B, C, S, Co, k, stride, pad, dt in ((4, 128, 128, 128, 3, 1, 1, torch.float32),
+                                           (8, 512, 32, 512, 3, 1, 1, torch.bfloat16),
+                                           (2, 64, 16, 64, 3, 2, "SAME", torch.float32),
+                                           (2, 256, 16, 128, 1, 1, 0, torch.bfloat16)):
+        x = (torch.randn(B, C, S, S, device="cuda", generator=g) * 2).to(dt)
+        w = torch.randn(Co, C, k, k, device="cuda", generator=g) / (C * k * k) ** 0.5
+        b = torch.randn(Co, device="cuda", generator=g) * 0.1
+        before = quant.int_mm_calls.launches
+        y = quant.int8_conv(x, w, b, stride, pad, dt)
+        torch.cuda.synchronize()
+        assert quant.int_mm_calls.launches > before
+        assert torch.equal(quant.quantize_activations(x)[0].cpu(),
+                           quant.quantize_activations(x.cpu())[0])
+        assert torch.equal(quant.quantize_weight(w)[0].cpu(), quant.quantize_weight(w.cpu())[0])
+        ref = quant.int8_conv(x.cpu(), w.cpu(), b.cpu(), stride, pad, dt)
+        assert y.dtype == ref.dtype == dt and y.shape == ref.shape
+        err = (y.cpu().float() - ref.float()).abs().max().item()
+        assert err <= 1e-6 * ref.float().abs().max().item(), (B, C, S, Co, k, err)
+    with pytest.raises(ValueError, match="_int_mm"):
+        quant.int8_conv(torch.randn(1, 64, 4, 4, device="cuda"),
+                        torch.randn(64, 64, 3, 3, device="cuda"), None, 1, 1)

@@ -51,11 +51,11 @@ def test_every_module_imports_without_jax():
               "ops.kernels.fused_vq", "train_flow", "evaluate_model", "training.flow",
               "training.ema", "training.schedules", "ops.ot", "ops.sinkhorn", "ops.fid",
               "models.sd_vae", "models.hdit", "models.flow_model", "parallel.moe",
-              "data.shard", "data.native_image", "data.device_augs"):
+              "data.shard", "data.native_image", "data.device_augs", "ops.quant"):
         assert f"flocoder_torch.{m}" in mods, m
     # the native libraries build and load with the JAX package blocked
     code = ("import sys, importlib\n"
-            "for name in ('jax', 'jaxlib', 'flax', 'flocoder_tpu'):\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'flocoder_tpu'):\n"
             "    sys.modules[name] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -63,7 +63,7 @@ def test_every_module_imports_without_jax():
             "print(shard.library_file())\n"
             "print(native_image.library_file() if native_image.available() else '')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'flocoder_tpu') and sys.modules[m] is not None]\n"
+            "('jax', 'flax', 'ml_dtypes', 'flocoder_tpu') and sys.modules[m] is not None]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,
@@ -160,10 +160,12 @@ def test_midi_export_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("what", ["hdit_pp_stages", "moe_ep", "sd_int8", "unet_bf16"])
 def test_unported_options_of_the_sd_family_raise(what, tmp_path):
-    """HDiT's pipelined mid level, MoE expert parallelism and the SD VAE's
-    int8 convs wait for later items of ROADMAP.md. The U-Net in bf16 is
-    ported since: ``flowers_sd``'s U-Net builds in bf16 and computes a
-    finite fp32 velocity."""
+    """HDiT's pipelined mid level and MoE expert parallelism wait for later
+    items of ROADMAP.md. The U-Net in bf16 is ported since: ``flowers_sd``'s
+    U-Net builds in bf16 and computes a finite fp32 velocity; and so are the
+    SD VAE's int8 convs: ``+codec.quant_encode=int8`` builds W8A8 encoder
+    convolutions (those under 32 channels plain) whose encode stays within
+    int8's error of the fp32 encode."""
     from flocoder_torch import preencode_data as pe
     from flocoder_torch import train_flow as tf
     from flocoder_torch.models.flow_model import build_flow_model
@@ -179,6 +181,24 @@ def test_unported_options_of_the_sd_family_raise(what, tmp_path):
         assert v.dtype == torch.float32 and v.shape == (2, 8, 8, 4)
         assert torch.isfinite(v).all()
         return
+    if what == "sd_int8":
+        from flocoder_torch.ops.quant import QuantConv
+        ov = ["codec.image_size=32"]
+        codec = init_params(setup_codec(load_config("flowers_sd", gs.CONFIG_DIR,
+                                                    [*ov, "+codec.quant_encode=int8"])),
+                            torch.Generator().manual_seed(0))
+        plain = init_params(setup_codec(load_config("flowers_sd", gs.CONFIG_DIR, ov)),
+                            torch.Generator().manual_seed(0))
+        assert isinstance(codec.encoder._Resnet_0.Conv_0, QuantConv)
+        assert not isinstance(codec.encoder.Conv_0, QuantConv) or \
+            codec.encoder.Conv_0.in_channels < 32                     # conv_in: 3 channels
+        assert not any(isinstance(m, QuantConv) for m in codec.decoder.modules())
+        x = torch.rand(1, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            z, ref = codec.encode(x), plain.encode(x)
+        assert z.shape == ref.shape == (1, 4, 4, 4)
+        assert 0 < float((z - ref).abs().max()) < 0.1 * float(ref.abs().max())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "hdit_pp_stages":
             cfg = load_config("flowers_hdit", gs.CONFIG_DIR, [*hdit, "+flow.hdit_pp_stages=2"])
@@ -186,8 +206,5 @@ def test_unported_options_of_the_sd_family_raise(what, tmp_path):
         elif what == "moe_ep":
             tf.main(["--config-name", "flowers_hdit", "+device=cpu", *hdit,
                      "+flow.hdit_moe_experts=[4,0]", "+flow.moe_ep=true",
-                     f"data={tmp_path / 'absent'}"])
-        else:
-            pe.main(["--config-name", "flowers_sd", "+device=cpu", "+codec.quant_encode=int8",
                      f"data={tmp_path / 'absent'}"])
     assert not (tmp_path / "absent_encoded_sd").exists()

@@ -177,10 +177,30 @@ def test_preencode_refuses_to_overwrite_a_split(encoded):
     "+quant=int8", "codec.bf16=true", "codec.choice=dac",
 ])
 def test_unported_options_raise(override, tmp_path):
-    """The options still unported raise, naming ROADMAP.md. Device augs and
-    the shard format are ported since: on the synthetic set each now runs
-    and writes its output (the augmented latents of 32² crops; one shard
-    per split that reads back every latent)."""
+    """The options still unported raise, naming ROADMAP.md. Device augs,
+    the shard format, ``+quant=int8`` and ``codec.bf16`` are ported since:
+    on the synthetic set each now runs and writes its output (the
+    augmented latents of 32² crops; one shard per split that reads back
+    every latent; int8: the encoder's convolutions W8A8 and its head plain;
+    bf16: a bf16 codec whose latents are written as float32)."""
+    if override in ("+quant=int8", "codec.bf16=true"):
+        from flocoder_torch.ops.quant import QuantConv
+        res = pe.main(["--config-name", "smoke_vqgan", "+device=cpu",
+                       f"data={tmp_path / 'absent'}", *OVERRIDES, "preencoding.augs_per=1",
+                       "codec.hidden_channels=32", "codec.internal_dim=32", override])
+        codec = res["codec"]
+        if override == "+quant=int8":
+            assert isinstance(codec.encoder.Conv_0, QuantConv)
+            assert not isinstance(codec.encoder.Conv_1, QuantConv)
+        else:
+            assert codec.dtype == torch.bfloat16
+        for split in ("val", "train"):
+            r = res[split]
+            ds = PreEncodedDataset(r["out_dir"])
+            lat = np.stack([ds.get(i, None)[0] for i in range(len(ds))])
+            assert lat.dtype == np.float32 and lat.shape == (r["latents"], 8, 8, 4)
+            assert np.isfinite(lat).all()
+        return
     if override.startswith("preencoding."):
         data = str(tmp_path / "absent")
         res = pe.main(["--config-name", "smoke_vqgan", "+device=cpu", f"data={data}",

@@ -138,15 +138,20 @@ def test_weight_file_loads_strictly(tmp_path):
 
 
 def test_setup_codec_builds_the_sd_vae_and_refuses_int8():
+    """The factory builds the SD VAE; its int8 flags, refused until the W8A8
+    convolutions were ported, now build QuantConv on the flagged side only
+    (``test_torch_sd_vae_bf16.py`` holds them against JAX)."""
+    from flocoder_torch.ops.quant import QuantConv
     cfg = load_config("flowers_sd", config_dir=CONFIG_DIR)
     codec = setup_codec(cfg)
     assert isinstance(codec, SDVAE) and codec.channels == (128, 256, 512, 512)
     assert codec.latent_shape(128) == (16, 16, 4)
-    for key in ("quant_decode", "quant_encode"):
-        bad = load_config("flowers_sd", config_dir=CONFIG_DIR,
-                          overrides=[f"+codec.{key}=int8"])
-        with pytest.raises(NotImplementedError, match="int8.*ROADMAP"):
-            setup_codec(bad)
+    for key, side in (("quant_decode", "decoder"), ("quant_encode", "encoder")):
+        q = setup_codec(load_config("flowers_sd", config_dir=CONFIG_DIR,
+                                    overrides=[f"+codec.{key}=int8"]))
+        for name in ("encoder", "decoder"):
+            has = any(isinstance(m, QuantConv) for m in getattr(q, name).modules())
+            assert has == (name == side), (key, name)
     init_params(codec, torch.Generator().manual_seed(0))
     with torch.no_grad():
         z = codec.encode(torch.zeros(1, 16, 16, 3))

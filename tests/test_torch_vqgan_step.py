@@ -218,6 +218,8 @@ def test_not_ported_options_raise():
         tvqgan.make_vqgan_gan_step(cfg, mesh=object())
     with pytest.raises(ValueError, match="grad_accum"):
         tvqgan.make_vqgan_warmup_step(cfg, grad_accum=0)
+    # bf16 codecs build since (serving, pre-encoding); training them waits
+    bf16 = load_config("smoke_vqgan", config_dir="configs", overrides=["+codec.bf16=true"])
+    assert tcodecs.setup_codec(bf16).dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcodecs.setup_codec(load_config("smoke_vqgan", config_dir="configs",
-                                        overrides=["+codec.bf16=true"]))
+        tvqgan.make_vqgan_warmup_step(bf16)
