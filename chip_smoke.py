@@ -39,7 +39,7 @@
    times another checkout's kernels in benchmarks/na2d_shapes.py).
 6. Serves flowers_vqgan at full width through the port's entry point
    (flocoder_torch.generate_samples.main) from seeded random-init
-   checkpoints: unconditional, class-conditional with CFG (n_classes=102),
+   checkpoints (the npz contract's keys, written uncompressed by np.savez): unconditional, class-conditional with CFG (n_classes=102),
    and img2img from an init image (which runs the encoder). The kernels'
    launch counts are zeroed before and read after these runs. Then times
    the parts of a serving batch: a U-Net forward, a decode, an encode.
@@ -147,9 +147,11 @@
    flowers' widths) through flocoder_torch.train_vqgan.main on a seeded
    corpus of 108 two-track songs written by the port's
    write_synthetic_corpus (each rolls to three 128² PNGs; the loader
-   converts them): one warmup and one GAN epoch of 4 steps at B=64, one
-   validation batch with the note metrics and their 10 grids; 6 K1 and 6
-   K2 a step, 6 K1 a validation batch, exactly.
+   converts them): one warmup epoch of 4 steps at B=64 (the GAN step at
+   these widths runs in steps 7 and 26), one validation batch with the
+   note metrics and their 10 grids; 6 K1 and 6 K2 a step, 6 K1 a
+   validation batch, exactly. Its checkpoint is copied uncompressed
+   (plain_copy) for the steps after it, which load it again and again.
 19. midi_preencode: inpainting=true pre-encode of the 324 roll PNGs from
    step 18's checkpoint, B=32, augs_per 2 (the recipe's 1024): 2 val and
    18 train batches of triplets, two encodes a batch (10 K1), read back.
@@ -183,12 +185,12 @@
    the val shard; no kernel in training, K1 twice in the evaluation,
    exactly.
 24. tpu_demo (last): configs/tpu_demo.yaml as composed (the resize codec,
-   synthetic 128² data, device_augs at augs_per 24 of its 48, shard; the
+   synthetic 128² data, device_augs at augs_per 12 of its 48, shard; the
    U-Net in bf16 at B=256,
    1 epoch of its 40, evaluation at 20 of its 50 grid points), then its
    EMA served as trained, in bf16; no kernel launches.
-25. tpu_vqgan (after step 23): configs/tpu_vqgan.yaml as composed
-   (codec.bf16) at full width on the codec checkpoint of step 6:
+25. tpu_vqgan (after step 26): configs/tpu_vqgan.yaml as composed
+   (codec.bf16) at full width on the codec checkpoint step 26 trained:
    pre-encode with preencoding.fused_vq=true (B=32, augs_per 1: 1 val and
    9 train batches; 5 K1 in bf16 and 1 K3 bf16 a batch, exactly), again
    with +quant=int8 (W8A8 encoder convolutions) over 96 PNGs, one flow epoch
@@ -198,11 +200,34 @@
    +quant=int8 (1 and 0 K1), the decode of 64 by both codecs in fp32,
    fp32 + int8, bf16 and bf16 + int8, and K1 held inside the VQGAN's bf16
    decode (against na2d_banded in fp32 on the same bf16 values, 2e-2).
+26. tpu_vqgan_train (after step 23): configs/tpu_vqgan.yaml as composed
+   (codec.bf16: the codec, its discriminator and the VGG16 perceptual net
+   compute in bf16 over fp32 parameters) at flowers' full widths, B=64,
+   through flocoder_torch.train_vqgan.main over step 7's PNGs: one warmup
+   and one GAN epoch of 4 steps, one validation batch; 6 K1 and 6 K2 a
+   step and 6 K1 a validation batch, exactly, every launch in bf16; K2 in
+   bf16 held against na2d_bwd_banded (fp32 on the same bf16 values, within
+   3e-2 of the largest |ref|) on the inputs of the run's last backward at
+   the decoder's shape, and bitwise equal across two calls; the card's bf16
+   mean against the fp32 mean rounded once; samples/s over the steady
+   steps, peak memory and a GAN step's breakdown, printed beside step 7's
+   fp32 ones. Then one bf16 warmup and one bf16 GAN step of a small codec
+   (hidden 64) on the card against the CPU on the same RVQ picks (the
+   card's own differing only at near ties): losses within 3e-2·max(1,
+   |ref|) with equal dtypes, Adam's first moments per tensor within 3e-2
+   of its largest |ref| plus 2.5 times its spread (the largest |CPU bf16
+   − CPU fp32| on the same picks; tensors nought to rounding, spread ≥
+   half, left out and counted, at most a tenth), spectral norm's u and σ
+   within 1e-4, each gamma within two bf16 spacings where its gradient's
+   sign is not rounding's; and the card's steps again with na2d's plain
+   twin in place of K1 and K2, read beside. Its checkpoint, copied
+   uncompressed (plain_copy), is step 25's codec.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Imports nothing of JAX or of flocoder_tpu.
 """
+import contextlib
 import copy
 import json
 import os
@@ -561,8 +586,11 @@ def time_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded, na2d, card: str) -> tuple:
     plain_ms = cuda_ms(lambda: na2d_bwd_banded(q, k, v, o, gr, kernel_size=ks,
                                                heads=heads), 3, warmup=1)
     qb, kb, vb, ob, gb = (t.to(torch.bfloat16) for t in (q, k, v, o, gr))
-    bf16_ms = cuda_ms(lambda: na2d_bwd(qb, kb, vb, ob, gb, kernel_size=ks,
-                                       heads=heads), 20)
+    bf16_fn = lambda: na2d_bwd(qb, kb, vb, ob, gb, kernel_size=ks, heads=heads)  # noqa: E731
+    bf16_ms = cuda_ms(bf16_fn, 20)
+    bf16_dev_ms = device_ms(bf16_fn, "na2d_bwd")
+    bf16_plain_ms = cuda_ms(lambda: na2d_bwd_banded(qb, kb, vb, ob, gb, kernel_size=ks,
+                                                    heads=heads), 3, warmup=1)
 
     # yardstick: SDPA forward + backward with the NATTEN mask, against K1 + K2
     mask = _window_mask(H, W, ks)
@@ -580,21 +608,30 @@ def time_k2(na2d_fwd, na2d_bwd, na2d_bwd_banded, na2d, card: str) -> tuple:
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         F.scaled_dot_product_attention(qs, ks_, vs, attn_mask=mask),
         (qs, ks_, vs), gs), 5, warmup=2)
+    qs, ks_, vs = (t.detach().bfloat16().requires_grad_() for t in (qs, ks_, vs))
+    gs = gs.bfloat16()
+    bf16_library_ms = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qs, ks_, vs, attn_mask=mask),
+        (qs, ks_, vs), gs), 5, warmup=2)
     fwd_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
         na2d(*leaves, kernel_size=ks, heads=heads), leaves, gr), 20)
     bound_ms, bound_by = na2d_bwd_bound_ms(B, H, W, C, ks, torch.float32)
-    bf16_bound, _ = na2d_bwd_bound_ms(B, H, W, C, ks, torch.bfloat16)
+    bf16_bound, bf16_bound_by = na2d_bwd_bound_ms(B, H, W, C, ks, torch.bfloat16)
     print(f"K2 time (B={B}, {H}x{W}, C={C}, {heads} heads, k={ks}) fp32: "
           f"kernel_ms={ms:.4f} device_ms={dev_ms:.4f} plain_ms={plain_ms:.4f} "
           f"bound_ms={bound_ms:.4f} "
           f"({bound_by}) | K1+K2 fwd+bwd_ms={fwd_bwd_ms:.4f} SDPA fwd+bwd "
-          f"library_ms={library_ms:.4f} | bf16: kernel_ms={bf16_ms:.4f} "
-          f"bound_ms={bf16_bound:.4f} | card: {card}", flush=True)
+          f"library_ms={library_ms:.4f} | bf16 (the bf16 codec step's): kernel_ms="
+          f"{bf16_ms:.4f} device_ms={bf16_dev_ms:.4f} plain_ms={bf16_plain_ms:.4f} "
+          f"bound_ms={bf16_bound:.4f} ({bf16_bound_by}) SDPA fwd+bwd library_ms="
+          f"{bf16_library_ms:.4f} | card: {card}", flush=True)
     del q, k, v, gr, o, grads, qb, kb, vb, ob, gb, qs, ks_, vs, gs, leaves, sdpa_grads
     torch.cuda.empty_cache()
     return dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by, fwd_bwd_ms=fwd_bwd_ms,
-                bf16_ms=bf16_ms), err
+                bf16=dict(ms=bf16_ms, device_ms=bf16_dev_ms, plain_ms=bf16_plain_ms,
+                          library_ms=bf16_library_ms, bound_ms=bf16_bound,
+                          bound_by=bf16_bound_by)), err
 
 
 # (B, H, W, C, heads) of the codec's NATTEN blocks (k=7) at the main paths'
@@ -652,13 +689,23 @@ def write_checkpoints(tmp: str, config_dir: str, recipe: str = "flowers_vqgan"):
     flowers_vqgan the VQGAN codec (128², hidden 256, 3 downsamples; its
     codebooks scaled by ``scale_codebooks``; NATTEN gates set to 1 so that
     K1's output reaches the images). flowers_sd's SD VAE has no checkpoint
-    file: serving seeds it as pre-encoding does."""
+    file: serving seeds it as pre-encoding does. The files hold the
+    contract's keys (training/checkpoint.py:checkpoint_payload) written by
+    np.savez, uncompressed: seeded random floats barely compress, and
+    zlib on the codec's weights took most of the serving phase."""
     from flocoder_torch.config import load_config
     from flocoder_torch.models.codecs import NATTENBlock, setup_codec
     from flocoder_torch.models.layers import init_params
     from flocoder_torch.models.unet import Unet
     from flocoder_torch.training.checkpoint import (
-        UNET_PREFIXES, VQVAE_PREFIXES, save_checkpoint, to_jax_flat)
+        UNET_PREFIXES, VQVAE_PREFIXES, checkpoint_payload, to_jax_flat)
+
+    def write(path, params, config=None):
+        t0 = time.time()
+        np.savez(path, **checkpoint_payload(params, 0, config))
+        print(f"fixture {os.path.basename(path)}: {os.path.getsize(path) / 2**20:.1f} MiB "
+              f"written in {time.time() - t0:.2f} s (np.savez)", flush=True)
+        return path
 
     gen = torch.Generator("cuda")
     paths, over = {}, []
@@ -671,16 +718,14 @@ def write_checkpoints(tmp: str, config_dir: str, recipe: str = "flowers_vqgan"):
             if isinstance(m, NATTENBlock):
                 m.gamma.data.fill_(1.0)
         scale_codebooks(codec, 128)
-        save_checkpoint(to_jax_flat(codec, VQVAE_PREFIXES), 0, ckpt_dir=tmp,
-                        prefix="vqgan_")
+        write(paths["codec"], to_jax_flat(codec, VQVAE_PREFIXES))
     for name, n_classes in (("uncond", 0), ("cfg", 102)):
         cfg = load_config(recipe, config_dir, over + [f"flow.unet.n_classes={n_classes}"])
         unet = Unet(dim=16, channels=4, dim_mults=(1, 2, 4, 8),
                     n_classes=n_classes).cuda()
         init_params(unet, gen.manual_seed(1))
-        paths[name] = save_checkpoint(to_jax_flat(unet, UNET_PREFIXES), 0,
-                                      ckpt_dir=tmp, prefix=f"flowema_{recipe}_{name}_",
-                                      config=cfg)
+        paths[name] = write(os.path.join(tmp, f"flowema_{recipe}_{name}_0.npz"),
+                            to_jax_flat(unet, UNET_PREFIXES), cfg)
     return paths
 
 
@@ -766,25 +811,30 @@ def breakdown(paths: dict, card: str) -> dict:
 
 
 def profile_batch(fn) -> dict:
-    """One call of ``fn`` under torch.profiler: wall seconds (profiler on),
-    the device's busy seconds (sum of kernel times on the card), its idle
-    share, the device time of the NA2D kernels (K1, K2), and the kernels
-    that took the most device time."""
+    """One call of ``fn`` under torch.profiler, tracing the device only (a
+    trace of every host-side op cost seconds a call and slowed the call it
+    measured): wall seconds (profiler on), the device's busy seconds (sum of
+    kernel times on the card), its idle share, the device time of the NA2D
+    kernels (K1, K2), and the kernels that took the most device time. Where
+    the profiler saw no kernel the shares are None, and a line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    if not kernels:
+        print("profile_batch: the profiler saw no kernel; no idle share", flush=True)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     na2d_ms = sum(e.self_device_time_total for e in kernels if "na2d" in e.key) / 1e3
-    return dict(profiled_batch_s=wall, device_busy_s=busy,
-                device_idle_share=1.0 - busy / wall, na2d_kernels_ms=na2d_ms,
+    return dict(profiled_batch_s=wall, device_busy_s=busy if kernels else None,
+                device_idle_share=1.0 - busy / wall if kernels else None,
+                na2d_kernels_ms=na2d_ms,
                 top_kernels=[(e.key, e.self_device_time_total / 1e3) for e in top])
 
 
@@ -830,14 +880,31 @@ def check_small_input(ckpt: str, label: str = "") -> dict:
 
 def write_pngs(folder: str, n: int = 320, size: int = 128, seed: int = 3) -> str:
     """``n`` seeded random RGB PNGs (at 128², 10% go to validation, the rest
-    give 4 training steps of 64 per epoch)."""
+    give 4 training steps of 64 per epoch), drawn in order and encoded on
+    8 threads."""
     from PIL import Image
     os.makedirs(folder)
     rng = np.random.default_rng(seed)
-    for i in range(n):
-        Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8)).save(
-            os.path.join(folder, f"img_{i:04d}.png"), compress_level=1)
+    images = [rng.integers(0, 256, (size, size, 3), dtype=np.uint8) for _ in range(n)]
+
+    def save(i):
+        Image.fromarray(images[i]).save(os.path.join(folder, f"img_{i:04d}.png"),
+                                        compress_level=1)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(save, range(n)))
     return folder
+
+
+def plain_copy(path: str) -> str:
+    """The checkpoint at ``path`` (written compressed, as the JAX writer
+    writes) copied beside it uncompressed: the same keys and arrays, which
+    np.load reads alike, so that the phases that load it again and again
+    skip the zlib stream. Returns the copy's path."""
+    out = path[:-len(".npz")] + "_plain.npz"
+    with np.load(path, allow_pickle=False) as z:
+        np.savez(out, **{k: z[k] for k in z.files})
+    return out
 
 
 def train_flowers(tmp: str, card: str, kernels: dict) -> tuple:
@@ -873,9 +940,17 @@ def train_flowers(tmp: str, card: str, kernels: dict) -> tuple:
         fail(f"training losses are not finite: {res['epochs']} {res['val']}")
     if res["checkpoint"] is None or not os.path.exists(res["checkpoint"]):
         fail("training wrote no checkpoint")
+    return res["state"], train_record(res, wall, card), launches
+
+
+def train_record(res: dict, wall: float, card: str) -> dict:
+    """A codec-training run's record from train_vqgan.main's result: per
+    phase the step seconds, samples/s over the steady steps (their median,
+    the first excluded) and over the epoch; peak memory, the losses;
+    printed."""
     peak = torch.cuda.max_memory_allocated() / 2**30
     rec = dict(batch=64, wall_s=wall, peak_mem_gib=peak, card=card,
-               epochs=res["epochs"], val=res["val"])
+               dtype=str(res["state"].codec.dtype), epochs=res["epochs"], val=res["val"])
     for ph, secs in res["step_seconds"].items():
         steady = secs[1:]
         (ep,) = [e for e in res["epoch_seconds"] if e["phase"] == ph]
@@ -884,7 +959,7 @@ def train_flowers(tmp: str, card: str, kernels: dict) -> tuple:
                        epoch_s=ep["seconds"],
                        epoch_samples_per_s=ep["samples"] / ep["seconds"],
                        outside_steps_s=ep["seconds"] - sum(secs))
-    print(f"train flowers_vqgan B=64 128²: " + ", ".join(
+    print(f"train {res['state'].codec.dtype} codec B=64 128²: " + ", ".join(
         f"{ph} {r['samples_per_s']:.2f} samples/s over steady steps, "
         f"{r['epoch_samples_per_s']:.2f} over the epoch ({r['epoch_s']:.4f} s, "
         f"{r['outside_steps_s']:.4f} s outside the steps; steps "
@@ -894,20 +969,21 @@ def train_flowers(tmp: str, card: str, kernels: dict) -> tuple:
     for e in res["epochs"] + res["val"]:
         print("  " + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                               for k, v in e.items()), flush=True)
-    return res["state"], rec, launches
+    return rec
 
 
-def gan_breakdown(state, card: str) -> dict:
-    """Where a GAN step's time goes, by CUDA events around its parts (the
-    mean of 3 steps after one warm step), then one step under the
-    profiler for the device's idle share."""
+def gan_breakdown(state, card: str, recipe: str = "flowers_vqgan.yaml") -> dict:
+    """Where a GAN step of ``recipe``'s codec (``state``, in its dtype) goes,
+    by CUDA events around its parts (the mean of 3 steps after one warm
+    step), then one step under the profiler for the device's idle share."""
     from flocoder_torch.config import load_config
     from flocoder_torch.generate_samples import CONFIG_DIR
     from flocoder_torch.models.perceptual import make_perceptual_fn
     from flocoder_torch.training.vqgan import make_vqgan_gan_step
 
-    cfg = load_config("flowers_vqgan.yaml", CONFIG_DIR)
-    step = make_vqgan_gan_step(cfg, make_perceptual_fn(device="cuda"))
+    cfg = load_config(recipe, CONFIG_DIR)
+    step = make_vqgan_gan_step(cfg, make_perceptual_fn(device="cuda",
+                                                       dtype=state.codec.dtype))
     gen = torch.Generator("cuda").manual_seed(6)
     x = torch.rand(64, 128, 128, 3, device="cuda", generator=gen) * 2 - 1
     names = ["codec_forward", "d_step", "g_loss_backward", "optimizers"]
@@ -930,12 +1006,46 @@ def gan_breakdown(state, card: str) -> dict:
     out["step_ms"] = sum(totals.values())
     out.update(profile_batch(lambda: step(state, x, gen)))
     top = out.pop("top_kernels")
-    print("GAN step breakdown (B=64, 128²): " + " ".join(
+    print(f"GAN step breakdown ({recipe}, {state.codec.dtype}, B=64, 128²): " + " ".join(
         f"{k}={v:.4f}" for k, v in out.items()) + f" | card: {card}", flush=True)
     print("  device time by kernel (ms): " + "; ".join(
         f"{name[:60]}={ms:.2f}" for name, ms in top), flush=True)
     out["top_kernels"] = top
     return out
+
+
+def small_training_setup() -> tuple:
+    """The small codec of the card-vs-CPU training checks (hidden 64: head
+    dims 8-32, which K1 and K2 take; fp32, seeded), NATTEN's gammas at 0.5
+    so that K2's gradients reach the attention's projections, its RVQ
+    initialised with no dead codes (a step draws nothing); a 16-wide patch
+    discriminator, the VGG16 net, and two batches of 4 32² images. Returns
+    (the codec's keyword arguments, codec, discriminator, VGG, batches)."""
+    from flocoder_torch.models.codecs import NATTENBlock, VQVAE
+    from flocoder_torch.models.discriminator import (VQGANPlusPatchDiscriminator,
+                                                     init_discriminator)
+    from flocoder_torch.models.layers import init_params
+    from flocoder_torch.models.perceptual import VGG16Features
+
+    kw = dict(hidden_channels=64, num_downsamples=3, internal_dim=64, vq_embedding_dim=4,
+              vq_num_embeddings=16, codebook_levels=2, commitment_weight=0.5)
+    codec = init_params(VQVAE(**kw), torch.Generator().manual_seed(0))
+    for m in codec.modules():
+        if isinstance(m, NATTENBlock):
+            m.gamma.data.fill_(0.5)
+    rng = np.random.default_rng(7)
+    L, K, D = codec.vq.codebooks.shape
+    codec.vq.assign_({
+        "codebooks": torch.from_numpy(rng.normal(size=(L, K, D)).astype(np.float32)),
+        "ema_counts": torch.from_numpy(rng.uniform(4, 30, (L, K)).astype(np.float32)),
+        "ema_sums": torch.from_numpy(rng.normal(size=(L, K, D)).astype(np.float32)),
+        "initted": torch.tensor(True)})
+    disc = init_discriminator(VQGANPlusPatchDiscriminator(hidden_channels=16),
+                              torch.Generator().manual_seed(1))
+    vgg = init_params(VGG16Features(), torch.Generator().manual_seed(2))
+    batches = [torch.from_numpy(rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32))
+               for _ in range(2)]
+    return kw, codec, disc, vgg, batches
 
 
 def check_train_small() -> None:
@@ -948,11 +1058,7 @@ def check_train_small() -> None:
     within 1e-3 of the largest first moment of that model."""
     from flocoder_torch.config import load_config
     from flocoder_torch.generate_samples import CONFIG_DIR
-    from flocoder_torch.models.codecs import NATTENBlock, VQVAE
-    from flocoder_torch.models.discriminator import (VQGANPlusPatchDiscriminator,
-                                                     init_discriminator)
-    from flocoder_torch.models.layers import init_params
-    from flocoder_torch.models.perceptual import VGG16Features, make_perceptual_fn
+    from flocoder_torch.models.perceptual import make_perceptual_fn
     from flocoder_torch.training.checkpoint import (DISC_PREFIXES, VQVAE_PREFIXES,
                                                     to_jax_flat)
     from flocoder_torch.training.vqgan import (create_vqgan_state,
@@ -962,25 +1068,7 @@ def check_train_small() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config("smoke_vqgan.yaml", CONFIG_DIR, overrides=["codec.lambda_perc=0.001"])
-    codec = init_params(VQVAE(hidden_channels=64, num_downsamples=3, internal_dim=64,
-                              vq_embedding_dim=4, vq_num_embeddings=16,
-                              codebook_levels=2, commitment_weight=0.5),
-                        torch.Generator().manual_seed(0))
-    for m in codec.modules():
-        if isinstance(m, NATTENBlock):      # so that K2's gradients reach the
-            m.gamma.data.fill_(0.5)         # attention's projections
-    rng = np.random.default_rng(7)
-    L, K, D = codec.vq.codebooks.shape
-    codec.vq.assign_({   # initialised, no dead codes: the step draws nothing
-        "codebooks": torch.from_numpy(rng.normal(size=(L, K, D)).astype(np.float32)),
-        "ema_counts": torch.from_numpy(rng.uniform(4, 30, (L, K)).astype(np.float32)),
-        "ema_sums": torch.from_numpy(rng.normal(size=(L, K, D)).astype(np.float32)),
-        "initted": torch.tensor(True)})
-    disc = init_discriminator(VQGANPlusPatchDiscriminator(hidden_channels=16),
-                              torch.Generator().manual_seed(1))
-    vgg = init_params(VGG16Features(), torch.Generator().manual_seed(2))
-    batches = [torch.from_numpy(rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32))
-               for _ in range(2)]
+    _, codec, disc, vgg, batches = small_training_setup()
     out = {}
     for dev in ("cuda", "cpu"):
         state = create_vqgan_state(copy.deepcopy(codec).to(dev),
@@ -1027,6 +1115,339 @@ def check_train_small() -> None:
           + f"; {len(p_cpu)} parameter tensors, worst {worst[0]} max_abs_err="
           f"{worst[1]:.3e} (tol {worst[2]:.3e}); Adam first moments: "
           + "; ".join(grad_report), flush=True)
+
+
+BF16_REL, BF16_WIDEN, BF16_NOUGHT, PICK_GAP = 3e-2, 2.5, 0.5, 5e-2
+
+
+@contextlib.contextmanager
+def forced_picks(picks: list, own: list):
+    """Within the block the port's RVQ takes, at its i-th level search, the
+    codes ``picks[i]`` (a numpy array of N codes, each level of each codec
+    forward in turn) in place of its nearest ones, and appends its own
+    nearest codes, residual and codebook (fp64, on the host) to ``own``."""
+    from flocoder_torch.ops import rvq
+
+    plain = rvq._sq_dists
+
+    def dists(z, cb):
+        d = plain(z, cb)
+        i = len(own)
+        own.append((d.argmin(1).cpu().numpy(), z.detach().double().cpu().numpy(),
+                    cb.detach().double().cpu().numpy()))
+        if picks is None:
+            return d
+        want = torch.as_tensor(picks[i], device=d.device)
+        return d.scatter(1, want[:, None], float("-inf"))
+
+    rvq._sq_dists = dists
+    try:
+        yield
+    finally:
+        rvq._sq_dists = plain
+
+
+def worst_pick_gap(picks: list, own: list) -> float:
+    """Over the searches and tokens where a step's own nearest code b
+    differs from the pick a it was given: the largest least relative change
+    of its residual r that swaps them, (d(r, a) − d(r, b)) / (2·|a − b|·|r|)
+    with d the squared distance (0: no flips)."""
+    worst = 0.0
+    for want, (mine, r, cb) in zip(picks, own):
+        i = np.nonzero(mine != want)[0]
+        if len(i):
+            a, b = cb[want[i]], cb[mine[i]]
+            gap = ((((r[i] - a) ** 2).sum(1) - ((r[i] - b) ** 2).sum(1))
+                   / (2 * np.linalg.norm(a - b, axis=1) * np.linalg.norm(r[i], axis=1)))
+            worst = max(worst, float(gap.max()))
+    return worst
+
+
+def hold_bf16_moments(ours: dict, ref: dict, fp32: dict) -> dict:
+    """Adam's first moments of one model from a bf16 step (``ours``) against
+    a reference bf16 step's (``ref``), each tensor elementwise within
+    BF16_REL·own + BF16_WIDEN·spread: own the tensor's largest |ref|,
+    spread its largest |ref − fp32| (the fp32 step on the same picks: what
+    bf16 rounding does to that tensor). A tensor nought to rounding (spread
+    ≥ BF16_NOUGHT·own) is left out and counted, at most a tenth of the
+    model's; one the reference's gradient does not reach must be 0. The
+    NATTEN gammas, scalars whose gradients are sums that cancel, are held as
+    one vector. Returns the readings: the worst err/tol and its tensor, the
+    failures, the tensors left out, and among those held how many lie
+    beyond BF16_REL alone, on how many the reference lies beyond it from
+    fp32, and the largest (err − BF16_REL·own)/spread. The bf16 parity tests
+    (tests/test_torch_vqgan_bf16.py) hold the port to JAX by the same
+    function."""
+    def gammas_as_one(flat):
+        names = sorted(k for k in flat if k.endswith("/gamma"))
+        out = {k: np.asarray(v, np.float64) for k, v in flat.items() if k not in names}
+        if names:
+            out["gammas"] = np.concatenate([np.asarray(flat[k], np.float64).ravel()
+                                            for k in names])
+        return out
+
+    ours, ref, fp32 = (gammas_as_one(t) for t in (ours, ref, fp32))
+    worst, failures, left_out = ("", 0.0), [], []
+    over = wide = 0
+    need = 0.0
+    for name, r in ref.items():
+        a, f = ours[name], fp32[name]
+        own, spread = float(np.abs(r).max()), float(np.abs(r - f).max())
+        err = float(np.abs(a - r).max()) if a.shape == r.shape else float("inf")
+        if not np.isfinite(err):
+            failures.append(f"{name}: not finite or shape {a.shape}")
+        elif own == 0:
+            if err > 0:
+                failures.append(f"{name}: {err:.3e} where the reference's is 0")
+        elif spread >= BF16_NOUGHT * own:
+            left_out.append(name)
+        else:
+            tol = BF16_REL * own + BF16_WIDEN * spread
+            if err > tol:
+                failures.append(f"{name}: max_abs_err {err:.3e} > tol {tol:.3e}")
+            if err / tol > worst[1]:
+                worst = (name, err / tol)
+            over += err > BF16_REL * own
+            wide += spread > BF16_REL * own
+            need = max(need, (err - BF16_REL * own) / spread if spread else 0.0)
+    if len(left_out) > len(ref) // 10:
+        failures.append(f"{len(left_out)} of {len(ref)} tensors nought to rounding")
+    return dict(worst_tensor=worst[0], worst_err_over_tol=worst[1], failures=failures,
+                left_out=left_out, tensors=len(ref), beyond_rel=over,
+                ref_beyond_rel_from_fp32=wide, worst_need_of_spread=need)
+
+
+def check_train_small_bf16() -> dict:
+    """One bf16 warmup step and one bf16 GAN step (the codec, its patch
+    discriminator and the VGG16 net computing in bf16 over fp32 parameters,
+    tpu_vqgan's shared real features) of a small codec (hidden 64: head
+    dims 8-32, which K1 and K2 take), deterministic, on the card and on the
+    CPU from the same weights and batches, TF32 off, on the same RVQ picks:
+    the CPU's own, which the card's step is given; the card's own nearest
+    codes may differ from them only at near ties (a relative change of the
+    residual below PICK_GAP swaps the codes). Held: the loss terms within
+    3e-2·max(1, |ref|), their dtypes equal; Adam's first moments of the
+    codec (after both steps) and of the discriminator by hold_bf16_moments,
+    whose spread is the CPU's fp32 steps' on the same picks; each gamma's
+    bf16 value within two bf16 spacings of the CPU's where its moment's
+    sign is not rounding's; spectral norm's u and σ within 1e-4 (fp32).
+    Then the card's steps again with na2d's plain twin (na2d_banded under
+    autograd) in place of K1 and K2, whose readings are printed beside the
+    kernels': where the gap between card and CPU comes from."""
+    from flocoder_torch.config import load_config
+    from flocoder_torch.generate_samples import CONFIG_DIR
+    from flocoder_torch.models import codecs
+    from flocoder_torch.models.codecs import VQVAE
+    from flocoder_torch.models.discriminator import VQGANPlusPatchDiscriminator
+    from flocoder_torch.models.perceptual import VGG16Features, make_perceptual_fn
+    from flocoder_torch.ops.neighborhood_attention import na2d_banded
+    from flocoder_torch.training.checkpoint import (DISC_PREFIXES, VQVAE_PREFIXES,
+                                                    load_jax_flat, to_jax_flat)
+    from flocoder_torch.training.vqgan import (create_vqgan_state, make_vqgan_gan_step,
+                                               make_vqgan_warmup_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config("tpu_vqgan.yaml", CONFIG_DIR)
+    kw, codec, disc, vgg, batches = small_training_setup()
+    flat = to_jax_flat(codec, VQVAE_PREFIXES)
+
+    def run(dev, dtype, picks=None):
+        """Both steps on ``dev`` in ``dtype``; with ``picks`` (one per
+        search) on those codes. Returns losses, moments, parameters,
+        spectral-norm stats and the searches' own codes."""
+        c = load_jax_flat(VQVAE(**kw, dtype=dtype), flat, VQVAE_PREFIXES).to(dev)
+        d = VQGANPlusPatchDiscriminator(hidden_channels=16, dtype=dtype)
+        d.load_state_dict(disc.state_dict())
+        state = create_vqgan_state(c, d.to(dev), 1e-4)
+        feat = make_perceptual_fn(model=VGG16Features(dtype), device=dev)
+        feat.load_state_dict(vgg.state_dict())
+        own, aux = [], {}
+        with forced_picks(picks, own):
+            for name, make, x in (("warmup", make_vqgan_warmup_step, batches[0]),
+                                  ("gan", make_vqgan_gan_step, batches[1])):
+                _, a, _ = make(cfg, feat, deterministic=True)(state, x.to(dev),
+                                                              torch.Generator(dev))
+                aux.update({f"{name}/{k}": v.detach().cpu() for k, v in a.items()})
+        moments = {}
+        for what, model, opt, prefixes in (("codec", state.codec, state.opt_g, VQVAE_PREFIXES),
+                                           ("disc", state.disc, state.opt_d, DISC_PREFIXES)):
+            m = copy.deepcopy(model)
+            with torch.no_grad():
+                for pm, p in zip(m.parameters(), model.parameters()):
+                    pm.copy_(opt.state_of(p)["exp_avg"])
+            moments[what] = {k: v for k, v in to_jax_flat(m.float(), prefixes).items()
+                             if "/params/" in k or k.startswith("params/")}
+        params = to_jax_flat(state.codec, VQVAE_PREFIXES)
+        stats = {k: v for k, v in to_jax_flat(state.disc, DISC_PREFIXES).items()
+                 if k.startswith("batch_stats/")}
+        return dict(aux=aux, moments=moments, params=params, stats=stats,
+                    own=own, picks=[o[0] for o in own])
+
+    cpu = run("cpu", torch.bfloat16)
+    picks = cpu["picks"]
+    cpu32 = run("cpu", torch.float32, picks)
+    card = run("cuda", torch.bfloat16, picks)
+    plain_na2d = codecs.na2d
+    codecs.na2d = na2d_banded           # the twins in place of K1 and K2
+    try:
+        card_twins = run("cuda", torch.bfloat16, picks)
+    finally:
+        codecs.na2d = plain_na2d
+
+    gap = worst_pick_gap(picks, card["own"])
+    if gap >= PICK_GAP:
+        fail(f"bf16 card vs CPU: the card's own RVQ picks differ from the CPU's beyond a "
+             f"near tie (relative gap {gap:.3e})")
+    for k, ref in cpu["aux"].items():
+        a = card["aux"][k]
+        if a.dtype != ref.dtype or not abs(float(a) - float(ref)) <= 3e-2 * max(
+                1.0, abs(float(ref))):
+            fail(f"bf16 card vs CPU loss {k}: {float(a)} ({a.dtype}) against "
+                 f"{float(ref)} ({ref.dtype})")
+    readings, twins = {}, {}
+    for what in ("codec", "disc"):
+        readings[what] = hold_bf16_moments(card["moments"][what], cpu["moments"][what],
+                                           cpu32["moments"][what])
+        twins[what] = hold_bf16_moments(card_twins["moments"][what], cpu["moments"][what],
+                                        cpu32["moments"][what])
+        if readings[what]["failures"]:
+            fail(f"bf16 card vs CPU first moments of the {what}: "
+                 + "; ".join(readings[what]["failures"][:5]))
+    for name in (k for k in cpu["params"] if k.endswith("/gamma")):
+        got, want = float(card["params"][name][0]), float(cpu["params"][name][0])
+        mu, mu32 = float(cpu["moments"]["codec"][name][0]), float(
+            cpu32["moments"]["codec"][name][0])
+        spacing = float(np.spacing(np.float32(abs(want)))) * 2.0 ** 16
+        if abs(mu - mu32) < BF16_NOUGHT * abs(mu) and abs(got - want) > 2 * spacing:
+            fail(f"bf16 card vs CPU {name}: {got} against {want}")
+    for k, ref in cpu["stats"].items():
+        err = float(np.abs(card["stats"][k] - ref).max())
+        if not err < 1e-4 * max(1.0, float(np.abs(ref).max())):
+            fail(f"bf16 card vs CPU spectral norm {k}: max_abs_err {err:.3e}")
+    out = dict(pick_gap=gap, losses={k: [float(card["aux"][k]), float(v)]
+                                     for k, v in cpu["aux"].items()},
+               kernels=readings, twins_on_card=twins)
+    print("card vs CPU, one bf16 warmup + one bf16 GAN step (hidden 64, on the CPU's "
+          f"RVQ picks; the card's own differ at near ties only, gap {gap:.3e}): losses "
+          + " ".join(f"{k}={float(card['aux'][k]):.5f}/{float(v):.5f}"
+                     for k, v in sorted(cpu["aux"].items()))
+          + "; first moments, worst err/tol with K1/K2 and with the twins on the card: "
+          + "; ".join(f"{w} {readings[w]['worst_err_over_tol']:.3f} "
+                      f"({readings[w]['worst_tensor']}) / {twins[w]['worst_err_over_tol']:.3f}"
+                      f" ({twins[w]['worst_tensor']}), {len(readings[w]['left_out'])} of "
+                      f"{readings[w]['tensors']} tensors nought to rounding"
+                      for w in ("codec", "disc")), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def recording_na2d(capture_shape: tuple):
+    """Within the block every call of K1's and K2's wrappers through
+    NA2DFunction records its dtype, and the last K2 call whose q has
+    ``capture_shape`` keeps its inputs (q, k, v, o, g) and window (the
+    first step's carries no gradient: NATTEN's gamma starts at 0); the
+    launches are the wrappers' own, counted as ever."""
+    from flocoder_torch.ops import neighborhood_attention as nat
+
+    fwd, bwd = nat.na2d_fwd, nat.na2d_bwd
+    rec = {"na2d_fwd": {}, "na2d_bwd": {}, "captured": None}
+
+    def seen(name, q):
+        rec[name][str(q.dtype)] = rec[name].get(str(q.dtype), 0) + 1
+
+    def fwd_rec(q, k, v, **window):
+        seen("na2d_fwd", q)
+        return fwd(q, k, v, **window)
+
+    def bwd_rec(q, k, v, o, g, **window):
+        seen("na2d_bwd", q)
+        if tuple(q.shape) == capture_shape:
+            rec["captured"] = ((q, k, v, o, g), window)
+        return bwd(q, k, v, o, g, **window)
+
+    nat.na2d_fwd, nat.na2d_bwd = fwd_rec, bwd_rec
+    try:
+        yield rec
+    finally:
+        nat.na2d_fwd, nat.na2d_bwd = fwd, bwd
+
+
+def tpu_vqgan_train(tmp: str, card: str, kernels: dict) -> tuple:
+    """configs/tpu_vqgan.yaml as composed (codec.bf16: the codec, its patch
+    discriminator and the VGG16 perceptual net compute in bf16 over fp32
+    parameters; shared real features) at flowers' full widths (128²,
+    hidden 256, RVQ 4×96×4), B=64, through flocoder_torch.train_vqgan.main
+    over the codec-training phase's 320 PNGs: one warmup and one GAN epoch
+    of 4 steps, one validation batch. K1 and K2 are counted exactly (6 K1
+    and 6 K2 a step, 6 K1 a validation batch), every launch in bf16; K2 in
+    bf16 is held against its twin (na2d_bwd_banded in fp32 on the same
+    bf16 values, within 3e-2 of the largest |ref|, which must not be 0) on
+    the (q, k, v, o, g) of the last backward at the decoder's shape (B=64,
+    32²×512) and is bitwise equal across two calls there. torch's bf16 mean on the card is checked to
+    round once, as jnp.mean does. Prints samples/s over the steady steps,
+    peak memory, and a GAN step's breakdown (the codec-training phase's is
+    fp32's). Returns the checkpoint, the record, the launches and K2's
+    error."""
+    from flocoder_torch import train_vqgan as tv
+    from flocoder_torch.ops.neighborhood_attention import na2d_bwd_banded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    t0 = time.time()
+    with recording_na2d((64, 32, 32, 512)) as seen:
+        res = tv.main(["--config-name", "tpu_vqgan.yaml",
+                       f"data={os.path.join(tmp, 'flowers')}", "codec.epochs=2",
+                       "codec.warmup_epochs=1", "+seed=0",
+                       f"+ckpt_dir={os.path.join(tmp, 'tpu_vqgan_train_ckpt')}",
+                       f"+output_dir={os.path.join(tmp, 'tpu_vqgan_train_out')}"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _counts(kernels)
+    state = res["state"]
+    n_steps = {ph: len(t) for ph, t in res["step_seconds"].items()}
+    steps, n_val = sum(n_steps.values()), len(res["val"])
+    _expect(kernels, f"tpu_vqgan_train ({n_steps} steps, {n_val} validation batch, bf16)",
+            launches, na2d_fwd=6 * steps + 6 * n_val, na2d_bwd=6 * steps)
+    for name in ("na2d_fwd", "na2d_bwd"):
+        if seen[name] != {"torch.bfloat16": launches[name]}:
+            fail(f"tpu_vqgan_train: {name} ran {seen[name]}, not all bf16")
+    if state.codec.dtype != torch.bfloat16 or state.disc.dtype != torch.bfloat16:
+        fail(f"tpu_vqgan_train: codec {state.codec.dtype}, discriminator {state.disc.dtype}")
+    rec = train_record(res, wall, card)
+
+    (q, k, v, o, g), window = seen["captured"]
+    first = kernels["na2d_bwd"](q, k, v, o, g, **window)
+    second = kernels["na2d_bwd"](q, k, v, o, g, **window)
+    refs = na2d_bwd_banded(*(t.float() for t in (q, k, v, o, g)), **window)
+    k2_err, report = 0.0, []
+    for name, a, b, ref in zip(("dq", "dk", "dv"), first, second, refs):
+        err, top = (a.float() - ref).abs().max().item(), ref.abs().max().item()
+        if (a.dtype != torch.bfloat16 or not torch.equal(a, b) or not top > 0
+                or not err < 3e-2 * top):
+            fail(f"K2 bf16 on the codec step's {name}: {a.dtype}, max_abs_err {err:.3e} "
+                 f"(largest |ref| {top:.3e}), equal across calls {torch.equal(a, b)}")
+        k2_err = max(k2_err, err)
+        report.append(f"{name} max_abs_err={err:.3e} of largest {top:.3e}")
+    print("K2 bf16 on the codec step's last backward at the decoder's shape (B=64, "
+          "32²×512, 8 heads, ks 7) against na2d_bwd_banded in fp32: " + ", ".join(report)
+          + f"; two calls bitwise equal | card: {card}", flush=True)
+    del q, k, v, o, g, first, second, refs, seen
+
+    g = torch.Generator("cuda").manual_seed(11)
+    means = [torch.randn(n, device="cuda", generator=g).mul_(s).add_(s * 0.3).bfloat16()
+             for n in (1000, 65536, 64 * 16 * 16) for s in (0.01, 1.0, 30.0)]
+    twice = sum(int(x.mean() != x.float().mean().bfloat16()) for x in means)
+    rec["bf16_mean_rounded_twice"] = twice
+    print(f"bf16 mean on the card: {len(means) - twice} of {len(means)} equal to the "
+          "fp32 mean rounded once (jnp.mean's rule)", flush=True)
+    rec["gan_breakdown"] = gan_breakdown(state, card, "tpu_vqgan.yaml")
+    del state, res["state"]
+    torch.cuda.empty_cache()
+    return res["checkpoint"], rec, launches, k2_err
 
 
 def hold_picks(label, zq, idx, zq_ref, idx_ref, x64, cb, rel=1e-5) -> dict:
@@ -2219,9 +2640,10 @@ def midi_train_codec(tmp: str, card: str, kernels: dict) -> tuple:
     flocoder_torch.train_vqgan.main on a seeded corpus (the port's
     write_synthetic_corpus: MIDI_SONGS songs of MELODY and PIANO, each
     rolling to three 128² images), converted to PNGs by the loader:
-    one warmup and one GAN epoch of 4 steps at batch 64, one validation
-    batch with the note metrics and their grids. 6 K1 and 6 K2 a step, 6 K1
-    a validation batch."""
+    one warmup epoch of 4 steps at batch 64 (the GAN step at these widths is
+    flowers_vqgan's and tpu_vqgan's), one validation batch with the note
+    metrics and their grids. 6 K1 and 6 K2 a step, 6 K1 a validation
+    batch."""
     from flocoder_torch import train_vqgan as tv
     from flocoder_torch.data.midi_io import write_synthetic_corpus
 
@@ -2233,7 +2655,7 @@ def midi_train_codec(tmp: str, card: str, kernels: dict) -> tuple:
     _zero(kernels)
     t0 = time.time()
     res = tv.main(["--config-name", "midi_vqgan.yaml", f"data={os.path.join(tmp, 'midi')}",
-                   "codec.epochs=2", "codec.warmup_epochs=1", "+seed=0",
+                   "codec.epochs=1", "codec.warmup_epochs=1", "+seed=0",
                    f"+ckpt_dir={os.path.join(tmp, 'midi_ckpt')}",
                    f"+output_dir={os.path.join(tmp, 'midi_train_out')}"])
     torch.cuda.synchronize()
@@ -2244,8 +2666,8 @@ def midi_train_codec(tmp: str, card: str, kernels: dict) -> tuple:
     enc, dec = MIDI_CODEC_NATTEN
     _expect(kernels, "midi codec training", launches,
             na2d_fwd=(enc + dec) * (steps + len(res["val"])), na2d_bwd=(enc + dec) * steps)
-    if n_steps != {"warmup": 4, "gan": 4}:
-        fail(f"midi codec training ran {n_steps} steps, expected 4 an epoch")
+    if n_steps != {"warmup": 4, "gan": 0}:
+        fail(f"midi codec training ran {n_steps} steps, expected 4 warmup steps")
     (val,) = res["val"]
     values = [v for e in res["epochs"] + res["val"] for k, v in e.items()
               if k not in ("epoch", "phase")]
@@ -2257,16 +2679,16 @@ def midi_train_codec(tmp: str, card: str, kernels: dict) -> tuple:
     peak = torch.cuda.max_memory_allocated() / 2**30
     rec = dict(batch=64, wall_s=wall, peak_mem_gib=peak, card=card, epochs=res["epochs"],
                val=res["val"])
-    for ph, secs in res["step_seconds"].items():
-        (ep,) = [e for e in res["epoch_seconds"] if e["phase"] == ph]
-        rec[ph] = dict(step_s=secs, samples_per_s=64 / float(np.median(secs[1:])),
-                       epoch_samples_per_s=ep["samples"] / ep["seconds"])
+    secs, (ep,) = res["step_seconds"]["warmup"], res["epoch_seconds"]
+    rec["warmup"] = dict(step_s=secs, samples_per_s=64 / float(np.median(secs[1:])),
+                         epoch_samples_per_s=ep["samples"] / ep["seconds"])
     print("train midi_vqgan B=64 128² piano rolls: " + ", ".join(
         f"{ph} {rec[ph]['samples_per_s']:.2f} samples/s over steady steps, "
-        f"{rec[ph]['epoch_samples_per_s']:.2f} over the epoch" for ph in ("warmup", "gan"))
+        f"{rec[ph]['epoch_samples_per_s']:.2f} over the epoch" for ph in ("warmup",))
         + f", peak {peak:.2f} GiB, wall {wall:.1f} s (with the corpus's conversion); note "
         "metrics " + " ".join(f"{k[5:]}={v:.4f}" for k, v in val.items() if k.startswith("note_"))
         + f" | card: {card}", flush=True)
+    plain_copy(res["checkpoint"])           # what the MIDI phases after it load
     del res
     torch.cuda.empty_cache()
     return rec, launches
@@ -2282,7 +2704,7 @@ def midi_preencode(tmp: str, card: str, kernels: dict) -> tuple:
     from flocoder_torch import preencode_data as pe
     from flocoder_torch.data.datasets import PreEncodedDataset
 
-    ckpt = os.path.join(tmp, "midi_ckpt", "vqgan_2.npz")
+    ckpt = os.path.join(tmp, "midi_ckpt", "vqgan_1_plain.npz")
     data = os.path.join(tmp, "midi_images")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2467,7 +2889,7 @@ def midi_flow(tmp: str, card: str, kernels: dict) -> tuple:
 
     print("midi flow cuts: 1 epoch (the recipe's 10,000), evaluation n_steps 20 (the "
           "recipe's 100), the OTF curriculum's first epoch", flush=True)
-    ckpt = os.path.join(tmp, "midi_ckpt", "vqgan_2.npz")
+    ckpt = os.path.join(tmp, "midi_ckpt", "vqgan_1_plain.npz")
     data = os.path.join(tmp, "midi_images_encoded_vqgan_inpainting")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
@@ -2870,7 +3292,7 @@ def flow_shard(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
 def tpu_demo(tmp: str, card: str, kernels: dict) -> tuple:
     """configs/tpu_demo.yaml as composed: the resize codec, the synthetic
     set at 128² (256 images), device_augs and format=shard in pre-encoding
-    (B=64, augs_per 24 of the recipe's 48: 24 val batches of 25, 86 train
+    (B=64, augs_per 12 of the recipe's 48: 12 val batches of 25, 43 train
     batches of 64), then
     the U-Net (dim 16, dim_mults 1,2,4,8, 4 classes) in bf16 at B=256 with
     lr 1e-3 and an RK4 + CFG 2.0 evaluation each epoch; its EMA served as
@@ -2883,7 +3305,7 @@ def tpu_demo(tmp: str, card: str, kernels: dict) -> tuple:
     from flocoder_torch import preencode_data as pe
     from flocoder_torch import train_flow as tf
 
-    print("tpu_demo cuts: pre-encode augs_per 24 (the recipe's 48), 1 epoch (its 40), "
+    print("tpu_demo cuts: pre-encode augs_per 12 (the recipe's 48), 1 epoch (its 40), "
           "evaluation n_steps 20 (its 50); flow.ckpt_every=1 (its 20) to write the served "
           "checkpoint", flush=True)
     data = os.path.join(tmp, "fc_tpu_demo")          # absent: the synthetic set
@@ -2893,10 +3315,10 @@ def tpu_demo(tmp: str, card: str, kernels: dict) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     _zero(kernels)
     t0 = time.time()
-    enc = pe.main(["--config-name", "tpu_demo.yaml", f"data={data}", "preencoding.augs_per=24"])
+    enc = pe.main(["--config-name", "tpu_demo.yaml", f"data={data}", "preencoding.augs_per=12"])
     pe_wall = time.time() - t0
     pe_peak = torch.cuda.max_memory_allocated() / 2**30
-    if [enc[s]["batches"] for s in ("val", "train")] != [24, 86] or any(
+    if [enc[s]["batches"] for s in ("val", "train")] != [12, 43] or any(
             enc[s]["format"] != "shard" for s in ("val", "train")):
         fail(f"tpu_demo pre-encode: {[(enc[s]['batches'], enc[s]['format']) for s in ('val', 'train')]}")
 
@@ -3179,8 +3601,10 @@ def tpu_vqgan_phase(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
     """configs/tpu_vqgan.yaml as composed (codec.bf16: the codec computes in
     bf16 over fp32 parameters; rng_impl rbg accepted and ignored) at its full
     widths (hidden 256, internal 128, 4×96 codebooks, 128² images), the
-    codec's weights the seeded checkpoint of the serving phase (the same
-    architecture). Pre-encodes the pre-encode phase's 320 500² PNGs with
+    codec's weights ``paths['codec']``: the checkpoint tpu_vqgan_train wrote
+    (trained in bf16; its codebooks k-means-initialised on the encoder's
+    output), so that the recipe runs from codec training to serving.
+    Pre-encodes the pre-encode phase's 320 500² PNGs with
     preencoding.fused_vq=true at B=32, augs_per 1 (the recipe's 1024): 1 val
     and 9 train batches, 5 K1 (bf16) and 1 K3 (its bf16 case) a batch,
     exactly; then with +quant=int8 (the encoder's convolutions W8A8, the same
@@ -3338,6 +3762,56 @@ def print_ptxas(source: str) -> None:
             print(f"ptxas {source} {name}: {line.strip()}", flush=True)
 
 
+def host_profile() -> None:
+    """Wraps this script's functions, the port's entry points, codec set-up
+    and checkpoint I/O, and numpy's npz reads and writes, to sum the host
+    seconds and calls of each (nested calls count in each caller too);
+    prints the totals at exit, on stderr: where a run's time goes, since
+    the phases' own laps mix the program's work with its I/O."""
+    import atexit
+    import functools
+    import importlib
+    import types
+    from collections import defaultdict
+
+    total, calls = defaultdict(float), defaultdict(int)
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def wrap(*a, **k):
+            t0 = time.time()
+            try:
+                return fn(*a, **k)
+            finally:
+                total[name] += time.time() - t0
+                calls[name] += 1
+        return wrap
+
+    for n in ("savez_compressed", "savez", "load"):
+        setattr(np, n, timed(f"np.{n}", getattr(np, n)))
+    ck = importlib.import_module("flocoder_torch.training.checkpoint")
+    for n in ("save_checkpoint", "load_checkpoint", "load_jax_flat", "to_jax_flat"):
+        setattr(ck, n, timed(f"checkpoint.{n}", getattr(ck, n)))
+    codecs = importlib.import_module("flocoder_torch.models.codecs")
+    for n in ("setup_codec", "load_codec_weights"):
+        setattr(codecs, n, timed(n, getattr(codecs, n)))
+    for mod in ("generate_samples", "preencode_data", "train_flow", "train_vqgan",
+                "evaluate_model"):
+        m = importlib.import_module(f"flocoder_torch.{mod}")
+        setattr(m, "main", timed(f"{mod}.main", m.main))
+    g = globals()
+    for n, f in list(g.items()):
+        if isinstance(f, types.FunctionType) and n not in ("main", "fail", "host_profile"):
+            g[n] = timed(n, f)
+
+    def report():
+        print("host seconds by function (calls):", file=sys.stderr)
+        for n, t in sorted(total.items(), key=lambda x: -x[1]):
+            print(f"  {n:40s} {t:8.1f} {calls[n]}", file=sys.stderr)
+
+    atexit.register(report)
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3347,6 +3821,7 @@ def main() -> None:
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: chip_smoke needs a CUDA card")
+    host_profile()
     t_start = time.time()
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -3442,7 +3917,13 @@ def main() -> None:
         lap("flow")
         shard_flow, shard_flow_launches = flow_shard(tmp, paths, card, kernels)
         lap("flow_shard")
-        tpu_vqgan, tpu_vqgan_launches = tpu_vqgan_phase(tmp, paths, card, kernels)
+        tpu_ckpt, tpu_train, tpu_train_launches, k2_codec_err = tpu_vqgan_train(
+            tmp, card, kernels)
+        errs2[torch.bfloat16] = max(errs2[torch.bfloat16], k2_codec_err)
+        tpu_train["card_vs_cpu"] = check_train_small_bf16()
+        lap("tpu_vqgan_train")
+        tpu_vqgan, tpu_vqgan_launches = tpu_vqgan_phase(
+            tmp, dict(paths, codec=plain_copy(tpu_ckpt)), card, kernels)
         lap("tpu_vqgan")
         sd_paths = write_checkpoints(tmp, CONFIG_DIR, "flowers_sd")
         int8_srv, int8_launches = int8_serving(tmp, paths, sd_paths, card, kernels)
@@ -3484,7 +3965,8 @@ def main() -> None:
                       "midi_train": midi_codec, "midi_preencode": midi_pre,
                       "midi_flow": midi_fl, "midi_inpainting_codec": midi_inp,
                       "pe_host": pe_host_rec, "flow_shard": shard_flow, "tpu_demo": demo,
-                      "tpu_vqgan": tpu_vqgan, "int8_serving": int8_srv, "decode_ms_64": decodes,
+                      "tpu_vqgan_train": tpu_train, "tpu_vqgan": tpu_vqgan,
+                      "int8_serving": int8_srv, "decode_ms_64": decodes,
                       "int8_conv": {**slice_errs["int8_conv"],
                                     "timing": slice_timing["int8_conv"]},
                       "phase_s": phase_s}))
@@ -3495,7 +3977,8 @@ def main() -> None:
               "midi_train": midi_codec_launches, "midi_preencode": midi_pre_launches,
               **midi_flow_launches, **midi_inp_launches, "pe_host": pe_host_launches,
               "flow_shard": shard_flow_launches, "tpu_demo": demo_launches,
-              "tpu_vqgan": tpu_vqgan_launches, "int8_serving": int8_launches}
+              "tpu_vqgan_train": tpu_train_launches, "tpu_vqgan": tpu_vqgan_launches,
+              "int8_serving": int8_launches}
 
     def by_path(name):
         paths = {tag: counts[name] for tag, counts in by_tag.items()}

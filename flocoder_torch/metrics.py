@@ -8,6 +8,13 @@ and the sample metrics of flow evaluation: ``to_uint8``,
 features of ``ops/fid.py``, the Sinkhorn divergence of ``ops/sinkhorn.py``,
 MSEs and moments). Images are NHWC. A ``disc_apply`` maps images to
 ``(logits, features)`` (``models/discriminator.make_disc_apply``).
+
+On bf16 operands (a codec, discriminator and perceptual net computing in
+bf16) the losses keep JAX's dtypes: the hinge, generator, feature-matching,
+LeCAM and perceptual terms stay bf16 (a bf16 ``mean`` accumulates in fp32
+and rounds once, as ``jnp.mean`` does), a λ weight is rounded to the
+term's dtype before it multiplies it (``layers.weak``), the MSE against
+fp32 targets and the spectral loss are fp32.
 """
 from __future__ import annotations
 
@@ -16,6 +23,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from .models.layers import weak
 from .ops.fid import fid_score, fid_score_chunked
 from .ops.sinkhorn import sinkhorn_loss, sinkhorn_loss_chunked
 
@@ -97,7 +105,8 @@ def discriminator_loss(disc_apply: Callable, real_images, fake_images):
 
 
 def lecam_loss(d_real, d_fake, reg_weight: float = 0.001):
-    return reg_weight * (F.relu(1.0 + d_real).mean() + F.relu(1.0 - d_fake).mean())
+    reg = F.relu(1.0 + d_real).mean() + F.relu(1.0 - d_fake).mean()
+    return weak(reg_weight, reg) * reg
 
 
 def discriminator_loss_lecam(disc_apply: Callable, real_images, fake_images,
@@ -145,17 +154,20 @@ def compute_vqgan_losses(recon, target_imgs, vq_loss, config,
             with torch.no_grad():   # the targets are constants either way
                 _, real_features = disc_apply(target_imgs)
         g_loss = generator_loss(disc_apply, recon, real_features)
-        losses["g_loss"] = float(cc.get("lambda_gen", 0.05)) * g_loss
+        losses["g_loss"] = weak(float(cc.get("lambda_gen", 0.05)), g_loss) * g_loss
     return losses
 
 
 def get_total_vqgan_loss(losses: dict, config):
     """λ-weighted total."""
     cc = config.codec
-    return (float(cc.get("lambda_mse", 0.5)) * losses["mse"] +
-            float(cc.get("lambda_vq", 0.25)) * losses["vq"] +
-            float(cc.get("lambda_ce", 0.0)) * losses.get("ce", 0.0) +
-            float(cc.get("lambda_perc", 0.0)) * losses.get("perceptual", 0.0) +
+
+    def term(name: str, key: str, default: float):
+        lam, loss = float(cc.get(name, default)), losses.get(key, 0.0)
+        return (weak(lam, loss) if torch.is_tensor(loss) else lam) * loss
+
+    return (term("lambda_mse", "mse", 0.5) + term("lambda_vq", "vq", 0.25) +
+            term("lambda_ce", "ce", 0.0) + term("lambda_perc", "perceptual", 0.0) +
             losses.get("g_loss", 0.0))
 
 

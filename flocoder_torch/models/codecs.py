@@ -30,6 +30,7 @@ ported yet (ROADMAP.md): ring attention, and the vqgan_plus / dac codecs.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Tuple
 
@@ -266,8 +267,10 @@ class NoiseInjection(nn.Module):
     def forward(self, x, strength: float = 0.0, generator=None):
         if strength == 0.0:
             return x
+        # in x's dtype, as the JAX module draws it: fp32 noise would promote
+        # a bf16 block's output to fp32
         noise = torch.randn(x.shape, generator=generator,
-                            device=generator.device).to(x.device)
+                            device=generator.device).to(x)
         return x + strength * (noise * self.Conv_0(x) + self.Conv_1(x))
 
 
@@ -547,33 +550,37 @@ def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module
     if quant_decode is None:
         quant_decode = str(ldcfg(config, "quant_decode", "")) == "int8"
     quant_encode = str(ldcfg(config, "quant_encode", "")) == "int8"
-    if choice == "noop":
-        codec = NoOpAE(in_channels=in_channels)
-    elif choice == "resize":
-        lat = config.codec.get("latent_shape", [in_channels, 32, 32])
-        codec = SimpleResizeAE(latent_shape=tuple(lat),
-                               image_size=config.codec.get("image_size",
-                                                           image_size))
-    elif choice == "vqgan":
-        codec = VQVAE(
-            in_channels=in_channels,
-            hidden_channels=ldcfg(config, "hidden_channels", 256),
-            num_downsamples=ldcfg(config, "num_downsamples", 3),
-            vq_num_embeddings=ldcfg(config, "vq_num_embeddings", 512),
-            internal_dim=ldcfg(config, "internal_dim", 256),
-            codebook_levels=ldcfg(config, "codebook_levels", 3),
-            vq_embedding_dim=ldcfg(config, "vq_embedding_dim", 4),
-            commitment_weight=ldcfg(config, "commitment_weight", 0.25),
-            dtype=dtype, quant_decode=quant_decode, quant_encode=quant_encode)
-    elif choice == "sd":
-        from .sd_vae import SDVAE
-        codec = SDVAE(image_size=image_size, dtype=dtype, quant_decode=quant_decode,
-                      quant_encode=quant_encode)
-    elif choice in ("vqgan_plus", "dac"):
-        raise NotImplementedError(f"codec '{choice}' is not ported yet "
-                                  "(ROADMAP.md)")
-    else:
-        raise ValueError(f"Unknown codec choice: {choice}")
+    # built on ``device``: the default init of its parameters, which every
+    # caller overwrites (``init_params``, a checkpoint), runs there, not on
+    # the host (about a second for the VQGAN's 153 M parameters)
+    with torch.device(device) if device is not None else contextlib.nullcontext():
+        if choice == "noop":
+            codec = NoOpAE(in_channels=in_channels)
+        elif choice == "resize":
+            lat = config.codec.get("latent_shape", [in_channels, 32, 32])
+            codec = SimpleResizeAE(latent_shape=tuple(lat),
+                                   image_size=config.codec.get("image_size",
+                                                               image_size))
+        elif choice == "vqgan":
+            codec = VQVAE(
+                in_channels=in_channels,
+                hidden_channels=ldcfg(config, "hidden_channels", 256),
+                num_downsamples=ldcfg(config, "num_downsamples", 3),
+                vq_num_embeddings=ldcfg(config, "vq_num_embeddings", 512),
+                internal_dim=ldcfg(config, "internal_dim", 256),
+                codebook_levels=ldcfg(config, "codebook_levels", 3),
+                vq_embedding_dim=ldcfg(config, "vq_embedding_dim", 4),
+                commitment_weight=ldcfg(config, "commitment_weight", 0.25),
+                dtype=dtype, quant_decode=quant_decode, quant_encode=quant_encode)
+        elif choice == "sd":
+            from .sd_vae import SDVAE
+            codec = SDVAE(image_size=image_size, dtype=dtype, quant_decode=quant_decode,
+                          quant_encode=quant_encode)
+        elif choice in ("vqgan_plus", "dac"):
+            raise NotImplementedError(f"codec '{choice}' is not ported yet "
+                                      "(ROADMAP.md)")
+        else:
+            raise ValueError(f"Unknown codec choice: {choice}")
     return codec.to(device) if device is not None else codec
 
 

@@ -15,6 +15,16 @@ u' and σ (the JAX package's ``batch_stats``, ``<layer>/kernel/u`` and
 ``training/checkpoint.py``). The discriminator step runs with
 ``update_stats=True``, real batch then fake; the generator's view with
 ``False``.
+
+``dtype`` is the compute dtype, with flax's ``dtype=`` semantics (the JAX
+modules' ``dtype``; ``train_vqgan`` passes the codec's): the parameters,
+``u`` and σ stay fp32, and the power iteration and the division run in
+fp32, since flax's ``SpectralNorm`` has no dtype of its own; each conv then
+casts its input, the normalised kernel and the bias to ``dtype`` and adds
+the bias after the product is rounded; GroupNorm takes its statistics in
+fp32 and gives ``dtype``; LeakyReLU multiplies by the slope rounded to
+``dtype``, as ``jax.nn.leaky_relu``. Logits and features come out in
+``dtype``.
 """
 from __future__ import annotations
 
@@ -22,25 +32,33 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import group_norm, init_params
+from .layers import Conv, group_norm, init_params, leaky_relu
 
 __all__ = ["SNConv", "GaussianBlur", "DiscrResBlock", "PatchDiscriminator",
            "VQGANPlusPatchDiscriminator", "VQGANPlusDiscriminator",
            "init_discriminator", "make_disc_apply"]
 
 
+def _compute(dtype):
+    """None (compute in the parameters' dtype) for fp32, as the codecs do:
+    a float64 copy then computes in float64."""
+    return None if dtype == torch.float32 else dtype
+
+
 def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return x * torch.rsqrt((x * x).sum() + eps)
 
 
-class SNConv(nn.Conv2d):
+class SNConv(Conv):
     """A conv whose kernel is spectrally normalised as flax's
-    ``SpectralNorm(nn.Conv(...))``. ``sn_name`` is the wrapper's name in
-    the JAX tree (``SpectralNorm_<i>``); ``u`` and ``sigma`` are buffers."""
+    ``SpectralNorm(nn.Conv(..., dtype=dtype))``. ``sn_name`` is the
+    wrapper's name in the JAX tree (``SpectralNorm_<i>``); ``u`` and
+    ``sigma`` are fp32 buffers."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 padding: int = 0, sn_name: str = "SpectralNorm_0"):
+                 padding: int = 0, sn_name: str = "SpectralNorm_0", dtype=None):
         super().__init__(cin, cout, kernel, stride=stride, padding=padding)
+        self.compute_dtype = _compute(dtype)
         self.sn_name = sn_name
         self.register_buffer("u", torch.ones(1, cout))
         self.register_buffer("sigma", torch.ones(()))
@@ -61,7 +79,7 @@ class SNConv(nn.Conv2d):
                 self.u.copy_(u0)
                 self.sigma.copy_(sigma)
         kernel = self.weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
-        return F.conv2d(x, kernel, self.bias, self.stride, self.padding)
+        return self.conv_with(x, kernel)
 
 
 class GaussianBlur(nn.Module):
@@ -69,9 +87,9 @@ class GaussianBlur(nn.Module):
     anti-aliased downsample. No parameters."""
 
     def forward(self, x):
-        k = torch.tensor([[1., 2., 2., 1.], [2., 4., 4., 2.],
-                          [2., 4., 4., 2.], [1., 2., 2., 1.]],
-                         device=x.device, dtype=x.dtype) / 36.0
+        k = (torch.tensor([[1., 2., 2., 1.], [2., 4., 4., 2.],
+                           [2., 4., 4., 2.], [1., 2., 2., 1.]],
+                          device=x.device) / 36.0).to(x.dtype)
         c = x.shape[1]
         return F.conv2d(x, k.expand(c, 1, 4, 4), stride=2, padding=1, groups=c)
 
@@ -80,14 +98,14 @@ class _SNScope:
     """Names a module's spectrally normalised convs as linen does: the conv
     ``Conv_<i>`` and its wrapper ``SpectralNorm_<j>``, in creation order."""
 
-    def __init__(self, owner: nn.Module):
-        self.owner, self.n = owner, 0
+    def __init__(self, owner: nn.Module, dtype=None):
+        self.owner, self.n, self.dtype = owner, 0, dtype
 
     def __call__(self, cin, cout, kernel, stride=1, padding=0) -> str:
         """Registers the conv; returns its name."""
         name = f"Conv_{self.n}"
         self.owner.add_module(name, SNConv(cin, cout, kernel, stride, padding,
-                                           f"SpectralNorm_{self.n}"))
+                                           f"SpectralNorm_{self.n}", self.dtype))
         self.n += 1
         return name
 
@@ -95,33 +113,37 @@ class _SNScope:
 class DiscrResBlock(nn.Module):
     """Spectral-norm residual block with GroupNorm and LeakyReLU(0.2)."""
 
-    def __init__(self, c_in: int, out_channels: int, stride: int = 1):
+    def __init__(self, c_in: int, out_channels: int, stride: int = 1, dtype=None):
         super().__init__()
         groups = min(32, max(1, out_channels // 4))
-        sn = _SNScope(self)
+        dtype = _compute(dtype)
+        sn = _SNScope(self, dtype)
         self.convs = []        # names: [identity projection,] conv a, conv b
         if stride != 1 or c_in != out_channels:
             self.convs.append(sn(c_in, out_channels, 1, stride))
         self.convs.append(sn(c_in, out_channels, 3, stride, 1))
-        self.GroupNorm_0 = group_norm(groups, out_channels, 1e-5)
+        self.GroupNorm_0 = group_norm(groups, out_channels, 1e-5, dtype)
         self.convs.append(sn(out_channels, out_channels, 3, 1, 1))
-        self.GroupNorm_1 = group_norm(groups, out_channels, 1e-5)
+        self.GroupNorm_1 = group_norm(groups, out_channels, 1e-5, dtype)
 
     def forward(self, x, update_stats: bool = False):
         *proj, conv_a, conv_b = (getattr(self, n) for n in self.convs)
         identity = proj[0](x, update_stats) if proj else x
-        h = F.leaky_relu(self.GroupNorm_0(conv_a(x, update_stats)), 0.2)
+        h = leaky_relu(self.GroupNorm_0(conv_a(x, update_stats)), 0.2)
         h = self.GroupNorm_1(conv_b(h, update_stats))
-        return F.leaky_relu(h + identity, 0.2)
+        return leaky_relu(h + identity, 0.2)
 
 
 class _Discriminator(nn.Module):
     """Stem conv → LeakyReLU → per layer [blur] + DiscrResBlock → head conv
     to one logit per patch; features after the stem and every block."""
 
-    def __init__(self, in_channels, base, n_layers, stem_kernel, blur, strided):
+    def __init__(self, in_channels, base, n_layers, stem_kernel, blur, strided,
+                 dtype=None):
         super().__init__()
-        sn = _SNScope(self)
+        self.dtype = dtype or torch.float32
+        dtype = _compute(dtype)
+        sn = _SNScope(self, dtype)
         sn(in_channels, base, stem_kernel, 1, 1)                 # Conv_0
         layers, cur = [], base
         for i in range(n_layers):
@@ -129,7 +151,8 @@ class _Discriminator(nn.Module):
             last = i == n_layers - 1
             if blur and not last:
                 layers.append(GaussianBlur())
-            block = DiscrResBlock(cur, nxt, stride=2 if strided and not last else 1)
+            block = DiscrResBlock(cur, nxt, stride=2 if strided and not last else 1,
+                                  dtype=dtype)
             self.add_module(f"DiscrResBlock_{i}", block)
             layers.append(block)
             cur = nxt
@@ -137,7 +160,7 @@ class _Discriminator(nn.Module):
         sn(cur, 1, stem_kernel, 1, 1)                            # Conv_1
 
     def forward(self, x, update_stats: bool = False):
-        h = F.leaky_relu(self.Conv_0(x.permute(0, 3, 1, 2), update_stats), 0.2)
+        h = leaky_relu(self.Conv_0(x.permute(0, 3, 1, 2), update_stats), 0.2)
         features = [h]
         for layer in self.layers:
             if isinstance(layer, GaussianBlur):
@@ -154,18 +177,18 @@ class PatchDiscriminator(_Discriminator):
     """The original PatchGAN: 4×4 stem, strided DiscrResBlocks, 4×4 head."""
 
     def __init__(self, in_channels: int = 3, hidden_channels: int = 64,
-                 n_layers: int = 3):
+                 n_layers: int = 3, dtype=None):
         super().__init__(in_channels, hidden_channels, n_layers, 4, blur=False,
-                         strided=True)
+                         strided=True, dtype=dtype)
 
 
 class VQGANPlusPatchDiscriminator(_Discriminator):
     """3×3 stem, GaussianBlur before each strided block, 3×3 head."""
 
     def __init__(self, in_channels: int = 3, hidden_channels: int = 64,
-                 n_layers: int = 3):
+                 n_layers: int = 3, dtype=None):
         super().__init__(in_channels, hidden_channels, n_layers, 3, blur=True,
-                         strided=True)
+                         strided=True, dtype=dtype)
 
 
 class VQGANPlusDiscriminator(_Discriminator):
@@ -174,9 +197,9 @@ class VQGANPlusDiscriminator(_Discriminator):
     block."""
 
     def __init__(self, in_channels: int = 3, base_channels: int = 128,
-                 n_layers: int = 3):
+                 n_layers: int = 3, dtype=None):
         super().__init__(in_channels, base_channels, n_layers, 3, blur=True,
-                         strided=False)
+                         strided=False, dtype=dtype)
 
 
 def init_discriminator(disc: nn.Module, generator: torch.Generator) -> nn.Module:

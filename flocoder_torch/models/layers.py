@@ -23,8 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["Scope", "Conv", "Dense", "GroupNorm", "SiLU", "silu", "conv", "group_norm",
-           "init_params"]
+__all__ = ["Scope", "Conv", "Dense", "GroupNorm", "SiLU", "silu", "leaky_relu", "weak",
+           "conv", "group_norm", "init_params"]
 
 
 class Scope:
@@ -62,10 +62,16 @@ class Conv(nn.Conv2d):
     compute_dtype = None
 
     def forward(self, x):
+        return self.conv_with(x, self.weight)
+
+    def conv_with(self, x, weight):
+        """``x`` convolved with ``weight`` (in this conv's layout, e.g. a
+        spectrally normalised copy of its own) plus this conv's bias, in the
+        compute dtype."""
         dt = self.compute_dtype
-        if dt is None or dt == self.weight.dtype:
-            return super().forward(x)
-        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        if dt is None or dt == weight.dtype:
+            return self._conv_forward(x, weight, self.bias)
+        y = self._conv_forward(x.to(dt), weight.to(dt), None)
         return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
 
 
@@ -106,6 +112,22 @@ class Dense(nn.Linear):
             return F.linear(x.to(dt), self.weight, self.bias)
         y = F.linear(x.to(dt), self.weight.to(dt))
         return y if self.bias is None else y + self.bias.to(dt)
+
+
+def weak(c: float, like: torch.Tensor) -> float:
+    """The Python scalar ``c`` as JAX uses it beside an array: rounded to
+    the array's dtype first (a weak type). ``x * weak(c, x)`` then rounds
+    the product once, as XLA does; torch alone would multiply by ``c`` in
+    fp32."""
+    return float(torch.tensor(c, dtype=like.dtype))
+
+
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """``jax.nn.leaky_relu``: ``where(x >= 0, x, slope · x)`` with the slope
+    rounded to x's dtype (``weak``); in fp32 and wider ``F.leaky_relu``."""
+    if x.dtype in (torch.float32, torch.float64):
+        return F.leaky_relu(x, slope)
+    return torch.where(x >= 0, x, x * weak(slope, x))
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

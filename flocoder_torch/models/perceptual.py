@@ -6,8 +6,10 @@ The weights load from a converted ``weights/vgg16_features.npz`` (flat
 ``Conv_i/kernel`` HWIO and ``Conv_i/bias``, the JAX package's format) when
 that file exists; otherwise the network is a fixed seeded random init, as in
 the JAX package. Nothing is downloaded. The weights are frozen; gradients
-flow to the input images. The ResNet50 perceptual loss is not ported yet
-(ROADMAP.md).
+flow to the input images. ``dtype`` is the compute dtype, as the JAX
+``VGG16Features(dtype)``: fp32 parameters, each convolution in ``dtype``
+(``layers.Conv``), the features in ``dtype``; codec training passes the
+codec's. The ResNet50 perceptual loss is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -29,9 +31,10 @@ _VGG16_PLAN = (64, 64, "M", 128, 128, "M", 256, 256, 256)
 
 class VGG16Features(nn.Module):
     """conv1_1..conv3_3; returns the post-ReLU activation before each max
-    pool and at the end (3 feature maps). NHWC in and out."""
+    pool and at the end (3 feature maps). NHWC in and out; ``dtype`` the
+    compute dtype (None or fp32: the parameters')."""
 
-    def __init__(self):
+    def __init__(self, dtype=None):
         super().__init__()
         s = Scope(self)
         self.plan, c = [], 3
@@ -39,7 +42,8 @@ class VGG16Features(nn.Module):
             if spec == "M":
                 self.plan.append(None)
             else:
-                self.plan.append(s.conv(c, spec, 3))
+                self.plan.append(s.conv(c, spec, 3,
+                                        dtype=None if dtype == torch.float32 else dtype))
                 c = spec
 
     def forward(self, x):
@@ -65,13 +69,14 @@ def load_vgg16_weights(model: VGG16Features, path: str) -> Optional[VGG16Feature
 
 
 def make_perceptual_fn(weights_path: str = "weights/vgg16_features.npz",
-                       seed: int = 0, device=None, model: Optional[VGG16Features] = None):
+                       seed: int = 0, device=None, model: Optional[VGG16Features] = None,
+                       dtype=None):
     """``feature_fn(images_imagenet_normalized) -> [feature maps]`` for
     ``metrics.perceptual_loss``: converted weights when the file exists,
     else a seeded random init (or the given ``model``), frozen, on
-    ``device``."""
+    ``device``; a network built here computes in ``dtype``."""
     if model is None:
-        model = VGG16Features()
+        model = VGG16Features(dtype)
         if load_vgg16_weights(model, weights_path) is None:
             init_params(model, torch.Generator().manual_seed(seed))
     if device is not None:

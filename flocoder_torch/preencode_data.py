@@ -64,8 +64,10 @@ script does: the encoder's convolutions run W8A8 int8 (``ops/quant.py``),
 the compression head stays plain.
 
 ``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
-Not ported yet (each raises, ROADMAP.md): named torchvision sets and audio
-data.
+A ``data`` path that names no folder (a torchvision set's name, say) takes
+the synthetic set, as the JAX script does without torchvision
+(``data/datasets.py``); no named set is downloaded. Not ported yet (it
+raises, ROADMAP.md): audio data.
 """
 from __future__ import annotations
 

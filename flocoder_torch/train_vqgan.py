@@ -19,9 +19,14 @@ batch into that many microbatches. A data path whose name holds ``midi``
 or ``pop909`` trains on piano rolls (a folder of ``.mid`` files is
 converted to PNGs first, ``data/datasets.py:MIDIImageDataset``), and each
 validation adds the note metrics (``calc_note_metrics``: onset and sustain
-sensitivity, specificity, precision, F1) and their TP/TN/FP/FN grids. Not
-ported yet (ROADMAP.md): bf16 codec training (``codec.bf16`` raises, item
-11b), data and tensor parallelism, wandb logging, the codebook plots.
+sensitivity, specificity, precision, F1) and their TP/TN/FP/FN grids.
+``codec.bf16`` (``tpu_vqgan.yaml``) trains with the codec, the
+discriminator and the VGG16 perceptual net computing in bf16 over fp32
+parameters, as the JAX script does; the choice is the codec's own
+(``flow.bf16`` does not reach it). The checkpoint holds the same tree as an
+fp32 codec's, NATTEN's bf16 ``gamma`` written widened to fp32 (exactly;
+both packages' loaders round it back). Not ported yet (ROADMAP.md): data
+and tensor parallelism, wandb logging, the codebook plots.
 """
 from __future__ import annotations
 
@@ -94,23 +99,25 @@ def train_vqgan(config) -> dict:
     n_params = sum(p.numel() for p in [*codec.encoder.parameters(),
                                        *codec.decoder.parameters()])
     print(f"codec params: {n_params / 1e6:.2f}M  latent "
-          f"{codec.latent_shape(image_size)}  device {device}")
+          f"{codec.latent_shape(image_size)}  device {device}  compute {codec.dtype}")
     resume = ldcfg(config, "load_checkpoint", None)
     if resume and os.path.exists(str(resume)):
         ck = load_checkpoint(str(resume))
         load_jax_flat(codec, ck["model_state_dict"], VQVAE_PREFIXES)
         print(f"resumed codec from {resume} (epoch {ck['epoch']})")
 
-    # 'patch' (the default the reference trains with) or 'vqgan_plus'
+    # 'patch' (the default the reference trains with) or 'vqgan_plus'; the
+    # discriminator and the perceptual net compute in the codec's dtype
+    net_dtype = codec.dtype
     if str(ldcfg(config, "discriminator", "patch")) == "vqgan_plus":
-        disc = VQGANPlusDiscriminator(in_channels=in_channels)
+        disc = VQGANPlusDiscriminator(in_channels=in_channels, dtype=net_dtype)
     else:
-        disc = VQGANPlusPatchDiscriminator(in_channels=in_channels)
+        disc = VQGANPlusPatchDiscriminator(in_channels=in_channels, dtype=net_dtype)
     init_discriminator(disc.to(device), gen.manual_seed(seed + 2))
 
     perceptual_fn = None
     if float(cc.get("lambda_perc", 0)) > 0 and in_channels == 3:
-        perceptual_fn = make_perceptual_fn(seed=seed, device=device)
+        perceptual_fn = make_perceptual_fn(seed=seed, device=device, dtype=net_dtype)
     state = create_vqgan_state(codec, disc, lr)
     grad_accum = max(int(ldcfg(config, "grad_accum", 1)), 1)
     warmup_step = make_vqgan_warmup_step(config, perceptual_fn,

@@ -46,7 +46,7 @@ from torch import nn
 
 from ..config import config_from_dict, to_dict
 
-__all__ = ["save_checkpoint", "load_checkpoint", "to_jax_flat",
+__all__ = ["checkpoint_payload", "save_checkpoint", "load_checkpoint", "to_jax_flat",
            "load_jax_flat", "adam_to_jax_flat", "load_adam_jax_flat", "UNET_PREFIXES",
            "VQVAE_PREFIXES", "SDVAE_PREFIXES", "DISC_PREFIXES", "VGG_PREFIXES",
            "MASK_ENCODER_PREFIXES", "OPT_GROUPS", "subtree"]
@@ -207,6 +207,23 @@ def load_adam_jax_flat(module: nn.Module, adam: torch.optim.Adam, flat: dict,
     return count
 
 
+def checkpoint_payload(params: dict, epoch: int, config=None,
+                       ema: Optional[dict] = None, opt_state: Optional[dict] = None) -> dict:
+    """The npz contract's arrays by key, as ``save_checkpoint`` writes them:
+    ``model_state_dict/…`` from ``params`` (a flat JAX tree), optional
+    ``ema_state_dict/…`` and ``optimizer_state_dict/…``, ``epoch`` and
+    ``config_json``."""
+    payload = {f"model_state_dict{_SEP}{k}": np.asarray(v)
+               for k, v in params.items()}
+    for head, tree in (("ema_state_dict", ema), ("optimizer_state_dict", opt_state)):
+        if tree is not None:
+            payload.update({f"{head}{_SEP}{k}": np.asarray(v) for k, v in tree.items()})
+    payload["epoch"] = np.asarray(epoch)
+    if config is not None:
+        payload["config_json"] = np.asarray(json.dumps(to_dict(config)))
+    return payload
+
+
 def save_checkpoint(params: dict, epoch: int, ckpt_dir: str = "checkpoints",
                     prefix: str = "flow_", config=None,
                     ema: Optional[dict] = None, keep: Optional[int] = None,
@@ -218,16 +235,8 @@ def save_checkpoint(params: dict, epoch: int, ckpt_dir: str = "checkpoints",
     ``keep``, only the newest ``keep`` files of the prefix stay. Returns the
     path."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    payload = {f"model_state_dict{_SEP}{k}": np.asarray(v)
-               for k, v in params.items()}
-    for head, tree in (("ema_state_dict", ema), ("optimizer_state_dict", opt_state)):
-        if tree is not None:
-            payload.update({f"{head}{_SEP}{k}": np.asarray(v) for k, v in tree.items()})
-    payload["epoch"] = np.asarray(epoch)
-    if config is not None:
-        payload["config_json"] = np.asarray(json.dumps(to_dict(config)))
     path = os.path.join(ckpt_dir, f"{prefix}{epoch}.npz")
-    np.savez_compressed(path, **payload)
+    np.savez_compressed(path, **checkpoint_payload(params, epoch, config, ema, opt_state))
     if keep:
         files = sorted(glob.glob(os.path.join(ckpt_dir, f"{prefix}*.npz")),
                        key=os.path.getmtime)

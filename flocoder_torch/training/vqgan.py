@@ -5,9 +5,15 @@ the GAN step and the eval step.
 - Optimizers are optax's ``chain(clip_by_global_norm(c), adam(lr))``:
   ``ClippedAdam`` scales the gradients by c / max(‖g‖, c) over all of its
   parameters (not ``clip_grad_norm_``, which adds 1e-6), then runs
-  ``torch.optim.Adam`` (b1 0.9, b2 0.999, eps 1e-8, optax's update). The
+  ``torch.optim.Adam`` (b1 0.9, b2 0.999, eps 1e-8, optax's update) on the
+  fp32 parameters and optax's arithmetic on a bf16 one. The
   discriminator's learning rate is lr·1e-3. The RVQ codebooks are updated
   by EMA (``ops/rvq.py``), never by an optimizer.
+- The steps take the codec, the discriminator and the perceptual net in
+  the compute dtype they were built with: with ``codec.bf16`` all three
+  compute in bf16 over fp32 parameters, as the JAX script builds them
+  (``train_vqgan.py``); NATTEN's ``gamma`` is a bf16 parameter, the RVQ
+  works in fp32, and the losses keep JAX's dtypes (``metrics.py``).
 - The GAN step keeps the JAX order and runs the codec forward once: recon;
   discriminator step on ``recon.detach()`` (real batch then fake, power
   iterations advancing), its update; the generator loss against the updated
@@ -31,11 +37,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..metrics import (compute_vqgan_losses, get_total_vqgan_loss,
                        hinge_d_loss, lecam_loss)
+from ..models.layers import weak
 from ..models.discriminator import make_disc_apply
 
 __all__ = ["ClippedAdam", "VQGANState", "create_vqgan_state",
@@ -43,21 +51,48 @@ __all__ = ["ClippedAdam", "VQGANState", "create_vqgan_state",
            "make_vqgan_gan_step", "make_vqgan_eval_step", "g_trainable"]
 
 
+_WIDE = (torch.float32, torch.float64)     # the dtypes torch.optim.Adam steps
+
+
 class ClippedAdam:
     """optax ``chain(clip_by_global_norm(grad_clip), adam(lr))`` over
     ``params``. A parameter without a gradient takes a zero one, as optax
     gives every leaf a gradient. ``lr`` is a float or a host function
-    ``schedule(count) -> float`` of the optimizer step, as optax's."""
+    ``schedule(count) -> float`` of the optimizer step, as optax's.
+
+    fp32 (and float64) parameters step through ``torch.optim.Adam``
+    (``self.adam``), whose arithmetic differs from optax's only in rounding
+    order at fp32. A parameter in a narrower dtype (NATTEN's bf16 ``gamma``
+    in a bf16 codec) follows optax op by op in its own dtype, as optax keeps
+    such a leaf: its squared norm is rounded to that dtype before it joins
+    the global norm, it is clipped as ``t / norm · c`` in that dtype, its
+    moments are held in that dtype, every constant is rounded to it before
+    it multiplies (JAX's weak types), and the bias corrections are formed in
+    fp32 and then rounded. Its state sits in ``self.narrow_state`` under
+    torch's keys (``step``, ``exp_avg``, ``exp_avg_sq``); ``state_of(p)``
+    reads either."""
+
+    betas, eps = (0.9, 0.999), 1e-8
 
     def __init__(self, params, lr, grad_clip: float = 1.0):
         self.params = list(params)
         self.grad_clip = grad_clip
         self.schedule = lr if callable(lr) else None
-        self.adam = torch.optim.Adam(self.params, lr=0.0 if callable(lr) else lr,
-                                     betas=(0.9, 0.999), eps=1e-8)
+        self.lr = 0.0 if callable(lr) else lr
+        self.narrow = [p for p in self.params if p.dtype not in _WIDE]
+        self.narrow_state: dict = {}
+        self.adam = torch.optim.Adam([p for p in self.params if p.dtype in _WIDE],
+                                     lr=self.lr, betas=self.betas, eps=self.eps)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
+        for p in self.narrow:
+            p.grad = None
+
+    def state_of(self, p) -> dict:
+        """The Adam state (``step``, ``exp_avg``, ``exp_avg_sq``) of ``p``;
+        empty before its first step."""
+        return (self.adam.state if p.dtype in _WIDE else self.narrow_state).get(p, {})
 
     @torch.no_grad()
     def step(self, count: int = 0) -> torch.Tensor:
@@ -66,15 +101,44 @@ class ClippedAdam:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in self.params]
+        wide = [p.grad for p in self.adam.param_groups[0]["params"]]
         norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in grads]))
-        torch._foreach_mul_(grads, self.grad_clip / norm.clamp(min=self.grad_clip))
-        if self.schedule is not None:
-            for group in self.adam.param_groups:
-                group["lr"] = self.schedule(count)
+            [torch.linalg.vector_norm(g) for g in wide]))
+        if self.narrow:
+            # optax's global norm: each leaf's sum of squares in its dtype
+            norm = torch.sqrt(norm.square() + sum(
+                (p.grad * p.grad).sum().to(norm.dtype) for p in self.narrow))
+        torch._foreach_mul_(wide, self.grad_clip / norm.clamp(min=self.grad_clip))
+        lr = self.lr if self.schedule is None else self.schedule(count)
+        for group in self.adam.param_groups:
+            group["lr"] = lr
         self.adam.step()
+        for p in self.narrow:
+            self._narrow_step(p, norm, lr)
         return norm
+
+    def _narrow_step(self, p, norm, lr: float) -> None:
+        """optax's clip and Adam on one leaf, in the leaf's own dtype."""
+        (b1, b2), dt = self.betas, p.dtype
+        st = self.narrow_state.setdefault(p, {})
+        if not st:
+            st.update(step=torch.tensor(0.0), exp_avg=torch.zeros_like(p),
+                      exp_avg_sq=torch.zeros_like(p))
+        g = p.grad
+        g = torch.where(norm < self.grad_clip, g,
+                        g / norm.to(dt) * weak(self.grad_clip, g))
+        mu = g * weak(1 - b1, g) + st["exp_avg"] * weak(b1, g)
+        nu = (g * g) * weak(1 - b2, g) + st["exp_avg_sq"] * weak(b2, g)
+        st["step"] += 1
+        n = int(st["step"])
+
+        def corrected(m, b):        # 1 − bⁿ formed in fp32, then rounded to dt
+            c = float(np.float32(1) - np.float32(b) ** np.float32(n))
+            return m / torch.full((), c, dtype=dt, device=m.device)
+
+        update = corrected(mu, b1) / (torch.sqrt(corrected(nu, b2)) + weak(self.eps, g))
+        p.add_(update * weak(-lr, g))
+        st["exp_avg"], st["exp_avg_sq"] = mu, nu
 
 
 def g_trainable(codec: nn.Module) -> list:
@@ -108,9 +172,6 @@ def create_vqgan_state(codec, disc, learning_rate: float, **kw) -> VQGANState:
 
 
 def _not_ported(config, mesh, grad_accum: int) -> None:
-    if "codec" in config and bool(config.codec.get("bf16", False)):
-        raise NotImplementedError("bf16 codec training (codec.bf16) is not ported yet "
-                                  "(ROADMAP.md item 11b)")
     if mesh is not None:
         raise NotImplementedError("data- and tensor-parallel codec training is "
                                   "not ported yet (ROADMAP.md)")

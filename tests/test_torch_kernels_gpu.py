@@ -177,6 +177,38 @@ def test_backward_kernel_is_deterministic_on_card():
             assert torch.equal(a, b)
 
 
+# tpu_vqgan's codec (flowers' widths, codec.bf16) at its training batch:
+# the NATTEN shapes at which every bf16 codec step runs K2
+CODEC_STEP_SHAPES = [(64, 32, 32, 512, 7, 8), (64, 16, 16, 1024, 7, 8),
+                     (64, 16, 16, 128, 7, 8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", CODEC_STEP_SHAPES, ids=["32x32x512", "16x16x1024",
+                                                          "16x16x128"])
+def test_backward_kernel_in_bf16_at_the_codec_step_shapes_on_card(shape):
+    """K2 in bf16 at the bf16 codec step's shapes, B=64: within
+    3e-2·max(1, max|ref|) of its twin in fp32 on the same bf16 values, and
+    bitwise equal across two calls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, H, W, C, ks, heads = shape
+    g = torch.Generator("cuda").manual_seed(5)
+    q, k, v, gr = (torch.randn(B, H, W, C, device="cuda", generator=g).bfloat16()
+                   for _ in range(4))
+    o = na2d_fwd(q, k, v, kernel_size=ks, heads=heads)
+    first = na2d_bwd(q, k, v, o, gr, kernel_size=ks, heads=heads)
+    second = na2d_bwd(q, k, v, o, gr, kernel_size=ks, heads=heads)
+    torch.cuda.synchronize()
+    refs = na2d_bwd_banded(*(t.float() for t in (q, k, v, o, gr)), kernel_size=ks,
+                           heads=heads)
+    for name, a, b, ref in zip(("dq", "dk", "dv"), first, second, refs):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b), name
+        tol = 3e-2 * max(1.0, ref.abs().max().item())
+        err = (a.float() - ref).abs().max().item()
+        assert err < tol, (shape, name, err, tol)
+
+
 @pytest.mark.gpu
 def test_kernels_refuse_a_misaligned_view_on_card():
     """The kernels copy 16-byte chunks, so a view that starts off a 16-byte

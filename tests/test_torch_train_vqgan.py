@@ -110,3 +110,41 @@ def test_train_vqgan_without_card_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device=cpu"):
         tv.main(["--config-name", "smoke_vqgan", f"data={tmp_path}", *CODEC])
+
+
+def test_train_vqgan_tpu_vqgan_in_bf16(tmp_path):
+    """``tpu_vqgan`` as composed (``codec.bf16``, shared real features) at a
+    tiny size: the codec, the discriminator and the perceptual net compute
+    in bf16 over fp32 parameters, the losses are finite, and the JAX
+    package's ``load_checkpoint`` + ``load_into_tree`` read the checkpoint
+    strictly into its bf16 codec, NATTEN's gamma as the port's bf16 value."""
+    data = _png_folder(tmp_path / "images", n=8)
+    overrides = [f"data={data}", "codec.hidden_channels=16", "codec.internal_dim=8",
+                 "codec.num_downsamples=2", "codec.vq_num_embeddings=8", "codec.batch_size=4",
+                 "codec.epochs=2", "codec.warmup_epochs=1", "codec.image_size=32",
+                 "image_size=32"]
+    res = tv.main(["--config-name", "tpu_vqgan", "+device=cpu", "num_workers=1",
+                   f"+ckpt_dir={tmp_path / 'ckpt'}", f"+output_dir={tmp_path / 'out'}",
+                   *overrides])
+    state = res["state"]
+    assert state.codec.dtype == state.disc.dtype == torch.bfloat16
+    assert [e["phase"] for e in res["epochs"]] == ["warmup", "gan"]
+    assert all(np.isfinite(v) for e in res["epochs"] + res["val"] for k, v in e.items()
+               if k not in ("epoch", "phase"))
+    gammas = {n: p for n, p in state.codec.named_parameters() if n.endswith("gamma")}
+    assert gammas and all(p.dtype == torch.bfloat16 for p in gammas.values())
+    assert all(p.dtype == torch.float32 for n, p in state.codec.named_parameters()
+               if n not in gammas)
+
+    jcfg = jload_config("tpu_vqgan", config_dir="configs", overrides=overrides)
+    jc = jsetup_codec(jcfg)
+    shapes = jax.eval_shape(jc.init, jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
+    template = jax.tree_util.tree_map(lambda a: jnp.zeros(a.shape, a.dtype), shapes)
+    params = jckpt.load_into_tree(template, jckpt.flatten_tree(
+        jckpt.load_checkpoint(res["checkpoint"])["model_state_dict"]), strict=True)
+    flat = jckpt.flatten_tree(params)
+    for name, p in gammas.items():
+        key = name.replace(".", "/").replace("encoder/", "encoder/params/", 1).replace(
+            "decoder/", "decoder/params/", 1)
+        assert flat[key].dtype == jnp.bfloat16
+        assert np.asarray(flat[key], np.float32).tolist() == p.detach().float().tolist()

@@ -195,8 +195,8 @@ def _moments(module, opt, prefixes) -> dict:
     m = copy.deepcopy(module)
     with torch.no_grad():
         for pm, p in zip(m.parameters(), module.parameters()):
-            pm.copy_(opt.adam.state[p]["exp_avg"] if p in opt.adam.state
-                     else torch.full_like(p, float("nan")))
+            st = opt.state_of(p)
+            pm.copy_(st["exp_avg"] if st else torch.full_like(p, float("nan")))
     return to_jax_flat(m, prefixes)
 
 
@@ -218,8 +218,27 @@ def test_not_ported_options_raise():
         tvqgan.make_vqgan_gan_step(cfg, mesh=object())
     with pytest.raises(ValueError, match="grad_accum"):
         tvqgan.make_vqgan_warmup_step(cfg, grad_accum=0)
-    # bf16 codecs build since (serving, pre-encoding); training them waits
-    bf16 = load_config("smoke_vqgan", config_dir="configs", overrides=["+codec.bf16=true"])
+    # codec.bf16 trains: both steps build and run with the codec, the
+    # discriminator and the perceptual net computing in bf16 (noise and
+    # dropout on), and the losses keep JAX's dtypes
+    bf16 = load_config("smoke_vqgan", config_dir="configs",
+                       overrides=["+codec.bf16=true", *OVERRIDES])
     assert tcodecs.setup_codec(bf16).dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tvqgan.make_vqgan_warmup_step(bf16)
+    gen = torch.Generator().manual_seed(0)
+    state = tvqgan.create_vqgan_state(
+        tcodecs.VQVAE(**KW, dtype=torch.bfloat16).init(gen),
+        tdisc.init_discriminator(tdisc.VQGANPlusPatchDiscriminator(
+            hidden_channels=16, dtype=torch.bfloat16), gen), 1e-4)
+    vgg = make_perceptual_fn(model=init_params(VGG16Features(torch.bfloat16), gen))
+    x = torch.from_numpy(_images(12))
+    for make, terms in ((tvqgan.make_vqgan_warmup_step, {"perceptual"}),
+                        (tvqgan.make_vqgan_gan_step, {"perceptual", "g_loss", "d_loss"})):
+        state, aux, idx = make(bf16, vgg)(state, x, gen)
+        assert {k for k, v in aux.items() if v.dtype == torch.bfloat16} == terms
+        assert all(aux[k].dtype == torch.float32 for k in ("mse", "vq", "total"))
+        assert all(torch.isfinite(v.float()) for v in aux.values()) and idx.dtype == torch.int64
+    gammas = [p for n, p in state.codec.named_parameters() if n.endswith("gamma")]
+    assert gammas and all(g.dtype == torch.bfloat16 and float(g.detach().abs().max()) > 0
+                          for g in gammas)
+    assert all(p.dtype == torch.float32 for n, p in state.codec.named_parameters()
+               if not n.endswith("gamma"))
