@@ -150,8 +150,8 @@
    converts them): one warmup epoch of 4 steps at B=64 (the GAN step at
    these widths runs in steps 7 and 26), one validation batch with the
    note metrics and their 10 grids; 6 K1 and 6 K2 a step, 6 K1 a
-   validation batch, exactly. Its checkpoint is copied uncompressed
-   (plain_copy) for the steps after it, which load it again and again.
+   validation batch, exactly. Its checkpoint (written uncompressed, as the
+   port writes every checkpoint) is the codec of the steps after it.
 19. midi_preencode: inpainting=true pre-encode of the 324 roll PNGs from
    step 18's checkpoint, B=32, augs_per 2 (the recipe's 1024): 2 val and
    18 train batches of triplets, two encodes a batch (10 K1), read back.
@@ -220,8 +220,33 @@
    half, left out and counted, at most a tenth), spectral norm's u and σ
    within 1e-4, each gamma within two bf16 spacings where its gradient's
    sign is not rounding's; and the card's steps again with na2d's plain
-   twin in place of K1 and K2, read beside. Its checkpoint, copied
-   uncompressed (plain_copy), is step 25's codec.
+   twin in place of K1 and K2, read beside. Its checkpoint is step 25's
+   codec.
+27. audio (last): configs/audio_dac.yaml as composed, fp32, at full width
+   (16 kHz, crop_len 32,768, strides 2,4,4,4, base 32, RVQ 4×512×8; the
+   waveform discriminators with periods 2,3,5,7,11, 3 scales, base 16; the
+   U-Net at dim_mults 1,2,4 over 16×16×8 latents), on synthetic chords.
+   Cut in depth only: synthetic_n 64 (4 codec steps an epoch at B=16), 2
+   codec epochs (1 reconstruction, 1 GAN; the recipe's 200 with 50
+   reconstruction), pre-encode augs_per 4 (its 8: 6 val and 57 train
+   batches of 16 over the 256 synthetic chords), 1 flow epoch (its 100;
+   14 steps at B=64) with flow.ckpt_every=1 (its 25). Through the port's
+   entry points: train_audio_codec (clips/s over the steady steps of each
+   phase by CUDA events, peak memory, the losses, validation WAV pairs read
+   back), a GAN step's parts by CUDA events and its idle share,
+   preencode_data with the trained codec (latents/s; 16×16×8 latents read
+   back), train_flow with evaluate_model_audio (RK4, 50 grid points, CFG
+   3.0; samples/s over steady steps, sinkhorn_mel), and generate_samples of
+   16 clips from the EMA: every WAV reads back through stdlib wave as
+   16-bit, 16,000 Hz, 32,768 frames, not all zero, and the decoded samples
+   are finite. K1–K5 launch 0 times on each of the four sub-phases
+   (audio_train, audio_preencode, audio_flow, audio_serve). Then a small
+   DAC (strides 2,4, base 8) and small discriminators, every weight random,
+   on the card and on the CPU, TF32 off, on the same weights, batches and
+   injected RVQ picks: one reconstruction and one GAN step, losses and
+   parameters within 1e-3·max(1, |ref|), Adam's first moments within 1e-3
+   of the largest |ref| of each model; the multi-scale STFT and mel losses
+   of 4 × 32,768 samples within 1e-4·max(1, |ref|).
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -894,17 +919,6 @@ def write_pngs(folder: str, n: int = 320, size: int = 128, seed: int = 3) -> str
     with ThreadPoolExecutor(8) as pool:
         list(pool.map(save, range(n)))
     return folder
-
-
-def plain_copy(path: str) -> str:
-    """The checkpoint at ``path`` (written compressed, as the JAX writer
-    writes) copied beside it uncompressed: the same keys and arrays, which
-    np.load reads alike, so that the phases that load it again and again
-    skip the zlib stream. Returns the copy's path."""
-    out = path[:-len(".npz")] + "_plain.npz"
-    with np.load(path, allow_pickle=False) as z:
-        np.savez(out, **{k: z[k] for k in z.files})
-    return out
 
 
 def train_flowers(tmp: str, card: str, kernels: dict) -> tuple:
@@ -2688,7 +2702,6 @@ def midi_train_codec(tmp: str, card: str, kernels: dict) -> tuple:
         + f", peak {peak:.2f} GiB, wall {wall:.1f} s (with the corpus's conversion); note "
         "metrics " + " ".join(f"{k[5:]}={v:.4f}" for k, v in val.items() if k.startswith("note_"))
         + f" | card: {card}", flush=True)
-    plain_copy(res["checkpoint"])           # what the MIDI phases after it load
     del res
     torch.cuda.empty_cache()
     return rec, launches
@@ -2704,7 +2717,7 @@ def midi_preencode(tmp: str, card: str, kernels: dict) -> tuple:
     from flocoder_torch import preencode_data as pe
     from flocoder_torch.data.datasets import PreEncodedDataset
 
-    ckpt = os.path.join(tmp, "midi_ckpt", "vqgan_1_plain.npz")
+    ckpt = os.path.join(tmp, "midi_ckpt", "vqgan_1.npz")
     data = os.path.join(tmp, "midi_images")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2889,7 +2902,7 @@ def midi_flow(tmp: str, card: str, kernels: dict) -> tuple:
 
     print("midi flow cuts: 1 epoch (the recipe's 10,000), evaluation n_steps 20 (the "
           "recipe's 100), the OTF curriculum's first epoch", flush=True)
-    ckpt = os.path.join(tmp, "midi_ckpt", "vqgan_1_plain.npz")
+    ckpt = os.path.join(tmp, "midi_ckpt", "vqgan_1.npz")
     data = os.path.join(tmp, "midi_images_encoded_vqgan_inpainting")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
@@ -3745,6 +3758,396 @@ def int8_serving(tmp: str, paths: dict, sd_paths: dict, card: str, kernels: dict
 
 
 
+# ---------------------------------------------------------------------------
+# The audio family: audio_dac from codec training to WAV serving
+# ---------------------------------------------------------------------------
+
+AUDIO_N = 64                   # synthetic_n: 4 codec steps an epoch at the recipe's B=16
+AUDIO_AUGS = 4                 # pre-encode augs_per (the recipe's 8)
+AUDIO_CROP = 32768             # audio_dac's crop_len: 16×16×8 latents
+AUDIO_SERVE = 16               # clips served
+
+
+def _audio_argv(tmp: str, *extra) -> list:
+    """audio_dac.yaml as composed on the synthetic chords (its data path is
+    absent), no metrics log, the checkpoints under one directory (the
+    scripts' default codec is its newest dac_*.npz)."""
+    return ["--config-name", "audio_dac.yaml", f"data={os.path.join(tmp, 'fc_audio_data')}",
+            "no_wandb=true", f"+ckpt_dir={os.path.join(tmp, 'audio_ckpt')}", *extra]
+
+
+def check_wavs(paths: list, frames: int, label: str) -> None:
+    """Every WAV reads back through stdlib wave as 16-bit mono at 16 kHz
+    with ``frames`` samples, not all zero."""
+    import wave
+    if not paths:
+        fail(f"{label}: no WAV written")
+    for path in paths:
+        with wave.open(path, "rb") as w:
+            meta = (w.getsampwidth(), w.getframerate(), w.getnchannels(), w.getnframes())
+            pcm = np.frombuffer(w.readframes(w.getnframes()), "<i2")
+        if meta != (2, 16000, 1, frames) or not pcm.any():
+            fail(f"{label}: {path} reads back as {meta}, all zero: {not pcm.any()}")
+
+
+def audio_train(tmp: str, card: str, kernels: dict) -> tuple:
+    """audio_dac's DAC codec at full width (strides 2,4,4,4, base 32, RVQ
+    4×512×8, B=16 crops of 32,768 samples; 3.49 M + 3.51 M parameters and
+    the 26.85 M-parameter waveform discriminators) through
+    flocoder_torch.train_audio_codec.main on 64 synthetic chords: one
+    reconstruction and one GAN epoch of 4 steps, a validation batch and two
+    WAV pairs after each; no kernel of the port. Returns (state, record,
+    launches)."""
+    from flocoder_torch import train_audio_codec as tac
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    events, step_hook = _hooked()
+    t0 = time.time()
+    res = tac.main(_audio_argv(tmp, f"+synthetic_n={AUDIO_N}", "codec.epochs=2",
+                               "codec.gan_warmup_epochs=1", "+eval_every=1",
+                               f"+output_dir={os.path.join(tmp, 'audio_codec_out')}"),
+                   step_hook=step_hook)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = _counts(kernels)
+    _expect(kernels, "audio_train (DAC codec)", launches)
+    if [(e["phase"], e["clips"]) for e in res["epoch_seconds"]] != [("recon", 64), ("gan", 64)]:
+        fail(f"audio codec training ran {res['epoch_seconds']}")
+    losses = [v for e in res["epochs"] + res["val"] for v in e.values() if isinstance(v, float)]
+    if not np.isfinite(losses).all():
+        fail(f"audio codec losses are not finite: {res['epochs']} {res['val']}")
+    if res["checkpoint"] is None or not os.path.exists(res["checkpoint"]):
+        fail("audio codec training wrote no checkpoint")
+    check_wavs(res["wavs"], AUDIO_CROP, "audio codec validation")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = dict(batch=16, crop=AUDIO_CROP, wall_s=wall, peak_mem_gib=peak, card=card,
+               epochs=res["epochs"], val=res["val"])
+    for epoch, ph in ((1, "recon"), (2, "gan")):
+        (ep,) = [e for e in res["epoch_seconds"] if e["epoch"] == epoch]
+        steady = _steady([e for e in events if e[0] == epoch])
+        rec[ph] = dict(steady_step_s=steady, clips_per_s=16 / float(np.median(steady)),
+                       host_step_s=res["step_seconds"][ph], epoch_s=ep["seconds"],
+                       epoch_clips_per_s=ep["clips"] / ep["seconds"])
+    print("audio_dac codec B=16 x 32768 samples: " + ", ".join(
+        f"{ph} {rec[ph]['clips_per_s']:.2f} clips/s over steady steps (CUDA events, median "
+        f"of {len(rec[ph]['steady_step_s'])}), {rec[ph]['epoch_clips_per_s']:.2f} over the "
+        f"epoch" for ph in ("recon", "gan")) + f", peak {peak:.2f} GiB, wall {wall:.1f} s | "
+        f"card: {card}", flush=True)
+    for e in res["epochs"] + res["val"]:
+        print("  " + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                              for k, v in e.items()), flush=True)
+    return res["state"], rec, launches
+
+
+def audio_gan_breakdown(state, card: str) -> dict:
+    """Where an audio GAN step goes (the trained state, B=16 chords of
+    32,768 samples): CUDA events around its parts, the mean of 3 steps
+    after one warm step, then one step under the profiler for the device's
+    idle share."""
+    from flocoder_torch.config import load_config
+    from flocoder_torch.data.audio_io import SyntheticAudioDataset
+    from flocoder_torch.generate_samples import CONFIG_DIR
+    from flocoder_torch.training.audio import make_audio_gan_step
+
+    step = make_audio_gan_step(load_config("audio_dac.yaml", CONFIG_DIR))
+    ds = SyntheticAudioDataset(n=16, crop_len=AUDIO_CROP, seed=11)
+    x = torch.from_numpy(np.stack([ds.get(i, None)[0] for i in range(16)])).cuda()
+    gen = torch.Generator("cuda").manual_seed(6)
+    names = ["codec_forward", "d_step", "g_loss_backward", "optimizers"]
+    totals = dict.fromkeys(names, 0.0)
+    for it in range(4):
+        events = [torch.cuda.Event(enable_timing=True)]
+        events[0].record()
+
+        def mark(name, events=events):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append(e)
+
+        step(state, x, gen, mark)
+        torch.cuda.synchronize()
+        if it:
+            for i, n in enumerate(names):
+                totals[n] += events[i].elapsed_time(events[i + 1]) / 3
+    out = {f"{n}_ms": v for n, v in totals.items()}
+    out["step_ms"] = sum(totals.values())
+    out.update(profile_batch(lambda: step(state, x, gen)))
+    top = out.pop("top_kernels")
+    print("audio GAN step breakdown (audio_dac, fp32, B=16 x 32768): " + " ".join(
+        f"{k}={v:.4f}" for k, v in out.items()) + f" | card: {card}", flush=True)
+    print("  device time by kernel (ms): " + "; ".join(
+        f"{name[:60]}={ms:.2f}" for name, ms in top), flush=True)
+    out["top_kernels"] = top
+    return out
+
+
+def audio_preencode(tmp: str, card: str, kernels: dict) -> tuple:
+    """audio_dac's pre-encode through flocoder_torch.preencode_data.main with
+    the trained codec (the newest dac_*.npz): the 256 synthetic chords (25
+    val, 231 train), B=16, augs_per 4 (the recipe's 8): 6 val and 57 train
+    batches, folded into 16×16×8 latent files; no kernel of the port."""
+    from flocoder_torch import preencode_data as pe
+    from flocoder_torch.data.datasets import PreEncodedDataset
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    t0 = time.time()
+    enc = pe.main(_audio_argv(tmp, f"preencoding.augs_per={AUDIO_AUGS}"))
+    wall = time.time() - t0
+    launches = _counts(kernels)
+    _expect(kernels, "audio_preencode", launches)
+    if [enc[s]["batches"] for s in ("val", "train")] != [6, 57]:
+        fail(f"audio pre-encode ran {[enc[s]['batches'] for s in ('val', 'train')]} batches")
+    for s in ("val", "train"):
+        ds = PreEncodedDataset(enc[s]["out_dir"])
+        lat = np.stack([ds.get(i, None)[0] for i in range(0, len(ds), 7)])
+        if len(ds) != enc[s]["latents"] or lat.shape[1:] != (16, 16, 8) or \
+                not np.isfinite(lat).all():
+            fail(f"audio pre-encode {s}: {len(ds)} files, latents {lat.shape}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = dict(batch=16, wall_s=wall, peak_mem_gib=peak, card=card,
+               **{f"{s}_latents": enc[s]["latents"] for s in ("val", "train")},
+               **{f"{s}_latents_per_s": enc[s]["latents_per_s"] for s in ("val", "train")})
+    print(f"audio_dac pre-encode B=16 (synthetic chords, augs_per {AUDIO_AUGS}): val "
+          f"{rec['val_latents']} latents at {rec['val_latents_per_s']:.2f}/s, train "
+          f"{rec['train_latents']} at {rec['train_latents_per_s']:.2f}/s, 16x16x8, peak "
+          f"{peak:.2f} GiB, wall {wall:.1f} s | card: {card}", flush=True)
+    return rec, launches
+
+
+def audio_flow(tmp: str, card: str, kernels: dict) -> tuple:
+    """The U-Net flow on the audio latents (dim_mults 1,2,4, 4 classes,
+    B=64) through flocoder_torch.train_flow.main: 1 epoch (the recipe's
+    100) with evaluate_model_audio as composed (RK4, 50 grid points, CFG
+    3.0; the sampled and the target latents decoded to waveforms, WAVs
+    written); then generate_samples serves 16 clips from the EMA checkpoint
+    as composed and every WAV is read back. No kernel of the port."""
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch import train_flow as tf
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    out_dir = os.path.join(tmp, "audio_flow_out")
+    events, step_hook = _hooked()
+    t0 = time.time()
+    res = tf.main(_audio_argv(tmp, "flow.epochs=1", "flow.ckpt_every=1",
+                              f"+output_dir={out_dir}"), step_hook=step_hook)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    flow_launches = _counts(kernels)
+    _expect(kernels, "audio_flow (U-Net, evaluate_model_audio)", flow_launches)
+    (ep,), (ev,) = res["epoch_seconds"], res["eval"]
+    if ep["steps"] < 4 or not np.isfinite(list(ev["metrics"].values())).all():
+        fail(f"audio flow: {res['epoch_seconds']} {ev}")
+    check_wavs(sorted(os.path.join(out_dir, f) for f in os.listdir(out_dir)
+                      if f.endswith(".wav")), AUDIO_CROP, "audio flow evaluation")
+
+    _zero(kernels)
+    t0 = time.time()
+    served = gs.main(["--config-name", "audio_dac.yaml",
+                      f"+flow_checkpoint={res['ema_checkpoint']}", f"+n_samples={AUDIO_SERVE}",
+                      "+seed=0", f"+output_dir={os.path.join(tmp, 'audio_gen')}"])
+    serve_wall = time.time() - t0
+    serve_launches = _counts(kernels)
+    _expect(kernels, "audio_serve", serve_launches)
+    if served["images"].shape != (AUDIO_SERVE, AUDIO_CROP, 1) or \
+            not np.isfinite(served["images"]).all() or len(served["wav_files"]) != AUDIO_SERVE:
+        fail(f"audio serving: {served['images'].shape}, {len(served['wav_files'])} WAVs")
+    check_wavs(served["wav_files"], AUDIO_CROP, "audio serving")
+    steps = _steady(events)
+    rec = dict(batch=64, card=card, wall_s=wall, peak_mem_gib=peak, steps=ep["steps"],
+               step_s=steps, steady_samples_per_s=64 / float(np.median(steps)),
+               epoch_samples_per_s=ep["samples"] / ep["seconds"], eval=ev,
+               serve_wall_s=serve_wall, serve_batch_s=served["batch_seconds"],
+               serve_nfe=served["nfe"])
+    print(f"audio_dac flow B=64 16x16x8: {rec['steady_samples_per_s']:.2f} samples/s over "
+          f"steady steps (median of {len(steps)}), {rec['epoch_samples_per_s']:.2f} over the "
+          f"epoch of {ep['steps']} steps, peak {peak:.2f} GiB; evaluation sinkhorn_mel "
+          f"{ev['metrics']['sinkhorn_mel']:.4f} sinkhorn {ev['metrics']['sinkhorn']:.4f} nfe "
+          f"{ev['metrics']['nfe']:.0f} in {sum(ev['seconds'].values()):.2f} s "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in ev['seconds'].items())}); served "
+          f"{AUDIO_SERVE} clips (nfe {served['nfe']}) in {serve_wall:.2f} s, s/batch "
+          f"{[round(x, 4) for x in served['batch_seconds']]}, every WAV 16-bit 16 kHz "
+          f"{AUDIO_CROP} frames | card: {card}", flush=True)
+    return rec, flow_launches, serve_launches
+
+
+def check_audio_small() -> dict:
+    """A small DAC (strides 2,4, base 8, RVQ 2×16×8) and small waveform
+    discriminators (periods 2, 3; 2 scales; base 4), every weight random
+    (the zero-initialised convolutions and log_alpha included: kernels
+    N(0, 0.49/fan_in), the decoder's output kernel ten times that spread,
+    biases N(0, 0.01²), log_alpha N(0, 0.3²)), on the card
+    and on the CPU from the same weights, batches (4 chords of 2,048
+    samples) and RVQ draws (an initialised codebook whose first two codes a
+    level are dead, reseeded by the injected picks), TF32 off: one
+    reconstruction step and one GAN step, each from those initial weights
+    (and fresh optimizers), losses and parameters within
+    1e-3·max(1, |ref|), Adam's first moments within 1e-3 of the largest
+    |ref| of each model and step; the multi-scale STFT and mel losses of two
+    full-length batches (4 × 32,768) within 1e-4·max(1, |ref|).
+
+    The losses' log(|X| + 1e-5) is ill-conditioned where a clip's spectrum
+    lies at the FFT's rounding floor (about 1e-7 of its largest bin): there
+    |rfft|'s gradient points where the rounding does, weighted by up to
+    1e5, and the card's FFT rounds otherwise than the CPU's. Kernels at
+    0.5/√fan_in with biases of 0.3 made such a decoder (a DC offset of 0.22
+    over an AC part of 0.08: bins down to 1.3e-7 of the largest) and the
+    gradients parted by more than their own size, the loss values by 0.2%.
+    At these weights the decoder's output has a spread of about 0.5 around
+    a small mean, saturates in under 1% of its samples, and the spectrum of
+    the reconstruction step's output stays above 1e-5 of its largest bin at
+    every FFT size of the losses (a hundred times the rounding floor); the
+    check prints that floor."""
+    from flocoder_torch.config import load_config
+    from flocoder_torch.data.audio_io import SyntheticAudioDataset
+    from flocoder_torch.generate_samples import CONFIG_DIR
+    from flocoder_torch.models.audio_codec import DACCodec
+    from flocoder_torch.models.audio_disc import DACDiscriminator
+    from flocoder_torch.ops.audio import multiscale_mel_loss, multiscale_stft_loss, stft
+    from flocoder_torch.training.audio import (create_audio_state, make_audio_gan_step,
+                                               make_audio_train_step)
+    from flocoder_torch.training.checkpoint import DAC_PREFIXES, DISC_PREFIXES, to_jax_flat
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(12)
+
+    def randomize(module):
+        with torch.no_grad():
+            for name, p in module.named_parameters():
+                std = (0.7 / np.sqrt(p[0].numel()) if p.ndim > 1
+                       else 0.3 if name.endswith("log_alpha") else 0.01)
+                p.copy_(torch.from_numpy(rng.normal(size=tuple(p.shape)).astype(np.float32)
+                                         * std))
+        return module
+
+    cfg = load_config("audio_dac.yaml", CONFIG_DIR, [
+        "codec.strides=[2,4]", "codec.base_channels=8", "codec.crop_len=2048",
+        "codec.codebook_levels=2", "codec.vq_num_embeddings=16", "codec.learning_rate=1e-4"])
+    codec = randomize(DACCodec(strides=(2, 4), base_channels=8, codebook_levels=2,
+                               vq_num_embeddings=16).init(torch.Generator().manual_seed(0)))
+    with torch.no_grad():
+        codec.decoder.ops[-1].weight.mul_(10.0)
+    disc = randomize(DACDiscriminator(periods=(2, 3), scales=2, base_channels=4))
+    chords = SyntheticAudioDataset(n=8, crop_len=2048, seed=3)
+    batches = [torch.from_numpy(np.stack([chords.get(4 * b + i, None)[0] for i in range(4)]))
+               for b in range(2)]
+    with torch.no_grad():
+        spread = float(codec.encode(batches[0]).std())
+    L, K, D = codec.vq.codebooks.shape
+    counts = rng.uniform(4, 30, (L, K)).astype(np.float32)
+    counts[:, :2] = 0.5
+    codec.vq.assign_({
+        "codebooks": torch.from_numpy(rng.normal(size=(L, K, D)).astype(np.float32) * spread),
+        "ema_counts": torch.from_numpy(counts),
+        "ema_sums": torch.from_numpy(rng.normal(size=(L, K, D)).astype(np.float32)),
+        "initted": torch.tensor(True)})
+    with torch.no_grad():
+        recon = codec(batches[0])[0][..., 0]        # what the reconstruction step sees
+    floor = min(float(sp.min() / sp.max()) for sp in (stft(recon, n) for n in (512, 1024, 2048)))
+    n_tokens = 4 * 2048 // codec.hop
+    draws = [dict(kmeans_seeds=rng.integers(0, n_tokens, (L, K)),
+                  reseed_picks=rng.integers(0, n_tokens, (L, K))) for _ in range(2)]
+    steps = (("recon", make_audio_train_step, False), ("gan", make_audio_gan_step, True))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        losses, params, moments, picks = {}, {}, {}, []
+        for (kind, make, adversarial), batch, draw in zip(steps, batches, draws):
+            # each step from the same initial weights: a weight whose first
+            # gradient is rounding's moves by ±lr on either side, and a second
+            # step would carry that into the discriminators' cancelling sums
+            state = create_audio_state(copy.deepcopy(codec).to(dev),
+                                       copy.deepcopy(disc).to(dev), 1e-4)
+            _, aux, idx = make(cfg)(state, batch.to(dev), None, **draw)
+            losses.update({f"{kind}/{k}": float(v) for k, v in aux.items()})
+            trained = [("codec", state.codec, state.opt_g, DAC_PREFIXES)]
+            if adversarial:
+                trained.append(("discriminators", state.disc, state.opt_d, DISC_PREFIXES))
+            for name, model, opt, prefixes in trained:
+                moments[f"{kind}/{name}"] = {
+                    n: opt.adam.state[p]["exp_avg"].cpu().numpy()
+                    for n, p in model.named_parameters() if p in opt.adam.state}
+                params.update({f"{kind}/{k}": v for k, v in to_jax_flat(model, prefixes).items()})
+            picks.append(idx.cpu().numpy())
+        out[dev] = (losses, params, moments, picks)
+    (l_card, p_card, m_card, i_card), (l_cpu, p_cpu, m_cpu, i_cpu) = out["cuda"], out["cpu"]
+    same_picks = float(np.mean([np.mean(a == b) for a, b in zip(i_card, i_cpu)]))
+    report = {"same_picks": same_picks, "spectrum_floor": floor}
+    for model, ref_m in m_cpu.items():
+        if set(ref_m) != set(m_card[model]) or not ref_m:
+            fail(f"card and CPU optimise different {model} parameters")
+        tol = 1e-3 * max(float(np.abs(r).max()) for r in ref_m.values())
+        errs = {n: float(np.abs(m_card[model][n] - r).max()) for n, r in ref_m.items()}
+        worst_n = max(errs, key=errs.get)
+        if not (tol > 0 and all(np.isfinite(e) and e < tol for e in errs.values())):
+            fail(f"audio card and CPU gradients disagree on {model} {worst_n}: "
+                 f"{errs[worst_n]:.3e} (tol {tol:.3e})")
+        report[f"{model}_moment_err_over_tol"] = errs[worst_n] / tol
+    worst = ("", 0.0)
+    for name, ref in list(l_cpu.items()) + list(p_cpu.items()):
+        a = l_card[name] if name in l_card else p_card[name]
+        ref = np.asarray(ref, np.float64)
+        err = float(np.abs(np.asarray(a, np.float64) - ref).max())
+        tol = 1e-3 * max(1.0, float(np.abs(ref).max()))
+        if not (np.isfinite(err) and err < tol):
+            fail(f"audio card and CPU disagree after the steps on {name}: {err:.3e} "
+                 f"(tol {tol:.3e})")
+        if err / tol > worst[1]:
+            worst = (name, err / tol)
+    report["worst_loss_or_param"] = worst
+
+    long = SyntheticAudioDataset(n=8, crop_len=AUDIO_CROP, seed=5)
+    x, y = (torch.from_numpy(np.stack([long.get(4 * b + i, None)[0][:, 0] for i in range(4)]))
+            for b in range(2))
+    for name, fn in (("stft", lambda a, b: multiscale_stft_loss(a, b, (512, 1024))),
+                     ("mel", lambda a, b: multiscale_mel_loss(a, b, 16000))):
+        ref = float(fn(x, y))
+        got = float(fn(x.cuda(), y.cuda()))
+        if not abs(got - ref) < 1e-4 * max(1.0, abs(ref)):
+            fail(f"multi-scale {name} loss on the card {got} against the CPU's {ref}")
+        report[f"{name}_loss"] = (got, ref)
+    print("audio card vs CPU, one reconstruction and one GAN step (DAC base 8): losses "
+          + " ".join(f"{k}={l_card[k]:.5f}/{l_cpu[k]:.5f}" for k in sorted(l_cpu))
+          + f"; decoder spectrum down to {floor:.2e} of its largest bin; picks equal "
+          f"{same_picks:.4f}; worst loss/parameter {worst[0]} at "
+          f"{worst[1]:.3f} of its tolerance; Adam first moments at "
+          + ", ".join(f"{k[:-len('_moment_err_over_tol')]} {v:.3f}"
+                      for k, v in report.items() if k.endswith("over_tol"))
+          + " of theirs; multi-scale losses card/CPU "
+          + ", ".join(f"{n} {report[f'{n}_loss'][0]:.6f}/{report[f'{n}_loss'][1]:.6f}"
+                      for n in ("stft", "mel")), flush=True)
+    return report
+
+
+def audio_phase(tmp: str, card: str, kernels: dict) -> tuple:
+    """The audio family on audio_dac at full width, cut in depth only (the
+    module docstring's step 27): codec training, its GAN step's breakdown,
+    pre-encoding, flow training with its evaluation, serving, then the card
+    against the CPU. Returns (record, launches by tag)."""
+    print(f"audio_dac cuts: synthetic_n {AUDIO_N} (4 codec steps an epoch), codec epochs 2 "
+          f"(1 recon + 1 GAN; the recipe's 200 with 50 recon), pre-encode augs_per "
+          f"{AUDIO_AUGS} (its 8), flow 1 epoch (its 100), flow.ckpt_every=1 (its 25) to write "
+          "the served checkpoint", flush=True)
+    state, train, train_launches = audio_train(tmp, card, kernels)
+    train["gan_breakdown"] = audio_gan_breakdown(state, card)
+    del state
+    torch.cuda.empty_cache()
+    pre, pre_launches = audio_preencode(tmp, card, kernels)
+    flow, flow_launches, serve_launches = audio_flow(tmp, card, kernels)
+    card_vs_cpu = check_audio_small()
+    return (dict(train=train, preencode=pre, flow=flow, card_vs_cpu=card_vs_cpu),
+            {"audio_train": train_launches, "audio_preencode": pre_launches,
+             "audio_flow": flow_launches, "audio_serve": serve_launches})
+
+
 def print_ptxas(source: str) -> None:
     """Each kernel's registers and spills from ptxas's report of the build of
     ``source`` in this run, demangled."""
@@ -3796,7 +4199,7 @@ def host_profile() -> None:
     for n in ("setup_codec", "load_codec_weights"):
         setattr(codecs, n, timed(n, getattr(codecs, n)))
     for mod in ("generate_samples", "preencode_data", "train_flow", "train_vqgan",
-                "evaluate_model"):
+                "evaluate_model", "train_audio_codec"):
         m = importlib.import_module(f"flocoder_torch.{mod}")
         setattr(m, "main", timed(f"{mod}.main", m.main))
     g = globals()
@@ -3923,7 +4326,7 @@ def main() -> None:
         tpu_train["card_vs_cpu"] = check_train_small_bf16()
         lap("tpu_vqgan_train")
         tpu_vqgan, tpu_vqgan_launches = tpu_vqgan_phase(
-            tmp, dict(paths, codec=plain_copy(tpu_ckpt)), card, kernels)
+            tmp, dict(paths, codec=tpu_ckpt), card, kernels)
         lap("tpu_vqgan")
         sd_paths = write_checkpoints(tmp, CONFIG_DIR, "flowers_sd")
         int8_srv, int8_launches = int8_serving(tmp, paths, sd_paths, card, kernels)
@@ -3948,6 +4351,8 @@ def main() -> None:
         lap("midi")
         demo, demo_launches = tpu_demo(tmp, card, kernels)
         lap("tpu_demo")
+        audio, audio_launches = audio_phase(tmp, card, kernels)
+        lap("audio")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("phase seconds (host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
@@ -3966,7 +4371,7 @@ def main() -> None:
                       "midi_flow": midi_fl, "midi_inpainting_codec": midi_inp,
                       "pe_host": pe_host_rec, "flow_shard": shard_flow, "tpu_demo": demo,
                       "tpu_vqgan_train": tpu_train, "tpu_vqgan": tpu_vqgan,
-                      "int8_serving": int8_srv, "decode_ms_64": decodes,
+                      "int8_serving": int8_srv, "decode_ms_64": decodes, "audio": audio,
                       "int8_conv": {**slice_errs["int8_conv"],
                                     "timing": slice_timing["int8_conv"]},
                       "phase_s": phase_s}))
@@ -3978,7 +4383,7 @@ def main() -> None:
               **midi_flow_launches, **midi_inp_launches, "pe_host": pe_host_launches,
               "flow_shard": shard_flow_launches, "tpu_demo": demo_launches,
               "tpu_vqgan_train": tpu_train_launches, "tpu_vqgan": tpu_vqgan_launches,
-              "int8_serving": int8_launches}
+              "int8_serving": int8_launches, **audio_launches}
 
     def by_path(name):
         paths = {tag: counts[name] for tag, counts in by_tag.items()}

@@ -22,7 +22,8 @@ import torch
 from .config import ldcfg, parse_cli
 from .data.datasets import Loader
 from .evaluation import evaluate_model
-from .generate_samples import CONFIG_DIR, _latest_checkpoint, load_models_once
+from .generate_samples import CONFIG_DIR, load_models_once
+from .models.codecs import latest_checkpoint
 from .train_flow import latent_dataset
 from .utils.device import resolve_device
 
@@ -35,8 +36,8 @@ def main(argv=None) -> dict:
     device = resolve_device(config.get("device", None))
     flow_ckpt = str(config.get("flow_checkpoint", "") or "")
     if not flow_ckpt:
-        flow_ckpt = (_latest_checkpoint("checkpoints", "flowema_") or
-                     _latest_checkpoint("checkpoints", "flow_") or "")
+        flow_ckpt = (latest_checkpoint("checkpoints", "flowema_") or
+                     latest_checkpoint("checkpoints", "flow_") or "")
     if not os.path.exists(flow_ckpt):
         raise SystemExit(f"checkpoint not found: {flow_ckpt!r}")
     b = load_models_once(config, flow_ckpt, device)

@@ -10,24 +10,29 @@ on the card), computes the sample metrics, tracks codebook usage and saves
 grids; a ``mark(name)`` callback, when given, is called after each of its
 parts. An inpainting evaluation passes the latent masks in
 ``cond['mask_cond']``, the mask-blended sources in ``source`` and the pixel
-masks in ``mask_pixels``; their grids are saved beside the others. The
-audio evaluation and the sharded serving branch are not ported yet
+masks in ``mask_pixels``; their grids are saved beside the others.
+``evaluate_model_audio`` is the DAC codec's twin: folded latents decoded to
+waveforms, the latent Sinkhorn and a log-mel one (``sinkhorn_mel``), and
+WAVs instead of grids. The sharded serving branch is not ported yet
 (ROADMAP.md).
 """
 from __future__ import annotations
 
+import os
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from .metrics import compute_sample_metrics, g2rgb
+from .data.audio_io import save_wav
+from .metrics import compute_sample_metrics, g2rgb, sinkhorn_loss
+from .ops.audio import mel_filterbank, stft
 from .sampling import generate_latents
 from .utils.codebook_analysis import analyze_codebooks
 from .utils.viz import save_img_grid
 
 __all__ = ["DECODE_CHUNK", "decode_latents", "sampler", "make_e2e_sampler",
-           "evaluate_model"]
+           "evaluate_model", "evaluate_model_audio"]
 
 DECODE_CHUNK = 128      # latents per decoder call
 
@@ -166,6 +171,59 @@ def evaluate_model(model_apply: Callable, codec, epoch: int, target_latents,
                       tag=f"{tag}{key}_{method}_{nfe}", output_dir=output_dir)
     mark("grids")
     out["FID_feature_backend"] = feature_backend_name(feature_fn)
+    return out
+
+
+@torch.inference_mode()
+def evaluate_model_audio(model_apply: Callable, codec, epoch: int, target_latents,
+                         generator: torch.Generator, cond: Optional[dict] = None,
+                         batch_size: int = 64, n_classes: int = 0, method: str = "rk4",
+                         n_steps: int = 50, cfg_strength: float = 3.0, tag: str = "",
+                         output_dir: str = "./", t_scale: float = 999.0,
+                         n_demo_wavs: int = 4, mark: Optional[Callable] = None,
+                         **_) -> dict:
+    """The audio twin of ``evaluate_model`` for DAC-codec flows: sample
+    ``min(batch_size, len(target_latents))`` folded latents, decode them and
+    the targets to waveforms, and compute ``sinkhorn`` (latents),
+    ``sinkhorn_mel`` (between the per-clip mean log-mel vectors, n_fft 512,
+    40 mels), ``mse``, the latents' means and standard deviations and
+    ``nfe``; write ``{tag}ep{epoch:04d}_{i}_gen.wav`` (``n_demo_wavs``) and
+    ``_target.wav`` (2). The image evaluation's other keyword arguments are
+    accepted and ignored. ``mark`` is called with "sampler", "decode",
+    "metrics" and "wavs"."""
+    mark = mark or (lambda name: None)
+    batch_size = min(batch_size, target_latents.shape[0])
+    tl = target_latents[:batch_size]
+    pl, nfe = _sample_latents(
+        model_apply, codec, generator, method, batch_size, n_steps, cond, n_classes,
+        tl.shape[-3:], cfg_strength, None, None, None, 0.0, t_scale)
+    mark("sampler")
+    decoded_pred = decode_latents(codec, pl)
+    decoded_target = decode_latents(codec, tl)
+    mark("decode")
+    sr = getattr(codec, "sample_rate", 16000)
+    fb = torch.as_tensor(mel_filterbank(sr, 512, 40), device=pl.device)
+
+    def mel_stats(w):           # (B, T, 1) → per-clip mean log-mel (B, 40)
+        return torch.log(stft(w[..., 0], 512) @ fb + 1e-5).mean(dim=1)
+
+    metrics = {"sinkhorn": sinkhorn_loss(tl, pl),
+               "sinkhorn_mel": sinkhorn_loss(mel_stats(decoded_target),
+                                             mel_stats(decoded_pred)),
+               "mse": ((pl - tl) ** 2).mean(),
+               "pred_mean": pl.mean(), "targ_mean": tl.mean(),
+               "pred_std": pl.std(unbiased=False), "targ_std": tl.std(unbiased=False),
+               "nfe": float(nfe)}
+    out = {k: float(v) for k, v in metrics.items()}
+    mark("metrics")
+    os.makedirs(output_dir, exist_ok=True)
+    pred_np, target_np = decoded_pred.cpu().numpy(), decoded_target.cpu().numpy()
+    for i in range(min(n_demo_wavs, batch_size)):
+        save_wav(os.path.join(output_dir, f"{tag}ep{epoch:04d}_{i}_gen.wav"), pred_np[i], sr)
+    for i in range(min(2, batch_size)):
+        save_wav(os.path.join(output_dir, f"{tag}ep{epoch:04d}_{i}_target.wav"),
+                 target_np[i], sr)
+    mark("wavs")
     return out
 
 

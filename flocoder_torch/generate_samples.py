@@ -27,22 +27,30 @@ the checkpoint's flag in either direction. Parameters stay fp32.
 ``codec.quant_decode: int8``, builds the decoder with W8A8 int8
 convolutions (``ops/quant.py``); ``+quant=false`` turns the latter off.
 ``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
-Not ported yet (ROADMAP.md): audio checkpoints, the gradio UI and sharded
+
+Audio (a flow trained on DAC latents, ``audio_dac.yaml``): the latent
+shape comes from ``codec.crop_len`` (``DACCodec.latent_shape``), the codec
+is ``codec.checkpoint`` or, by default, the newest ``dac_*.npz`` under the
+checkpoint config's ``+ckpt_dir`` (``checkpoints``), and each sample is
+written as a 16-bit WAV (``sample_<batch>_<i>.wav``) instead of PNGs. A
+DAC codec in bf16 is not ported yet (ROADMAP.md): serve such a flow with
+``+bf16=false``. Not ported yet (ROADMAP.md): the gradio UI and sharded
 serving.
 """
 from __future__ import annotations
 
-import glob
 import os
 import time
-from typing import Optional
 
 import numpy as np
 import torch
 
 from .config import ldcfg, parse_cli
+from .data.audio_io import save_wav
 from .evaluation import sampler
-from .models.codecs import VQVAE, load_codec_weights, setup_codec
+from .models.audio_codec import DACCodec
+from .models.codecs import (VQVAE, codec_checkpoint, latest_checkpoint, load_codec_weights,
+                            setup_codec)
 from .models.flow_model import build_flow_model
 from .models.sd_vae import SDVAE
 from .training.checkpoint import UNET_PREFIXES, load_checkpoint, load_jax_flat, subtree
@@ -50,17 +58,12 @@ from .utils.device import resolve_device
 from .utils.viz import save_img, save_img_grid
 
 __all__ = ["load_models_once", "generate_samples", "save_sample_batch",
-           "midi_to_audio", "main", "CONFIG_DIR"]
+           "save_wav_batch", "midi_to_audio", "main", "CONFIG_DIR"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs")
 
 _MODEL_CACHE: dict = {}
-
-
-def _latest_checkpoint(ckpt_dir: str, prefix: str) -> Optional[str]:
-    files = glob.glob(os.path.join(ckpt_dir, f"{prefix}*.npz"))
-    return max(files, key=os.path.getmtime) if files else None
 
 
 def load_models_once(config, flow_ckpt_path: str, device) -> dict:
@@ -84,8 +87,9 @@ def load_models_once(config, flow_ckpt_path: str, device) -> dict:
     quant = quant_req if quant_req is not None else ck_quant
     dtype = torch.bfloat16 if bf16 else torch.float32
     codec = setup_codec(ck_config, device=device, dtype=dtype, quant_decode=quant)
-    image_size = int(ldcfg(ck_config, "image_size", 128))
-    H, W, C = codec.latent_shape(image_size)
+    is_audio = isinstance(codec, DACCodec)
+    H, W, C = codec.latent_shape(int(ldcfg(ck_config, "crop_len", 32768)) if is_audio
+                                 else int(ldcfg(ck_config, "image_size", 128)))
     n_classes = int(ldcfg(ck_config, "n_classes", 0))
     meanflow = bool(ldcfg(ck_config, "meanflow", False))
     params = ck["model_state_dict"]
@@ -95,10 +99,9 @@ def load_models_once(config, flow_ckpt_path: str, device) -> dict:
     load_jax_flat(model, subtree(params, "model/"), UNET_PREFIXES)
     model.eval()
 
-    if isinstance(codec, (VQVAE, SDVAE)):    # seeded as pre-encoding seeds it
+    if isinstance(codec, (VQVAE, SDVAE, DACCodec)):     # seeded as pre-encoding seeds it
         codec.init(torch.Generator(device).manual_seed(0))
-    load_codec_weights(codec, ck_config.codec.get("checkpoint")
-                       if "codec" in ck_config else None)
+    load_codec_weights(codec, codec_checkpoint(ck_config))
     codec.eval()
 
     bundle = dict(model=model, codec=codec, latent_shape=(H, W, C),
@@ -143,18 +146,30 @@ def midi_to_audio(midi_path: str) -> str:
     return wav
 
 
+def save_wav_batch(decoded: np.ndarray, batch_idx: int, output_dir: str,
+                   sample_rate: int) -> list:
+    """Each waveform (T, 1) of a batch as a 16-bit WAV; returns the paths."""
+    os.makedirs(output_dir, exist_ok=True)
+    paths = [os.path.join(output_dir, f"sample_{batch_idx:03d}_{i:03d}.wav")
+             for i in range(decoded.shape[0])]
+    for path, wave in zip(paths, decoded):
+        save_wav(path, wave, sample_rate)
+    return paths
+
+
 def generate_samples(config) -> dict:
-    """Sample ``+n_samples`` images in batches of ``batch_size`` and write
-    them to ``+output_dir``. Returns ``{'images': (N, H, W, 3) array,
-    'batch_seconds': [...], 'nfe': int, 'midi_files': [.mid paths],
-    'device': str, 'bf16': bool, 'quant': bool}``, the last two the serving
-    dtype and int8 decode in use."""
+    """Sample ``+n_samples`` images (waveforms, for an audio codec) in
+    batches of ``batch_size`` and write them to ``+output_dir``. Returns
+    ``{'images': (N, H, W, 3) array (audio: (N, T, 1)), 'batch_seconds':
+    [...], 'nfe': int, 'midi_files': [.mid paths], 'wav_files': [.wav
+    paths], 'device': str, 'bf16': bool, 'quant': bool}``, the last two the
+    serving dtype and int8 decode in use."""
     device = resolve_device(config.get("device", None))
     flow_ckpt = str(config.get("flow_checkpoint", "") or
                     ldcfg(config, "flow_checkpoint", ""))
     if not flow_ckpt:
-        flow_ckpt = (_latest_checkpoint("checkpoints", "flowema_") or
-                     _latest_checkpoint("checkpoints", "flow_") or "")
+        flow_ckpt = (latest_checkpoint("checkpoints", "flowema_") or
+                     latest_checkpoint("checkpoints", "flow_") or "")
     if not flow_ckpt or not os.path.exists(flow_ckpt):
         raise SystemExit(f"flow checkpoint not found: {flow_ckpt!r} "
                          "(pass +flow_checkpoint=...)")
@@ -185,7 +200,7 @@ def generate_samples(config) -> dict:
         with torch.inference_mode():
             init_latents = b["codec"].encode(arr.to(device))
 
-    images, seconds, mids, nfe = [], [], [], 0
+    images, seconds, mids, wavs, nfe = [], [], [], [], 0
     done, batch_idx = 0, 0
     while done < n_samples:
         bs = min(batch_size, n_samples - done)
@@ -204,14 +219,18 @@ def generate_samples(config) -> dict:
         dt = time.time() - t0
         print(f"batch {batch_idx}: {bs} samples, nfe={nfe}, {dt:.2f}s "
               f"({bs / dt:.1f} samples/s)")
-        mids += save_sample_batch(decoded, batch_idx, output_dir, is_midi=is_midi)
+        if isinstance(b["codec"], DACCodec):      # waveforms: WAVs, not PNGs
+            wavs += save_wav_batch(decoded, batch_idx, output_dir, b["codec"].sample_rate)
+        else:
+            mids += save_sample_batch(decoded, batch_idx, output_dir, is_midi=is_midi)
         images.append(decoded)
         seconds.append(dt)
         done += bs
         batch_idx += 1
     print(f"wrote {done} samples to {output_dir}/")
     return {"images": np.concatenate(images), "batch_seconds": seconds,
-            "nfe": nfe, "midi_files": mids, "device": str(device), "bf16": b["bf16"],
+            "nfe": nfe, "midi_files": mids, "wav_files": wavs, "device": str(device),
+            "bf16": b["bf16"],
             "quant": b["quant"]}
 
 

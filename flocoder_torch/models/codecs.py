@@ -26,12 +26,16 @@ declares it. ``setup_codec`` builds the codec in bf16 when ``codec.bf16``
 is set (or ``dtype=`` says so). ``quant_encode`` / ``quant_decode`` route
 the convolutions the JAX package routes to its W8A8 ``QuantConv``
 (``ops/quant.py``) there; the compression and output heads stay plain. Not
-ported yet (ROADMAP.md): ring attention, and the vqgan_plus / dac codecs.
+ported yet (ROADMAP.md): ring attention, the vqgan_plus codec and a DAC
+codec in bf16. ``setup_codec`` also builds the DAC audio codec
+(``models/audio_codec.py``) for ``codec.choice=dac``.
 """
 from __future__ import annotations
 
 import contextlib
+import glob
 import math
+import os
 from typing import Tuple
 
 import torch
@@ -47,7 +51,7 @@ from .layers import Dense, Scope, SiLU, conv, group_norm, init_params, silu
 __all__ = ["gn_groups", "NoOpAE", "SimpleResizeAE", "VQVAE", "VQVAEEncoder",
            "VQVAEDecoder", "AttnBlock", "NATTENBlock", "EncDecResidualBlock",
            "NoiseInjection", "SpatialNonLocalAttention", "setup_codec",
-           "load_codec_weights"]
+           "load_codec_weights", "latest_checkpoint", "codec_checkpoint"]
 
 
 def gn_groups(proposed: int, channels: int) -> int:
@@ -533,13 +537,14 @@ class VQVAE(nn.Module):
 
 def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module:
     """Build a codec from ``config.codec.choice`` ∈ {noop, resize, vqgan,
-    sd} on ``device``. Weights are the caller's concern
+    sd, dac} on ``device``. Weights are the caller's concern
     (``load_codec_weights``). Compute dtype: ``dtype`` when given, else
     bf16 if and only if ``codec.bf16`` is set (never because of
     ``flow.bf16``). ``codec.quant_encode`` / ``codec.quant_decode`` =
     ``int8`` build the W8A8 encoder / decoder (``ops/quant.py``);
     ``quant_decode`` (a bool), when given, overrides the latter, as serving's
-    ``+quant`` does. Other choices raise."""
+    ``+quant`` does. ``dac`` computes in fp32 only: bf16 raises. Other
+    choices raise."""
     from ..config import ldcfg
     choice = config.codec.choice if "codec" in config else "noop"
     image_size = ldcfg(config, "image_size", 128)
@@ -576,7 +581,20 @@ def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module
             from .sd_vae import SDVAE
             codec = SDVAE(image_size=image_size, dtype=dtype, quant_decode=quant_decode,
                           quant_encode=quant_encode)
-        elif choice in ("vqgan_plus", "dac"):
+        elif choice == "dac":
+            if dtype != torch.float32:
+                raise NotImplementedError("a DAC codec in bf16 is not ported yet "
+                                          "(ROADMAP.md)")
+            from .audio_codec import DACCodec
+            codec = DACCodec(
+                sample_rate=int(ldcfg(config, "sample_rate", 16000)),
+                strides=tuple(ldcfg(config, "strides", [2, 4, 8, 8])),
+                base_channels=int(ldcfg(config, "base_channels", 32)),
+                vq_embedding_dim=int(ldcfg(config, "vq_embedding_dim", 8)),
+                codebook_levels=int(ldcfg(config, "codebook_levels", 4)),
+                vq_num_embeddings=int(ldcfg(config, "vq_num_embeddings", 512)),
+                commitment_weight=float(ldcfg(config, "commitment_weight", 0.25)))
+        elif choice == "vqgan_plus":
             raise NotImplementedError(f"codec '{choice}' is not ported yet "
                                       "(ROADMAP.md)")
         else:
@@ -587,15 +605,16 @@ def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module
 def load_codec_weights(codec: nn.Module, checkpoint=None) -> list:
     """Load a codec's weights in place, strictly: for the SD VAE first its
     converted weights file (``SDVAE.weights_path``) when it exists, then,
-    for the SD VAE and the VQVAE, ``checkpoint`` (an npz of the checkpoint
-    contract) when that file exists. A file that does not fit raises.
-    Returns the paths loaded; with none the codec keeps its weights."""
-    import os
-
-    from ..training.checkpoint import (SDVAE_PREFIXES, VQVAE_PREFIXES,
+    for the SD VAE, the VQVAE and the DAC codec, ``checkpoint`` (an npz of
+    the checkpoint contract) when that file exists. A file that does not
+    fit raises. Returns the paths loaded; with none the codec keeps its
+    weights."""
+    from ..training.checkpoint import (DAC_PREFIXES, SDVAE_PREFIXES, VQVAE_PREFIXES,
                                        load_checkpoint, load_jax_flat)
+    from .audio_codec import DACCodec
     from .sd_vae import SDVAE, load_sd_vae_weights
-    prefixes = {SDVAE: SDVAE_PREFIXES, VQVAE: VQVAE_PREFIXES}.get(type(codec))
+    prefixes = {SDVAE: SDVAE_PREFIXES, VQVAE: VQVAE_PREFIXES,
+                DACCodec: DAC_PREFIXES}.get(type(codec))
     if prefixes is None:            # noop and resize hold no weights
         return []
     loaded = []
@@ -609,3 +628,24 @@ def load_codec_weights(codec: nn.Module, checkpoint=None) -> list:
           f"codec checkpoint not found ({checkpoint!r}): the codec keeps its "
           "seeded random weights")
     return loaded
+
+
+def latest_checkpoint(ckpt_dir: str, prefix: str):
+    """The newest ``{ckpt_dir}/{prefix}*.npz`` by modification time, or
+    None."""
+    files = glob.glob(os.path.join(ckpt_dir, f"{prefix}*.npz"))
+    return max(files, key=os.path.getmtime) if files else None
+
+
+def codec_checkpoint(config, given=None):
+    """The codec checkpoint a script loads: ``given`` (else
+    ``codec.checkpoint``) where that file exists; for the DAC codec
+    otherwise the newest ``dac_*.npz`` under ``+ckpt_dir`` (default
+    ``checkpoints``), as the JAX scripts default to the newest
+    ``checkpoints/dac_*``."""
+    if given is None and "codec" in config:
+        given = config.codec.get("checkpoint")
+    is_dac = "codec" in config and config.codec.get("choice") == "dac"
+    if is_dac and not (given and os.path.exists(str(given))):
+        given = latest_checkpoint(str(config.get("ckpt_dir", "checkpoints")), "dac_")
+    return given

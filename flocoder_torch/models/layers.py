@@ -173,7 +173,7 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     device and copies into the parameters; returns ``module``."""
     dev = generator.device
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             w = torch.randn(m.weight.shape, generator=generator, device=dev)
             m.weight.copy_(w * math.sqrt(1.0 / fan_in))

@@ -63,11 +63,21 @@ bf16 encoder hands its bf16 activations to K3's bf16 case. ``+quant=int8``
 script does: the encoder's convolutions run W8A8 int8 (``ops/quant.py``),
 the compression head stays plain.
 
+Audio (``codec.choice=dac``, ``audio_dac.yaml``): a folder of ``.wav``
+files (its ``train``/``val`` subfolder when present) or, when ``data`` is
+not a folder, the synthetic chords (256 clips); random crops of
+``codec.crop_len`` samples are the frozen augmentation. The DAC encodes
+each batch (B, T, 1) and ``fold_latents`` folds the (B, T', D) sequence into
+(B, √T', √T', D) latent images, written as image latents are (files or a
+shard; with ``preencoding.quantize=true`` through the RVQ first). The codec
+is ``codec.checkpoint`` or, by default, the newest ``dac_*.npz`` under
+``+ckpt_dir`` (``checkpoints``), loaded strictly. ``inpainting=true``
+with ``dac`` raises, as in the JAX script.
+
 ``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
 A ``data`` path that names no folder (a torchvision set's name, say) takes
 the synthetic set, as the JAX script does without torchvision
-(``data/datasets.py``); no named set is downloaded. Not ported yet (it
-raises, ROADMAP.md): audio data.
+(``data/datasets.py``); no named set is downloaded.
 """
 from __future__ import annotations
 
@@ -81,6 +91,7 @@ import torch
 
 from .config import ldcfg, parse_cli
 from .data import native_image
+from .data.audio_io import AudioFolderDataset, SyntheticAudioDataset
 from .data.datasets import (ImageFolderDataset, InfiniteDataset, Loader,
                             SyntheticImageDataset)
 from .data.device_augs import default_src_size, load_resized, make_device_augment
@@ -88,18 +99,17 @@ from .data.shard import ShardWriter
 from .data.transforms import image_transforms, midi_transforms
 from .generate_samples import CONFIG_DIR
 from .inpainting import generate_mask_batch
-from .models.codecs import (VQVAE, NoOpAE, SimpleResizeAE, load_codec_weights,
-                            setup_codec)
+from .models.audio_codec import DACCodec, fold_latents
+from .models.codecs import (VQVAE, NoOpAE, SimpleResizeAE, codec_checkpoint,
+                            load_codec_weights, setup_codec)
 from .models.layers import init_params
 from .utils.device import resolve_device
 
 __all__ = ["open_split", "process_dataset", "load_codec", "host_decoder", "main"]
 
 
-def _refuse_unported(config) -> None:
-    if "codec" in config and config.codec.get("choice") == "dac":
-        raise NotImplementedError("pre-encoding with audio data (codec.choice=dac) is "
-                                  "not ported yet (ROADMAP.md)")
+def _is_audio(config) -> bool:
+    return "codec" in config and config.codec.get("choice") == "dac"
 
 
 def _quant_flag(config) -> None:
@@ -115,18 +125,22 @@ def load_codec(config, device) -> torch.nn.Module:
     """The recipe's codec on ``device`` with seeded random weights (seed 0),
     then its weights loaded strictly where the files exist
     (``models.codecs.load_codec_weights``: for the SD VAE
-    ``weights/sd_vae_ft_mse.npz``, then ``codec.checkpoint``)."""
+    ``weights/sd_vae_ft_mse.npz``, then ``codec_checkpoint``)."""
     _quant_flag(config)
     codec = setup_codec(config, device=device)
     init_params(codec, torch.Generator(device).manual_seed(0))
-    load_codec_weights(codec, config.codec.get("checkpoint") if "codec" in config
-                       else None)
+    load_codec_weights(codec, codec_checkpoint(config))
     return codec.eval()
 
 
 def _encoder(config, codec):
-    """The batch → latents function of the three encode modes."""
+    """The batch → latents function of the three encode modes; the DAC
+    codec's latents folded into images."""
     pe = config.get("preencoding", {})
+    if isinstance(codec, DACCodec):
+        if bool(pe.get("quantize", False)):
+            return lambda x: codec.quantize(fold_latents(codec.encode(x)))[0]
+        return lambda x: fold_latents(codec.encode(x))
     if bool(pe.get("quantize", False)) and isinstance(codec, VQVAE):
         if bool(pe.get("fused_vq", False)):
             return lambda x: codec.encode_quantize_fused(x)[0]
@@ -139,8 +153,9 @@ def _is_midi(config) -> bool:
 
 
 def _device_augs(config) -> bool:
-    """``preencoding.device_augs``, which MIDI data never takes."""
-    return bool(config.get("preencoding", {}).get("device_augs", False)) and not _is_midi(config)
+    """``preencoding.device_augs``, which MIDI and audio data never take."""
+    return (bool(config.get("preencoding", {}).get("device_augs", False))
+            and not _is_midi(config) and not _is_audio(config))
 
 
 def host_decoder(config) -> tuple:
@@ -148,12 +163,52 @@ def host_decoder(config) -> tuple:
     ``'native'`` (``data/native_image.py``'s C++ decode and resize),
     ``'pil'`` (PIL's decode, then ``device_augs.load_resized``, when the
     native library does not build) or ``'pil+transforms'`` (the host
-    transforms, without device_augs)."""
+    transforms, without device_augs) or ``'wav'`` (audio: the crops are
+    read by ``data/audio_io.py``)."""
+    if _is_audio(config):
+        return "wav", "audio crops (data/audio_io.py)"
     if not _device_augs(config):
         return "pil+transforms", "preencoding.device_augs is off"
     if native_image.available():
         return "native", f"built {native_image.library_file()}"
     return "pil", f"the native decoder did not build: {native_image.why_unavailable()}"
+
+
+def _audio_dataset(config, data_path: str, split: str):
+    """The WAV folder (its ``split`` subfolder when present) or the
+    synthetic chords; random crops are the frozen augmentation."""
+    crop_len = int(config.codec.get("crop_len", 32768))
+    sample_rate = int(config.codec.get("sample_rate", 16000))
+    if os.path.isdir(data_path):
+        sub = os.path.join(data_path, split)
+        dataset = AudioFolderDataset(sub if os.path.isdir(sub) else data_path,
+                                     crop_len=crop_len, sample_rate=sample_rate)
+        print(f"[{split}] WAV folder {dataset.path}: {len(dataset)} files")
+        return dataset
+    print(f"data path {data_path!r} is not a folder: pre-encoding the synthetic chords")
+    return SyntheticAudioDataset(crop_len=crop_len, sample_rate=sample_rate,
+                                 n_classes=int(ldcfg(config, "n_classes", 4)))
+
+
+def _image_dataset(config, data_path: str, split: str, image_size: int):
+    """The image folder or the synthetic image set, with the host
+    transforms (or, with device_augs, the host's decode and resize)."""
+    if _device_augs(config):
+        src_size = default_src_size(image_size)
+        if host_decoder(config)[0] == "native":
+            tf = native_image.NativeLoadResized(src_size)
+        else:
+            def tf(img, rng):
+                return load_resized(img, src_size)
+    else:
+        tf = midi_transforms(image_size) if _is_midi(config) else image_transforms(image_size)
+    if os.path.isdir(data_path):
+        dataset = ImageFolderDataset(data_path, transform=tf)
+        print(f"[{split}] image folder {data_path}: {len(dataset)} images")
+        return dataset
+    print(f"data path {data_path!r} is not a folder (the port downloads "
+          "nothing): pre-encoding the synthetic image set")
+    return SyntheticImageDataset(image_size=image_size, transform=tf)
 
 
 def open_split(config, split: str) -> tuple:
@@ -171,22 +226,8 @@ def open_split(config, split: str) -> tuple:
     num_workers = int(pe.get("num_workers", 4))
     seed = int(ldcfg(config, "seed", 0)) + (0 if split == "train" else 1)
 
-    if _device_augs(config):
-        src_size = default_src_size(image_size)
-        if host_decoder(config)[0] == "native":
-            tf = native_image.NativeLoadResized(src_size)
-        else:
-            def tf(img, rng):
-                return load_resized(img, src_size)
-    else:
-        tf = midi_transforms(image_size) if _is_midi(config) else image_transforms(image_size)
-    if os.path.isdir(data_path):
-        dataset = ImageFolderDataset(data_path, transform=tf)
-        print(f"[{split}] image folder {data_path}: {len(dataset)} images")
-    else:
-        print(f"data path {data_path!r} is not a folder (the port downloads "
-              "nothing): pre-encoding the synthetic image set")
-        dataset = SyntheticImageDataset(image_size=image_size, transform=tf)
+    dataset = (_audio_dataset(config, data_path, split) if _is_audio(config)
+               else _image_dataset(config, data_path, split, image_size))
 
     # 90/10 split by a fixed shuffle of the item indices
     idx = np.arange(len(dataset))
@@ -230,7 +271,6 @@ def process_dataset(config, split: str, codec, device) -> dict:
     augments, encodes, writes), ``decoder`` the host's image decoder
     (``host_decoder``). With ``inpainting`` a latent is one triplet (two
     encodes)."""
-    _refuse_unported(config)
     data_path = os.path.expanduser(str(config.data))
     pe = config.get("preencoding", {})
     max_gb = float(pe.get("max_storage_gb", 60))
@@ -238,6 +278,9 @@ def process_dataset(config, split: str, codec, device) -> dict:
     if fmt not in ("files", "shard"):
         raise ValueError(f"preencoding.format={fmt!r}: files or shard")
     inpainting = bool(config.get("inpainting", False))
+    if inpainting and isinstance(codec, DACCodec):
+        raise SystemExit("inpainting triplets are an image-pipeline feature; "
+                         "codec.choice=dac pre-encodes waveforms")
     image_size = int(ldcfg(config, "image_size", 128))
     seed = int(ldcfg(config, "seed", 0)) + (0 if split == "train" else 1)
     out_dir = f"{data_path}_encoded_{config.codec.choice}"

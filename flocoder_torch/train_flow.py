@@ -43,7 +43,14 @@ The JAX-only dispatch knobs ``flow.steps_per_dispatch`` and ``rng_impl``
 are accepted and change nothing here (ROADMAP.md). Not ported yet
 (ROADMAP.md), and refused: meshes and FSDP, ring attention, MoE expert
 parallelism, pipeline parallelism, orbax and sharded checkpoints, reflow
-datasets, audio codecs, wandb logging.
+datasets, wandb logging.
+
+Audio (``codec.choice=dac``, ``audio_dac.yaml``): the flow trains on the
+folded 16×16×8 latents that pre-encoding wrote (``flow.pre_encoded=false``
+raises, as in the JAX script); the codec is ``codec_checkpoint`` or
+``codec.checkpoint``, by default the newest ``dac_*.npz`` under
+``+ckpt_dir``; the evaluation is ``evaluate_model_audio`` (waveforms,
+``sinkhorn_mel``, WAVs instead of grids).
 """
 from __future__ import annotations
 
@@ -58,10 +65,11 @@ import torch
 from .config import ldcfg, parse_cli
 from .data.datasets import Loader, PreEncodedDataset, create_image_loaders
 from .data.shard import ShardDataset
-from .evaluation import evaluate_model
+from .evaluation import evaluate_model, evaluate_model_audio
 from .generate_samples import CONFIG_DIR
 from .inpainting import MaskEncoder
-from .models.codecs import VQVAE, load_codec_weights, setup_codec
+from .models.audio_codec import DACCodec
+from .models.codecs import VQVAE, codec_checkpoint, load_codec_weights, setup_codec
 from .models.flow_model import build_flow_model
 from .models.layers import init_params
 from .models.sd_vae import SDVAE
@@ -201,10 +209,14 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
 
     # ---- the frozen codec: the evaluation's decode, the on-the-fly encode
     codec = setup_codec(config, device=device)
-    if isinstance(codec, (VQVAE, SDVAE)):
+    is_audio = isinstance(codec, DACCodec)
+    if is_audio and not pre_encoded:
+        raise SystemExit("codec.choice=dac trains flows on pre-encoded latents "
+                         "(run preencode_data first)")
+    if isinstance(codec, (VQVAE, SDVAE, DACCodec)):
         codec.init(gen.manual_seed(seed))
-        load_codec_weights(codec, ldcfg(config, "codec_checkpoint", None) or (
-            config.codec.get("checkpoint") if "codec" in config else None))
+        load_codec_weights(codec, codec_checkpoint(
+            config, ldcfg(config, "codec_checkpoint", None)))
     codec.eval().requires_grad_(False)
     encode_fn = None
 
@@ -363,6 +375,7 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
             runs = [("", state.model)]
             if epoch > 5 and epoch % 2 == 0:
                 runs.append(("ema_", state.ema))
+            eval_fn = evaluate_model_audio if is_audio else evaluate_model
             for tag, net in runs:
                 marks, t_mark = {}, [time.time()]
 
@@ -371,7 +384,7 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
                     marks[name] = time.time() - t_mark[0]
                     t_mark[0] = time.time()
 
-                metrics = evaluate_model(
+                metrics = eval_fn(
                     net, codec, epoch, vb["target"], gen,
                     cond={"class_cond": vb["class_cond"], "mask_cond": eval_mask_cond},
                     batch_size=min(batch_size, 256), n_classes=n_classes,
@@ -383,7 +396,9 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
                     t_scale=t_scale, mark=mark)
                 evals.append({"epoch": epoch, "tag": tag, "val_loss": val_loss,
                               "metrics": metrics, "seconds": marks})
-                print(f"  {tag}metrics: FID_px {metrics['FID_px']:.2f}  "
+                print(f"  {tag}metrics: " +
+                      (f"sinkhorn_mel {metrics['sinkhorn_mel']:.4f}  " if is_audio else
+                       f"FID_px {metrics['FID_px']:.2f}  ") +
                       f"sinkhorn {metrics['sinkhorn']:.4f}  ({sum(marks.values()):.2f} s)")
             if epoch % 2 == 0:
                 cb_tracker.reset_all()

@@ -10,6 +10,10 @@ Port modules carry linen's names (``models/layers.py``), so a key maps by
 ``.`` ↔ ``/`` under a prefix, and the value by its module type:
 
 - ``nn.Conv2d`` weight OIHW ↔ ``kernel`` HWIO;
+- ``nn.Conv1d`` weight (out, in/groups, k) ↔ ``kernel`` (k, in/groups,
+  out): the audio codec's convolutions, grouped ones and its transposed
+  convolutions (``models/audio_codec.py`` holds those in a ``Conv1d``'s
+  layout; flax's ``ConvTranspose`` kernel is (k, in, out) too);
 - ``nn.Linear`` weight (out, in) ↔ Dense ``kernel`` (in, out);
 - ``nn.GroupNorm`` weight ↔ ``scale``;
 - ``nn.Embedding`` weight ↔ ``embedding``;
@@ -24,13 +28,14 @@ in optax's layout for ``chain(clip_by_global_norm, adam(schedule))``:
 schedule's ``1/1/count`` (``adam_to_jax_flat`` / ``load_adam_jax_flat``). A
 trained codec is
 saved as the JAX trainer saves ``state.params`` (``to_jax_flat(codec,
-VQVAE_PREFIXES)``, prefix ``vqgan_``; the SD VAE with ``SDVAE_PREFIXES``);
+VQVAE_PREFIXES)``, prefix ``vqgan_``; the SD VAE with ``SDVAE_PREFIXES``;
+the DAC audio codec with ``DAC_PREFIXES``, prefix ``dac_``);
 an inpainting flow run saves its mask encoder beside the U-Net
 (``MASK_ENCODER_PREFIXES``, under ``mask_encoder/params``) and, for the
 two optimizer groups of optax's ``multi_transform``, each group's Adam
 state under ``inner_states/{model,mask}/inner_state/`` (``OPT_GROUPS``);
 a discriminator's flat tree is its flax variables, ``params/…`` and
-``batch_stats/…`` (``DISC_PREFIXES``), and
+``batch_stats/…`` (``DISC_PREFIXES``, the waveform discriminators' too), and
 the VGG16 features' its ``params/…`` (``VGG_PREFIXES``).
 """
 from __future__ import annotations
@@ -48,7 +53,8 @@ from ..config import config_from_dict, to_dict
 
 __all__ = ["checkpoint_payload", "save_checkpoint", "load_checkpoint", "to_jax_flat",
            "load_jax_flat", "adam_to_jax_flat", "load_adam_jax_flat", "UNET_PREFIXES",
-           "VQVAE_PREFIXES", "SDVAE_PREFIXES", "DISC_PREFIXES", "VGG_PREFIXES",
+           "VQVAE_PREFIXES", "SDVAE_PREFIXES", "DAC_PREFIXES", "DISC_PREFIXES",
+           "VGG_PREFIXES",
            "MASK_ENCODER_PREFIXES", "OPT_GROUPS", "subtree"]
 
 _SEP = "/"
@@ -61,6 +67,8 @@ UNET_PREFIXES = {"": "model/params"}
 VQVAE_PREFIXES = {"encoder": "encoder/params", "decoder": "decoder/params",
                   "vq": "vq"}
 SDVAE_PREFIXES = {"encoder": "encoder/params", "decoder": "decoder/params"}
+# the DAC audio codec's tree has the VQVAE's heads (models/audio_codec.py)
+DAC_PREFIXES = VQVAE_PREFIXES
 MASK_ENCODER_PREFIXES = {"": "mask_encoder/params"}
 # optax multi_transform's per-group states of the JAX flow optimizer with a
 # mask encoder (training/flow.py:make_flow_optimizer)
@@ -88,6 +96,8 @@ def _entries(module: nn.Module, prefixes: dict) -> dict:
             if pname == "weight":
                 if isinstance(m, nn.Conv2d):
                     kind, leaf = "conv", "kernel"
+                elif isinstance(m, nn.Conv1d):
+                    kind, leaf = "conv1d", "kernel"
                 elif isinstance(m, nn.Linear):
                     kind, leaf = "dense", "kernel"
                 elif isinstance(m, nn.GroupNorm):
@@ -112,6 +122,8 @@ def _to_jax(t: torch.Tensor, kind: str) -> np.ndarray:
     a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     if kind == "conv":
         return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    if kind == "conv1d":
+        return np.ascontiguousarray(a.transpose(2, 1, 0))
     if kind == "dense":
         return np.ascontiguousarray(a.T)
     return a.copy()
@@ -120,6 +132,8 @@ def _to_jax(t: torch.Tensor, kind: str) -> np.ndarray:
 def _from_jax(a: np.ndarray, kind: str) -> np.ndarray:
     if kind == "conv":
         return a.transpose(3, 2, 0, 1)
+    if kind == "conv1d":
+        return a.transpose(2, 1, 0)
     if kind == "dense":
         return a.T
     return a
@@ -233,10 +247,13 @@ def save_checkpoint(params: dict, epoch: int, ckpt_dir: str = "checkpoints",
     ``to_jax_flat``), optional ``ema_state_dict/…`` and
     ``optimizer_state_dict/…``, ``epoch`` and ``config_json``; with
     ``keep``, only the newest ``keep`` files of the prefix stay. Returns the
-    path."""
+    path. The npz members are stored, not deflated (``np.savez``): the JAX
+    writer compresses them, and either package's ``np.load`` reads both;
+    float weights barely compress, and zlib took a quarter of a long run's
+    host time."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"{prefix}{epoch}.npz")
-    np.savez_compressed(path, **checkpoint_payload(params, epoch, config, ema, opt_state))
+    np.savez(path, **checkpoint_payload(params, epoch, config, ema, opt_state))
     if keep:
         files = sorted(glob.glob(os.path.join(ckpt_dir, f"{prefix}*.npz")),
                        key=os.path.getmtime)

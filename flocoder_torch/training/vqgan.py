@@ -55,8 +55,9 @@ _WIDE = (torch.float32, torch.float64)     # the dtypes torch.optim.Adam steps
 
 
 class ClippedAdam:
-    """optax ``chain(clip_by_global_norm(grad_clip), adam(lr))`` over
-    ``params``. A parameter without a gradient takes a zero one, as optax
+    """optax ``chain(clip_by_global_norm(grad_clip), adam(lr, b1, b2))``
+    over ``params``, ``betas`` = (b1, b2) (optax's default (0.9, 0.999);
+    the audio codec's optimizer takes (0.8, 0.99)). A parameter without a gradient takes a zero one, as optax
     gives every leaf a gradient. ``lr`` is a float or a host function
     ``schedule(count) -> float`` of the optimizer step, as optax's.
 
@@ -72,11 +73,12 @@ class ClippedAdam:
     torch's keys (``step``, ``exp_avg``, ``exp_avg_sq``); ``state_of(p)``
     reads either."""
 
-    betas, eps = (0.9, 0.999), 1e-8
+    eps = 1e-8
 
-    def __init__(self, params, lr, grad_clip: float = 1.0):
+    def __init__(self, params, lr, grad_clip: float = 1.0, betas=(0.9, 0.999)):
         self.params = list(params)
         self.grad_clip = grad_clip
+        self.betas = tuple(betas)
         self.schedule = lr if callable(lr) else None
         self.lr = 0.0 if callable(lr) else lr
         self.narrow = [p for p in self.params if p.dtype not in _WIDE]

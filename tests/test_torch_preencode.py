@@ -178,11 +178,32 @@ def test_preencode_refuses_to_overwrite_a_split(encoded):
 ])
 def test_unported_options_raise(override, tmp_path):
     """The options still unported raise, naming ROADMAP.md. Device augs,
-    the shard format, ``+quant=int8`` and ``codec.bf16`` are ported since:
-    on the synthetic set each now runs and writes its output (the
-    augmented latents of 32² crops; one shard per split that reads back
-    every latent; int8: the encoder's convolutions W8A8 and its head plain;
-    bf16: a bf16 codec whose latents are written as float32)."""
+    the shard format, ``+quant=int8``, ``codec.bf16`` and the DAC audio
+    codec are ported since: on the synthetic set each now runs and writes
+    its output (the augmented latents of 32² crops; one shard per split
+    that reads back every latent; int8: the encoder's convolutions W8A8 and
+    its head plain; bf16: a bf16 codec whose latents are written as
+    float32; dac: the synthetic chords' folded latents, quantized through
+    the RVQ; tests/test_torch_audio_slice.py holds them to the JAX
+    script's)."""
+    if override == "codec.choice=dac":
+        res = pe.main(["--config-name", "smoke_vqgan", "+device=cpu",
+                       f"data={tmp_path / 'absent'}", *OVERRIDES, "preencoding.augs_per=1",
+                       override, "+codec.strides=[2,4]", "+codec.base_channels=4",
+                       "+codec.crop_len=128"])
+        codec = res["codec"]
+        assert type(codec).__name__ == "DACCodec" and codec.latent_shape(128) == (4, 4, 4)
+        cb = codec.vq.codebooks.numpy()
+        sums = (cb[0][:, None, :] + cb[1][None, :, :]).reshape(-1, 4)
+        for split in ("val", "train"):
+            r = res[split]
+            assert r["decoder"] == "wav" and r["latents"] == 8 * r["batches"]
+            ds = PreEncodedDataset(r["out_dir"])
+            lat = np.stack([ds.get(i, None)[0] for i in range(len(ds))])
+            assert lat.shape == (r["latents"], 4, 4, 4) and np.isfinite(lat).all()
+            gap = np.abs(lat.reshape(-1, 1, 4) - sums[None]).max(-1).min(1)
+            assert gap.max() < 1e-5 * max(1.0, float(np.abs(cb).max()))
+        return
     if override in ("+quant=int8", "codec.bf16=true"):
         from flocoder_torch.ops.quant import QuantConv
         res = pe.main(["--config-name", "smoke_vqgan", "+device=cpu",

@@ -155,7 +155,19 @@ def test_unported_options_raise(trained, override, tmp_path):
     """The options still unported raise, naming ROADMAP. The U-Net in bf16
     (``+flow.bf16=true``) is ported since: it now trains an epoch on the
     smoke latents with fp32 parameters, a finite loss and a checkpoint that
-    serves with ``+bf16=false``."""
+    serves with ``+bf16=false``. So is the DAC audio codec: it trains only
+    on pre-encoded latents, as the JAX script (``flow.pre_encoded=false``
+    exits), and reads them from ``<data>_encoded_dac``, which the image
+    smoke data lacks; tests/test_torch_audio_slice.py trains it on audio
+    latents."""
+    if override == "codec.choice=dac":
+        with pytest.raises(SystemExit, match="pre-encoded"):
+            tf.main(_argv(trained["data"], tmp_path, "flow.epochs=1", override,
+                          "flow.pre_encoded=false"))
+        with pytest.raises(FileNotFoundError, match="smoke_data_encoded_dac"):
+            tf.main(_argv(trained["data"], tmp_path, "flow.epochs=1", override,
+                          "+codec.strides=[2,4]", "+codec.base_channels=4"))
+        return
     if override == "+flow.bf16=true":
         res = tf.main(_argv(trained["data"], tmp_path, "flow.epochs=1", "flow.ckpt_every=1",
                             "flow.no_eval=true", override))
