@@ -247,6 +247,39 @@
    parameters within 1e-3·max(1, |ref|), Adam's first moments within 1e-3
    of the largest |ref| of each model; the multi-scale STFT and mel losses
    of 4 × 32,768 samples within 1e-4·max(1, |ref|).
+28. reflow (after step 17): reflow distillation on flowers_hdit's NA
+   variant, bf16, with step 16's EMA checkpoint as the teacher. Through
+   flocoder_torch.make_reflow_pairs.main: 1,280 pairs (the tool's 10,000)
+   at B=256, RK4 over 20 grid points (76 NFE; the tool's 50) + CFG 3.0, 5
+   batches: 1,216 train and 64 val pairs, K1 exactly 4·76·5 times; then
+   train_flow.main with +reflow=true for 1 epoch (4 steps, no OT) with its
+   evaluation (20 grid points), K1 and K2 held to step 16's formula; then
+   generate_samples of the reflowed EMA with Euler at 4 NFE (128 samples
+   in 2 batches, K1 4·4 a batch). Prints pairs/s, the reflow samples/s
+   over steady steps (CUDA events), a serving batch of 64 by CUDA events at
+   4 NFE beside the teacher's at 76, and peak memory. The card against the
+   CPU, TF32 off: an fp32 copy of the teacher, its weights perturbed (after
+   4 steps its EMA sits near its zero-init output projections, so its own
+   pairs lie near their noise), integrates 8 injected noises (RK4, 3 grid
+   points, CFG) within 1e-3·max(1, |ref|); one paired fp32
+   reflow step (B=64) within 1e-3·max(1, |ref|) on the loss, parameters,
+   Adam's first moments and EMA.
+29. vqgan_plus (after step 28): flowers_vqgan.yaml with
+   codec.choice=vqgan_plus, discriminator=vqgan_plus and lecam_weight
+   0.001 at the recipe's widths (hidden 256, 3 downsamples, internal 128,
+   RVQ 4×96×4) on step 7's 320 PNGs: train_vqgan.main for 1 warmup and 1
+   GAN epoch of 4 steps at B=64 (samples/s over steady steps, a GAN step's
+   parts by CUDA events and its idle share, peak memory);
+   preencode_data.main with preencoding.quantize=true and fused_vq=true
+   over step 10's 500² PNGs at augs_per 1 (1 val and 9 train batches of 32;
+   the codec has no fused path, so the unfused RVQ runs and each split
+   says so; latents/s); generate_samples of 64 samples from a seeded U-Net
+   checkpoint whose codec it is, in fp32 and with +quant=int8, and the
+   decode of 64 latents in both (CUDA events). K1–K5 launch 0 times on each
+   sub-phase (vqgan_plus_train, vqgan_plus_preencode, vqgan_plus_serve).
+   Then one warmup and one GAN step with LeCAM of a small VQGAN+ codec
+   (hidden 32) and a base-16 VQGANPlusDiscriminator on the card against
+   the CPU, held as step 8 holds the VQGAN's.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -986,18 +1019,21 @@ def train_record(res: dict, wall: float, card: str) -> dict:
     return rec
 
 
-def gan_breakdown(state, card: str, recipe: str = "flowers_vqgan.yaml") -> dict:
-    """Where a GAN step of ``recipe``'s codec (``state``, in its dtype) goes,
-    by CUDA events around its parts (the mean of 3 steps after one warm
-    step), then one step under the profiler for the device's idle share."""
+def gan_breakdown(state, card: str, recipe: str = "flowers_vqgan.yaml", overrides=(),
+                  lecam_weight: float = 0.0) -> dict:
+    """Where a GAN step of ``recipe``'s codec (``state``, in its dtype, with
+    ``overrides`` and LeCAM at ``lecam_weight``) goes, by CUDA events around
+    its parts (the mean of 3 steps after one warm step), then one step under
+    the profiler for the device's idle share."""
     from flocoder_torch.config import load_config
     from flocoder_torch.generate_samples import CONFIG_DIR
     from flocoder_torch.models.perceptual import make_perceptual_fn
     from flocoder_torch.training.vqgan import make_vqgan_gan_step
 
-    cfg = load_config(recipe, CONFIG_DIR)
+    cfg = load_config(recipe, CONFIG_DIR, list(overrides))
     step = make_vqgan_gan_step(cfg, make_perceptual_fn(device="cuda",
-                                                       dtype=state.codec.dtype))
+                                                       dtype=state.codec.dtype),
+                               lecam_weight=lecam_weight)
     gen = torch.Generator("cuda").manual_seed(6)
     x = torch.rand(64, 128, 128, 3, device="cuda", generator=gen) * 2 - 1
     names = ["codec_forward", "d_step", "g_loss_backward", "optimizers"]
@@ -1062,14 +1098,17 @@ def small_training_setup() -> tuple:
     return kw, codec, disc, vgg, batches
 
 
-def check_train_small() -> None:
-    """One warmup step and one GAN step of a small codec (hidden 64: head
-    dims 8-32, which K1 and K2 take), deterministic, on the card and on
-    the CPU from the same weights and batches, TF32 off. Adam moves each
-    weight by about ±lr whatever its gradient's size, so the gradients are
-    held through Adam's first moments (0.9·0.1·g_warmup + 0.1·g_GAN for the
-    codec after the two steps, 0.1·g for the discriminator, each clipped),
-    within 1e-3 of the largest first moment of that model."""
+def check_train_small(setup=None, lecam_weight: float = 0.0,
+                      label: str = "hidden 64") -> None:
+    """One warmup step and one GAN step of a small codec (``setup``'s, by
+    default ``small_training_setup``'s: hidden 64, head dims 8-32, which K1
+    and K2 take), deterministic, with LeCAM at ``lecam_weight``, on the
+    card and on the CPU from the same weights and batches, TF32 off. Adam
+    moves each weight by about ±lr whatever its gradient's size, so the
+    gradients are held through Adam's first moments (0.9·0.1·g_warmup +
+    0.1·g_GAN for the codec after the two steps, 0.1·g for the
+    discriminator, each clipped), within 1e-3 of the largest first moment
+    of that model."""
     from flocoder_torch.config import load_config
     from flocoder_torch.generate_samples import CONFIG_DIR
     from flocoder_torch.models.perceptual import make_perceptual_fn
@@ -1082,14 +1121,14 @@ def check_train_small() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = load_config("smoke_vqgan.yaml", CONFIG_DIR, overrides=["codec.lambda_perc=0.001"])
-    _, codec, disc, vgg, batches = small_training_setup()
+    _, codec, disc, vgg, batches = (setup or small_training_setup)()
     out = {}
     for dev in ("cuda", "cpu"):
         state = create_vqgan_state(copy.deepcopy(codec).to(dev),
                                    copy.deepcopy(disc).to(dev), 1e-4)
         feat = make_perceptual_fn(model=copy.deepcopy(vgg), device=dev)
         warm = make_vqgan_warmup_step(cfg, feat, deterministic=True)
-        gan = make_vqgan_gan_step(cfg, feat, deterministic=True)
+        gan = make_vqgan_gan_step(cfg, feat, lecam_weight=lecam_weight, deterministic=True)
         _, aux_w, _ = warm(state, batches[0].to(dev), torch.Generator(dev))
         _, aux_g, _ = gan(state, batches[1].to(dev), torch.Generator(dev))
         losses = {f"warmup/{k}": float(v) for k, v in aux_w.items()}
@@ -1124,7 +1163,7 @@ def check_train_small() -> None:
                  f"{err:.3e} (tol {tol:.3e})")
         if err / tol > worst[1] / worst[2]:
             worst = (name, err, tol)
-    print("card vs CPU, one warmup + one GAN step (hidden 64): losses "
+    print(f"card vs CPU, one warmup + one GAN step ({label}): losses "
           + " ".join(f"{k}={l_card[k]:.5f}/{l_cpu[k]:.5f}" for k in sorted(l_cpu))
           + f"; {len(p_cpu)} parameter tensors, worst {worst[0]} max_abs_err="
           f"{worst[1]:.3e} (tol {worst[2]:.3e}); Adam first moments: "
@@ -2015,14 +2054,16 @@ def _flow_batch(out_dir: str, n: int = 256) -> dict:
             "class_cond": torch.tensor([int(c) for _, c in items]).cuda()}
 
 
-def _flow_step_on(dev: str, model, batch: dict, draws: dict, dtype) -> tuple:
+def _flow_step_on(dev: str, model, batch: dict, draws: dict, dtype,
+                  paired: bool = False) -> tuple:
     """One flow step of a copy of ``model`` in ``dtype`` on ``dev``, with
-    ``draws`` passed in and the CFG gate closed."""
+    ``draws`` passed in and the CFG gate closed; ``paired``: a reflow step
+    on the batch's sources."""
     from flocoder_torch.training.flow import create_flow_state, make_flow_train_step
     state = create_flow_state(copy.deepcopy(model).to(dev, dtype), 1e-4)
     on = {k: v.to(dev, dtype) if v.is_floating_point() else v.to(dev)
           for k, v in batch.items()}
-    return make_flow_train_step()(state, on, None,
+    return make_flow_train_step(paired_source=paired)(state, on, None,
                                   draws=[{k: v.to(dev, dtype) for k, v in draws.items()}],
                                   drop=torch.tensor(False, device=dev))
 
@@ -2434,15 +2475,16 @@ def _adam_mu(state) -> list:
     return [state.opt.adam.state[p]["exp_avg"] for p in state.model.parameters()]
 
 
-def hold_flow_step_fp32(model, batch: dict, draws: dict) -> dict:
-    """One flow step (OT pairing, forward, backward, clipped Adam at lr
-    1e-4, EMA 0.999) of fp32 copies of ``model`` on the card and on the CPU
-    with ``draws`` passed in and the gate closed, TF32 off. Returns for the
-    loss, the parameters, Adam's first moments and the EMA the worst ratio
-    max |Δ| / (1e-3·max(1, |ref|)) over their tensors, and both losses."""
+def hold_flow_step_fp32(model, batch: dict, draws: dict, paired: bool = False) -> dict:
+    """One flow step (OT pairing, or with ``paired`` the batch's own
+    sources; forward, backward, clipped Adam at lr 1e-4, EMA 0.999) of fp32
+    copies of ``model`` on the card and on the CPU with ``draws`` passed in
+    and the gate closed, TF32 off. Returns for the loss, the parameters,
+    Adam's first moments and the EMA the worst ratio max |Δ| /
+    (1e-3·max(1, |ref|)) over their tensors, and both losses."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    (sc, ac), (sp, ap) = (_flow_step_on(dev, model, batch, draws, torch.float32)
+    (sc, ac), (sp, ap) = (_flow_step_on(dev, model, batch, draws, torch.float32, paired)
                           for dev in ("cuda", "cpu"))
     worst = {}
     for name, pairs in (("loss", [(ac["loss"], ap["loss"])]),
@@ -2553,7 +2595,8 @@ def hdit_flow_phase(tmp: str, pe_data: str, card: str, kernels: dict) -> tuple:
                epoch_samples_per_s=[e["samples"] / e["seconds"] for e in res["epoch_seconds"]],
                epochs=res["epochs"], evals=res["eval"], step_profile=prof,
                launches_train_eval=train_launches, launches_serve=serve_launches,
-               serve_batch_s=served["batch_seconds"], card_vs_cpu=step_check)
+               serve_batch_s=served["batch_seconds"], card_vs_cpu=step_check,
+               ema_checkpoint=res["ema_checkpoint"])
     print(f"hdit_flow flowers_hdit (patch 2, na:7) B={FLOW_BATCH} bf16: "
           f"{rec['steady_samples_per_s']:.2f} samples/s over steady steps (median of "
           f"{len(intervals)} intervals on CUDA events), per epoch "
@@ -2630,6 +2673,365 @@ def hdit_short_phase(tag: str, tmp: str, pe_data: str, card: str, kernels: dict,
           f"the epoch, peak {peak:.2f} GiB, loss {ep['loss']:.4f}{extra} | card: {card}",
           flush=True)
     del res
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# Reflow distillation on flowers_hdit's NA variant
+# ---------------------------------------------------------------------------
+
+REFLOW_PAIRS = 1280            # 5 batches of 256: 1,216 train pairs (4 steps) and 64 val
+REFLOW_BATCHES = REFLOW_PAIRS // FLOW_BATCH
+REFLOW_SERVE_STEPS = 5         # Euler over 5 grid points: 4 NFE
+REFLOW_CHECK_STEPS = 3         # the card-vs-CPU pairs: RK4 over 3 grid points (8 NFE)
+
+
+def _pair_batch(split_dir: str, n: int = 64) -> dict:
+    """The first ``n`` reflow pairs of a split (targets, sources, labels),
+    on the card."""
+    from flocoder_torch.data.datasets import PreEncodedDataset
+    ds = PreEncodedDataset(split_dir, n_classes=102)
+    items = [ds.get(i, np.random.default_rng(0)) for i in range(n)]
+    return {"target": torch.from_numpy(np.stack([d["target_latents"] for d, _ in items])).cuda(),
+            "source": torch.from_numpy(np.stack([d["source_latents"] for d, _ in items])).cuda(),
+            "class_cond": torch.tensor([int(c) for _, c in items]).cuda()}
+
+
+def check_reflow_pairs_small(teacher: str) -> dict:
+    """An fp32 copy of the teacher (the checkpoint served with
+    ``+bf16=false``), every weight perturbed by 0.02·N(0, 1) (after a few
+    steps its EMA still sits at its zero-init output projections, so its
+    field barely moves the noise), integrates 8 injected noises with their
+    labels, RK4 + CFG 3.0 over REFLOW_CHECK_STEPS grid points, on the card
+    and on the CPU, TF32 off: the pairs within 1e-3·max(1, |ref|), and the
+    field moves the noise by more than 0.1."""
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch.config import Config
+    from flocoder_torch.make_reflow_pairs import sample_pairs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    b = gs.load_models_once(Config({"bf16": False}), teacher, torch.device("cuda"))
+    model = copy.deepcopy(b["model"])
+    with torch.no_grad():
+        g = torch.Generator("cuda").manual_seed(30)
+        for p in model.parameters():
+            p.add_(0.02 * torch.randn(p.shape, device="cuda", generator=g))
+    g = torch.Generator().manual_seed(31)
+    noise = torch.randn(8, *b["latent_shape"], generator=g)
+    labels = torch.randint(0, b["n_classes"], (8,), generator=g)
+    kw = dict(n_classes=b["n_classes"], method="rk4", n_steps=REFLOW_CHECK_STEPS,
+              cfg_strength=3.0)
+    card, nfe = sample_pairs(model, noise.cuda(), labels, **kw)
+    ref, _ = sample_pairs(model.cpu(), noise, labels, **kw)
+    err = (card.cpu() - ref).abs().max().item()
+    tol = 1e-3 * max(1.0, ref.abs().max().item())
+    moved = (ref - noise).abs().max().item()
+    print(f"card vs CPU reflow pairs (fp32 teacher, weights perturbed, 8 noises, RK4 {nfe} "
+          f"NFE + CFG, TF32 off): max_abs_err={err:.3e} (tol {tol:.3e}); the field moved the "
+          f"noise by up to {moved:.3f}", flush=True)
+    if not (np.isfinite(err) and err < tol and moved > 0.1):
+        fail("card and CPU disagree on the reflow pairs, or the field did not move")
+    torch.backends.cudnn.allow_tf32 = True
+    return dict(max_abs_err=err, tol=tol, nfe=nfe, moved=moved)
+
+
+def reflow_phase(tmp: str, teacher: str, card: str, kernels: dict) -> tuple:
+    """Reflow on flowers_hdit's NA variant (module docstring, step 28):
+    the pairs tool on ``teacher`` (hdit_flow's EMA, bf16), one epoch of
+    train_flow with +reflow=true and its evaluation on the pairs, serving
+    the reflowed EMA with Euler at 4 NFE beside the teacher's RK4 at
+    HDIT_NFE, then the card against the CPU on pairs and on a paired step.
+    Returns (record, launches by tag)."""
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch import make_reflow_pairs as mrp
+    from flocoder_torch import train_flow as tf
+    from flocoder_torch.config import Config, parse_cli
+    from flocoder_torch.evaluation import sampler
+    from flocoder_torch.models.flow_model import build_flow_model
+    from flocoder_torch.training.flow import draw_flow_inputs
+
+    print(f"reflow cuts: {REFLOW_PAIRS} pairs (the tool's 10,000) at n_steps {HDIT_N_STEPS} "
+          f"(its 50), 1 training epoch (the recipe's 10,000) with its evaluation at "
+          f"n_steps {HDIT_N_STEPS} (its 100)", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    pairs_dir = os.path.join(tmp, "reflow_pairs")
+    _zero(kernels)
+    pairs = mrp.main(["--config-name", "flowers_hdit.yaml", f"+flow_checkpoint={teacher}",
+                      f"+out_dir={pairs_dir}", f"+n_pairs={REFLOW_PAIRS}",
+                      f"+batch_size={FLOW_BATCH}", f"+n_steps={HDIT_N_STEPS}", "+method=rk4",
+                      "+cfg_strength=3.0", "+seed=0"])
+    torch.cuda.synchronize()
+    launches["reflow_pairs"] = _counts(kernels)
+    _expect(kernels, f"reflow pairs ({REFLOW_BATCHES} batches x {HDIT_NFE} NFE x "
+            f"{HDIT_NA_BLOCKS})", launches["reflow_pairs"],
+            na2d_fwd=HDIT_NA_BLOCKS * HDIT_NFE * REFLOW_BATCHES)
+    if (pairs["train"], pairs["val"], pairs["batches"], pairs["nfe"]) != (
+            REFLOW_PAIRS - REFLOW_PAIRS // 20, REFLOW_PAIRS // 20, REFLOW_BATCHES, HDIT_NFE):
+        fail(f"reflow pairs: {pairs}")
+    pairs_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    argv = ["--config-name", "flowers_hdit.yaml", f"data={pairs_dir}", *HDIT_NA,
+            "+reflow=true", "flow.epochs=1", f"flow.n_steps={HDIT_N_STEPS}",
+            "flow.ckpt_every=1", "+seed=0", f"+ckpt_dir={os.path.join(tmp, 'reflow_ckpt')}",
+            f"+output_dir={os.path.join(tmp, 'reflow_out')}"]
+    events, step_hook = _hooked()
+    t0 = time.time()
+    res = tf.main(argv, step_hook=step_hook)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    steps, evals = len(events), len(res["eval"])
+    launches["reflow_train"] = _counts(kernels)
+    _expect(kernels, f"reflow training ({steps} steps x {HDIT_NA_BLOCKS}, {evals} evaluations x "
+            f"{HDIT_NA_BLOCKS} x (1 validation forward + {HDIT_NFE} sampler forwards))",
+            launches["reflow_train"], na2d_fwd=HDIT_NA_BLOCKS * (steps + evals * (1 + HDIT_NFE)),
+            na2d_bwd=HDIT_NA_BLOCKS * steps)
+    losses = [v for e in res["epochs"] for k, v in e.items() if k != "epoch"]
+    metrics = [v for e in res["eval"] for v in [e["val_loss"], *e["metrics"].values()]
+               if not isinstance(v, str)]
+    if (steps != 4 or evals != 1 or res["ot_rounds"] or not np.isfinite(losses).all()
+            or not np.isfinite(metrics).all()):
+        fail(f"reflow training: {steps} steps, {evals} evaluations, OT rounds "
+             f"{res['ot_rounds']}, epochs {res['epochs']}, eval {res['eval']}")
+
+    _zero(kernels)
+    served = gs.main(["--config-name", "flowers_hdit.yaml",
+                      f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=128",
+                      "flow.batch_size=64", "+method=euler", f"+n_steps={REFLOW_SERVE_STEPS}",
+                      "+seed=0", f"+output_dir={os.path.join(tmp, 'reflow_gen')}"])
+    launches["reflow_serve"] = _counts(kernels)
+    nfe = REFLOW_SERVE_STEPS - 1
+    _expect(kernels, f"serving the reflowed EMA (2 batches x {nfe} NFE x {HDIT_NA_BLOCKS})",
+            launches["reflow_serve"], na2d_fwd=HDIT_NA_BLOCKS * nfe * 2)
+    if (served["images"].shape != (128, 128, 128, 3) or not np.isfinite(served["images"]).all()
+            or served["nfe"] != nfe or not served["bf16"]):
+        fail(f"serving the reflowed EMA: {served['images'].shape}, nfe {served['nfe']}, "
+             f"bf16 {served['bf16']}")
+    # a batch of 64 by CUDA events, the student at Euler 4 NFE beside the
+    # teacher at RK4 HDIT_NFE, both as trained (bf16), then the SD VAE's decode
+    gen = torch.Generator("cuda").manual_seed(32)
+    serve_ms = {}
+    for tag, ckpt, method, n_steps in (("reflowed", res["ema_checkpoint"], "euler",
+                                        REFLOW_SERVE_STEPS),
+                                       ("teacher", teacher, "rk4", HDIT_N_STEPS)):
+        b = gs.load_models_once(Config({}), ckpt, torch.device("cuda"))
+        with torch.inference_mode():
+            serve_ms[tag] = cuda_ms(lambda: sampler(
+                b["model"], b["codec"], gen, method=method, batch_size=64, n_steps=n_steps,
+                n_classes=b["n_classes"], latent_shape=b["latent_shape"]), 3, warmup=1)
+
+    pairs_check = check_reflow_pairs_small(teacher)
+    cfg = parse_cli(argv, config_dir=gs.CONFIG_DIR)
+    model32 = build_flow_model(cfg, 4, 102).cuda()
+    model32.load_state_dict(res["state"].model.state_dict())
+    with torch.no_grad():       # every zero-init projection carries signal
+        g = torch.Generator("cuda").manual_seed(33)
+        for p in model32.parameters():
+            p.add_(0.02 * torch.randn(p.shape, device="cuda", generator=g))
+    small = _pair_batch(os.path.join(pairs_dir, "train"))
+    step_check = hold_flow_step_fp32(model32, small, draw_flow_inputs(
+        torch.Generator().manual_seed(34), small["target"].shape), paired=True)
+    print("card vs CPU HDiT fp32 reflow step (B=64, paired sources, no OT, zero-init weights "
+          "perturbed, same draws, TF32 off): max |Δ| / (1e-3·max(1, |ref|)) " + " ".join(
+              f"{k}={v:.4f}" for k, v in step_check.items() if not k.startswith("loss_"))
+          + f"; loss {step_check['loss_card']:.6f} vs {step_check['loss_cpu']:.6f}", flush=True)
+    if not all(np.isfinite(step_check[k]) and step_check[k] < 1.0
+               for k in ("loss", "params", "adam_mu", "ema")):
+        fail(f"card and CPU disagree on a reflow step: {step_check}")
+    torch.backends.cudnn.allow_tf32 = True
+
+    intervals = _steady(events)
+    rec = dict(batch=FLOW_BATCH, card=card, pairs=REFLOW_PAIRS, pairs_s=pairs["seconds"],
+               pairs_per_s=pairs["pairs_per_s"], pairs_batch_s=pairs["batch_seconds"],
+               pairs_peak_mem_gib=pairs_peak, train_wall_s=wall, train_peak_mem_gib=train_peak,
+               step_s=intervals, steady_samples_per_s=FLOW_BATCH / float(np.median(intervals)),
+               epoch_samples_per_s=[e["samples"] / e["seconds"] for e in res["epoch_seconds"]],
+               epochs=res["epochs"], evals=res["eval"], serve_batch_s=served["batch_seconds"],
+               serve_b64_ms=serve_ms, pairs_card_vs_cpu=pairs_check, step_card_vs_cpu=step_check,
+               launches=launches)
+    print(f"reflow pairs: {REFLOW_PAIRS} in {pairs['seconds']:.2f} s, "
+          f"{pairs['pairs_per_s']:.2f} pairs/s (RK4 {HDIT_NFE} NFE + CFG, B={FLOW_BATCH}, bf16; "
+          f"s/batch {[round(x, 4) for x in pairs['batch_seconds']]}), peak {pairs_peak:.2f} GiB "
+          f"| card: {card}", flush=True)
+    print(f"reflow training B={FLOW_BATCH} bf16: {rec['steady_samples_per_s']:.2f} samples/s "
+          f"over steady steps (median of {len(intervals)} intervals on CUDA events), per epoch "
+          f"{[round(x, 2) for x in rec['epoch_samples_per_s']]}, peak {train_peak:.2f} GiB, "
+          f"wall {wall:.1f} s; steps {[round(x, 4) for x in intervals]} | card: {card}",
+          flush=True)
+    for e in res["eval"]:
+        print(f"  eval epoch {e['epoch']}: s " + " ".join(
+            f"{k}={v:.4f}" for k, v in e["seconds"].items()) +
+            f" total={sum(e['seconds'].values()):.4f}; val_loss {e['val_loss']:.4f}, "
+            f"FID_px {e['metrics']['FID_px']:.3f} | card: {card}", flush=True)
+    print(f"reflow serving (bf16, B=64 with CFG): the reflowed EMA at Euler {nfe} NFE "
+          f"{serve_ms['reflowed']:.2f} ms a batch, the teacher at RK4 {HDIT_NFE} NFE "
+          f"{serve_ms['teacher']:.2f} ms (CUDA events, sampler + SD-VAE decode; "
+          f"{serve_ms['teacher'] / serve_ms['reflowed']:.2f}x); generate_samples s/batch "
+          f"{[round(x, 4) for x in served['batch_seconds']]} | card: {card}", flush=True)
+    del res, served, model32, small
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# The vqgan_plus codec family on flowers_vqgan
+# ---------------------------------------------------------------------------
+
+VQGAN_PLUS = ["codec.choice=vqgan_plus", "+discriminator=vqgan_plus", "+lecam_weight=0.001"]
+
+
+def vqgan_plus_small_setup() -> tuple:
+    """The small VQGAN+ codec of the card-vs-CPU check (hidden 32, three
+    downsamples, fp32, seeded, its RVQ initialised with no dead codes), the
+    full VQGANPlusDiscriminator at base 16, the VGG16 net and two batches
+    of 4 32² images (``small_training_setup``'s layout)."""
+    from flocoder_torch.models.discriminator import VQGANPlusDiscriminator, init_discriminator
+    from flocoder_torch.models.layers import init_params
+    from flocoder_torch.models.perceptual import VGG16Features
+    from flocoder_torch.models.vqgan_plus import VQGANPlus
+
+    kw = dict(hidden_channels=32, num_downsamples=3, internal_dim=32, vq_embedding_dim=4,
+              vq_num_embeddings=16, codebook_levels=2, commitment_weight=0.5)
+    codec = init_params(VQGANPlus(**kw), torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    L, K, D = codec.vq.codebooks.shape
+    codec.vq.assign_({
+        "codebooks": torch.from_numpy(rng.normal(size=(L, K, D)).astype(np.float32)),
+        "ema_counts": torch.from_numpy(rng.uniform(4, 30, (L, K)).astype(np.float32)),
+        "ema_sums": torch.from_numpy(rng.normal(size=(L, K, D)).astype(np.float32)),
+        "initted": torch.tensor(True)})
+    disc = init_discriminator(VQGANPlusDiscriminator(base_channels=16),
+                              torch.Generator().manual_seed(1))
+    vgg = init_params(VGG16Features(), torch.Generator().manual_seed(2))
+    batches = [torch.from_numpy(rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32))
+               for _ in range(2)]
+    return kw, codec, disc, vgg, batches
+
+
+def vqgan_plus_phase(tmp: str, card: str, kernels: dict) -> tuple:
+    """flowers_vqgan with the VQGAN+ codec (module docstring, step 29):
+    codec training with its GAN step's parts, pre-encoding with
+    preencoding.fused_vq=true (the unfused RVQ), serving in fp32 and with
+    +quant=int8 through a seeded flow checkpoint whose codec it is, the
+    decode of 64 in both, then a small GAN step on the card against the
+    CPU. Returns (record, launches by tag)."""
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch import preencode_data as pe
+    from flocoder_torch import train_vqgan as tv
+    from flocoder_torch.config import Config, load_config
+    from flocoder_torch.data.datasets import PreEncodedDataset
+    from flocoder_torch.models.layers import init_params
+    from flocoder_torch.models.unet import Unet
+    from flocoder_torch.models.vqgan_plus import VQGANPlus
+    from flocoder_torch.training.checkpoint import UNET_PREFIXES, checkpoint_payload, to_jax_flat
+
+    print("vqgan_plus cuts: codec 2 epochs of 4 steps (1 warmup, 1 GAN; the recipe's 2000 "
+          "with 5 warmup), pre-encode augs_per 1 (its 1024), serving from seeded flow "
+          f"weights (no flow epoch) at n_steps {HDIT_N_STEPS} (its 100)", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+    _zero(kernels)
+    t0 = time.time()
+    res = tv.main(["--config-name", "flowers_vqgan.yaml", f"data={os.path.join(tmp, 'flowers')}",
+                   *VQGAN_PLUS, "codec.epochs=2", "codec.warmup_epochs=1", "+seed=0",
+                   f"+ckpt_dir={os.path.join(tmp, 'vqgan_plus_ckpt')}",
+                   f"+output_dir={os.path.join(tmp, 'vqgan_plus_out')}"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches["vqgan_plus_train"] = _counts(kernels)
+    n_steps = {ph: len(t) for ph, t in res["step_seconds"].items()}
+    _expect(kernels, f"vqgan_plus training ({n_steps} steps, {len(res['val'])} validation "
+            "batch)", launches["vqgan_plus_train"])
+    state = res["state"]
+    ckpt = res["checkpoint"]
+    if (not isinstance(state.codec, VQGANPlus) or type(state.disc).__name__
+            != "VQGANPlusDiscriminator" or min(n_steps.values()) < 4
+            or ckpt is None or not os.path.exists(ckpt)):
+        fail(f"vqgan_plus training: {type(state.codec).__name__}, "
+             f"{type(state.disc).__name__}, {n_steps} steps, checkpoint {ckpt}")
+    losses = [v for e in res["epochs"] + res["val"] for k, v in e.items()
+              if k not in ("epoch", "phase")]
+    if not np.isfinite(losses).all() or "d_loss" not in res["epochs"][1]:
+        fail(f"vqgan_plus losses: {res['epochs']} {res['val']}")
+    rec = dict(train=train_record(res, wall, card),
+               codec_params=sum(p.numel() for p in [*state.codec.encoder.parameters(),
+                                                    *state.codec.decoder.parameters()]),
+               disc_params=sum(p.numel() for p in state.disc.parameters()))
+    print(f"vqgan_plus codec {rec['codec_params'] / 1e6:.2f} M parameters, discriminator "
+          f"{rec['disc_params'] / 1e6:.2f} M", flush=True)
+    rec["train"]["gan_breakdown"] = gan_breakdown(state, card, "flowers_vqgan.yaml",
+                                                  VQGAN_PLUS, lecam_weight=0.001)
+    del state, res
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero(kernels)
+    over = [*VQGAN_PLUS, f"codec.checkpoint={ckpt}"]
+    pre = pe.main(["--config-name", "flowers_vqgan.yaml",
+                   f"data={os.path.join(tmp, 'pe_images')}", *over,
+                   "preencoding.quantize=true", "preencoding.fused_vq=true",
+                   "preencoding.augs_per=1", "+seed=0"])
+    torch.cuda.synchronize()
+    launches["vqgan_plus_preencode"] = _counts(kernels)
+    _expect(kernels, "vqgan_plus pre-encode (the unfused RVQ)", launches["vqgan_plus_preencode"])
+    splits = {s: pre[s] for s in ("val", "train")}
+    for split, r in splits.items():
+        lat = [a for a, _ in (PreEncodedDataset(r["out_dir"]).get(i, np.random.default_rng(0))
+                              for i in range(r["latents"]))]
+        if (r["quantize"] != "rvq" or r["batches"] != {"val": 1, "train": 9}[split]
+                or any(a.shape != (16, 16, 4) or not np.isfinite(a).all() for a in lat)):
+            fail(f"vqgan_plus pre-encode {split}: {r}")
+    rec["preencode"] = dict(peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, **{
+        f"{s}_{k}": r[k] for s, r in splits.items() for k in ("latents_per_s", "seconds",
+                                                              "batches", "quantize")})
+    print(f"vqgan_plus pre-encode B=32 (quantize: {splits['train']['quantize']}): val "
+          f"{splits['val']['latents_per_s']:.2f} latents/s, train "
+          f"{splits['train']['latents_per_s']:.2f} latents/s, peak "
+          f"{rec['preencode']['peak_mem_gib']:.2f} GiB | card: {card}", flush=True)
+
+    cfg = load_config("flowers_vqgan", gs.CONFIG_DIR, [*over, "flow.unet.n_classes=102"])
+    unet = init_params(Unet(dim=16, channels=4, dim_mults=(1, 2, 4, 8), n_classes=102).cuda(),
+                       torch.Generator("cuda").manual_seed(1))
+    flow = os.path.join(tmp, "flowema_vqgan_plus_0.npz")
+    np.savez(flow, **checkpoint_payload(to_jax_flat(unet, UNET_PREFIXES), 0, cfg))
+    _zero(kernels)
+    rec["serve"], z = {}, torch.randn(64, 16, 16, 4, device="cuda",
+                                      generator=torch.Generator("cuda").manual_seed(35))
+    for quant in ("false", "int8"):
+        torch.cuda.reset_peak_memory_stats()
+        served = gs.main(["--config-name", "flowers_vqgan.yaml", f"+flow_checkpoint={flow}",
+                          "+n_samples=64", f"+n_steps={HDIT_N_STEPS}", f"+quant={quant}",
+                          "+seed=0", f"+output_dir={os.path.join(tmp, 'vqgan_plus_gen')}"])
+        if (served["images"].shape != (64, 128, 128, 3)
+                or not np.isfinite(served["images"]).all()
+                or served["quant"] != (quant == "int8")):
+            fail(f"vqgan_plus serving +quant={quant}: {served['images'].shape}, "
+                 f"quant {served['quant']}")
+        b = gs.load_models_once(Config({"quant": quant}), flow, torch.device("cuda"))
+        with torch.inference_mode():
+            decode_ms = cuda_ms(lambda: b["codec"].decode(z), 5)
+        rec["serve"][quant] = dict(s_per_batch=served["batch_seconds"], decode_b64_ms=decode_ms,
+                                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+        print(f"vqgan_plus serving {'int8' if quant == 'int8' else 'fp32'}: 64 samples, "
+              f"nfe={served['nfe']}, s/batch {[round(x, 4) for x in served['batch_seconds']]}; "
+              f"decode of 64 {decode_ms:.4f} ms (CUDA events) | card: {card}", flush=True)
+    launches["vqgan_plus_serve"] = _counts(kernels)
+    _expect(kernels, "vqgan_plus serving (fp32, int8)", launches["vqgan_plus_serve"])
+    check_train_small(vqgan_plus_small_setup, lecam_weight=0.001,
+                      label="vqgan_plus hidden 32, VQGANPlusDiscriminator base 16, LeCAM")
+    torch.backends.cudnn.allow_tf32 = True
+    del unet
     torch.cuda.empty_cache()
     return rec, launches
 
@@ -4199,7 +4601,7 @@ def host_profile() -> None:
     for n in ("setup_codec", "load_codec_weights"):
         setattr(codecs, n, timed(n, getattr(codecs, n)))
     for mod in ("generate_samples", "preencode_data", "train_flow", "train_vqgan",
-                "evaluate_model", "train_audio_codec"):
+                "evaluate_model", "train_audio_codec", "make_reflow_pairs"):
         m = importlib.import_module(f"flocoder_torch.{mod}")
         setattr(m, "main", timed(f"{mod}.main", m.main))
     g = globals()
@@ -4343,6 +4745,10 @@ def main() -> None:
         hdit_moe, moe_launches = hdit_short_phase(
             "hdit_moe", tmp, pe_data, card, kernels, [*HDIT_NA, "+flow.hdit_moe_experts=[8,0]"])
         lap("sd_family")
+        reflow, reflow_launches = reflow_phase(tmp, hdit["ema_checkpoint"], card, kernels)
+        lap("reflow")
+        vqgan_plus, vqgan_plus_launches = vqgan_plus_phase(tmp, card, kernels)
+        lap("vqgan_plus")
         midi_codec, midi_codec_launches = midi_train_codec(tmp, card, kernels)
         midi_pre, midi_pre_launches = midi_preencode(tmp, card, kernels)
         midi_fl, midi_flow_launches = midi_flow(tmp, card, kernels)
@@ -4366,7 +4772,8 @@ def main() -> None:
                       "gan_breakdown": gan_parts, "preencode": preencode,
                       "preencode_card_vs_cpu": preencode_small, "flow": flow,
                       "sd_preencode": sd_pre, "sd_serve": sd_srv, "hdit_flow": hdit,
-                      "hdit_recipe": hdit_recipe, "hdit_moe": hdit_moe,
+                      "hdit_recipe": hdit_recipe, "hdit_moe": hdit_moe, "reflow": reflow,
+                      "vqgan_plus": vqgan_plus,
                       "midi_train": midi_codec, "midi_preencode": midi_pre,
                       "midi_flow": midi_fl, "midi_inpainting_codec": midi_inp,
                       "pe_host": pe_host_rec, "flow_shard": shard_flow, "tpu_demo": demo,
@@ -4383,7 +4790,8 @@ def main() -> None:
               **midi_flow_launches, **midi_inp_launches, "pe_host": pe_host_launches,
               "flow_shard": shard_flow_launches, "tpu_demo": demo_launches,
               "tpu_vqgan_train": tpu_train_launches, "tpu_vqgan": tpu_vqgan_launches,
-              "int8_serving": int8_launches, **audio_launches}
+              "int8_serving": int8_launches, **audio_launches, **reflow_launches,
+              **vqgan_plus_launches}
 
     def by_path(name):
         paths = {tag: counts[name] for tag, counts in by_tag.items()}

@@ -9,8 +9,10 @@ Loads the flow and codec checkpoints (npz contract, see
 ``training/checkpoint.py``), builds the velocity field from the flow
 checkpoint's embedded config (the U-Net, or HDiT for ``flow.arch=hdit``;
 ``models/flow_model.py``), integrates with RK4/Euler/Heun/midpoint and CFG,
-decodes through the codec (the VQGAN, or the SD VAE of ``flowers_sd``), and
-writes PNG grids and individual PNGs. For a MIDI data path (``midi`` or
+decodes through the codec (the VQGAN, the VQGAN+ of
+``codec.choice=vqgan_plus``, or the SD VAE of ``flowers_sd``), and writes
+PNG grids and individual PNGs. A reflowed checkpoint serves at a few steps
+(``+method=euler +n_steps=5``: 4 NFE). For a MIDI data path (``midi`` or
 ``pop909`` in ``data``) every sample PNG is also laid out as a piano roll
 (``square_to_rect_file``) and exported to a ``.mid`` file
 (``img_file_2_midi_file``); ``midi_to_audio`` renders one to WAV through
@@ -53,6 +55,7 @@ from .models.codecs import (VQVAE, codec_checkpoint, latest_checkpoint, load_cod
                             setup_codec)
 from .models.flow_model import build_flow_model
 from .models.sd_vae import SDVAE
+from .models.vqgan_plus import VQGANPlus
 from .training.checkpoint import UNET_PREFIXES, load_checkpoint, load_jax_flat, subtree
 from .utils.device import resolve_device
 from .utils.viz import save_img, save_img_grid
@@ -99,7 +102,8 @@ def load_models_once(config, flow_ckpt_path: str, device) -> dict:
     load_jax_flat(model, subtree(params, "model/"), UNET_PREFIXES)
     model.eval()
 
-    if isinstance(codec, (VQVAE, SDVAE, DACCodec)):     # seeded as pre-encoding seeds it
+    # seeded as pre-encoding seeds it
+    if isinstance(codec, (VQVAE, VQGANPlus, SDVAE, DACCodec)):
         codec.init(torch.Generator(device).manual_seed(0))
     load_codec_weights(codec, codec_checkpoint(ck_config))
     codec.eval()

@@ -26,9 +26,10 @@ declares it. ``setup_codec`` builds the codec in bf16 when ``codec.bf16``
 is set (or ``dtype=`` says so). ``quant_encode`` / ``quant_decode`` route
 the convolutions the JAX package routes to its W8A8 ``QuantConv``
 (``ops/quant.py``) there; the compression and output heads stay plain. Not
-ported yet (ROADMAP.md): ring attention, the vqgan_plus codec and a DAC
-codec in bf16. ``setup_codec`` also builds the DAC audio codec
-(``models/audio_codec.py``) for ``codec.choice=dac``.
+ported yet (ROADMAP.md): ring attention and a DAC codec in bf16.
+``setup_codec`` also builds the DAC audio codec (``models/audio_codec.py``)
+for ``codec.choice=dac`` and the VQGAN+ codec (``models/vqgan_plus.py``) for
+``codec.choice=vqgan_plus``.
 """
 from __future__ import annotations
 
@@ -537,7 +538,7 @@ class VQVAE(nn.Module):
 
 def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module:
     """Build a codec from ``config.codec.choice`` ∈ {noop, resize, vqgan,
-    sd, dac} on ``device``. Weights are the caller's concern
+    vqgan_plus, sd, dac} on ``device``. Weights are the caller's concern
     (``load_codec_weights``). Compute dtype: ``dtype`` when given, else
     bf16 if and only if ``codec.bf16`` is set (never because of
     ``flow.bf16``). ``codec.quant_encode`` / ``codec.quant_decode`` =
@@ -566,8 +567,9 @@ def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module
             codec = SimpleResizeAE(latent_shape=tuple(lat),
                                    image_size=config.codec.get("image_size",
                                                                image_size))
-        elif choice == "vqgan":
-            codec = VQVAE(
+        elif choice in ("vqgan", "vqgan_plus"):
+            from .vqgan_plus import VQGANPlus
+            codec = (VQGANPlus if choice == "vqgan_plus" else VQVAE)(
                 in_channels=in_channels,
                 hidden_channels=ldcfg(config, "hidden_channels", 256),
                 num_downsamples=ldcfg(config, "num_downsamples", 3),
@@ -594,9 +596,6 @@ def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module
                 codebook_levels=int(ldcfg(config, "codebook_levels", 4)),
                 vq_num_embeddings=int(ldcfg(config, "vq_num_embeddings", 512)),
                 commitment_weight=float(ldcfg(config, "commitment_weight", 0.25)))
-        elif choice == "vqgan_plus":
-            raise NotImplementedError(f"codec '{choice}' is not ported yet "
-                                      "(ROADMAP.md)")
         else:
             raise ValueError(f"Unknown codec choice: {choice}")
     return codec.to(device) if device is not None else codec
@@ -605,15 +604,16 @@ def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module
 def load_codec_weights(codec: nn.Module, checkpoint=None) -> list:
     """Load a codec's weights in place, strictly: for the SD VAE first its
     converted weights file (``SDVAE.weights_path``) when it exists, then,
-    for the SD VAE, the VQVAE and the DAC codec, ``checkpoint`` (an npz of
-    the checkpoint contract) when that file exists. A file that does not
-    fit raises. Returns the paths loaded; with none the codec keeps its
-    weights."""
+    for the SD VAE, the VQVAE, the VQGAN+ codec (whose tree has the VQVAE's
+    heads) and the DAC codec, ``checkpoint`` (an npz of the checkpoint
+    contract) when that file exists. A file that does not fit raises.
+    Returns the paths loaded; with none the codec keeps its weights."""
     from ..training.checkpoint import (DAC_PREFIXES, SDVAE_PREFIXES, VQVAE_PREFIXES,
                                        load_checkpoint, load_jax_flat)
     from .audio_codec import DACCodec
     from .sd_vae import SDVAE, load_sd_vae_weights
-    prefixes = {SDVAE: SDVAE_PREFIXES, VQVAE: VQVAE_PREFIXES,
+    from .vqgan_plus import VQGANPlus
+    prefixes = {SDVAE: SDVAE_PREFIXES, VQVAE: VQVAE_PREFIXES, VQGANPlus: VQVAE_PREFIXES,
                 DACCodec: DAC_PREFIXES}.get(type(codec))
     if prefixes is None:            # noop and resize hold no weights
         return []

@@ -21,7 +21,10 @@ Encoding: ``codec.encode`` (for the SD VAE of ``flowers_sd``, the
 posterior mean); with ``preencoding.quantize=true`` on the VQGAN codec also
 the RVQ (``codec.quantize(...)[0]``); with ``preencoding.fused_vq=true`` as
 well, ``encode_quantize_fused``, whose compression tail and RVQ search are
-one launch of K3 on the card. The codec loads its weights strictly where
+one launch of K3 on the card. The VQGAN+ codec (``codec.choice=vqgan_plus``)
+has no fused path in either package: with ``preencoding.fused_vq=true`` it
+quantizes through the unfused RVQ, and each split prints so beside its host
+decoder (``quantize_path``). The codec loads its weights strictly where
 the files exist (``codec.checkpoint``; for the SD VAE first
 ``weights/sd_vae_ft_mse.npz``), and keeps seeded random weights otherwise.
 
@@ -103,9 +106,11 @@ from .models.audio_codec import DACCodec, fold_latents
 from .models.codecs import (VQVAE, NoOpAE, SimpleResizeAE, codec_checkpoint,
                             load_codec_weights, setup_codec)
 from .models.layers import init_params
+from .models.vqgan_plus import VQGANPlus
 from .utils.device import resolve_device
 
-__all__ = ["open_split", "process_dataset", "load_codec", "host_decoder", "main"]
+__all__ = ["open_split", "process_dataset", "load_codec", "host_decoder",
+           "quantize_path", "main"]
 
 
 def _is_audio(config) -> bool:
@@ -133,17 +138,33 @@ def load_codec(config, device) -> torch.nn.Module:
     return codec.eval()
 
 
-def _encoder(config, codec):
-    """The batch → latents function of the three encode modes; the DAC
-    codec's latents folded into images."""
+def quantize_path(config, codec) -> tuple:
+    """``(name, why)`` of the quantization after the encode: ``'fused'``
+    (``encode_quantize_fused``, K3 on the card), ``'rvq'`` (the codec's
+    unfused ``quantize``) or ``'none'`` (the continuous latents)."""
     pe = config.get("preencoding", {})
+    if not (bool(pe.get("quantize", False))
+            and isinstance(codec, (VQVAE, VQGANPlus, DACCodec))):
+        return "none", "preencoding.quantize is off or the codec has no RVQ"
+    if not bool(pe.get("fused_vq", False)):
+        return "rvq", "preencoding.fused_vq is off"
+    if isinstance(codec, VQVAE):
+        return "fused", "preencoding.fused_vq=true"
+    return "rvq", (f"preencoding.fused_vq=true, but the {type(codec).__name__} codec "
+                   "has no fused path")
+
+
+def _encoder(config, codec):
+    """The batch → latents function of the three encode modes
+    (``quantize_path``); the DAC codec's latents folded into images."""
+    path = quantize_path(config, codec)[0]
     if isinstance(codec, DACCodec):
-        if bool(pe.get("quantize", False)):
+        if path == "rvq":
             return lambda x: codec.quantize(fold_latents(codec.encode(x)))[0]
         return lambda x: fold_latents(codec.encode(x))
-    if bool(pe.get("quantize", False)) and isinstance(codec, VQVAE):
-        if bool(pe.get("fused_vq", False)):
-            return lambda x: codec.encode_quantize_fused(x)[0]
+    if path == "fused":
+        return lambda x: codec.encode_quantize_fused(x)[0]
+    if path == "rvq":
         return lambda x: codec.quantize(codec.encode(x))[0]
     return codec.encode
 
@@ -266,10 +287,11 @@ def open_split(config, split: str) -> tuple:
 
 def process_dataset(config, split: str, codec, device) -> dict:
     """Pre-encode one split; returns ``{'split', 'out_dir', 'batches',
-    'latents', 'seconds', 'latents_per_s', 'bytes', 'format', 'decoder'}``,
-    the seconds by the host clock over the whole split (loader, copies,
-    augments, encodes, writes), ``decoder`` the host's image decoder
-    (``host_decoder``). With ``inpainting`` a latent is one triplet (two
+    'latents', 'seconds', 'latents_per_s', 'bytes', 'format', 'decoder',
+    'quantize'}``, the seconds by the host clock over the whole split
+    (loader, copies, augments, encodes, writes), ``decoder`` the host's
+    image decoder (``host_decoder``), ``quantize`` the quantization
+    (``quantize_path``). With ``inpainting`` a latent is one triplet (two
     encodes)."""
     data_path = os.path.expanduser(str(config.data))
     pe = config.get("preencoding", {})
@@ -289,6 +311,8 @@ def process_dataset(config, split: str, codec, device) -> dict:
         raise SystemExit(f"Refusing to overwrite existing {out_split}")
     decoder, why = host_decoder(config)
     print(f"[{split}] host decoder: {decoder} ({why})")
+    quantize, why = quantize_path(config, codec)
+    print(f"[{split}] quantize: {quantize} ({why})")
     dataset, total_batches, batches = open_split(config, split)
     os.makedirs(out_split, exist_ok=True)
     encode = _encoder(config, codec)
@@ -376,7 +400,8 @@ def process_dataset(config, split: str, codec, device) -> dict:
           f"latents/s, {fmt}, decoder {decoder}) -> {out_split}")
     return {"split": split, "out_dir": out_split, "batches": b + 1,
             "latents": n_saved, "seconds": seconds, "latents_per_s": rate,
-            "bytes": bytes_written, "format": fmt, "decoder": decoder}
+            "bytes": bytes_written, "format": fmt, "decoder": decoder,
+            "quantize": quantize}
 
 
 def main(argv=None) -> dict:

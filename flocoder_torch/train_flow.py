@@ -42,8 +42,17 @@ U-Net and the two optimizer groups in optax's ``multi_transform`` layout.
 The JAX-only dispatch knobs ``flow.steps_per_dispatch`` and ``rng_impl``
 are accepted and change nothing here (ROADMAP.md). Not ported yet
 (ROADMAP.md), and refused: meshes and FSDP, ring attention, MoE expert
-parallelism, pipeline parallelism, orbax and sharded checkpoints, reflow
-datasets, wandb logging.
+parallelism, pipeline parallelism, orbax and sharded checkpoints, wandb
+logging.
+
+Reflow (``flow.reflow=true``): trains on the paired dataset that
+``make_reflow_pairs`` writes (``data`` is its ``out_dir``, read as it is,
+with no ``_encoded_<codec>`` suffix): each batch's ``source_latents`` is the
+source of its ``target_latents``, so the step keeps the couplings (no OT
+re-pairing, no CFG noise swap; ``training/flow.py``'s ``paired_source``),
+and so does the validation loss. The evaluation samples from fresh noise,
+as without reflow. Reflow with ``flow.meanflow``, or on data without
+``source_latents`` or with masks, exits, as in the JAX script.
 
 Audio (``codec.choice=dac``, ``audio_dac.yaml``): the flow trains on the
 folded 16×16×8 latents that pre-encoding wrote (``flow.pre_encoded=false``
@@ -73,6 +82,7 @@ from .models.codecs import VQVAE, codec_checkpoint, load_codec_weights, setup_co
 from .models.flow_model import build_flow_model
 from .models.layers import init_params
 from .models.sd_vae import SDVAE
+from .models.vqgan_plus import VQGANPlus
 from .training.checkpoint import (MASK_ENCODER_PREFIXES, OPT_GROUPS, UNET_PREFIXES,
                                   adam_to_jax_flat, load_adam_jax_flat, load_checkpoint,
                                   load_jax_flat, save_checkpoint, subtree, to_jax_flat)
@@ -88,8 +98,7 @@ def _refuse_unported(config) -> None:
     flags = {"fsdp": "FSDP", "ring_attention": "ring attention",
              "moe_ep": "MoE expert parallelism", "pp": "pipeline parallelism",
              "orbax_checkpoints": "orbax checkpoints",
-             "sharded_checkpoints": "sharded checkpoints",
-             "reflow": "reflow (paired) datasets"}
+             "sharded_checkpoints": "sharded checkpoints"}
     for key, what in flags.items():
         if bool(ldcfg(config, key, False)):
             raise NotImplementedError(f"{what} (flow.{key}) is not ported yet (ROADMAP.md)")
@@ -181,7 +190,13 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     device = resolve_device(config.get("device", None))
     _refuse_unported(config)
     data_path = os.path.expanduser(str(config.data))
-    if "encoded" not in data_path:
+    # reflow pairs are latents already (make_reflow_pairs): no codec suffix
+    reflow = bool(ldcfg(config, "reflow", False))
+    meanflow = bool(ldcfg(config, "meanflow", False))
+    if meanflow and reflow:
+        raise SystemExit("flow.meanflow=true does not combine with "
+                         "inpainting datasets or flow.reflow")
+    if "encoded" not in data_path and not reflow:
         data_path = f"{data_path}_encoded_{config.codec.choice}"
     batch_size = int(ldcfg(config, "batch_size", 256))
     grad_accum = max(int(ldcfg(config, "grad_accum", 1)), 1)
@@ -203,7 +218,6 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     pre_encoded = bool(ldcfg(config, "pre_encoded", True))
     image_size = int(ldcfg(config, "image_size", 128))
     num_workers = int(ldcfg(config, "num_workers", 4))
-    meanflow = bool(ldcfg(config, "meanflow", False))
     t_scale = 1.0 if meanflow else 999.0
     gen = torch.Generator(device)
 
@@ -213,7 +227,7 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     if is_audio and not pre_encoded:
         raise SystemExit("codec.choice=dac trains flows on pre-encoded latents "
                          "(run preencode_data first)")
-    if isinstance(codec, (VQVAE, SDVAE, DACCodec)):
+    if isinstance(codec, (VQVAE, VQGANPlus, SDVAE, DACCodec)):
         codec.init(gen.manual_seed(seed))
         load_codec_weights(codec, codec_checkpoint(
             config, ldcfg(config, "codec_checkpoint", None)))
@@ -238,11 +252,16 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
         encode_fn = codec.encode
         print(f"on-the-fly mode: encoding {image_size}px images in the step")
     inpainting = "mask_pixels" in batch0
+    # reflow keeps the pairs' couplings: it needs sources and no masks
+    if reflow and ("source" not in batch0 or inpainting):
+        raise SystemExit("flow.reflow=true needs a paired dataset with "
+                         "source_latents and no masks — generate one with "
+                         "python -m flocoder_torch.make_reflow_pairs")
     if meanflow and inpainting:
         raise SystemExit("flow.meanflow=true does not combine with inpainting "
                          "datasets or flow.reflow")
     print(f"latent shape HWC = {(H, W, C)}, inpainting = {inpainting}, "
-          f"n_batches/epoch = {len(train_loader)}")
+          f"reflow = {reflow}, n_batches/epoch = {len(train_loader)}")
     output_dir = str(config.get("output_dir",
                                 f"output_{os.path.basename(data_path)}-{H}x{W}"))
     ckpt_dir = str(config.get("ckpt_dir", "checkpoints"))
@@ -314,13 +333,14 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
         curvature_weight=float(ldcfg(config, "curvature_weight", 0.0)),
         meanflow=meanflow, meanflow_ratio=float(ldcfg(config, "meanflow_ratio", 0.25)),
         meanflow_adaptive_p=float(ldcfg(config, "meanflow_adaptive_p", 0.5)),
-        t_scale=t_scale, grad_accum=grad_accum, model_apply=model_apply)
+        t_scale=t_scale, grad_accum=grad_accum, model_apply=model_apply,
+        paired_source=reflow)
     train_step = make_flow_train_step(**step_kwargs)
-    eval_step = make_flow_eval_step(t_scale=t_scale)
+    eval_step = make_flow_eval_step(t_scale=t_scale, paired_source=reflow)
     cb_tracker = CodebookUsageTracker(
         num_levels=int(ldcfg(config, "codebook_levels", 4)),
         codebook_size=int(ldcfg(config, "vq_num_embeddings", 32)))
-    codec_quantize = codec.quantize if isinstance(codec, VQVAE) else None
+    codec_quantize = codec.quantize if isinstance(codec, (VQVAE, VQGANPlus)) else None
     eval_method = str(ldcfg(config, "eval_method", "meanflow" if meanflow else "rk4"))
 
     epoch_seconds, history, evals, ot_rounds = [], [], [], []
@@ -334,7 +354,7 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
             train_loader.batch_size = bs_sched(epoch)
         ep_aux, t_ep = [], time.time()
         for batch in train_loader:
-            if not inpainting:
+            if not (inpainting or reflow):
                 batch.pop("source", None)
             batch = _to_device(batch, device)
             state, aux = train_step(state, batch, gen)
@@ -356,7 +376,7 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
 
         if not bool(ldcfg(config, "no_eval", False)) and (epoch < 20 or epoch % 10 == 0):
             vb = next(iter(val_loader))
-            if not inpainting:
+            if not (inpainting or reflow):
                 vb.pop("source", None)
             vb = _to_device(vb, device)
             if encode_fn is not None:

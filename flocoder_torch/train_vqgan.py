@@ -1,4 +1,4 @@
-"""Train the VQGAN codec on the CUDA card — the port of the repo's
+"""Train the VQGAN (or VQGAN+) codec on the CUDA card — the port of the repo's
 ``train_vqgan.py``.
 
 Usage:
@@ -25,8 +25,13 @@ discriminator and the VGG16 perceptual net computing in bf16 over fp32
 parameters, as the JAX script does; the choice is the codec's own
 (``flow.bf16`` does not reach it). The checkpoint holds the same tree as an
 fp32 codec's, NATTEN's bf16 ``gamma`` written widened to fp32 (exactly;
-both packages' loaders round it back). Not ported yet (ROADMAP.md): data
-and tensor parallelism, wandb logging, the codebook plots.
+both packages' loaders round it back). ``codec.choice=vqgan_plus`` trains
+the VQGAN+ codec (``models/vqgan_plus.py``) the same way, its checkpoint
+the JAX ``VQGANPlus``'s tree; ``discriminator`` picks ``patch`` (default)
+or ``vqgan_plus`` (``VQGANPlusDiscriminator``), and ``lecam_weight`` (default
+0) adds LeCAM's regularisation to the discriminator's loss, for either
+codec. Not ported yet (ROADMAP.md): data and tensor parallelism, wandb
+logging, the codebook plots.
 """
 from __future__ import annotations
 

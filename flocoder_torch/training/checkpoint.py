@@ -20,6 +20,9 @@ Port modules carry linen's names (``models/layers.py``), so a key maps by
 - a spectrally normalised conv's power-iteration buffers ``u`` and
   ``sigma`` ↔ ``batch_stats/<parent>/SpectralNorm_<i>/Conv_<j>/kernel/u``
   (flax's ``SpectralNorm`` collection; ``models/discriminator.py``);
+- the buffers a module names in ``batch_stats`` (inference BatchNorm's
+  ``mean`` and ``var``, ``models/perceptual.py``) ↔
+  ``batch_stats/<module path>/<name>``;
 - everything else (biases, ``gamma``, buffers) by name, unchanged.
 
 Keys match strictly: a missing or extra key raises. Adam's state crosses
@@ -36,7 +39,8 @@ two optimizer groups of optax's ``multi_transform``, each group's Adam
 state under ``inner_states/{model,mask}/inner_state/`` (``OPT_GROUPS``);
 a discriminator's flat tree is its flax variables, ``params/…`` and
 ``batch_stats/…`` (``DISC_PREFIXES``, the waveform discriminators' too), and
-the VGG16 features' its ``params/…`` (``VGG_PREFIXES``).
+the VGG16 features' its ``params/…`` (``VGG_PREFIXES``), ResNet50's its
+``params/…`` and ``batch_stats/…`` (``RESNET_PREFIXES``).
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ from ..config import config_from_dict, to_dict
 __all__ = ["checkpoint_payload", "save_checkpoint", "load_checkpoint", "to_jax_flat",
            "load_jax_flat", "adam_to_jax_flat", "load_adam_jax_flat", "UNET_PREFIXES",
            "VQVAE_PREFIXES", "SDVAE_PREFIXES", "DAC_PREFIXES", "DISC_PREFIXES",
-           "VGG_PREFIXES",
+           "VGG_PREFIXES", "RESNET_PREFIXES",
            "MASK_ENCODER_PREFIXES", "OPT_GROUPS", "subtree"]
 
 _SEP = "/"
@@ -76,6 +80,7 @@ OPT_GROUPS = {"model": "inner_states/model/inner_state/",
               "mask": "inner_states/mask/inner_state/"}
 DISC_PREFIXES = {"": "params"}
 VGG_PREFIXES = {"": "params"}
+RESNET_PREFIXES = {"": "params"}
 
 
 def _entries(module: nn.Module, prefixes: dict) -> dict:
@@ -91,6 +96,9 @@ def _entries(module: nn.Module, prefixes: dict) -> dict:
                 *parent, conv_name = mname.split(".")
                 out[tkey] = (_SEP.join(["batch_stats", *parent, sn_name,
                                         conv_name, "kernel", pname]), "same")
+                continue
+            if pname in getattr(m, "batch_stats", ()):
+                out[tkey] = (_SEP.join(["batch_stats", *mname.split("."), pname]), "same")
                 continue
             kind, leaf = "same", pname
             if pname == "weight":

@@ -400,3 +400,62 @@ def test_int8_conv_matches_its_twin_on_card():
     with pytest.raises(ValueError, match="_int_mm"):
         quant.int8_conv(torch.randn(1, 64, 4, 4, device="cuda"),
                         torch.randn(64, 64, 3, 3, device="cuda"), None, 1, 1)
+
+
+@pytest.mark.gpu
+def test_reflow_pairs_on_card_launch_k1_and_match_the_cpu():
+    """The reflow sampler (``make_reflow_pairs.sample_pairs``) of a small
+    HDiT with the NA variant (patch 2, ``na:3`` at width 16 on 8×8×4
+    latents, depth 1: two NA blocks a forward) on the card: K1 launches
+    exactly 2 a velocity call (CFG rides in the batch), and the pairs equal
+    the same model's on the CPU with the same noise and labels within
+    1e-3·max(1, |ref|), fp32, TF32 off."""
+    from flocoder_torch.config import load_config
+    from flocoder_torch.make_reflow_pairs import sample_pairs
+    from flocoder_torch.models.flow_model import build_flow_model
+    from flocoder_torch.models.layers import init_params
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config("flowers_hdit", "configs", [
+        "flow.hdit_depths=[1,1]", "flow.hdit_widths=[16,32]", "flow.hdit_d_ffs=[32,64]",
+        "flow.hdit_d_head=8", "flow.hdit_mapping_depth=1", "flow.hdit_mapping_width=32",
+        "flow.hdit_mapping_d_ff=64", "flow.hdit_patch_size=2", "flow.hdit_attns=[na:3,global]"])
+    model = init_params(build_flow_model(cfg, 4, 3), torch.Generator().manual_seed(0))
+    with torch.no_grad():                       # every zero-init projection carries signal
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=torch.Generator().manual_seed(1)))
+    g = torch.Generator().manual_seed(2)
+    noise = torch.randn(8, 8, 8, 4, generator=g)
+    labels = torch.randint(0, 3, (8,), generator=g)
+    ref, nfe = sample_pairs(model.eval(), noise, labels, 3, "rk4", 4, 3.0)
+    before = na2d_fwd.launches
+    lat, nfe_card = sample_pairs(model.cuda(), noise.cuda(), labels, 3, "rk4", 4, 3.0)
+    torch.cuda.synchronize()
+    assert nfe == nfe_card == 12 and na2d_fwd.launches - before == 2 * 12
+    tol = 1e-3 * max(1.0, ref.abs().max().item())
+    assert (lat.cpu() - ref).abs().max().item() < tol
+
+
+@pytest.mark.gpu
+def test_vqgan_plus_on_card_launches_no_kernel_and_matches_the_cpu():
+    """A small VQGAN+ codec (hidden 32, three downsamples, 32² images) on the
+    card against the CPU, fp32, TF32 off: the reconstruction within
+    1e-3·max(1, |ref|), the RVQ indices equal, no K1 or K2 launch."""
+    from flocoder_torch.models.vqgan_plus import VQGANPlus
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    codec = VQGANPlus(hidden_channels=32, num_downsamples=3, internal_dim=32,
+                      vq_embedding_dim=4, codebook_levels=2, vq_num_embeddings=16)
+    codec.init(torch.Generator().manual_seed(0)).eval()
+    x = torch.rand(4, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        ref, _, idx_ref, _ = codec(x)
+        before = (na2d_fwd.launches, na2d_bwd.launches)
+        out, _, idx, _ = codec.cuda()(x.cuda())
+        torch.cuda.synchronize()
+    assert (na2d_fwd.launches, na2d_bwd.launches) == before
+    assert torch.equal(idx.cpu(), idx_ref)
+    assert (out.cpu() - ref).abs().max().item() < 1e-3 * max(1.0, ref.abs().max().item())

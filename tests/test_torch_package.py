@@ -1,7 +1,8 @@
 """flocoder_torch as a package: it imports nothing of JAX or of the JAX
 package (the serving, codec-training, pre-encoding and flow-training
 modules, the SD VAE, HDiT and MoE, the host pipeline's shard, decoder and
-device augmentation, and the audio family alike) and builds its native libraries under
+device augmentation, the audio family, the reflow-pairs tool and the
+VQGAN+ codec alike) and builds its native libraries under
 ``flocoder_torch/build/``, never from ``native/``; its entry point refuses
 to run without a card unless asked for the CPU, MIDI export and the options
 of the SD-VAE family that are not ported yet refuse (the U-Net in bf16 now
@@ -53,7 +54,8 @@ def test_every_module_imports_without_jax():
               "models.sd_vae", "models.hdit", "models.flow_model", "parallel.moe",
               "data.shard", "data.native_image", "data.device_augs", "ops.quant",
               "ops.audio", "data.audio_io", "models.audio_codec", "models.audio_disc",
-              "training.audio", "train_audio_codec"):
+              "training.audio", "train_audio_codec", "make_reflow_pairs",
+              "models.vqgan_plus"):
         assert f"flocoder_torch.{m}" in mods, m
     # the native libraries build and load with the JAX package blocked
     code = ("import sys, importlib\n"

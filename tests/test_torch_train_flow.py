@@ -159,7 +159,14 @@ def test_unported_options_raise(trained, override, tmp_path):
     on pre-encoded latents, as the JAX script (``flow.pre_encoded=false``
     exits), and reads them from ``<data>_encoded_dac``, which the image
     smoke data lacks; tests/test_torch_audio_slice.py trains it on audio
-    latents."""
+    latents. Reflow (``+flow.reflow=true``) trains too, on the pairs of
+    ``make_reflow_pairs`` (tests/test_torch_reflow_train.py): on the smoke
+    latents, which hold no sources, it exits as the JAX script does."""
+    if override == "+flow.reflow=true":
+        with pytest.raises(SystemExit, match="source_latents"):
+            tf.main(_argv(f"{trained['data']}_encoded_resize", tmp_path, "flow.epochs=1",
+                          override))
+        return
     if override == "codec.choice=dac":
         with pytest.raises(SystemExit, match="pre-encoded"):
             tf.main(_argv(trained["data"], tmp_path, "flow.epochs=1", override,
