@@ -52,7 +52,14 @@
    samples/s per phase (over the steady steps, and over the whole epoch
    with the loader's wait and the copy to the card), peak memory and the
    losses; then a GAN step's breakdown by CUDA events and its device idle
-   share under the profiler.
+   share under the profiler. Its metrics log (utils/logging.py; the phases
+   run from the temporary directory, so runs/ lands there) must hold
+   train/…, val/… and demo/recon records; then the codebook analysis the
+   trainer runs every 10th epoch runs on this run's tracker and the trained
+   codebooks on the card (no codec forward): codebook/… records in a log of
+   its own and, where matplotlib is installed, the JAX module's figures by
+   name (PNGs and the interactive HTML twins); without matplotlib the phase
+   says that they were skipped.
 8. Checks small inputs end to end against the same models on the CPU, TF32
    off: the RK4 + CFG sampler and decode, the encoder, and one warmup step
    and one GAN step of a small codec (hidden 64): losses and parameters
@@ -107,7 +114,15 @@
    (CUDA events recorded after each step; the loop synchronises once an
    epoch) and per epoch, the OT pairing's rounds a step and ms a pairing, each
    evaluation's seconds split into sampler, decode, metrics and grids, peak
-   memory and one step's device idle share; holds the parallel OT
+   memory and one step's device idle share. The evaluation scores FID on
+   Inception features: a seeded random init of the port's FID-Inception net
+   written as weights/fid_inception.npz in the working directory (removed
+   after this phase), FID_feature_backend fid_inception; the run's metrics
+   log must hold Loss/train, Learning Rate, Loss/val, metrics/…, codebook/…
+   and demo/… records; the Inception features of 16 images on the card
+   within 1e-3 of the largest |CPU| (TF32 off) and 64 timed;
+   utils/profiling's print_mem, step_timer and trace run once each around a
+   flow step. Holds the parallel OT
    permutation at B=256 on the card to the CPU's, and one flow step on the
    card to the CPU's with the same draws: in fp32 with TF32 off, the loss,
    parameters, Adam's first moments and EMA within 1e-3·max(1, |ref|); in
@@ -183,7 +198,8 @@
    steps, no evaluation in the loop) on pe_host's shards, then its one RK4
    + CFG evaluation at 20 grid points by flocoder_torch.evaluate_model on
    the val shard; no kernel in training, K1 twice in the evaluation,
-   exactly.
+   exactly; that evaluation scores FID on the default rp2048 features (the
+   flow phase's Inception weights file is gone).
 24. tpu_demo (last): configs/tpu_demo.yaml as composed (the resize codec,
    synthetic 128² data, device_augs at augs_per 12 of its 48, shard; the
    U-Net in bf16 at B=256,
@@ -280,6 +296,23 @@
    Then one warmup and one GAN step with LeCAM of a small VQGAN+ codec
    (hidden 32) and a base-16 VQGANPlusDiscriminator on the card against
    the CPU, held as step 8 holds the VQGAN's.
+30. audio_bf16 (after step 27): step 27 again with the DAC codec in bf16
+   (codec.bf16: its convolutions and Snake compute in bf16 over fp32
+   parameters; the RVQ, the losses, the waveform discriminators and Adam
+   stay fp32), on a data path and checkpoints of its own: codec training
+   (1 reconstruction and 1 GAN epoch of 4 steps), its GAN step's parts,
+   pre-encoding with the bf16 codec, one flow epoch with flow.bf16=true and
+   the bf16 evaluation, and 16 clips served from the EMA checkpoint as
+   trained (in bf16, no +bf16 flag), every WAV read back. K1–K5 launch 0
+   times on each sub-phase (audio_bf16_train, audio_bf16_preencode,
+   audio_bf16_flow, audio_bf16_serve). The bf16 codec's forward on the
+   trained weights on the card against the same bf16 codec on the CPU, op
+   by op (each of its 118 ops fed the CPU's input) and end to end, and
+   against an fp32 codec's on the card (hold_bf16_codec_forward's
+   docstring); step 27's small reconstruction and GAN steps with the codec
+   in bf16, card against CPU, under a gate that the card's fp32 step
+   fails (check_audio_small's docstring). Prints clips/s, the GAN
+   step's time, peak memory, latents/s and flow samples/s beside step 27's.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -987,7 +1020,82 @@ def train_flowers(tmp: str, card: str, kernels: dict) -> tuple:
         fail(f"training losses are not finite: {res['epochs']} {res['val']}")
     if res["checkpoint"] is None or not os.path.exists(res["checkpoint"]):
         fail("training wrote no checkpoint")
-    return res["state"], train_record(res, wall, card), launches
+    rec = train_record(res, wall, card)
+    rec["metrics_log"] = check_codec_train_log(tmp, res)
+    return res["state"], rec, launches
+
+
+def check_metrics_log(path: str, must: list, label: str) -> dict:
+    """A trainer's ``metrics.jsonl``: a ``_config`` record first, then
+    records each with ``_step`` and ``_t`` that hold every key of ``must``
+    between them (a key ending in ``*``: one with that prefix). Returns the
+    record count and the keys."""
+    if not path or not os.path.exists(path):
+        fail(f"{label}: no metrics log ({path})")
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    keys = set().union(*map(set, recs[1:])) if len(recs) > 1 else set()
+    missing = [k for k in must if not any(x == k or (k.endswith("*") and x.startswith(k[:-1]))
+                                          for x in keys)]
+    if list(recs[0]) != ["_config"] or missing or \
+            not all({"_step", "_t"} <= set(r) for r in recs[1:]):
+        fail(f"{label}: metrics log {path} lacks {missing} (first record {list(recs[0])})")
+    print(f"{label} metrics log {os.path.relpath(path)}: {len(recs) - 1} records, keys "
+          f"{sorted(k for k in keys if not k.startswith('_'))}", flush=True)
+    return dict(path=os.path.relpath(path), records=len(recs) - 1, keys=sorted(keys))
+
+
+CODEBOOK_FIGURES = ["codebook_usage_epoch{e}.png", "codebook_combos_epoch{e}.png",
+                    "codebook_vectors_epoch{e}.png", "codebook_3d_epoch{e}.png",
+                    "zq_3d_scatter_epoch{e}.png", "zq_3d_scatter_epoch{e}.html",
+                    "zq_3d_freq_train_log_epoch{e}.png", "zq_3d_freq_train_log_epoch{e}.html",
+                    "zq_3d_freq_val_log_epoch{e}.png", "zq_3d_freq_val_log_epoch{e}.html"]
+
+
+def check_codec_train_log(tmp: str, res: dict) -> dict:
+    """The codec training's metrics log (train/…, val/…, demo/recon; the
+    working directory is the temporary one, so runs/ lands there), then
+    the analysis the trainer runs every 10th epoch, on the run's tracker and
+    the trained codec's codebooks on the card, into a log of its own:
+    the codebook/… records and, where matplotlib is installed, the figures
+    under the JAX module's names (PNG and HTML); without it the analysis
+    prints that it skipped them and the phase says why. No codec forward
+    runs here."""
+    import importlib.util
+    from flocoder_torch.utils import logging as wblog
+    from flocoder_torch.utils.codebook_analysis import analyze_codebooks
+
+    out = dict(train=check_metrics_log(res["metrics_log"], [
+        "train/total", "train/mse", "samples_per_sec", "val/total", "demo/recon"],
+        "codec training"))
+    epoch = len(res["epochs"])
+    figures_dir = os.path.join(tmp, "train_out")
+    path = wblog.init(project="chip_smoke", name="codebooks",
+                      config={"checkpoint": res["checkpoint"], "epoch": epoch},
+                      output_dir=os.path.join(tmp, "runs"))
+    numbers = analyze_codebooks(res["codebook_tracker"], res["state"].codec.vq, epoch,
+                                use_wandb=True, output_dir=figures_dir)
+    wblog.finish()
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    must = ["codebook/train_usage_pct_level0", "codebook/val_usage_pct_level0",
+            "codebook/val_only_codes"]
+    if has_mpl:
+        must += ["codebook/usage_hist", "codebook/combination_usage_map", "codebook/vectors",
+                 "codebook/zq_3d_scatter", "codebook/train_3d_frequency_scatter_log"]
+    out["codebooks"] = check_metrics_log(path, must, "codebook analysis")
+    out["codebook_numbers"] = numbers
+    if has_mpl:
+        names = [f.format(e=epoch) for f in CODEBOOK_FIGURES]
+        missing = [n for n in names if not os.path.exists(os.path.join(figures_dir, n))]
+        if missing:
+            fail(f"codebook figures missing: {missing}")
+        out["figures"] = names
+        print(f"codebook figures written: {names}", flush=True)
+    else:
+        out["figures"] = "skipped: matplotlib is not installed on this machine"
+        print("codebook figures skipped: matplotlib is not installed on this machine; the "
+              "analysis printed 'codebook plots skipped' and training went on", flush=True)
+    return out
 
 
 def train_record(res: dict, wall: float, card: str) -> dict:
@@ -2124,6 +2232,67 @@ def check_flow_step(model, batch: dict) -> dict:
     return dict(worst, largest_cpu_f64=largest, ot_permutation_equal=True)
 
 
+def write_inception_weights() -> str:
+    """A seeded random init of the port's FID-Inception network written as
+    weights/fid_inception.npz in the working directory (the JAX flat
+    layout): with it, default_feature_fn scores FID on Inception features
+    (reference-comparable only once converted weights replace it)."""
+    from flocoder_torch.models.inception import InceptionV3Features, save_inception_weights
+    from flocoder_torch.models.layers import init_params
+    path = os.path.join("weights", "fid_inception.npz")
+    save_inception_weights(init_params(InceptionV3Features(), torch.Generator().manual_seed(0)),
+                           path)
+    return path
+
+
+def check_inception(card: str) -> dict:
+    """The Inception features of 16 seeded 128² uint8 images on the card
+    against the CPU's, TF32 off, within 1e-3 of the largest |CPU|; and the
+    features of 64 images timed by CUDA events (the input pipeline's resize
+    to 299² included)."""
+    from flocoder_torch.models.inception import load_inception_weights, make_inception_feature_fn
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    fn = make_inception_feature_fn(state=load_inception_weights("weights/fid_inception.npz"))
+    imgs = torch.from_numpy(np.random.default_rng(21).integers(0, 256, (64, 128, 128, 3),
+                                                              dtype=np.uint8))
+    ref = fn(imgs[:16]).double()
+    got = fn(imgs[:16].cuda()).double().cpu()
+    err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+    if not (got.shape == (16, 2048) and scale > 0 and err < 1e-3 * scale):
+        fail(f"Inception features on the card {err:.3e} from the CPU's (largest {scale:.3e})")
+    batch = imgs.cuda()
+    ms = cuda_ms(lambda: fn(batch), 5)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+    print(f"Inception features (random init, TF32 off): card vs CPU max |d| {err:.3e} of "
+          f"largest {scale:.3e} (tolerance 1e-3 of it); 64 images 128^2 -> 299^2 -> 2048 "
+          f"{ms:.3f} ms (CUDA events) | card: {card}", flush=True)
+    return dict(max_abs_err=err, largest=scale, ms_64=ms)
+
+
+def run_profiling_tools(tmp: str, fn, card: str) -> dict:
+    """utils/profiling's helpers once each around ``fn`` (a flow step):
+    print_mem (bytes in use and the card's limit), step_timer (one
+    synchronise at its end), trace (a torch.profiler trace file)."""
+    from flocoder_torch.utils.profiling import print_mem, step_timer, trace
+    mem = print_mem("flow phase")
+    with step_timer("flow step B=256") as timed:
+        fn()
+    trace_dir = os.path.join(tmp, "flow_trace")
+    with trace(trace_dir):
+        fn()
+    files = os.listdir(trace_dir)
+    used, limit = mem.get("cuda:0", (0.0, 0.0))
+    if not (used > 0 and limit > 70 and timed["seconds"] > 0 and files
+            and os.path.getsize(os.path.join(trace_dir, files[0])) > 0):
+        fail(f"profiling helpers: mem {mem}, step {timed}, trace {files}")
+    print(f"profiling helpers: print_mem {used:.2f}/{limit:.2f} GB, step_timer "
+          f"{timed['seconds'] * 1e3:.2f} ms, trace {files[0]} "
+          f"({os.path.getsize(os.path.join(trace_dir, files[0]))} bytes) | card: {card}",
+          flush=True)
+    return dict(mem_gb=[used, limit], step_s=timed["seconds"], trace_file=files[0])
+
+
 def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: dict) -> tuple:
     """flowers_vqgan's flow at full width through flocoder_torch.train_flow.main
     on the latents the pre-encode phase wrote (1,152 train, 128 val): U-Net
@@ -2156,6 +2325,7 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
     # an event after each step is queued: the step times come from the
     # card's clock, and the loop keeps its one synchronise an epoch
     events, step_hook = _hooked()
+    write_inception_weights()
     t0 = time.time()
     res = tf.main(argv, step_hook=step_hook)
     torch.cuda.synchronize()
@@ -2179,6 +2349,19 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
         fail(f"flow losses or metrics not finite: {res['epochs']} {res['eval']}")
     if not (res["checkpoint"] and os.path.exists(res["ema_checkpoint"])):
         fail("flow training wrote no checkpoint")
+    backend = res["eval"][0]["metrics"]["FID_feature_backend"]
+    if backend != "fid_inception":
+        fail(f"the flow evaluation's FID ran on {backend}, not the Inception weights file")
+    import importlib.util
+    plots = (["codebook/usage_hist", "codebook/combination_usage_map"]
+             if importlib.util.find_spec("matplotlib") else [])
+    log = check_metrics_log(res["metrics_log"], [
+        "Loss/train", "Learning Rate", "batch_size", "samples_per_sec", "Loss/val",
+        "metrics/FID_px", "metrics/FID_feature_backend", "metrics/sinkhorn",
+        "codebook/val_usage_pct_level0", "codebook/gen_usage_pct_level0", "demo/decoded_pred*",
+        *plots], "flow training")
+    inception = check_inception(card)
+    shutil.rmtree("weights")                # the later phases score FID as before
 
     # serve the trained EMA checkpoint on the card
     _zero(kernels)
@@ -2208,6 +2391,7 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
     step(state, batch, gen)
     prof = profile_batch(lambda: step(state, batch, gen))
     top = prof.pop("top_kernels")
+    tools = run_profiling_tools(tmp, lambda: step(state, batch, gen), card)
     step_check = check_flow_step(state.model, batch)
 
     steady = float(np.median(steps))
@@ -2216,7 +2400,8 @@ def train_flow_phase(tmp: str, pe_data: str, paths: dict, card: str, kernels: di
                epoch_samples_per_s=[e["samples"] / e["seconds"] for e in res["epoch_seconds"]],
                epochs=res["epochs"], evals=res["eval"], ot=ot, step_profile=prof,
                k1_launches_eval=eval_k1, k1_launches_serve=serve_k1,
-               serve_batch_s=served["batch_seconds"], card_vs_cpu=step_check)
+               serve_batch_s=served["batch_seconds"], card_vs_cpu=step_check,
+               metrics_log=log, inception=inception, profiling_tools=tools)
     print(f"flow train flowers_vqgan B={FLOW_BATCH} 16x16x4: "
           f"{rec['steady_samples_per_s']:.2f} samples/s over steady steps (median of "
           f"{len(steps)} step-to-step intervals on CUDA events), per epoch "
@@ -3687,6 +3872,9 @@ def flow_shard(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
             ev_launches, na2d_fwd=2 * len(chunks))
     if not all(np.isfinite(v) for v in metrics.values() if isinstance(v, float)):
         fail(f"evaluate_model on the val shard: {metrics}")
+    if os.path.exists("weights") or metrics["FID_feature_backend"] != "rp2048":
+        fail(f"evaluate_model scored FID on {metrics['FID_feature_backend']}, not the "
+             "default rp2048 (the flow phase's Inception weights file was left behind)")
     launches["na2d_fwd"] += ev_launches["na2d_fwd"]
     steps = _steady(events)
     rec = dict(batch=FLOW_BATCH, wall_s=wall, peak_mem_gib=peak, card=card, step_s=steps,
@@ -4168,14 +4356,22 @@ AUDIO_N = 64                   # synthetic_n: 4 codec steps an epoch at the reci
 AUDIO_AUGS = 4                 # pre-encode augs_per (the recipe's 8)
 AUDIO_CROP = 32768             # audio_dac's crop_len: 16×16×8 latents
 AUDIO_SERVE = 16               # clips served
+# check_audio_small in bf16: the card's bf16 step must lie under this share
+# of the CPU's bf16-to-fp32 spread, and the card's fp32 step (the control,
+# about 1.0 of it) above; sound bf16 steps read 0.12-0.63 of it on an H100
+BF16_STEP_GATE = 0.8
 
 
-def _audio_argv(tmp: str, *extra) -> list:
+def _audio_argv(tmp: str, *extra, bf16: bool = False) -> list:
     """audio_dac.yaml as composed on the synthetic chords (its data path is
     absent), no metrics log, the checkpoints under one directory (the
-    scripts' default codec is its newest dac_*.npz)."""
-    return ["--config-name", "audio_dac.yaml", f"data={os.path.join(tmp, 'fc_audio_data')}",
-            "no_wandb=true", f"+ckpt_dir={os.path.join(tmp, 'audio_ckpt')}", *extra]
+    scripts' default codec is its newest dac_*.npz); with ``bf16`` the
+    codec in bf16 (codec.bf16), with a data path and checkpoints of its
+    own."""
+    tag = "audio_bf16" if bf16 else "audio"
+    return ["--config-name", "audio_dac.yaml", f"data={os.path.join(tmp, f'fc_{tag}_data')}",
+            "no_wandb=true", f"+ckpt_dir={os.path.join(tmp, f'{tag}_ckpt')}",
+            *(["+codec.bf16=true"] if bf16 else []), *extra]
 
 
 def check_wavs(paths: list, frames: int, label: str) -> None:
@@ -4192,14 +4388,14 @@ def check_wavs(paths: list, frames: int, label: str) -> None:
             fail(f"{label}: {path} reads back as {meta}, all zero: {not pcm.any()}")
 
 
-def audio_train(tmp: str, card: str, kernels: dict) -> tuple:
+def audio_train(tmp: str, card: str, kernels: dict, bf16: bool = False) -> tuple:
     """audio_dac's DAC codec at full width (strides 2,4,4,4, base 32, RVQ
     4×512×8, B=16 crops of 32,768 samples; 3.49 M + 3.51 M parameters and
     the 26.85 M-parameter waveform discriminators) through
     flocoder_torch.train_audio_codec.main on 64 synthetic chords: one
     reconstruction and one GAN epoch of 4 steps, a validation batch and two
-    WAV pairs after each; no kernel of the port. Returns (state, record,
-    launches)."""
+    WAV pairs after each; no kernel of the port; with ``bf16`` the codec
+    computes in bf16 (codec.bf16). Returns (state, record, launches)."""
     from flocoder_torch import train_audio_codec as tac
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4209,14 +4405,18 @@ def audio_train(tmp: str, card: str, kernels: dict) -> tuple:
     _zero(kernels)
     events, step_hook = _hooked()
     t0 = time.time()
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    label = f"audio_dac codec ({str(dtype)[6:]})"
+    out = os.path.join(tmp, "audio_bf16_codec_out" if bf16 else "audio_codec_out")
     res = tac.main(_audio_argv(tmp, f"+synthetic_n={AUDIO_N}", "codec.epochs=2",
                                "codec.gan_warmup_epochs=1", "+eval_every=1",
-                               f"+output_dir={os.path.join(tmp, 'audio_codec_out')}"),
-                   step_hook=step_hook)
+                               f"+output_dir={out}", bf16=bf16), step_hook=step_hook)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = _counts(kernels)
-    _expect(kernels, "audio_train (DAC codec)", launches)
+    _expect(kernels, f"audio_train ({label})", launches)
+    if res["state"].codec.dtype != dtype:
+        fail(f"{label}: the codec computes in {res['state'].codec.dtype}")
     if [(e["phase"], e["clips"]) for e in res["epoch_seconds"]] != [("recon", 64), ("gan", 64)]:
         fail(f"audio codec training ran {res['epoch_seconds']}")
     losses = [v for e in res["epochs"] + res["val"] for v in e.values() if isinstance(v, float)]
@@ -4227,14 +4427,15 @@ def audio_train(tmp: str, card: str, kernels: dict) -> tuple:
     check_wavs(res["wavs"], AUDIO_CROP, "audio codec validation")
     peak = torch.cuda.max_memory_allocated() / 2**30
     rec = dict(batch=16, crop=AUDIO_CROP, wall_s=wall, peak_mem_gib=peak, card=card,
-               epochs=res["epochs"], val=res["val"])
+               epochs=res["epochs"], val=res["val"], dtype=str(dtype),
+               checkpoint=res["checkpoint"])
     for epoch, ph in ((1, "recon"), (2, "gan")):
         (ep,) = [e for e in res["epoch_seconds"] if e["epoch"] == epoch]
         steady = _steady([e for e in events if e[0] == epoch])
         rec[ph] = dict(steady_step_s=steady, clips_per_s=16 / float(np.median(steady)),
                        host_step_s=res["step_seconds"][ph], epoch_s=ep["seconds"],
                        epoch_clips_per_s=ep["clips"] / ep["seconds"])
-    print("audio_dac codec B=16 x 32768 samples: " + ", ".join(
+    print(f"{label} B=16 x 32768 samples: " + ", ".join(
         f"{ph} {rec[ph]['clips_per_s']:.2f} clips/s over steady steps (CUDA events, median "
         f"of {len(rec[ph]['steady_step_s'])}), {rec[ph]['epoch_clips_per_s']:.2f} over the "
         f"epoch" for ph in ("recon", "gan")) + f", peak {peak:.2f} GiB, wall {wall:.1f} s | "
@@ -4255,6 +4456,7 @@ def audio_gan_breakdown(state, card: str) -> dict:
     from flocoder_torch.generate_samples import CONFIG_DIR
     from flocoder_torch.training.audio import make_audio_gan_step
 
+    dtype = str(state.codec.dtype)[6:]
     step = make_audio_gan_step(load_config("audio_dac.yaml", CONFIG_DIR))
     ds = SyntheticAudioDataset(n=16, crop_len=AUDIO_CROP, seed=11)
     x = torch.from_numpy(np.stack([ds.get(i, None)[0] for i in range(16)])).cuda()
@@ -4279,7 +4481,7 @@ def audio_gan_breakdown(state, card: str) -> dict:
     out["step_ms"] = sum(totals.values())
     out.update(profile_batch(lambda: step(state, x, gen)))
     top = out.pop("top_kernels")
-    print("audio GAN step breakdown (audio_dac, fp32, B=16 x 32768): " + " ".join(
+    print(f"audio GAN step breakdown (audio_dac, codec {dtype}, B=16 x 32768): " + " ".join(
         f"{k}={v:.4f}" for k, v in out.items()) + f" | card: {card}", flush=True)
     print("  device time by kernel (ms): " + "; ".join(
         f"{name[:60]}={ms:.2f}" for name, ms in top), flush=True)
@@ -4287,7 +4489,7 @@ def audio_gan_breakdown(state, card: str) -> dict:
     return out
 
 
-def audio_preencode(tmp: str, card: str, kernels: dict) -> tuple:
+def audio_preencode(tmp: str, card: str, kernels: dict, bf16: bool = False) -> tuple:
     """audio_dac's pre-encode through flocoder_torch.preencode_data.main with
     the trained codec (the newest dac_*.npz): the 256 synthetic chords (25
     val, 231 train), B=16, augs_per 4 (the recipe's 8): 6 val and 57 train
@@ -4299,10 +4501,10 @@ def audio_preencode(tmp: str, card: str, kernels: dict) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     _zero(kernels)
     t0 = time.time()
-    enc = pe.main(_audio_argv(tmp, f"preencoding.augs_per={AUDIO_AUGS}"))
+    enc = pe.main(_audio_argv(tmp, f"preencoding.augs_per={AUDIO_AUGS}", bf16=bf16))
     wall = time.time() - t0
     launches = _counts(kernels)
-    _expect(kernels, "audio_preencode", launches)
+    _expect(kernels, f"audio_preencode (codec bf16: {bf16})", launches)
     if [enc[s]["batches"] for s in ("val", "train")] != [6, 57]:
         fail(f"audio pre-encode ran {[enc[s]['batches'] for s in ('val', 'train')]} batches")
     for s in ("val", "train"):
@@ -4312,39 +4514,45 @@ def audio_preencode(tmp: str, card: str, kernels: dict) -> tuple:
                 not np.isfinite(lat).all():
             fail(f"audio pre-encode {s}: {len(ds)} files, latents {lat.shape}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    rec = dict(batch=16, wall_s=wall, peak_mem_gib=peak, card=card,
+    rec = dict(batch=16, wall_s=wall, peak_mem_gib=peak, card=card, bf16=bf16,
                **{f"{s}_latents": enc[s]["latents"] for s in ("val", "train")},
                **{f"{s}_latents_per_s": enc[s]["latents_per_s"] for s in ("val", "train")})
-    print(f"audio_dac pre-encode B=16 (synthetic chords, augs_per {AUDIO_AUGS}): val "
+    print(f"audio_dac pre-encode B=16 (codec bf16: {bf16}; synthetic chords, augs_per "
+          f"{AUDIO_AUGS}): val "
           f"{rec['val_latents']} latents at {rec['val_latents_per_s']:.2f}/s, train "
           f"{rec['train_latents']} at {rec['train_latents_per_s']:.2f}/s, 16x16x8, peak "
           f"{peak:.2f} GiB, wall {wall:.1f} s | card: {card}", flush=True)
     return rec, launches
 
 
-def audio_flow(tmp: str, card: str, kernels: dict) -> tuple:
+def audio_flow(tmp: str, card: str, kernels: dict, bf16: bool = False) -> tuple:
     """The U-Net flow on the audio latents (dim_mults 1,2,4, 4 classes,
     B=64) through flocoder_torch.train_flow.main: 1 epoch (the recipe's
     100) with evaluate_model_audio as composed (RK4, 50 grid points, CFG
     3.0; the sampled and the target latents decoded to waveforms, WAVs
     written); then generate_samples serves 16 clips from the EMA checkpoint
-    as composed and every WAV is read back. No kernel of the port."""
+    as composed and every WAV is read back. No kernel of the port. With
+    ``bf16`` the codec and the U-Net (flow.bf16) compute in bf16, and the
+    EMA checkpoint serves in bf16 as trained (no +bf16 flag)."""
     from flocoder_torch import generate_samples as gs
     from flocoder_torch import train_flow as tf
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero(kernels)
-    out_dir = os.path.join(tmp, "audio_flow_out")
+    tag = "audio_bf16" if bf16 else "audio"
+    out_dir = os.path.join(tmp, f"{tag}_flow_out")
     events, step_hook = _hooked()
     t0 = time.time()
     res = tf.main(_audio_argv(tmp, "flow.epochs=1", "flow.ckpt_every=1",
-                              f"+output_dir={out_dir}"), step_hook=step_hook)
+                              f"+output_dir={out_dir}", *(["flow.bf16=true"] if bf16 else []),
+                              bf16=bf16), step_hook=step_hook)
     torch.cuda.synchronize()
     wall = time.time() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     flow_launches = _counts(kernels)
-    _expect(kernels, "audio_flow (U-Net, evaluate_model_audio)", flow_launches)
+    _expect(kernels, f"audio_flow (U-Net, evaluate_model_audio; bf16: {bf16})",
+            flow_launches)
     (ep,), (ev,) = res["epoch_seconds"], res["eval"]
     if ep["steps"] < 4 or not np.isfinite(list(ev["metrics"].values())).all():
         fail(f"audio flow: {res['epoch_seconds']} {ev}")
@@ -4355,10 +4563,13 @@ def audio_flow(tmp: str, card: str, kernels: dict) -> tuple:
     t0 = time.time()
     served = gs.main(["--config-name", "audio_dac.yaml",
                       f"+flow_checkpoint={res['ema_checkpoint']}", f"+n_samples={AUDIO_SERVE}",
-                      "+seed=0", f"+output_dir={os.path.join(tmp, 'audio_gen')}"])
+                      "+seed=0", f"+output_dir={os.path.join(tmp, f'{tag}_gen')}"])
     serve_wall = time.time() - t0
     serve_launches = _counts(kernels)
-    _expect(kernels, "audio_serve", serve_launches)
+    _expect(kernels, f"audio_serve (bf16: {bf16})", serve_launches)
+    if served["bf16"] != bf16:
+        fail(f"audio serving ran bf16={served['bf16']}, the checkpoint was trained "
+             f"bf16={bf16}")
     if served["images"].shape != (AUDIO_SERVE, AUDIO_CROP, 1) or \
             not np.isfinite(served["images"]).all() or len(served["wav_files"]) != AUDIO_SERVE:
         fail(f"audio serving: {served['images'].shape}, {len(served['wav_files'])} WAVs")
@@ -4368,8 +4579,9 @@ def audio_flow(tmp: str, card: str, kernels: dict) -> tuple:
                step_s=steps, steady_samples_per_s=64 / float(np.median(steps)),
                epoch_samples_per_s=ep["samples"] / ep["seconds"], eval=ev,
                serve_wall_s=serve_wall, serve_batch_s=served["batch_seconds"],
-               serve_nfe=served["nfe"])
-    print(f"audio_dac flow B=64 16x16x8: {rec['steady_samples_per_s']:.2f} samples/s over "
+               serve_nfe=served["nfe"], bf16=bf16)
+    print(f"audio_dac flow B=64 16x16x8 (bf16: {bf16}): {rec['steady_samples_per_s']:.2f} "
+          "samples/s over "
           f"steady steps (median of {len(steps)}), {rec['epoch_samples_per_s']:.2f} over the "
           f"epoch of {ep['steps']} steps, peak {peak:.2f} GiB; evaluation sinkhorn_mel "
           f"{ev['metrics']['sinkhorn_mel']:.4f} sinkhorn {ev['metrics']['sinkhorn']:.4f} nfe "
@@ -4381,7 +4593,7 @@ def audio_flow(tmp: str, card: str, kernels: dict) -> tuple:
     return rec, flow_launches, serve_launches
 
 
-def check_audio_small() -> dict:
+def check_audio_small(dtype=torch.float32) -> dict:
     """A small DAC (strides 2,4, base 8, RVQ 2×16×8) and small waveform
     discriminators (periods 2, 3; 2 scales; base 4), every weight random
     (the zero-initialised convolutions and log_alpha included: kernels
@@ -4407,7 +4619,22 @@ def check_audio_small() -> dict:
     a small mean, saturates in under 1% of its samples, and the spectrum of
     the reconstruction step's output stays above 1e-5 of its largest bin at
     every FFT size of the losses (a hundred times the rounding floor); the
-    check prints that floor."""
+    check prints that floor.
+
+    With ``dtype`` bf16 the codec computes in bf16 (the discriminators, the
+    losses and Adam stay fp32) on both devices, and the gates are bf16's:
+    losses within 3e-2·max(1, |ref|); parameters within 1e-3·max(1, |ref|)
+    as in fp32 (one Adam step moves a weight by about lr = 1e-4 either way);
+    Adam's first moments by the median over each model's tensors of
+    (largest |card − CPU| / largest |CPU|), which must be under
+    BF16_STEP_GATE of the same median between the CPU's bf16 step and its
+    fp32 step on the same weights (the spread, 0.17–0.23 on the chip), and
+    the card's fp32 step, the control, must read at or above that gate: the
+    gate tells a bf16 step from an fp32 one in every run.
+    Elementwise they are not held: a bf16 step's log-magnitude gradients
+    move by their own size between two sound roundings
+    (tests/test_torch_audio_bf16_step.py measures that spread between two
+    JAX compilations), and cuDNN sums otherwise than the CPU."""
     from flocoder_torch.config import load_config
     from flocoder_torch.data.audio_io import SyntheticAudioDataset
     from flocoder_torch.generate_samples import CONFIG_DIR
@@ -4416,7 +4643,8 @@ def check_audio_small() -> dict:
     from flocoder_torch.ops.audio import multiscale_mel_loss, multiscale_stft_loss, stft
     from flocoder_torch.training.audio import (create_audio_state, make_audio_gan_step,
                                                make_audio_train_step)
-    from flocoder_torch.training.checkpoint import DAC_PREFIXES, DISC_PREFIXES, to_jax_flat
+    from flocoder_torch.training.checkpoint import (DAC_PREFIXES, DISC_PREFIXES, load_jax_flat,
+                                                   to_jax_flat)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4434,8 +4662,10 @@ def check_audio_small() -> dict:
     cfg = load_config("audio_dac.yaml", CONFIG_DIR, [
         "codec.strides=[2,4]", "codec.base_channels=8", "codec.crop_len=2048",
         "codec.codebook_levels=2", "codec.vq_num_embeddings=16", "codec.learning_rate=1e-4"])
+    bf16 = dtype == torch.bfloat16
     codec = randomize(DACCodec(strides=(2, 4), base_channels=8, codebook_levels=2,
-                               vq_num_embeddings=16).init(torch.Generator().manual_seed(0)))
+                               vq_num_embeddings=16, dtype=dtype)
+                      .init(torch.Generator().manual_seed(0)))
     with torch.no_grad():
         codec.decoder.ops[-1].weight.mul_(10.0)
     disc = randomize(DACDiscriminator(periods=(2, 3), scales=2, base_channels=4))
@@ -4459,14 +4689,20 @@ def check_audio_small() -> dict:
     draws = [dict(kmeans_seeds=rng.integers(0, n_tokens, (L, K)),
                   reseed_picks=rng.integers(0, n_tokens, (L, K))) for _ in range(2)]
     steps = (("recon", make_audio_train_step, False), ("gan", make_audio_gan_step, True))
+    runs = [("card", "cuda", codec), ("cpu", "cpu", codec)]
+    if bf16:        # the fp32 step on the same weights, on the CPU and the card
+        fp32 = load_jax_flat(DACCodec(strides=(2, 4), base_channels=8, codebook_levels=2,
+                                      vq_num_embeddings=16),
+                             to_jax_flat(codec, DAC_PREFIXES), DAC_PREFIXES)
+        runs += [("cpu_fp32", "cpu", fp32), ("card_fp32", "cuda", fp32)]
     out = {}
-    for dev in ("cuda", "cpu"):
+    for run, dev, model0 in runs:
         losses, params, moments, picks = {}, {}, {}, []
         for (kind, make, adversarial), batch, draw in zip(steps, batches, draws):
             # each step from the same initial weights: a weight whose first
             # gradient is rounding's moves by ±lr on either side, and a second
             # step would carry that into the discriminators' cancelling sums
-            state = create_audio_state(copy.deepcopy(codec).to(dev),
+            state = create_audio_state(copy.deepcopy(model0).to(dev),
                                        copy.deepcopy(disc).to(dev), 1e-4)
             _, aux, idx = make(cfg)(state, batch.to(dev), None, **draw)
             losses.update({f"{kind}/{k}": float(v) for k, v in aux.items()})
@@ -4479,15 +4715,33 @@ def check_audio_small() -> dict:
                     for n, p in model.named_parameters() if p in opt.adam.state}
                 params.update({f"{kind}/{k}": v for k, v in to_jax_flat(model, prefixes).items()})
             picks.append(idx.cpu().numpy())
-        out[dev] = (losses, params, moments, picks)
-    (l_card, p_card, m_card, i_card), (l_cpu, p_cpu, m_cpu, i_cpu) = out["cuda"], out["cpu"]
+        out[run] = (losses, params, moments, picks)
+    (l_card, p_card, m_card, i_card), (l_cpu, p_cpu, m_cpu, i_cpu) = out["card"], out["cpu"]
     same_picks = float(np.mean([np.mean(a == b) for a, b in zip(i_card, i_cpu)]))
     report = {"same_picks": same_picks, "spectrum_floor": floor}
     for model, ref_m in m_cpu.items():
         if set(ref_m) != set(m_card[model]) or not ref_m:
             fail(f"card and CPU optimise different {model} parameters")
-        tol = 1e-3 * max(float(np.abs(r).max()) for r in ref_m.values())
         errs = {n: float(np.abs(m_card[model][n] - r).max()) for n, r in ref_m.items()}
+        if bf16:
+            held = [n for n, r in ref_m.items() if np.abs(r).max() > 0]
+
+            def median_err(m):
+                return float(np.median([np.abs(m[n] - ref_m[n]).max() / np.abs(ref_m[n]).max()
+                                        for n in held]))
+            rel, spread = median_err(m_card[model]), median_err(out["cpu_fp32"][2][model])
+            control = median_err(out["card_fp32"][2][model])
+            if not (held and np.isfinite(rel) and rel < BF16_STEP_GATE * spread
+                    <= control):
+                fail(f"audio bf16 card and CPU gradients of {model}: median error {rel:.3e} "
+                     f"of each tensor's largest, the card's fp32 step {control:.3e}, the "
+                     f"CPU's fp32 step {spread:.3e} (gate: {BF16_STEP_GATE} of the last, "
+                     "the bf16 step under it and the fp32 step not)")
+            report[f"{model}_moment_err_over_tol"] = rel / (BF16_STEP_GATE * spread)
+            report[f"{model}_median_moment_err"] = dict(card_bf16=rel, card_fp32=control,
+                                                        cpu_fp32=spread)
+            continue
+        tol = 1e-3 * max(float(np.abs(r).max()) for r in ref_m.values())
         worst_n = max(errs, key=errs.get)
         if not (tol > 0 and all(np.isfinite(e) and e < tol for e in errs.values())):
             fail(f"audio card and CPU gradients disagree on {model} {worst_n}: "
@@ -4498,7 +4752,7 @@ def check_audio_small() -> dict:
         a = l_card[name] if name in l_card else p_card[name]
         ref = np.asarray(ref, np.float64)
         err = float(np.abs(np.asarray(a, np.float64) - ref).max())
-        tol = 1e-3 * max(1.0, float(np.abs(ref).max()))
+        tol = (3e-2 if bf16 and name in l_cpu else 1e-3) * max(1.0, float(np.abs(ref).max()))
         if not (np.isfinite(err) and err < tol):
             fail(f"audio card and CPU disagree after the steps on {name}: {err:.3e} "
                  f"(tol {tol:.3e})")
@@ -4516,7 +4770,8 @@ def check_audio_small() -> dict:
         if not abs(got - ref) < 1e-4 * max(1.0, abs(ref)):
             fail(f"multi-scale {name} loss on the card {got} against the CPU's {ref}")
         report[f"{name}_loss"] = (got, ref)
-    print("audio card vs CPU, one reconstruction and one GAN step (DAC base 8): losses "
+    print(f"audio card vs CPU, one reconstruction and one GAN step (DAC base 8, "
+          f"{str(dtype)[6:]}): losses "
           + " ".join(f"{k}={l_card[k]:.5f}/{l_cpu[k]:.5f}" for k in sorted(l_cpu))
           + f"; decoder spectrum down to {floor:.2e} of its largest bin; picks equal "
           f"{same_picks:.4f}; worst loss/parameter {worst[0]} at "
@@ -4548,6 +4803,171 @@ def audio_phase(tmp: str, card: str, kernels: dict) -> tuple:
     return (dict(train=train, preencode=pre, flow=flow, card_vs_cpu=card_vs_cpu),
             {"audio_train": train_launches, "audio_preencode": pre_launches,
              "audio_flow": flow_launches, "audio_serve": serve_launches})
+
+
+def bf16_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest |got − ref| over the larger of two bf16 spacings of each
+    reference element and 1e-2 of the largest |ref|: at most 1 when every
+    element lies within a few bf16 spacings or 1e-2 of the largest."""
+    ref = ref.detach().double().cpu()
+    mag = np.maximum(ref.abs().numpy(), 2.0 ** -126).astype(np.float32)
+    spacing = torch.from_numpy(np.spacing(mag).astype(np.float64) * 2.0 ** 16)
+    tol = torch.maximum(2 * spacing, torch.tensor(1e-2 * float(ref.abs().max())))
+    return float(((got.detach().double().cpu() - ref).abs() / tol).max())
+
+
+def bf16_ops(card_codec, cpu_codec, x, zq) -> list:
+    """Every convolution, transposed convolution and Snake of the bf16 codec
+    on the card fed the CPU bf16 codec's own input to it (forward hooks on
+    the CPU's encode of ``x`` and decode of ``zq``). Returns (name, share of
+    elements that differ, bf16_excess of the card over the CPU) for each
+    op, and the CPU's latents and waveform."""
+    from flocoder_torch.models.audio_codec import Snake, Conv1d
+    card_mods = dict(card_codec.named_modules())
+    device = next(card_codec.parameters()).device
+    seen = []
+    hooks = [m.register_forward_hook(lambda m, i, o, n=n: seen.append((n, i[0], o)))
+             for n, m in cpu_codec.named_modules() if isinstance(m, (Conv1d, Snake))]
+    with torch.no_grad():
+        z, w = cpu_codec.encode(x), cpu_codec.decode(zq)
+    for h in hooks:
+        h.remove()
+    out = []
+    with torch.no_grad():
+        for name, inp, ref in seen:
+            got = card_mods[name](inp.to(device)).cpu()
+            if got.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16 \
+                    or got.shape != ref.shape:
+                fail(f"bf16 DAC op {name}: card {got.dtype} {tuple(got.shape)}, CPU "
+                     f"{ref.dtype} {tuple(ref.shape)}")
+            out.append((name, float((got != ref).double().mean()), bf16_excess(got, ref)))
+    return out, z, w
+
+
+def hold_bf16_codec_forward(checkpoint: str, card: str) -> dict:
+    """The bf16-trained dac_ checkpoint (fp32 parameters) in a bf16 codec
+    on the card against the same bf16 codec on the CPU (the branch that
+    tests/test_torch_audio_bf16.py holds to JAX bit for bit), TF32 off, on
+    one chord of 32,768 samples.
+
+    Op by op (bf16_ops, 118 ops), the sharp hold: under 5% of each op's
+    elements differ (random weights on an H100 read up to 0.7%, in the
+    decoder's last convolution; a convolution that leaves its input
+    unrounded, or computes in fp32 and rounds once, moves over 10% of them:
+    tests/test_torch_audio_bf16.py), and each element
+    lies within 2 bf16 spacings of the CPU's or 1e-2 of the op's largest
+    |CPU| (bf16_excess at most 1; cuDNN sums in another order, and between
+    runs in more than one, which moves a result by more than its own
+    spacing where the sum, or the sum and the bias, cancel). End to end,
+    the encoder's latents and the decoder's waveform from the same
+    quantized latents, only against gross faults: the card's RMS distance
+    from the CPU's bf16 under twice the card's fp32 forward's (bf16's own
+    distance). One-spacing differences grow through 118 ops, so the two
+    bf16 forwards part about as far as bf16 and fp32 do (random weights
+    read 0.67 and 1.08 of it).
+
+    Then the bf16 codec against the fp32 codec, both on the card, on 4
+    chords: latents and waveform within 5e-2 of the largest |fp32| (the
+    tiny codec of tests/test_torch_audio_bf16.py lies 0.9% from fp32,
+    where the port and JAX agree bit for bit) and not equal to fp32's."""
+    from flocoder_torch.config import load_config
+    from flocoder_torch.data.audio_io import SyntheticAudioDataset
+    from flocoder_torch.generate_samples import CONFIG_DIR
+    from flocoder_torch.models.codecs import load_codec_weights, setup_codec
+
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config("audio_dac.yaml", CONFIG_DIR)
+    codecs = {}
+    for dev, dtype in (("cuda", torch.float32), ("cuda", torch.bfloat16),
+                       ("cpu", torch.bfloat16)):
+        codecs[dev, dtype] = setup_codec(cfg, device=dev, dtype=dtype).eval()
+        load_codec_weights(codecs[dev, dtype], checkpoint)
+    f32, b16, cpu = (codecs["cuda", torch.float32], codecs["cuda", torch.bfloat16],
+                     codecs["cpu", torch.bfloat16])
+    ds = SyntheticAudioDataset(n=4, crop_len=AUDIO_CROP, seed=17)
+    x = torch.from_numpy(np.stack([ds.get(i, None)[0] for i in range(4)])).cuda()
+    with torch.no_grad():
+        z32 = f32.encode(x)
+        z16 = b16.encode(x)
+        zq = f32.quantize(z32)[0]
+        w32 = f32.decode(zq)
+        w16 = b16.decode(zq)
+    ops, z_cpu, w_cpu = bf16_ops(b16, cpu, x[:1].cpu(), zq[:1].cpu())
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+    def rms(a):
+        return float(a.double().pow(2).mean().sqrt())
+    out = dict(ops=len(ops), ops_most_differing=max(ops, key=lambda o: o[1]),
+               ops_most_excess=max(ops, key=lambda o: o[2]))
+    for name, got, ctl, ref in (("latents", z16[:1], z32[:1], z_cpu),
+                                ("waveform", w16[:1], w32[:1], w_cpu)):
+        got, ctl = got.cpu(), ctl.cpu()
+        out[f"card_vs_cpu_{name}"] = dict(
+            rms_over_fp32s=rms(got - ref) / rms(ctl - ref), rms=rms(got - ref),
+            fp32_rms=rms(ctl - ref), max_abs_err=float((got - ref).abs().max()),
+            largest=float(ref.abs().max()))
+    for name, got, ref in (("latents", z16, z32), ("waveform", w16, w32)):
+        err, scale = float((got.double() - ref.double()).abs().max()), float(ref.abs().max())
+        out[name] = dict(max_abs_err=err, largest=scale, rel=err / scale, dtype=str(got.dtype))
+    (n_share, share, _), (n_ex, _, excess) = out["ops_most_differing"], out["ops_most_excess"]
+    print("bf16 DAC forward on the card (TF32 off) against the CPU's bf16 forward on the "
+          f"same weights: {len(ops)} ops, at most {share:.2e} of an op's elements differ "
+          f"({n_share}; gate 5e-2), the largest element at {excess:.3f} of the larger of 2 bf16 "
+          f"spacings and 1e-2 of its op's largest ({n_ex}; gate 1); "
+          "end to end RMS " + ", ".join(
+              f"{k} {out[f'card_vs_cpu_{k}']['rms']:.3e} against fp32's "
+              f"{out[f'card_vs_cpu_{k}']['fp32_rms']:.3e} "
+              f"({out[f'card_vs_cpu_{k}']['rms_over_fp32s']:.3f}; gate 2)"
+              for k in ("latents", "waveform")) +
+          "; against fp32 on the card, 4 chords: " +
+          ", ".join(f"{k} {out[k]['rel']:.4f} of the largest |fp32| "
+                    f"({out[k]['max_abs_err']:.3e}; gate 5e-2)" for k in ("latents", "waveform"))
+          + f" | card: {card}", flush=True)
+    if len(ops) != 118 or share >= 5e-2 or not excess <= 1:
+        fail(f"the bf16 DAC's ops on the card against the CPU's: {len(ops)} ops, "
+             f"{out['ops_most_differing']}, {out['ops_most_excess']}")
+    for k in ("latents", "waveform"):
+        r = out[f"card_vs_cpu_{k}"]["rms_over_fp32s"]
+        if not r < 2:
+            fail(f"the bf16 DAC's {k} on the card: RMS distance from the CPU's bf16 {r:.3f} "
+                 "of the fp32 forward's (gate 2)")
+        if out[k]["dtype"] != "torch.float32" or not 0 < out[k]["rel"] < 5e-2:
+            fail(f"the bf16 DAC's {k} on the card against fp32's: {out[k]}")
+    return out
+
+
+def audio_bf16_phase(tmp: str, card: str, kernels: dict, fp32: dict) -> tuple:
+    """The audio family with the DAC codec in bf16 (codec.bf16; the module
+    docstring's step 30): the audio phase's codec training, GAN step
+    breakdown, pre-encoding, flow training (flow.bf16) with its evaluation
+    and serving as trained, on a data path and checkpoints of its own; then
+    the bf16 codec's forward against fp32's on the trained weights, and a
+    small bf16 step on the card against the CPU. ``fp32`` is the audio
+    phase's record, printed beside. Returns (record, launches by tag)."""
+    state, train, train_launches = audio_train(tmp, card, kernels, bf16=True)
+    train["gan_breakdown"] = audio_gan_breakdown(state, card)
+    del state
+    torch.cuda.empty_cache()
+    pre, pre_launches = audio_preencode(tmp, card, kernels, bf16=True)
+    flow, flow_launches, serve_launches = audio_flow(tmp, card, kernels, bf16=True)
+    forward = hold_bf16_codec_forward(train["checkpoint"], card)
+    card_vs_cpu = check_audio_small(torch.bfloat16)
+    f32 = fp32["train"]
+    print("audio_dac codec bf16 against fp32 in this run (B=16 x 32768): reconstruction "
+          f"{train['recon']['clips_per_s']:.2f} against {f32['recon']['clips_per_s']:.2f} "
+          f"clips/s, GAN {train['gan']['clips_per_s']:.2f} against "
+          f"{f32['gan']['clips_per_s']:.2f} clips/s over steady steps; a GAN step by CUDA "
+          f"events {train['gan_breakdown']['step_ms']:.2f} against "
+          f"{f32['gan_breakdown']['step_ms']:.2f} ms; peak {train['peak_mem_gib']:.2f} against "
+          f"{f32['peak_mem_gib']:.2f} GiB; pre-encode train {pre['train_latents_per_s']:.2f} "
+          f"against {fp32['preencode']['train_latents_per_s']:.2f} latents/s; flow "
+          f"{flow['steady_samples_per_s']:.2f} against "
+          f"{fp32['flow']['steady_samples_per_s']:.2f} samples/s | card: {card}", flush=True)
+    return (dict(train=train, preencode=pre, flow=flow, forward=forward,
+                 card_vs_cpu=card_vs_cpu),
+            {"audio_bf16_train": train_launches, "audio_bf16_preencode": pre_launches,
+             "audio_bf16_flow": flow_launches, "audio_bf16_serve": serve_launches})
 
 
 def print_ptxas(source: str) -> None:
@@ -4690,7 +5110,9 @@ def main() -> None:
         t_phase[0] = time.time()
 
     lap("kernel_checks")
+    home = os.getcwd()
     try:
+        os.chdir(tmp)           # the trainers write their metrics logs (runs/) here
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
         paths = write_checkpoints(tmp, CONFIG_DIR)
@@ -4759,7 +5181,10 @@ def main() -> None:
         lap("tpu_demo")
         audio, audio_launches = audio_phase(tmp, card, kernels)
         lap("audio")
+        audio_bf16, audio_bf16_launches = audio_bf16_phase(tmp, card, kernels, audio)
+        lap("audio_bf16")
     finally:
+        os.chdir(home)
         shutil.rmtree(tmp, ignore_errors=True)
     print("phase seconds (host clock): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {time.time() - t_start:.1f}", flush=True)
@@ -4779,6 +5204,7 @@ def main() -> None:
                       "pe_host": pe_host_rec, "flow_shard": shard_flow, "tpu_demo": demo,
                       "tpu_vqgan_train": tpu_train, "tpu_vqgan": tpu_vqgan,
                       "int8_serving": int8_srv, "decode_ms_64": decodes, "audio": audio,
+                      "audio_bf16": audio_bf16,
                       "int8_conv": {**slice_errs["int8_conv"],
                                     "timing": slice_timing["int8_conv"]},
                       "phase_s": phase_s}))
@@ -4790,7 +5216,8 @@ def main() -> None:
               **midi_flow_launches, **midi_inp_launches, "pe_host": pe_host_launches,
               "flow_shard": shard_flow_launches, "tpu_demo": demo_launches,
               "tpu_vqgan_train": tpu_train_launches, "tpu_vqgan": tpu_vqgan_launches,
-              "int8_serving": int8_launches, **audio_launches, **reflow_launches,
+              "int8_serving": int8_launches, **audio_launches, **audio_bf16_launches,
+              **reflow_launches,
               **vqgan_plus_launches}
 
     def by_path(name):

@@ -58,7 +58,8 @@ def main(argv=None) -> dict:
         method=str(config.get("method", "rk4")),
         n_steps=int(config.get("n_steps", ldcfg(config, "n_steps", 100))),
         cfg_strength=float(config.get("cfg_strength", ldcfg(config, "cfg_strength", 3.0))),
-        t_scale=float(b["t_scale"]), output_dir=str(config.get("output_dir", "eval_out")))
+        t_scale=float(b["t_scale"]), use_wandb=False,
+        output_dir=str(config.get("output_dir", "eval_out")))
     for k, v in sorted(metrics.items()):
         print(f"{k:>20s}: {v:.5f}" if isinstance(v, float) else f"{k:>20s}: {v}")
     return metrics

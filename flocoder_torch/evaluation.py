@@ -13,7 +13,11 @@ parts. An inpainting evaluation passes the latent masks in
 masks in ``mask_pixels``; their grids are saved beside the others.
 ``evaluate_model_audio`` is the DAC codec's twin: folded latents decoded to
 waveforms, the latent Sinkhorn and a log-mel one (``sinkhorn_mel``), and
-WAVs instead of grids. The sharded serving branch is not ported yet
+WAVs instead of grids. With ``use_wandb`` (the trainers' ``not no_wandb``)
+both log as the JAX functions do to the open metrics log
+(``utils/logging.py``): ``metrics/<tag><name>`` with ``epoch``, and
+``evaluate_model`` also each grid (``demo/…``) and the codebook usage
+(``codebook/…``). The sharded serving branch is not ported yet
 (ROADMAP.md).
 """
 from __future__ import annotations
@@ -28,6 +32,7 @@ from .data.audio_io import save_wav
 from .metrics import compute_sample_metrics, g2rgb, sinkhorn_loss
 from .ops.audio import mel_filterbank, stft
 from .sampling import generate_latents
+from .utils import logging as wblog
 from .utils.codebook_analysis import analyze_codebooks
 from .utils.viz import save_img_grid
 
@@ -118,7 +123,8 @@ def evaluate_model(model_apply: Callable, codec, epoch: int, target_latents,
                    n_steps: int = 100, cfg_strength: float = 3.0,
                    is_midi: bool = False, keep_gray: bool = False, tag: str = "",
                    cb_tracker=None, codec_quantize: Optional[Callable] = None,
-                   output_dir: str = "./", source=None, mask_pixels=None,
+                   use_wandb: bool = True, output_dir: str = "./", source=None,
+                   mask_pixels=None,
                    feature_fn=None, t_scale: float = 999.0,
                    mark: Optional[Callable] = None) -> dict:
     """Sample ``min(batch_size, len(target_latents))`` latents, decode them
@@ -155,7 +161,8 @@ def evaluate_model(model_apply: Callable, codec, epoch: int, target_latents,
         for name, lat in (("val", target_latents), ("gen", pred_latents)):
             idx = codec_quantize(lat)[1]
             cb_tracker.update_counts(name, idx.reshape(-1, idx.shape[-1]).cpu().numpy())
-        analyze_codebooks(cb_tracker, epoch)
+        analyze_codebooks(cb_tracker, None, epoch, use_wandb=use_wandb,
+                          output_dir=output_dir)
     images = {"pred_latents": pred_latents, "target_latents": target_latents,
               "decoded_pred": decoded_pred, "decoded_target": decoded_target}
     if source is not None:
@@ -167,10 +174,13 @@ def evaluate_model(model_apply: Callable, codec, epoch: int, target_latents,
     if mask_pixels is not None:
         images["mask_pixels"] = mask_pixels[:batch_size].float()
     for key, val in images.items():
-        save_img_grid(val.float().cpu().numpy(), epoch,
-                      tag=f"{tag}{key}_{method}_{nfe}", output_dir=output_dir)
+        save_img_grid(val.float().cpu().numpy(), epoch, nfe,
+                      tag=f"{tag}{key}_{method}_{nfe}", use_wandb=use_wandb,
+                      output_dir=output_dir)
     mark("grids")
     out["FID_feature_backend"] = feature_backend_name(feature_fn)
+    if use_wandb and metrics:
+        wblog.log({f"metrics/{tag}{k}": v for k, v in out.items()} | {"epoch": epoch})
     return out
 
 
@@ -179,7 +189,8 @@ def evaluate_model_audio(model_apply: Callable, codec, epoch: int, target_latent
                          generator: torch.Generator, cond: Optional[dict] = None,
                          batch_size: int = 64, n_classes: int = 0, method: str = "rk4",
                          n_steps: int = 50, cfg_strength: float = 3.0, tag: str = "",
-                         output_dir: str = "./", t_scale: float = 999.0,
+                         use_wandb: bool = True, output_dir: str = "./",
+                         t_scale: float = 999.0,
                          n_demo_wavs: int = 4, mark: Optional[Callable] = None,
                          **_) -> dict:
     """The audio twin of ``evaluate_model`` for DAC-codec flows: sample
@@ -224,6 +235,8 @@ def evaluate_model_audio(model_apply: Callable, codec, epoch: int, target_latent
         save_wav(os.path.join(output_dir, f"{tag}ep{epoch:04d}_{i}_target.wav"),
                  target_np[i], sr)
     mark("wavs")
+    if use_wandb:
+        wblog.log({f"metrics/{tag}{k}": v for k, v in out.items()} | {"epoch": epoch})
     return out
 
 

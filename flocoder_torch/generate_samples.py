@@ -34,10 +34,10 @@ Audio (a flow trained on DAC latents, ``audio_dac.yaml``): the latent
 shape comes from ``codec.crop_len`` (``DACCodec.latent_shape``), the codec
 is ``codec.checkpoint`` or, by default, the newest ``dac_*.npz`` under the
 checkpoint config's ``+ckpt_dir`` (``checkpoints``), and each sample is
-written as a 16-bit WAV (``sample_<batch>_<i>.wav``) instead of PNGs. A
-DAC codec in bf16 is not ported yet (ROADMAP.md): serve such a flow with
-``+bf16=false``. Not ported yet (ROADMAP.md): the gradio UI and sharded
-serving.
+written as a 16-bit WAV (``sample_<batch>_<i>.wav``) instead of PNGs; a
+``flow.bf16`` checkpoint serves with the DAC codec in bf16 too, and the
+waveforms are widened to fp32 before they are written. Not ported yet
+(ROADMAP.md): the gradio UI and sharded serving.
 """
 from __future__ import annotations
 
@@ -126,7 +126,7 @@ def save_sample_batch(decoded: np.ndarray, batch_idx: int, output_dir: str,
     from .data.pianoroll import img_file_2_midi_file, square_to_rect_file
     os.makedirs(output_dir, exist_ok=True)
     save_img_grid(decoded, epoch=batch_idx, tag=f"samples_b{batch_idx}",
-                  output_dir=output_dir)
+                  use_wandb=False, output_dir=output_dir)
     mids = []
     for i in range(min(decoded.shape[0], max_individual)):
         path = os.path.join(output_dir, f"sample_{batch_idx:03d}_{i:03d}.png")

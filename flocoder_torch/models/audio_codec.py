@@ -24,8 +24,14 @@ flax's padding is reproduced, not torch's:
   at the end to ``pad_b``. Its weight is held in a ``Conv1d``'s layout
   (out, in, k), the flax kernel (k, in, out) transposed.
 
-The codec computes in fp32 only: ``setup_codec`` refuses ``codec.bf16``
-for ``dac`` (ROADMAP.md).
+Compute dtype (``dtype``, flax's ``dtype=`` semantics): the parameters stay
+fp32. ``Conv1d`` and ``ConvTranspose1d`` cast the input, the kernel and the
+bias to ``dtype`` and add the bias after the product is rounded; Snake
+takes ``exp(log_alpha)`` in fp32 and casts it to x's dtype, and each of its
+operations then rounds to that dtype, as ``jax.numpy`` does. The encoder
+returns fp32 latents and the decoder fp32 waveforms (its tanh in fp32), as
+the JAX modules cast them, so the RVQ, the losses and the discriminators
+see fp32 in a bf16 codec too.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.rvq import RVQState, rvq_apply
-from .layers import Scope, init_params
+from .layers import Scope, init_params, weak
 
 __all__ = ["Snake", "Conv1d", "ConvTranspose1d", "ResidualUnit1D", "DACEncoder",
            "DACDecoder", "DACCodec", "fold_latents", "unfold_latents", "same_pads",
@@ -59,40 +65,73 @@ def transpose_pads(k: int, s: int) -> Tuple[int, int]:
     return pad_a, pad_len - pad_a
 
 
+def _compute_dtype(dtype):
+    """``None`` (the parameters' own dtype) for fp32, else ``dtype``."""
+    return None if dtype in (None, torch.float32) else dtype
+
+
+def _narrow_conv(fn, x, w, dt, **kw):
+    """``fn(x, w)`` on ``x`` and ``w`` rounded to ``dt``, the result rounded
+    to ``dt`` once, as XLA and cuDNN compute it (products summed in fp32).
+    On the CPU the sum runs in fp32 on the rounded values: PyTorch's CPU
+    bf16 1-D convolution gives wrong results for some shapes (8 input
+    channels with a kernel of 8, for one, off by the whole output)."""
+    x, w = x.to(dt), w.to(dt)
+    if x.device.type == "cpu":
+        return fn(x.float(), w.float(), **kw).to(dt)
+    return fn(x, w, **kw)
+
+
 class Conv1d(nn.Conv1d):
-    """flax ``nn.Conv`` with ``padding="SAME"`` on (B, C, T)."""
+    """flax ``nn.Conv`` with ``padding="SAME"`` on (B, C, T), computing in
+    ``dtype`` (None: the parameters' dtype) with the bias added after the
+    product is rounded."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 dilation: int = 1, groups: int = 1):
+                 dilation: int = 1, groups: int = 1, dtype=None):
         super().__init__(cin, cout, kernel, stride=stride, dilation=dilation,
                          groups=groups)
+        self.compute_dtype = _compute_dtype(dtype)
 
     def forward(self, x):
         lo, hi = same_pads(x.shape[-1], self.kernel_size[0], self.stride[0],
                            self.dilation[0])
         if lo != hi:
             x, lo = F.pad(x, (lo, hi)), 0
-        return F.conv1d(x, self.weight, self.bias, self.stride, lo, self.dilation,
-                        self.groups)
+        dt = self.compute_dtype
+        if dt is None:
+            return F.conv1d(x, self.weight, self.bias, self.stride, lo, self.dilation,
+                            self.groups)
+        y = _narrow_conv(F.conv1d, x, self.weight, dt, stride=self.stride, padding=lo,
+                         dilation=self.dilation, groups=self.groups)
+        return y + self.bias.to(dt)[:, None]
 
 
-class ConvTranspose1d(nn.Conv1d):
+class ConvTranspose1d(Conv1d):
     """flax ``nn.ConvTranspose`` with ``padding="SAME"`` (module docstring);
-    the weight in a ``Conv1d``'s (out, in, k) layout, the output T·s long."""
+    the weight in a ``Conv1d``'s (out, in, k) layout, the output T·s long;
+    ``dtype`` as ``Conv1d``'s."""
 
     def forward(self, x):
         k, s = self.kernel_size[0], self.stride[0]
         pad_a, pad_b = transpose_pads(k, s)
+        dt = self.compute_dtype
         w = self.weight.flip(-1).transpose(0, 1)            # (in, out, k)
         extra = pad_b - pad_a
-        y = F.conv_transpose1d(x, w, self.bias, stride=s, padding=k - 1 - pad_a,
-                               output_padding=max(extra, 0))
-        return y[..., :y.shape[-1] + extra] if extra < 0 else y
+        kw = dict(stride=s, padding=k - 1 - pad_a, output_padding=max(extra, 0))
+        if dt is None:
+            y = F.conv_transpose1d(x, w, self.bias, **kw)
+        else:
+            y = _narrow_conv(F.conv_transpose1d, x, w, dt, **kw)
+        y = y[..., :y.shape[-1] + extra] if extra < 0 else y
+        return y if dt is None else y + self.bias.to(dt)[:, None]
 
 
 class Snake(nn.Module):
     """x + sin²(αx)/(α + 1e-9) with a per-channel α = exp(log_alpha),
-    zero-initialised, cast to x's dtype."""
+    zero-initialised, taken in the parameter's dtype and cast to x's; in
+    bf16 every operation rounds, and 1e-9 is rounded to bf16 first, as a
+    Python scalar beside a JAX array is."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -100,19 +139,19 @@ class Snake(nn.Module):
 
     def forward(self, x):
         alpha = self.log_alpha.exp().to(x.dtype)[:, None]
-        return x + torch.sin(alpha * x) ** 2 / (alpha + 1e-9)
+        return x + torch.sin(alpha * x) ** 2 / (alpha + weak(1e-9, alpha))
 
 
 class ResidualUnit1D(nn.Module):
     """snake → dilated conv (k 7) → snake → conv (k 1, zero-initialised),
     residual add."""
 
-    def __init__(self, dim: int, dilation: int = 1):
+    def __init__(self, dim: int, dilation: int = 1, dtype=None):
         super().__init__()
         self.Snake_0 = Snake(dim)
-        self.Conv_0 = Conv1d(dim, dim, 7, dilation=dilation)
+        self.Conv_0 = Conv1d(dim, dim, 7, dilation=dilation, dtype=dtype)
         self.Snake_1 = Snake(dim)
-        self.Conv_1 = Conv1d(dim, dim, 1)
+        self.Conv_1 = Conv1d(dim, dim, 1, dtype=dtype)
 
     def init_special_(self, generator):
         self.Conv_1.weight.zero_()
@@ -124,19 +163,22 @@ class ResidualUnit1D(nn.Module):
 class DACEncoder(nn.Module):
     """(B, T, 1) → (B, T/prod(strides), D) fp32. Per stage three residual
     units (dilations 1, 3, 9), then snake and a conv of kernel 2s and stride
-    s that doubles the channels; then snake and a k-3 conv to D."""
+    s that doubles the channels; then snake and a k-3 conv to D. Computes
+    in ``dtype``; the latents come out fp32."""
 
     def __init__(self, strides: Sequence[int] = (2, 4, 8, 8), base_channels: int = 32,
-                 vq_embedding_dim: int = 8):
+                 vq_embedding_dim: int = 8, dtype=None):
         super().__init__()
         s = Scope(self)
         c = base_channels
-        ops = [s.add("Conv", Conv1d(1, c, 7))]
+        ops = [s.add("Conv", Conv1d(1, c, 7, dtype=dtype))]
         for st in strides:
-            ops += [s.add("ResidualUnit1D", ResidualUnit1D(c, d)) for d in (1, 3, 9)]
-            ops += [s.add("Snake", Snake(c)), s.add("Conv", Conv1d(c, 2 * c, 2 * st, st))]
+            ops += [s.add("ResidualUnit1D", ResidualUnit1D(c, d, dtype)) for d in (1, 3, 9)]
+            ops += [s.add("Snake", Snake(c)),
+                    s.add("Conv", Conv1d(c, 2 * c, 2 * st, st, dtype=dtype))]
             c *= 2
-        ops += [s.add("Snake", Snake(c)), s.add("Conv", Conv1d(c, vq_embedding_dim, 3))]
+        ops += [s.add("Snake", Snake(c)),
+                s.add("Conv", Conv1d(c, vq_embedding_dim, 3, dtype=dtype))]
         self.ops = ops
 
     def forward(self, x):
@@ -150,20 +192,22 @@ class DACDecoder(nn.Module):
     """(B, T', D) → (B, T, 1) in [-1, 1]. A k-7 conv to base·2^S channels,
     then per stage (strides reversed) snake and a transposed conv of kernel
     2s and stride s that halves the channels, and three residual units;
-    snake, a k-7 conv to one channel, tanh in fp32."""
+    snake, a k-7 conv to one channel, tanh in fp32. Computes in
+    ``dtype``."""
 
     def __init__(self, strides: Sequence[int] = (2, 4, 8, 8), base_channels: int = 32,
-                 vq_embedding_dim: int = 8):
+                 vq_embedding_dim: int = 8, dtype=None):
         super().__init__()
         s = Scope(self)
         c = base_channels * (2 ** len(strides))
-        ops = [s.add("Conv", Conv1d(vq_embedding_dim, c, 7))]
+        ops = [s.add("Conv", Conv1d(vq_embedding_dim, c, 7, dtype=dtype))]
         for st in reversed(tuple(strides)):
             ops += [s.add("Snake", Snake(c)),
-                    s.add("ConvTranspose", ConvTranspose1d(c, c // 2, 2 * st, st))]
+                    s.add("ConvTranspose", ConvTranspose1d(c, c // 2, 2 * st, st,
+                                                           dtype=dtype))]
             c //= 2
-            ops += [s.add("ResidualUnit1D", ResidualUnit1D(c, d)) for d in (1, 3, 9)]
-        ops += [s.add("Snake", Snake(c)), s.add("Conv", Conv1d(c, 1, 7))]
+            ops += [s.add("ResidualUnit1D", ResidualUnit1D(c, d, dtype)) for d in (1, 3, 9)]
+        ops += [s.add("Snake", Snake(c)), s.add("Conv", Conv1d(c, 1, 7, dtype=dtype))]
         self.ops = ops
 
     def forward(self, z):
@@ -194,7 +238,8 @@ class DACCodec(nn.Module):
     ``VQVAE``: ``encode``, ``quantize``, ``decode`` (of (B, T', D) or folded
     (B, H, W, D) latents), ``forward``, ``latent_shape(crop_len)``. The JAX
     checkpoint's ``encoder/params/…``, ``decoder/params/…`` and ``vq/…`` map
-    onto ``encoder.…``, ``decoder.…`` and ``vq.…``."""
+    onto ``encoder.…``, ``decoder.…`` and ``vq.…``. ``dtype`` is the
+    encoder's and decoder's compute dtype (fp32 parameters either way)."""
 
     is_audio = True
     in_channels = 1
@@ -202,8 +247,9 @@ class DACCodec(nn.Module):
     def __init__(self, sample_rate: int = 16000, strides: Sequence[int] = (2, 4, 8, 8),
                  base_channels: int = 32, vq_embedding_dim: int = 8,
                  codebook_levels: int = 4, vq_num_embeddings: int = 512,
-                 commitment_weight: float = 0.25):
+                 commitment_weight: float = 0.25, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.sample_rate = int(sample_rate)
         self.strides = tuple(int(s) for s in strides)
         self.hop = math.prod(self.strides)
@@ -211,8 +257,8 @@ class DACCodec(nn.Module):
         self.codebook_levels = codebook_levels
         self.vq_num_embeddings = vq_num_embeddings
         self.commitment_weight = commitment_weight
-        self.encoder = DACEncoder(self.strides, base_channels, vq_embedding_dim)
-        self.decoder = DACDecoder(self.strides, base_channels, vq_embedding_dim)
+        self.encoder = DACEncoder(self.strides, base_channels, vq_embedding_dim, dtype)
+        self.decoder = DACDecoder(self.strides, base_channels, vq_embedding_dim, dtype)
         self.vq = RVQState(codebook_levels, vq_num_embeddings, vq_embedding_dim)
 
     def init(self, generator: torch.Generator) -> "DACCodec":

@@ -12,9 +12,11 @@ ensembles, plain convolutions and LeakyReLU(0.1) (``layers.leaky_relu``).
   convolutions of stride 4 (``max(1, min(4, c // 16))`` groups) and a k-5
   convolution.
 
-Each returns (logits, features) in torch's layout: (B, C, T/p, p) maps for
-a period view, (B, C, T') for a scale view; the JAX modules return the
-same values channels-last. ``DACDiscriminator`` returns (logits list,
+Both views cast the waveform to their parameters' dtype first (fp32; the
+JAX modules cast a bf16 waveform to their own dtype, fp32 as the trainer
+builds them). Each returns (logits, features) in torch's layout:
+(B, C, T/p, p) maps for a period view, (B, C, T') for a scale view; the JAX
+modules return the same values channels-last. ``DACDiscriminator`` returns (logits list,
 features lists) in the JAX order, the periods first and then the scales,
 its submodules named ``mpd_<p>`` and ``msd_<pool>`` as in linen.
 """
@@ -69,7 +71,7 @@ class PeriodDiscriminator(nn.Module):
         pad = (-t) % p
         if pad:
             x = torch.cat([x, x[:, t - pad:].flip(1)], dim=1)
-        h = x.reshape(b, (t + pad) // p, p)[:, None]
+        h = x.reshape(b, (t + pad) // p, p)[:, None].to(self.convs[0].weight.dtype)
         feats = []
         for conv in self.convs[:-1]:
             h = leaky_relu(conv(h), 0.1)
@@ -97,7 +99,7 @@ class ScaleDiscriminator(nn.Module):
         self.convs = convs
 
     def forward(self, x):
-        h = x.permute(0, 2, 1)
+        h = x.permute(0, 2, 1).to(self.convs[0].weight.dtype)
         if self.pool > 1:
             lo, hi = same_pads(h.shape[-1], self.pool, self.pool)
             h = F.avg_pool1d(F.pad(h, (lo, hi)), self.pool, self.pool)

@@ -544,8 +544,8 @@ def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module
     ``flow.bf16``). ``codec.quant_encode`` / ``codec.quant_decode`` =
     ``int8`` build the W8A8 encoder / decoder (``ops/quant.py``);
     ``quant_decode`` (a bool), when given, overrides the latter, as serving's
-    ``+quant`` does. ``dac`` computes in fp32 only: bf16 raises. Other
-    choices raise."""
+    ``+quant`` does (``dac`` has no W8A8 path, as in the JAX package).
+    Other choices raise."""
     from ..config import ldcfg
     choice = config.codec.choice if "codec" in config else "noop"
     image_size = ldcfg(config, "image_size", 128)
@@ -584,9 +584,6 @@ def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module
             codec = SDVAE(image_size=image_size, dtype=dtype, quant_decode=quant_decode,
                           quant_encode=quant_encode)
         elif choice == "dac":
-            if dtype != torch.float32:
-                raise NotImplementedError("a DAC codec in bf16 is not ported yet "
-                                          "(ROADMAP.md)")
             from .audio_codec import DACCodec
             codec = DACCodec(
                 sample_rate=int(ldcfg(config, "sample_rate", 16000)),
@@ -595,7 +592,8 @@ def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module
                 vq_embedding_dim=int(ldcfg(config, "vq_embedding_dim", 8)),
                 codebook_levels=int(ldcfg(config, "codebook_levels", 4)),
                 vq_num_embeddings=int(ldcfg(config, "vq_num_embeddings", 512)),
-                commitment_weight=float(ldcfg(config, "commitment_weight", 0.25)))
+                commitment_weight=float(ldcfg(config, "commitment_weight", 0.25)),
+                dtype=dtype)
         else:
             raise ValueError(f"Unknown codec choice: {choice}")
     return codec.to(device) if device is not None else codec

@@ -11,9 +11,10 @@ the same matrix bit for bit. The pooling is ``jax.image.resize(...,
 same resize weights from jax's formula (``scale_and_translate`` with a
 triangle kernel widened by the downscale factor) instead of trusting
 ``F.interpolate``'s antialiasing to agree. These are not Inception features:
-absolute values are not comparable to published FIDs. The Inception backend
-(used by the JAX package when ``weights/fid_inception.npz`` exists) is not
-ported yet and raises.
+absolute values are not comparable to published FIDs. When
+``weights/fid_inception.npz`` (relative to the working directory) exists,
+``default_feature_fn`` returns the FID-Inception features instead
+(``models/inception.py``), as the JAX package does.
 """
 from __future__ import annotations
 
@@ -124,12 +125,11 @@ def make_random_projection_features(dim: int = 2048, seed: int = 0,
 
 
 def default_feature_fn(image_size: int = 128) -> Callable:
-    """rp2048; the JAX package switches to Inception features when
-    ``weights/fid_inception.npz`` exists, which the port does not support
-    yet."""
+    """The FID-Inception features when ``weights/fid_inception.npz`` exists
+    (``backend_name`` ``fid_inception``), else rp2048."""
     if os.path.exists("weights/fid_inception.npz"):
-        raise NotImplementedError("the FID Inception backend is not ported yet "
-                                  "(ROADMAP.md); weights/fid_inception.npz exists")
+        from ..models.inception import make_inception_feature_fn
+        return make_inception_feature_fn()
     return make_random_projection_features(image_size=image_size)
 
 

@@ -24,12 +24,19 @@ holding what the JAX script's hold, the codec's parameters and RVQ state
 ``load_checkpoint=<dac_*.npz>`` resumes the codec, strictly (the JAX
 script loads with ``strict=False``).
 
+``codec.bf16=true`` trains the codec computing in bf16 over fp32
+parameters (``setup_codec``; the discriminators, the losses and Adam stay
+fp32, as in the JAX script); its ``dac_`` checkpoints hold the fp32
+parameters.
+
 ``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
 ``+ckpt_dir`` and ``+output_dir`` move the checkpoints (default
-``checkpoints``) and the WAVs (``output_dac_<data name>``). Not ported yet
-(ROADMAP.md, they raise): a DAC codec in bf16 (``codec.bf16``), meshes and
-tensor parallelism; like the port's other trainers it writes no metrics
-log (``no_wandb`` is accepted).
+``checkpoints``) and the WAVs (``output_dac_<data name>``). Unless
+``no_wandb`` is set, the metrics go to ``runs/<codec.project_name>/<run_name
+or the start time>/metrics.jsonl`` (``utils/logging.py``) at the JAX
+script's points, and every 10th epoch the codebook figures to the WAVs'
+folder (``utils/codebook_analysis.py``). Not ported yet (ROADMAP.md, they
+raise): meshes and tensor parallelism.
 """
 from __future__ import annotations
 
@@ -51,6 +58,7 @@ from .training.audio import (create_audio_state, make_audio_eval_step,
                              make_audio_gan_step, make_audio_train_step)
 from .training.checkpoint import (DAC_PREFIXES, load_checkpoint, load_jax_flat,
                                   save_checkpoint, to_jax_flat)
+from .utils import logging as wblog
 from .utils.codebook_analysis import CodebookUsageTracker, analyze_codebooks
 from .utils.device import resolve_device
 
@@ -87,13 +95,13 @@ def _sync(device) -> None:
 def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None) -> dict:
     """Returns ``{'state': VQGANState, 'step_seconds': {'recon': [...],
     'gan': [...]}, 'epoch_seconds': [...], 'epochs': [per-epoch mean
-    losses], 'val': [...], 'wavs': [paths], 'checkpoint': path, 'device':
-    str}``. Step times are host-clock seconds of each step, ending in a
-    device synchronise; ``epoch_seconds`` holds each epoch's phase, clips
-    and the seconds of its training loop (the loader's wait, the copy and
-    the codebook tracker included; validation not). ``step_hook``, if
-    given, is called with the epoch after each step, e.g. to record a CUDA
-    event."""
+    losses], 'val': [...], 'wavs': [paths], 'checkpoint': path,
+    'metrics_log': path or None, 'device': str}``. Step times are
+    host-clock seconds of each step, ending in a device synchronise;
+    ``epoch_seconds`` holds each epoch's phase, clips and the seconds of its
+    training loop (the loader's wait, the copy and the codebook tracker
+    included; validation not). ``step_hook``, if given, is called with the
+    epoch after each step, e.g. to record a CUDA event."""
     device = resolve_device(config.get("device", None))
     cc = config.codec
     if str(cc.get("choice", "dac")) != "dac":
@@ -145,6 +153,12 @@ def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None)
     gan_step = make_audio_gan_step(config) if use_gan else None
     eval_step = make_audio_eval_step(config)
 
+    use_wandb = not bool(ldcfg(config, "no_wandb", False))
+    log_path = None
+    if use_wandb:
+        log_path = wblog.init(project=str(cc.get("project_name", "flocoder-audio")),
+                              name=ldcfg(config, "run_name", None), config=dict(config))
+
     levels = int(cc.get("codebook_levels", 4))
     tracker = CodebookUsageTracker(num_levels=levels,
                                    codebook_size=int(cc.get("vq_num_embeddings", 512)))
@@ -174,9 +188,13 @@ def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None)
                               "seconds": time.time() - t_ep})
         means = {k: float(np.mean([float(a[k]) for a in ep_aux])) for k in ep_aux[0]}
         history.append({"epoch": epoch, "phase": phase, **means})
+        sps = n_clips / max(epoch_seconds[-1]["seconds"], 1e-9)
         print(f"epoch {epoch}/{epochs} [{phase}] " +
               "  ".join(f"{k} {v:.4f}" for k, v in means.items()) +
-              f"  {n_clips / max(epoch_seconds[-1]['seconds'], 1e-9):.1f} clips/s")
+              f"  {sps:.1f} clips/s")
+        if use_wandb:
+            wblog.log({f"train/{k}": v for k, v in means.items()}
+                      | {"epoch": epoch, "clips_per_sec": sps})
 
         if epoch % int(ldcfg(config, "eval_every", 5)) == 0 or epoch == 1:
             x = torch.from_numpy(next(iter(val_loader))["target"]).to(device)
@@ -184,6 +202,8 @@ def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None)
             tracker.update_counts("val", idx.reshape(-1, levels).cpu().numpy())
             vmeans = {k: float(v) for k, v in vlosses.items()}
             print("  val: " + "  ".join(f"{k} {v:.4f}" for k, v in vmeans.items()))
+            if use_wandb:
+                wblog.log({f"val/{k}": v for k, v in vmeans.items()} | {"epoch": epoch})
             val_history.append({"epoch": epoch, **vmeans})
             x_np, recon_np = x.cpu().numpy(), recon.cpu().numpy()
             for i in range(min(2, x.shape[0])):         # audible progress
@@ -192,7 +212,8 @@ def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None)
                     save_wav(wavs[-1], wave, sample_rate)
 
         if epoch % 10 == 0:
-            analyze_codebooks(tracker, epoch)
+            analyze_codebooks(tracker, codec.vq, epoch, use_wandb=use_wandb,
+                              output_dir=output_dir)
             tracker.reset_all()
 
         if epoch % int(cc.get("ckpt_every", 50)) == 0 or epoch == epochs:
@@ -200,9 +221,11 @@ def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None)
                                    ckpt_dir=ckpt_dir, prefix="dac_", config=config, keep=5)
             print(f"  checkpoint -> {path}")
     print(f"done in {time.time() - t_start:.0f}s")
+    if use_wandb:
+        wblog.finish()
     return {"state": state, "step_seconds": step_seconds, "epoch_seconds": epoch_seconds,
             "epochs": history, "val": val_history, "wavs": wavs, "checkpoint": path,
-            "device": str(device)}
+            "metrics_log": log_path, "device": str(device)}
 
 
 def main(argv=None, step_hook: Optional[Callable[[int], None]] = None) -> dict:

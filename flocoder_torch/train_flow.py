@@ -42,8 +42,15 @@ U-Net and the two optimizer groups in optax's ``multi_transform`` layout.
 The JAX-only dispatch knobs ``flow.steps_per_dispatch`` and ``rng_impl``
 are accepted and change nothing here (ROADMAP.md). Not ported yet
 (ROADMAP.md), and refused: meshes and FSDP, ring attention, MoE expert
-parallelism, pipeline parallelism, orbax and sharded checkpoints, wandb
-logging.
+parallelism, pipeline parallelism, orbax and sharded checkpoints.
+
+Unless ``no_wandb`` is set, the metrics go to
+``runs/<project_name>/<run_name or the start time>/metrics.jsonl``
+(``utils/logging.py``, the JSONL backend; wandb is not ported) at the JAX
+script's points: ``Loss/train``, ``Learning Rate``, ``epoch``,
+``batch_size`` and ``samples_per_sec`` each epoch, ``Loss/val`` and the
+evaluation's ``metrics/<tag>…``, ``demo/<grid>`` and ``codebook/…`` records
+at each evaluation.
 
 Reflow (``flow.reflow=true``): trains on the paired dataset that
 ``make_reflow_pairs`` writes (``data`` is its ``out_dir``, read as it is,
@@ -88,6 +95,7 @@ from .training.checkpoint import (MASK_ENCODER_PREFIXES, OPT_GROUPS, UNET_PREFIX
                                   load_jax_flat, save_checkpoint, subtree, to_jax_flat)
 from .training.flow import create_flow_state, make_flow_eval_step, make_flow_train_step
 from .training.schedules import batch_size_schedule, cosine_warm_restarts_decay
+from .utils import logging as wblog
 from .utils.codebook_analysis import CodebookUsageTracker
 from .utils.device import resolve_device
 
@@ -180,13 +188,14 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     """Returns ``{'state': FlowState, 'epoch_seconds': [{'epoch', 'steps',
     'samples', 'seconds'}], 'epochs': [per-epoch mean losses], 'eval':
     [{'epoch', 'tag', 'metrics', 'seconds'}], 'ot_rounds': [per step],
-    'checkpoint': path, 'ema_checkpoint': path, 'output_dir': str, 'device':
-    str}``. The device is synchronised once an epoch, as in the JAX script:
-    an epoch's seconds cover its training loop (the loader's wait, the copy
-    to the device and the steps) and end in that synchronise. ``step_hook``,
-    if given, is called with the epoch after each step is queued, e.g. to
-    record a CUDA event. An evaluation's ``seconds`` are split into
-    'sampler', 'decode', 'metrics' and 'grids'."""
+    'checkpoint': path, 'ema_checkpoint': path, 'output_dir': str,
+    'metrics_log': path or None, 'device': str}``. The device is
+    synchronised once an epoch, as in the JAX script: an epoch's seconds
+    cover its training loop (the loader's wait, the copy to the device and
+    the steps) and end in that synchronise. ``step_hook``, if given, is
+    called with the epoch after each step is queued, e.g. to record a CUDA
+    event. An evaluation's ``seconds`` are split into 'sampler', 'decode',
+    'metrics' and 'grids'."""
     device = resolve_device(config.get("device", None))
     _refuse_unported(config)
     data_path = os.path.expanduser(str(config.data))
@@ -337,6 +346,11 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
         paired_source=reflow)
     train_step = make_flow_train_step(**step_kwargs)
     eval_step = make_flow_eval_step(t_scale=t_scale, paired_source=reflow)
+    use_wandb = not bool(ldcfg(config, "no_wandb", False))
+    log_path = None
+    if use_wandb:
+        log_path = wblog.init(project=str(ldcfg(config, "project_name", "flocoder-flow")),
+                              name=ldcfg(config, "run_name", None), config=dict(config))
     cb_tracker = CodebookUsageTracker(
         num_levels=int(ldcfg(config, "codebook_levels", 4)),
         codebook_size=int(ldcfg(config, "vq_num_embeddings", 32)))
@@ -370,9 +384,14 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
         means = {k: float(torch.stack([a[k].float() for a in ep_aux]).mean())
                  for k in ep_aux[0]} if ep_aux else {"loss": float("nan")}
         history.append({"epoch": epoch, **means})
+        lr_now = float(sched(state.step))
         print(f"epoch {epoch}/{epochs}  loss {means['loss']:.4f}  "
-              f"lr {sched(state.step):.2e}  {len(ep_aux) / max(seconds, 1e-9):.2f} it/s  "
+              f"lr {lr_now:.2e}  {len(ep_aux) / max(seconds, 1e-9):.2f} it/s  "
               f"({samples / max(seconds, 1e-9):.0f} samples/s)", flush=True)
+        if use_wandb:
+            wblog.log({"Loss/train": means["loss"], "Learning Rate": lr_now, "epoch": epoch,
+                       "batch_size": train_loader.batch_size,
+                       "samples_per_sec": samples / max(seconds, 1e-9)})
 
         if not bool(ldcfg(config, "no_eval", False)) and (epoch < 20 or epoch % 10 == 0):
             vb = next(iter(val_loader))
@@ -384,6 +403,8 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
                     vb["target"] = encode_fn(vb.pop("pixels"))
             val_loss = float(eval_step(state.model, vb, gen, mask_encoder=state.mask_encoder))
             print(f"  val loss {val_loss:.4f}")
+            if use_wandb:
+                wblog.log({"Loss/val": val_loss, "epoch": epoch})
             # inpainting conditions on the val batch's own masks, from its
             # mask-blended sources
             eval_mask_cond = eval_source = None
@@ -410,7 +431,8 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
                     batch_size=min(batch_size, 256), n_classes=n_classes,
                     method=eval_method, n_steps=n_steps_eval, cfg_strength=cfg_strength,
                     is_midi=is_midi, keep_gray=keep_gray, tag=tag, cb_tracker=cb_tracker,
-                    codec_quantize=codec_quantize, output_dir=output_dir,
+                    codec_quantize=codec_quantize, use_wandb=use_wandb,
+                    output_dir=output_dir,
                     source=eval_source,
                     mask_pixels=vb["mask_pixels"] if inpainting else None,
                     t_scale=t_scale, mark=mark)
@@ -434,10 +456,12 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
             _keep_recent_files(100, output_dir, "*.png")
             print(f"  checkpoints -> {ck_path}, {ema_path}")
     print(f"done in {time.time() - t_start:.0f}s")
+    if use_wandb:
+        wblog.finish()
     return {"state": state, "epoch_seconds": epoch_seconds,
             "epochs": history, "eval": evals, "ot_rounds": ot_rounds,
             "checkpoint": ck_path, "ema_checkpoint": ema_path, "output_dir": output_dir,
-            "device": str(device)}
+            "metrics_log": log_path, "device": str(device)}
 
 
 def main(argv=None, step_hook: Optional[Callable[[int], None]] = None) -> dict:

@@ -30,8 +30,13 @@ the VQGAN+ codec (``models/vqgan_plus.py``) the same way, its checkpoint
 the JAX ``VQGANPlus``'s tree; ``discriminator`` picks ``patch`` (default)
 or ``vqgan_plus`` (``VQGANPlusDiscriminator``), and ``lecam_weight`` (default
 0) adds LeCAM's regularisation to the discriminator's loss, for either
-codec. Not ported yet (ROADMAP.md): data and tensor parallelism, wandb
-logging, the codebook plots.
+codec. Unless ``no_wandb`` is set, the metrics go to
+``runs/<codec.project_name>/<run_name or the start time>/metrics.jsonl``
+(``utils/logging.py``) at the JAX script's points (``train/…`` each epoch,
+``val/…``, ``demo/recon`` and, for MIDI, ``note_metrics/…`` at each
+validation, ``codebook/…`` every 10th epoch), and the codebook figures to
+the grids' folder (``utils/codebook_analysis.py``). Not ported yet
+(ROADMAP.md): data and tensor parallelism, the wandb backend.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from .training.checkpoint import (VQVAE_PREFIXES, load_checkpoint,
 from .training.vqgan import (create_vqgan_state, make_vqgan_eval_step,
                              make_vqgan_gan_step, make_vqgan_warmup_step)
 from .utils.codebook_analysis import CodebookUsageTracker, analyze_codebooks
+from .utils import logging as wblog
 from .utils.device import resolve_device
 from .utils.viz import save_img_grid
 
@@ -69,7 +75,9 @@ def _sync(device) -> None:
 def train_vqgan(config) -> dict:
     """Returns ``{'state': VQGANState, 'step_seconds': {'warmup': [...],
     'gan': [...]}, 'epoch_seconds': [...], 'epochs': [per-epoch mean
-    losses], 'val': [...], 'checkpoint': path, 'device': str}``. Step times
+    losses], 'val': [...], 'checkpoint': path, 'metrics_log': path or None,
+    'codebook_tracker': CodebookUsageTracker (the counts since the last
+    analysis), 'device': str}``. Step times
     are host-clock seconds of each training step, ending in a device
     synchronise. ``epoch_seconds`` holds, per epoch, its phase, its samples
     and the host-clock seconds of its training loop: the steps plus the
@@ -132,6 +140,12 @@ def train_vqgan(config) -> dict:
                                    grad_accum=grad_accum)
     eval_step = make_vqgan_eval_step(config, perceptual_fn)
 
+    use_wandb = not bool(ldcfg(config, "no_wandb", False))
+    log_path = None
+    if use_wandb:
+        log_path = wblog.init(project=str(cc.get("project_name", "flocoder-vqgan")),
+                              name=ldcfg(config, "run_name", None), config=dict(config))
+
     levels = int(cc.get("codebook_levels", 4))
     tracker = CodebookUsageTracker(num_levels=levels,
                                    codebook_size=int(cc.get("vq_num_embeddings", 96)))
@@ -164,6 +178,9 @@ def train_vqgan(config) -> dict:
         print(f"epoch {epoch}/{epochs} [{phase}] " +
               "  ".join(f"{k} {v:.4f}" for k, v in means.items()) +
               f"  {sps:.1f} samples/s")
+        if use_wandb:
+            wblog.log({f"train/{k}": v for k, v in means.items()}
+                      | {"epoch": epoch, "samples_per_sec": sps})
 
         if epoch % 5 == 0 or epoch == 1:
             x = torch.from_numpy(next(iter(val_loader))["target"]).to(device)
@@ -171,22 +188,29 @@ def train_vqgan(config) -> dict:
             tracker.update_counts("val", idx.reshape(-1, levels).cpu().numpy())
             vmeans = {k: float(v) for k, v in vlosses.items()}
             print("  val: " + "  ".join(f"{k} {v:.4f}" for k, v in vmeans.items()))
+            if use_wandb:
+                wblog.log({f"val/{k}": v for k, v in vmeans.items()} | {"epoch": epoch})
             n_demo = min(10, x.shape[0])
             save_img_grid(torch.cat([x[:n_demo], recon[:n_demo]]).float().cpu().numpy(),
-                          epoch, tag="recon", output_dir=output_dir, ncols=n_demo)
+                          epoch, tag="recon", use_wandb=use_wandb, output_dir=output_dir,
+                          ncols=n_demo)
             if is_midi:
                 nm, nm_images = calc_note_metrics(
                     recon.float().cpu().numpy(), x.float().cpu().numpy(),
                     keep_gray=in_channels == 1, return_images=True)
                 vmeans.update({f"note_{k}": v for k, v in nm.items()})
                 print("  notes: " + "  ".join(f"{k} {v:.4f}" for k, v in nm.items()))
+                if use_wandb:
+                    wblog.log({f"note_metrics/{k}": v for k, v in nm.items()}
+                              | {"epoch": epoch})
                 for k, img in nm_images.items():      # TP/TN/FP/FN grids
                     save_img_grid(img[:n_demo], epoch, tag=f"metric_{k}",
-                                  output_dir=output_dir, ncols=n_demo)
+                                  use_wandb=use_wandb, output_dir=output_dir, ncols=n_demo)
             val_history.append({"epoch": epoch, **vmeans})
 
         if epoch % 10 == 0:
-            analyze_codebooks(tracker, epoch)
+            analyze_codebooks(tracker, codec.vq, epoch, use_wandb=use_wandb,
+                              output_dir=output_dir)
             tracker.reset_all()
 
         if epoch % int(cc.get("ckpt_every", 50)) == 0 or epoch == epochs:
@@ -194,9 +218,12 @@ def train_vqgan(config) -> dict:
                                    ckpt_dir=ckpt_dir, prefix="vqgan_",
                                    config=config, keep=5)
             print(f"  checkpoint -> {path}")
+    if use_wandb:
+        wblog.finish()
     return {"state": state, "step_seconds": step_seconds,
             "epoch_seconds": epoch_seconds, "epochs": history,
-            "val": val_history, "checkpoint": path, "device": str(device)}
+            "val": val_history, "checkpoint": path, "metrics_log": log_path,
+            "codebook_tracker": tracker, "device": str(device)}
 
 
 def main(argv=None) -> dict:

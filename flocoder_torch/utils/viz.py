@@ -1,12 +1,15 @@
 """Image-grid visualization, the port's own copy of
-``flocoder_tpu/utils/viz.py`` without the wandb hook: host-side PIL/numpy.
-Arrays are NHWC (or NHW for grayscale)."""
+``flocoder_tpu/utils/viz.py``: host-side PIL/numpy. Arrays are NHWC (or NHW
+for grayscale). ``save_img_grid`` logs each grid's path as ``demo/<tag>``
+with ``epoch`` and ``nfe`` to the metrics log (``utils/logging.py``)."""
 from __future__ import annotations
 
 import os
 
 import numpy as np
 from PIL import Image
+
+from .logging import log as metrics_log
 
 __all__ = ["make_grid", "save_img", "save_img_grid"]
 
@@ -46,10 +49,13 @@ def save_img(img: np.ndarray, path: str) -> None:
     Image.fromarray(arr).save(path)
 
 
-def save_img_grid(images, epoch: int, tag: str = "", output_dir: str = "./",
+def save_img_grid(images, epoch: int, nfe: int = 0, tag: str = "",
+                  use_wandb: bool = True, output_dir: str = "./",
                   ncols: int = 10) -> str:
-    """Save a 10-column grid PNG as ``{output_dir}/{tag}_epoch{epoch}.png``.
-    Latent tensors with >4 channels are shown via their first 3 channels."""
+    """Save a 10-column grid PNG as ``{output_dir}/{tag}_epoch{epoch}.png``
+    and, with ``use_wandb``, log its path (``demo/{tag}``, ``epoch``,
+    ``nfe``). Latent tensors with >4 channels are shown via their first 3
+    channels."""
     arr = np.asarray(images, dtype=np.float32)
     if arr.ndim == 4 and arr.shape[-1] not in (1, 3):
         arr = arr[..., :3]
@@ -57,4 +63,6 @@ def save_img_grid(images, epoch: int, tag: str = "", output_dir: str = "./",
     os.makedirs(output_dir, exist_ok=True)
     path = os.path.join(output_dir, f"{tag}_epoch{epoch}.png")
     save_img(grid, path)
+    if use_wandb:
+        metrics_log({f"demo/{tag}": path, "epoch": epoch, "nfe": nfe})
     return path

@@ -212,11 +212,25 @@ def test_latent_shape_and_fold_refuse_non_squares():
 
 
 def test_setup_codec_builds_dac_and_refuses_bf16():
-    cfg = load_config("audio_dac", "configs", ["codec.strides=[2,4]", "codec.base_channels=4"])
+    """The factory builds the DAC codec; in bf16 (``codec.bf16``, and the
+    ``dtype=`` of serving, which wins) as the JAX factory does: the
+    convolutions compute in bf16 over fp32 parameters. (The name is from
+    when bf16 raised.)"""
+    tiny = ["codec.strides=[2,4]", "codec.base_channels=4"]
+    cfg = load_config("audio_dac", "configs", tiny)
     codec = setup_codec(cfg)
     assert isinstance(codec, tac.DACCodec) and codec.strides == (2, 4)
     assert codec.sample_rate == 16000 and codec.vq.codebooks.shape == (4, 512, 8)
-    with pytest.raises(NotImplementedError, match="bf16.*ROADMAP"):
-        setup_codec(load_config("audio_dac", "configs", ["+codec.bf16=true"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        setup_codec(cfg, dtype=torch.bfloat16)
+    assert codec.dtype == torch.float32 and codec.encoder.Conv_0.compute_dtype is None
+    bf16_cfg = ["+codec.bf16=true", *tiny]
+    for built, jbuilt in (
+            (setup_codec(load_config("audio_dac", "configs", bf16_cfg)),
+             jsetup_codec(jload_config("audio_dac", "configs", bf16_cfg))),
+            (setup_codec(cfg, dtype=torch.bfloat16),
+             jsetup_codec(jload_config("audio_dac", "configs", tiny), dtype=jnp.bfloat16))):
+        assert built.dtype == torch.bfloat16 and jbuilt.encoder.dtype == jnp.bfloat16
+        convs = [m for m in built.modules() if isinstance(m, tac.Conv1d)]
+        assert convs and all(m.compute_dtype == torch.bfloat16 for m in convs)
+        assert all(p.dtype == torch.float32 for p in built.parameters())
+    assert setup_codec(load_config("audio_dac", "configs", bf16_cfg),
+                       dtype=torch.float32).dtype == torch.float32

@@ -43,7 +43,7 @@ TINY = ["codec.strides=[2,4]", "codec.base_channels=4", "codec.crop_len=512",
         "codec.vq_num_embeddings=16", "codec.fft_sizes=[64,128,256]", "codec.n_mels=[16,32,64]",
         "codec.disc_periods=[2,3]", "codec.disc_scales=2", "codec.disc_base_channels=4",
         "num_workers=2", "preencoding.num_workers=2", "preencoding.augs_per=1",
-        "preencoding.batch_size=8"]
+        "preencoding.batch_size=8", "no_wandb=true"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -216,15 +216,30 @@ def test_flow_and_serving_write_wavs(codec_run, tmp_path):
     for path in out["wav_files"]:
         meta, x = _read_wav(path)
         assert meta == (2, 16000, 1, 512) and x.any()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gs.main(["--config-name", "audio_dac", "+device=cpu", "+bf16=true",
-                 f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=2"])
+    # an fp32 flow served in bf16 on request: the U-Net and the DAC codec
+    # compute in bf16, and the waveforms are written widened to fp32
+    bf16 = gs.main(["--config-name", "audio_dac", "+device=cpu", "+bf16=true",
+                    f"+flow_checkpoint={res['ema_checkpoint']}", "+n_samples=2", "+n_steps=3",
+                    f"+output_dir={tmp_path}/gen16"])
+    assert bf16["bf16"] and bf16["images"].dtype == np.float32
+    assert bf16["images"].shape == (2, 512, 1) and np.isfinite(bf16["images"]).all()
+    assert not np.array_equal(bf16["images"], out["images"][:2])
+    for path in bf16["wav_files"]:
+        meta, x = _read_wav(path)
+        assert meta == (2, 16000, 1, 512) and x.any()
 
 
 def test_entry_point_needs_a_card_or_the_cpu_and_refuses_bf16(monkeypatch, tmp_path):
+    """Without ``+device=cpu`` and a card the trainer raises; ``codec.bf16``
+    builds the codec in bf16 over fp32 parameters (it raised before the DAC
+    in bf16 was ported; ``test_torch_audio_bf16_slice.py`` trains one)."""
     argv = ["--config-name", "audio_dac", f"data={tmp_path / 'x'}", *TINY]
-    with pytest.raises(NotImplementedError, match="bf16.*ROADMAP"):
-        tac.main([*argv, "+device=cpu", "+codec.bf16=true"])
+    res = tac.main([*argv, "+device=cpu", "+codec.bf16=true", "codec.epochs=0",
+                    "+synthetic_n=8", f"+ckpt_dir={tmp_path}/ck", f"+output_dir={tmp_path}/out"])
+    codec = res["state"].codec
+    assert codec.dtype == torch.bfloat16 and codec.decoder.Conv_0.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in [*codec.parameters(),
+                                                 *res["state"].disc.parameters()])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device=cpu"):
         tac.main(argv)

@@ -116,12 +116,18 @@ def test_fid_score_and_chunked_match_jax():
 
 
 def test_default_feature_fn_refuses_the_inception_weights(tmp_path, monkeypatch):
+    """Without ``weights/fid_inception.npz`` both packages default to rp2048;
+    with it (a seeded random init the port writes in the JAX flat layout),
+    both pick the Inception features, stamped ``fid_inception``. (The name is
+    from when the port refused the file.)"""
+    from flocoder_torch.models.inception import InceptionV3Features, save_inception_weights
+    from flocoder_torch.models.layers import init_params
     monkeypatch.chdir(tmp_path)
     assert tfid.default_feature_fn().backend_name == "rp2048"
-    os.makedirs("weights")
-    open("weights/fid_inception.npz", "wb").close()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfid.default_feature_fn()
+    save_inception_weights(init_params(InceptionV3Features(), torch.Generator().manual_seed(0)),
+                           "weights/fid_inception.npz")
+    assert tfid.default_feature_fn().backend_name == "fid_inception"
+    assert tfid.feature_backend_name(None) == jfid.feature_backend_name(None) == "fid_inception"
 
 
 def _assert_metrics(ours: dict, ref: dict):

@@ -53,7 +53,8 @@ def _one_torch_thread():
 TINY = ["flow.hdit_depths=[1,1]", "flow.hdit_widths=[16,32]", "flow.hdit_d_ffs=[32,64]",
         "flow.hdit_d_head=8", "flow.hdit_mapping_depth=1", "flow.hdit_mapping_width=32",
         "flow.hdit_mapping_d_ff=64", "flow.hdit_patch_size=1",
-        "flow.hdit_attns=[na:3,global]", "flow.unet.n_classes=3", "codec.image_size=32"]
+        "flow.hdit_attns=[na:3,global]", "flow.unet.n_classes=3", "codec.image_size=32",
+        "no_wandb=true"]
 CH = (32, 32, 64, 64)
 
 

@@ -47,7 +47,8 @@ from flocoder_torch.training.checkpoint import VQVAE_PREFIXES, to_jax_flat
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CODEC = ["image_size=64", "codec.image_size=64", "codec.hidden_channels=16",
-         "codec.internal_dim=8", "codec.vq_num_embeddings=16", "codec.codebook_levels=2"]
+         "codec.internal_dim=8", "codec.vq_num_embeddings=16", "codec.codebook_levels=2",
+         "no_wandb=true"]
 PRE = ["+inpainting=true", "preencoding.augs_per=2", "preencoding.batch_size=8",
        "preencoding.num_workers=2", "+preencoding.quantize=true", "+preencoding.fused_vq=true"]
 FLOW = ["flow.dim_mults=[1,2]", "flow.batch_size=8", "flow.epochs=1", "flow.ckpt_every=1",

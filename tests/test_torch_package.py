@@ -55,11 +55,12 @@ def test_every_module_imports_without_jax():
               "data.shard", "data.native_image", "data.device_augs", "ops.quant",
               "ops.audio", "data.audio_io", "models.audio_codec", "models.audio_disc",
               "training.audio", "train_audio_codec", "make_reflow_pairs",
-              "models.vqgan_plus"):
+              "models.vqgan_plus", "utils.logging", "utils.interactive_scatter",
+              "utils.plot_metrics", "utils.profiling", "models.inception"):
         assert f"flocoder_torch.{m}" in mods, m
     # the native libraries build and load with the JAX package blocked
     code = ("import sys, importlib\n"
-            "for name in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'flocoder_tpu'):\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'flocoder_tpu', 'oracles'):\n"
             "    sys.modules[name] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -67,7 +68,8 @@ def test_every_module_imports_without_jax():
             "print(shard.library_file())\n"
             "print(native_image.library_file() if native_image.available() else '')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'ml_dtypes', 'flocoder_tpu') and sys.modules[m] is not None]\n"
+            "('jax', 'flax', 'ml_dtypes', 'flocoder_tpu', 'oracles') and "
+            "sys.modules[m] is not None]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300,

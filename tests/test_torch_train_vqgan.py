@@ -123,7 +123,7 @@ def test_train_vqgan_tpu_vqgan_in_bf16(tmp_path):
                  "codec.num_downsamples=2", "codec.vq_num_embeddings=8", "codec.batch_size=4",
                  "codec.epochs=2", "codec.warmup_epochs=1", "codec.image_size=32",
                  "image_size=32"]
-    res = tv.main(["--config-name", "tpu_vqgan", "+device=cpu", "num_workers=1",
+    res = tv.main(["--config-name", "tpu_vqgan", "+device=cpu", "num_workers=1", "no_wandb=true",
                    f"+ckpt_dir={tmp_path / 'ckpt'}", f"+output_dir={tmp_path / 'out'}",
                    *overrides])
     state = res["state"]
