@@ -201,7 +201,7 @@
    exactly; that evaluation scores FID on the default rp2048 features (the
    flow phase's Inception weights file is gone).
 24. tpu_demo (last): configs/tpu_demo.yaml as composed (the resize codec,
-   synthetic 128² data, device_augs at augs_per 12 of its 48, shard; the
+   synthetic 128² data, device_augs at augs_per 6 of its 48, shard; the
    U-Net in bf16 at B=256,
    1 epoch of its 40, evaluation at 20 of its 50 grid points), then its
    EMA served as trained, in bf16; no kernel launches.
@@ -313,6 +313,24 @@
    in bf16, card against CPU, under a gate that the card's fp32 step
    fails (check_audio_small's docstring). Prints clips/s, the GAN
    step's time, peak memory, latents/s and flow samples/s beside step 27's.
+31. webapp (after step 6): the sampler's web UI (flocoder_torch.ui.webapp,
+   what generate_samples serves with +use_gradio=true) in a thread on
+   127.0.0.1, on flowers_vqgan's CFG checkpoint of step 6: the form's
+   fields and methods; one POST of 16 samples, RK4 over 20 grid points,
+   CFG 3.0, whose status must not start with ERROR; every written PNG
+   served back byte for byte as image/png, a missing file a 404; the
+   request's images within 1e-4·max(1, |ref|) of a direct generate_samples
+   call with the same config; K1 once for each decoder call of the request
+   (one batch of 16), exactly. Prints the request's seconds beside the
+   generation's own batch_seconds. K1 at the decode's B=16 joins step 3.
+32. quality (last): flocoder_torch.quality_runs' five families
+   (unet_vs_hdit, meanflow, reflow, audio, image) on the card at tiny
+   budgets (8 flow steps, 4 codec and 4 GAN steps, 1 pair batch,
+   hdit_budget_x 1, RK4 over 4 grid points) into the temporary directory:
+   each payload holds every key of the JAX artifact in eval_out/quality/,
+   every number finite, the image family's FID on rp2048; K1–K5 launch 0
+   times. The measured quality figures come from the tool's own run
+   (eval_out/quality_torch/), not from this phase.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
@@ -506,6 +524,9 @@ def check_k1(na2d_fwd, na2d_banded, flow_decode_batches) -> dict:
         ("pre-encode 32x32 C512 dh64 B32", (32, 32, 32, 512), 8, 7, both[:1]),
         ("pre-encode 16x16 C1024 dh128 B32", (32, 16, 16, 1024), 8, 7, both[:1]),
         ("pre-encode 16x16 C128 dh16 B32", (32, 16, 16, 128), 8, 7, both[:1]),
+        # the web UI's decode of one request's batch, in fp32
+        (f"web UI decode 32x32 C512 dh64 B{WEBAPP_SAMPLES}", (WEBAPP_SAMPLES, 32, 32, 512),
+         8, 7, both[:1]),
         # the flow phase's evaluation decodes, in fp32
         *((f"flow eval decode 32x32 C512 dh64 B{b}", (b, 32, 32, 512), 8, 7, both[:1])
           for b in sorted(set(flow_decode_batches))),
@@ -3895,7 +3916,7 @@ def flow_shard(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
 def tpu_demo(tmp: str, card: str, kernels: dict) -> tuple:
     """configs/tpu_demo.yaml as composed: the resize codec, the synthetic
     set at 128² (256 images), device_augs and format=shard in pre-encoding
-    (B=64, augs_per 12 of the recipe's 48: 12 val batches of 25, 43 train
+    (B=64, augs_per 6 of the recipe's 48: 6 val batches of 25, 21 train
     batches of 64), then
     the U-Net (dim 16, dim_mults 1,2,4,8, 4 classes) in bf16 at B=256 with
     lr 1e-3 and an RK4 + CFG 2.0 evaluation each epoch; its EMA served as
@@ -3908,7 +3929,7 @@ def tpu_demo(tmp: str, card: str, kernels: dict) -> tuple:
     from flocoder_torch import preencode_data as pe
     from flocoder_torch import train_flow as tf
 
-    print("tpu_demo cuts: pre-encode augs_per 12 (the recipe's 48), 1 epoch (its 40), "
+    print("tpu_demo cuts: pre-encode augs_per 6 (the recipe's 48), 1 epoch (its 40), "
           "evaluation n_steps 20 (its 50); flow.ckpt_every=1 (its 20) to write the served "
           "checkpoint", flush=True)
     data = os.path.join(tmp, "fc_tpu_demo")          # absent: the synthetic set
@@ -3918,10 +3939,10 @@ def tpu_demo(tmp: str, card: str, kernels: dict) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     _zero(kernels)
     t0 = time.time()
-    enc = pe.main(["--config-name", "tpu_demo.yaml", f"data={data}", "preencoding.augs_per=12"])
+    enc = pe.main(["--config-name", "tpu_demo.yaml", f"data={data}", "preencoding.augs_per=6"])
     pe_wall = time.time() - t0
     pe_peak = torch.cuda.max_memory_allocated() / 2**30
-    if [enc[s]["batches"] for s in ("val", "train")] != [12, 43] or any(
+    if [enc[s]["batches"] for s in ("val", "train")] != [6, 21] or any(
             enc[s]["format"] != "shard" for s in ("val", "train")):
         fail(f"tpu_demo pre-encode: {[(enc[s]['batches'], enc[s]['format']) for s in ('val', 'train')]}")
 
@@ -4970,6 +4991,191 @@ def audio_bf16_phase(tmp: str, card: str, kernels: dict, fp32: dict) -> tuple:
              "audio_bf16_flow": flow_launches, "audio_bf16_serve": serve_launches})
 
 
+# ---------------------------------------------------------------------------
+# The sampler's web UI and the quality-runs tool
+# ---------------------------------------------------------------------------
+
+WEBAPP_SAMPLES = 16            # one request: 16 samples, RK4 over 20 grid points, CFG 3.0
+WEBAPP_STEPS = 20
+
+
+def _get(url: str):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=120) as r:
+        return r.status, r.headers.get("Content-Type"), r.read()
+
+
+def webapp_phase(tmp: str, paths: dict, card: str, kernels: dict) -> tuple:
+    """The sampler's web UI (the module docstring's step 31) in a thread on
+    127.0.0.1, serving flowers_vqgan's CFG checkpoint from
+    write_checkpoints: the form's fields, one POST of 16 samples at RK4 over
+    20 grid points with CFG 3.0 (its status must not start with ERROR), the
+    written PNGs served back byte for byte as image/png and a missing file
+    as a 404, the images within 1e-4·max(1, |ref|) of a direct
+    generate_samples call with the same config, and K1 launched once for
+    each decoder call of the request. Returns (record, launches by tag)."""
+    import threading
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch.config import config_from_dict, parse_cli, to_dict
+    from flocoder_torch.evaluation import DECODE_CHUNK
+    from flocoder_torch.ui.webapp import METHODS, create_app
+
+    config = parse_cli(["--config-name", "flowers_vqgan.yaml", "+seed=0"],
+                       default_config=None, config_dir=gs.CONFIG_DIR)
+    out = os.path.join(tmp, "webapp")
+    server = create_app(config, out_dir=out)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    results = []
+    generate = gs.generate_samples
+
+    def recording(cfg):                       # keeps the request's own result
+        results.append(generate(cfg))
+        return results[-1]
+
+    gs.generate_samples = recording
+    form = dict(ckpt=paths["cfg"], n_samples=WEBAPP_SAMPLES, cfg=3.0, method="rk4",
+                steps=WEBAPP_STEPS, seed=0, init_image="", init_strength=0.5)
+    try:
+        code, ctype, page = _get(base + "/")
+        page = page.decode()
+        missing = [f for f in ("ckpt", "n_samples", "cfg", "method", "steps", "seed",
+                               "init_image", "init_strength") if f'name="{f}"' not in page]
+        missing += [m for m in METHODS if f'value="{m}"' not in page]
+        if code != 200 or missing:
+            fail(f"webapp: the form page ({code}) lacks {missing}")
+        torch.cuda.synchronize()
+        _zero(kernels)
+        t0 = time.time()
+        with urllib.request.urlopen(base + "/generate", timeout=600,
+                                    data=urllib.parse.urlencode(form).encode()) as r:
+            body = r.read().decode()
+        request_s = time.time() - t0
+        launches = _counts(kernels)
+        status = json.loads(_get(base + "/status")[2])
+        if status.startswith("ERROR") or "ERROR" in body or len(results) != 1:
+            fail(f"webapp: the request's status is {status[-1500:]!r}")
+        names = sorted(n for n in os.listdir(out) if n.startswith("sample_"))
+        if len(names) != WEBAPP_SAMPLES:
+            fail(f"webapp: {len(names)} sample PNGs written, expected {WEBAPP_SAMPLES}")
+        for name in names:
+            code, ctype, data = _get(f"{base}/files/{name}")
+            with open(os.path.join(out, name), "rb") as f:
+                if (code, ctype, data) != (200, "image/png", f.read()):
+                    fail(f"webapp: /files/{name} served {code} {ctype}, not the file")
+            if f'src="/files/{name}"' not in body:
+                fail(f"webapp: the gallery lacks {name}")
+        try:
+            urllib.request.urlopen(base + "/files/nope.png", timeout=60)
+            fail("webapp: a missing file was served")
+        except urllib.error.HTTPError as e:
+            if e.code != 404:
+                fail(f"webapp: a missing file gave {e.code}, not 404")
+    finally:
+        gs.generate_samples = generate
+        server.shutdown()
+        server.server_close()
+    res = results[0]
+    batches = [min(WEBAPP_SAMPLES, 64)]        # the UI's batch: min(samples, 64)
+    _expect(kernels, "webapp", launches,
+            na2d_fwd=sum(-(-b // DECODE_CHUNK) for b in batches))
+    cfg = to_dict(config)
+    cfg.update(flow_checkpoint=paths["cfg"], n_samples=WEBAPP_SAMPLES, cfg_strength=3.0,
+               n_steps=WEBAPP_STEPS, seed=0, method="rk4", batch_size=batches[0],
+               output_dir=os.path.join(tmp, "webapp_direct"), init_image=None,
+               init_strength=0.5)
+    direct = gs.generate_samples(config_from_dict(cfg))
+    imgs, ref = res["images"], direct["images"]
+    err = float(np.abs(imgs - ref).max() / max(1.0, float(np.abs(ref).max())))
+    if imgs.shape != (WEBAPP_SAMPLES, 128, 128, 3) or not np.isfinite(imgs).all() \
+            or not err <= 1e-4:
+        fail(f"webapp: images {imgs.shape} against the direct call's: max |Δ| / "
+             f"max(1, |ref|) = {err:.3e} (tol 1e-4)")
+    rec = dict(samples=WEBAPP_SAMPLES, n_steps=WEBAPP_STEPS, method="rk4", cfg_strength=3.0,
+               nfe=res["nfe"], request_s=request_s, batch_seconds=res["batch_seconds"],
+               direct_batch_seconds=direct["batch_seconds"], status=status,
+               max_rel_err_vs_direct=err, card=card)
+    print(f"webapp flowers_vqgan: one request of {WEBAPP_SAMPLES} samples (RK4, "
+          f"{WEBAPP_STEPS} grid points, nfe={res['nfe']}, CFG 3.0) {request_s:.4f} s; the "
+          f"generation's batch_seconds {[round(x, 4) for x in res['batch_seconds']]} (a "
+          f"direct call {[round(x, 4) for x in direct['batch_seconds']]}); images against the "
+          f"direct call {err:.3e} of max(1, |ref|) | card: {card}", flush=True)
+    return rec, launches
+
+
+QUALITY_SMOKE = {     # tiny budgets: the payloads and the device path, not quality
+    "unet_vs_hdit": dict(steps=8, hdit_budget_x=1, eval_steps=4),
+    "meanflow": dict(steps=8, eval_steps=4),
+    "reflow": dict(steps=8, pair_batches=1, eval_steps=4),
+    "audio": dict(steps=4, gan_steps=4),
+    "image": dict(steps=8, hdit_budget_x=1, reflow_steps=4, pair_batches=1, eval_steps=4),
+}
+
+
+def _same_keys(ours, ref, where: str) -> list:
+    """Where a dict of ``ref`` (at any depth) has keys that ``ours`` lacks."""
+    if not isinstance(ref, dict):
+        return []
+    if not isinstance(ours, dict):
+        return [where]
+    bad = [f"{where}.{k}" for k in ref if k not in ours]
+    for k in ref:
+        if k in ours:
+            bad += _same_keys(ours[k], ref[k], f"{where}.{k}")
+    return bad
+
+
+def _numbers(node):
+    if isinstance(node, dict):
+        for v in node.values():
+            yield from _numbers(v)
+    elif isinstance(node, list):
+        for v in node:
+            yield from _numbers(v)
+    elif isinstance(node, (int, float)) and not isinstance(node, bool):
+        yield node
+
+
+def quality_phase(tmp: str, root: str, card: str, kernels: dict) -> tuple:
+    """The quality-runs tool's five families on the card at tiny budgets
+    (QUALITY_SMOKE; the module docstring's step 32) into the temporary
+    directory: each payload holds the JAX artifact's keys
+    (eval_out/quality/<family>.json) at every depth, every number finite,
+    the image family's FID on rp2048; K1–K5 launch 0 times. Returns
+    (record, launches by tag)."""
+    from flocoder_torch import quality_runs as qr
+
+    out = os.path.join(tmp, "quality")
+    rec = {}
+    torch.cuda.synchronize()
+    _zero(kernels)
+    for family, sizes in QUALITY_SMOKE.items():
+        t0 = time.time()
+        qr.FAMILIES[family](**sizes, device="cuda", out=out)
+        wall = time.time() - t0
+        with open(os.path.join(out, f"{family}.json")) as f:
+            ours = json.load(f)
+        with open(os.path.join(root, "eval_out", "quality", f"{family}.json")) as f:
+            ref = json.load(f)
+        bad = _same_keys(ours, ref, family)
+        if bad or not all(np.isfinite(v) for v in _numbers(ours)):
+            fail(f"quality {family}: keys missing {bad[:8]}, or a number is not finite")
+        if ours["device"]["type"] != "cuda" or (family == "image"
+                                                and ours["fid_backend"] != "rp2048"):
+            fail(f"quality {family}: device {ours['device']}, "
+                 f"FID backend {ours.get('fid_backend')}")
+        rec[family] = dict(sizes=sizes, wall_s=wall, summary=ours["summary"])
+        print(f"quality {family} {sizes}: {wall:.1f} s, payload keys as "
+              f"eval_out/quality/{family}.json | card: {card}", flush=True)
+    launches = _counts(kernels)
+    _expect(kernels, "quality", launches)
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def print_ptxas(source: str) -> None:
     """Each kernel's registers and spills from ptxas's report of the build of
     ``source`` in this run, demangled."""
@@ -5120,6 +5326,8 @@ def main() -> None:
         serving, serve_launches = serve(tmp, paths, card, kernels)
         parts = breakdown(paths, card)
         lap("serve")
+        webapp, webapp_launches = webapp_phase(tmp, paths, card, kernels)
+        lap("webapp")
         state, training, train_launches = train_flowers(tmp, card, kernels)
         gan_parts = gan_breakdown(state, card)
         del state
@@ -5183,6 +5391,8 @@ def main() -> None:
         lap("audio")
         audio_bf16, audio_bf16_launches = audio_bf16_phase(tmp, card, kernels, audio)
         lap("audio_bf16")
+        quality, quality_launches = quality_phase(tmp, root, card, kernels)
+        lap("quality")
     finally:
         os.chdir(home)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5204,7 +5414,7 @@ def main() -> None:
                       "pe_host": pe_host_rec, "flow_shard": shard_flow, "tpu_demo": demo,
                       "tpu_vqgan_train": tpu_train, "tpu_vqgan": tpu_vqgan,
                       "int8_serving": int8_srv, "decode_ms_64": decodes, "audio": audio,
-                      "audio_bf16": audio_bf16,
+                      "audio_bf16": audio_bf16, "webapp": webapp, "quality": quality,
                       "int8_conv": {**slice_errs["int8_conv"],
                                     "timing": slice_timing["int8_conv"]},
                       "phase_s": phase_s}))
@@ -5218,7 +5428,7 @@ def main() -> None:
               "tpu_vqgan_train": tpu_train_launches, "tpu_vqgan": tpu_vqgan_launches,
               "int8_serving": int8_launches, **audio_launches, **audio_bf16_launches,
               **reflow_launches,
-              **vqgan_plus_launches}
+              **vqgan_plus_launches, "webapp": webapp_launches, "quality": quality_launches}
 
     def by_path(name):
         paths = {tag: counts[name] for tag, counts in by_tag.items()}

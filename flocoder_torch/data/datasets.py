@@ -106,20 +106,19 @@ class ImageFolderDataset:
 
 class SyntheticImageDataset:
     """Deterministic procedural images (a coloured blob per class) for runs
-    with no dataset on disk."""
-
-    n_classes = 4
+    with no dataset on disk; image ``i`` is drawn from ``seed + i``."""
 
     def __init__(self, image_size: int, transform: Optional[Callable] = None,
-                 n: int = 256):
+                 n: int = 256, n_classes: int = 4, seed: int = 0):
         self.n, self.image_size = n, image_size
         self.transform = transform
+        self.n_classes, self.seed = n_classes, seed
 
     def __len__(self):
         return self.n
 
     def get(self, i: int, rng: np.random.Generator):
-        g = np.random.default_rng(i)
+        g = np.random.default_rng(self.seed + i)
         label = i % self.n_classes
         s = self.image_size
         yy, xx = np.mgrid[0:s, 0:s] / s

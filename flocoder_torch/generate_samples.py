@@ -36,8 +36,12 @@ is ``codec.checkpoint`` or, by default, the newest ``dac_*.npz`` under the
 checkpoint config's ``+ckpt_dir`` (``checkpoints``), and each sample is
 written as a 16-bit WAV (``sample_<batch>_<i>.wav``) instead of PNGs; a
 ``flow.bf16`` checkpoint serves with the DAC codec in bf16 too, and the
-waveforms are widened to fp32 before they are written. Not ported yet
-(ROADMAP.md): the gradio UI and sharded serving.
+waveforms are widened to fp32 before they are written.
+
+``+use_gradio=true`` serves the sampler's web UI instead
+(``ui/webapp.py``, on the Python standard library; the gradio app of the
+JAX script is not ported, so this UI is served whether or not gradio is
+installed). Not ported yet (ROADMAP.md): sharded serving.
 """
 from __future__ import annotations
 
@@ -61,7 +65,8 @@ from .utils.device import resolve_device
 from .utils.viz import save_img, save_img_grid
 
 __all__ = ["load_models_once", "generate_samples", "save_sample_batch",
-           "save_wav_batch", "midi_to_audio", "main", "CONFIG_DIR"]
+           "save_wav_batch", "midi_to_audio", "create_gradio_interface", "main",
+           "CONFIG_DIR"]
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "configs")
@@ -238,10 +243,20 @@ def generate_samples(config) -> dict:
             "quant": b["quant"]}
 
 
-def main(argv=None) -> dict:
+def create_gradio_interface(config) -> None:
+    """The sampler's UI: the stdlib web app of ``ui/webapp.py`` (the port
+    has no gradio app), served until interrupted."""
+    from .ui.webapp import launch_webapp
+    print("gradio not installed — serving the first-party stdlib UI")
+    return launch_webapp(config)
+
+
+def main(argv=None):
+    """Samples as ``generate_samples`` does and returns its dict; with
+    ``+use_gradio=true`` serves the UI instead and returns None."""
     config = parse_cli(argv, default_config=None, config_dir=CONFIG_DIR)
     if config.get("use_gradio"):
-        raise NotImplementedError("the gradio UI is not ported yet (ROADMAP.md)")
+        return create_gradio_interface(config)
     return generate_samples(config)
 
 

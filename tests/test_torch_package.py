@@ -1,9 +1,10 @@
-"""flocoder_torch as a package: it imports nothing of JAX or of the JAX
-package (the serving, codec-training, pre-encoding and flow-training
-modules, the SD VAE, HDiT and MoE, the host pipeline's shard, decoder and
-device augmentation, the audio family, the reflow-pairs tool and the
-VQGAN+ codec alike) and builds its native libraries under
-``flocoder_torch/build/``, never from ``native/``; its entry point refuses
+"""flocoder_torch as a package: it imports nothing of JAX, optax, the JAX
+package or the JAX tools (the serving, codec-training, pre-encoding and
+flow-training modules, the SD VAE, HDiT and MoE, the host pipeline's shard,
+decoder and device augmentation, the audio family, the reflow-pairs tool,
+the VQGAN+ codec, the web UI and the quality-runs tool alike) and builds
+its native libraries under ``flocoder_torch/build/``, never from
+``native/``; its entry point refuses
 to run without a card unless asked for the CPU, MIDI export and the options
 of the SD-VAE family that are not ported yet refuse (the U-Net in bf16 now
 runs), and ``python -m flocoder_torch.generate_samples`` serves end to end
@@ -56,11 +57,13 @@ def test_every_module_imports_without_jax():
               "ops.audio", "data.audio_io", "models.audio_codec", "models.audio_disc",
               "training.audio", "train_audio_codec", "make_reflow_pairs",
               "models.vqgan_plus", "utils.logging", "utils.interactive_scatter",
-              "utils.plot_metrics", "utils.profiling", "models.inception"):
+              "utils.plot_metrics", "utils.profiling", "models.inception", "ui",
+              "ui.webapp", "quality_runs"):
         assert f"flocoder_torch.{m}" in mods, m
     # the native libraries build and load with the JAX package blocked
     code = ("import sys, importlib\n"
-            "for name in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'flocoder_tpu', 'oracles'):\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'optax', 'ml_dtypes', 'flocoder_tpu',\n"
+            "             'oracles', 'tools'):\n"
             "    sys.modules[name] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -68,7 +71,7 @@ def test_every_module_imports_without_jax():
             "print(shard.library_file())\n"
             "print(native_image.library_file() if native_image.available() else '')\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'ml_dtypes', 'flocoder_tpu', 'oracles') and "
+            "('jax', 'flax', 'optax', 'ml_dtypes', 'flocoder_tpu', 'oracles', 'tools') and "
             "sys.modules[m] is not None]\n"
             "assert not bad, bad\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
