@@ -60,7 +60,9 @@
    its own and, where matplotlib is installed, the JAX module's figures by
    name (PNGs and the interactive HTML twins); without matplotlib the phase
    says that they were skipped.
-8. Checks small inputs end to end against the same models on the CPU, TF32
+8. (After step 33's ranks, beside the end of its NCCL run, with step 26's
+   bf16 card-vs-CPU check.) Checks small
+   inputs end to end against the same models on the CPU, TF32
    off: the RK4 + CFG sampler and decode, the encoder, and one warmup step
    and one GAN step of a small codec (hidden 64): losses and parameters
    within 1e-3·max(1, |ref|), and the gradients (Adam's first moments of
@@ -227,7 +229,8 @@
    the decoder's shape, and bitwise equal across two calls; the card's bf16
    mean against the fp32 mean rounded once; samples/s over the steady
    steps, peak memory and a GAN step's breakdown, printed beside step 7's
-   fp32 ones. Then one bf16 warmup and one bf16 GAN step of a small codec
+   fp32 ones. Earlier (beside step 33's NCCL run, with step 8): one bf16
+   warmup and one bf16 GAN step of a small codec
    (hidden 64) on the card against the CPU on the same RVQ picks (the
    card's own differing only at near ties): losses within 3e-2·max(1,
    |ref|) with equal dtypes, Adam's first moments per tensor within 3e-2
@@ -323,7 +326,8 @@
    call with the same config; K1 once for each decoder call of the request
    (one batch of 16), exactly. Prints the request's seconds beside the
    generation's own batch_seconds. K1 at the decode's B=16 joins step 3.
-32. quality (last): flocoder_torch.quality_runs' five families
+32. quality (first, while nvcc builds the kernels, beside the fixtures
+   of step 6): flocoder_torch.quality_runs' five families
    (unet_vs_hdit, meanflow, reflow, audio, image) on the card at tiny
    budgets (8 flow steps, 4 codec and 4 GAN steps, 1 pair batch,
    hdit_budget_x 1, RK4 over 4 grid points) into the temporary directory:
@@ -331,16 +335,59 @@
    every number finite, the image family's FID on rp2048; K1–K5 launch 0
    times. The measured quality figures come from the tool's own run
    (eval_out/quality_torch/), not from this phase.
+33. dp (after step 23): the parallel layer's data axis
+   (flocoder_torch/parallel/mesh.py) at flowers_vqgan's full width. Two
+   ranks on the one card, started by torch.multiprocessing.spawn with
+   torchrun's variables, join through maybe_init_distributed, which takes
+   gloo (CUDA tensors) as the host runs more ranks than it has cards (NCCL
+   takes one rank a device); TF32 off in the training parts. Each rank:
+   a codec GAN step on its 32 of 64 images (deterministic, the RVQ
+   initialised with three codes a level that start dead, its k-means seeds
+   and reseed picks injected); the data-parallel
+   and the FSDP flow steps on its 128 of 256 latents (FSDP2 by the JAX
+   rule), the FSDP state's sharded checkpoint; generate_samples.main of 64
+   samples sharded (RK4 + CFG, 20 grid points); the fused encode of its 16
+   rows of a batch of 32 (gathered). Rank 0 then computes one process's
+   references, the other rank idle: the GAN step on all 64 with the ranks'
+   RVQ picks (its own nearest codes must differ only at near ties,
+   relative gap under 1e-4: the halves' encodes differ from the whole's in
+   the last bits), the data-parallel flow step's documented function (each
+   rank's rows with its draws as one microbatch, gradients averaged) and
+   the FSDP step's (the one-device step on all 256). Held: parameters
+   (codec, discriminator, U-Net) within 1e-3·max(1, |ref|), the losses
+   too; Adam's first moments each tensor within 1e-3 of its own largest
+   |μ_ref| plus 1e-5 of its model's largest; the GAN step's gradient norms
+   before clipping (G's and D's) within 1e-4 relative; the VQ indices
+   equal, the RVQ statistics within
+   1e-5 relative, every replicated state the same on both ranks hash for
+   hash; the checkpoint read back by one process equals the whole state the
+   ranks gathered; the served images within 1e-4·max(1, |ref|) of one
+   process's given each rank's noise; the encoded latents and indices
+   equal one process's encodes of each rank's rows, bit for bit. Launches a
+   rank, exactly: 6 K1 and 6 K2 in the GAN step, 1 K1 in the decode, 5 K1
+   and 1 K3 in the encode, none in the flow steps. Once the ranks'
+   data-parallel GAN steps are timed, train_flow under torchrun --standalone
+   --nproc_per_node=1 (NCCL) with flow.fsdp=true and
+   flow.sharded_checkpoints=true starts beside them (its ~35 s of start-up
+   is imports), 1 epoch of 4 steps on the pre-encode phase's latents, no
+   evaluation; step 8 runs beside its end, and then: its FSDP step ran,
+   its checkpoint reads back whole and finite. Prints each rank's launches, the step times by CUDA events
+   beside one process's, and the phase's
+   seconds. A rank that fails makes the join raise and the script exit
+   non-zero.
 
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Imports nothing of JAX or of flocoder_tpu.
 """
+import atexit
+import collections
 import contextlib
 import copy
 import json
 import os
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -938,16 +985,20 @@ def profile_batch(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    if not kernels:
+    # the device's activities as the tracer recorded them, summed by name
+    # (key_averages builds the host's event tree first: ~2 s a serving batch)
+    ms = collections.defaultdict(float)
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            ms[e.name()] += e.duration_ns() / 1e6
+    busy = sum(ms.values()) / 1e3
+    if not ms:
         print("profile_batch: the profiler saw no kernel; no idle share", flush=True)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    na2d_ms = sum(e.self_device_time_total for e in kernels if "na2d" in e.key) / 1e3
-    return dict(profiled_batch_s=wall, device_busy_s=busy if kernels else None,
-                device_idle_share=1.0 - busy / wall if kernels else None,
-                na2d_kernels_ms=na2d_ms,
-                top_kernels=[(e.key, e.self_device_time_total / 1e3) for e in top])
+    top = sorted(ms.items(), key=lambda kv: -kv[1])[:6]
+    return dict(profiled_batch_s=wall, device_busy_s=busy if ms else None,
+                device_idle_share=1.0 - busy / wall if ms else None,
+                na2d_kernels_ms=sum(v for k, v in ms.items() if "na2d" in k),
+                top_kernels=top)
 
 
 def check_small_input(ckpt: str, label: str = "") -> dict:
@@ -1237,7 +1288,13 @@ def check_train_small(setup=None, lecam_weight: float = 0.0,
     gradients are held through Adam's first moments (0.9·0.1·g_warmup +
     0.1·g_GAN for the codec after the two steps, 0.1·g for the
     discriminator, each clipped), within 1e-3 of the largest first moment
-    of that model."""
+    of that model. The card runs cuDNN's deterministic algorithms. With the
+    default ones the VQGAN+ case failed in two of the full runs of this
+    script that first held the dp phase (step 33), both times by the same
+    amount (its discriminator's DiscrResBlock_2.Conv_2 moments 2.038e-05
+    from the CPU's, tol 6.374e-06, against 3.302e-06 at worst in the runs
+    that passed), and passed whenever this check ran alone; what changed
+    the card's computation in those runs is not known (PERF.md §7)."""
     from flocoder_torch.config import load_config
     from flocoder_torch.generate_samples import CONFIG_DIR
     from flocoder_torch.models.perceptual import make_perceptual_fn
@@ -1249,6 +1306,8 @@ def check_train_small(setup=None, lecam_weight: float = 0.0,
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
     cfg = load_config("smoke_vqgan.yaml", CONFIG_DIR, overrides=["codec.lambda_perc=0.001"])
     _, codec, disc, vgg, batches = (setup or small_training_setup)()
     out = {}
@@ -1268,6 +1327,7 @@ def check_train_small(setup=None, lecam_weight: float = 0.0,
                                             ("discriminator", state.disc, state.opt_d))}
         out[dev] = (losses, {**to_jax_flat(state.codec, VQVAE_PREFIXES),
                              **to_jax_flat(state.disc, DISC_PREFIXES)}, moments)
+    torch.backends.cudnn.deterministic = deterministic
     (l_card, p_card, m_card), (l_cpu, p_cpu, m_cpu) = out["cuda"], out["cpu"]
     grad_report = []
     for model, ref_m in m_cpu.items():
@@ -4549,10 +4609,10 @@ def audio_preencode(tmp: str, card: str, kernels: dict, bf16: bool = False) -> t
 def audio_flow(tmp: str, card: str, kernels: dict, bf16: bool = False) -> tuple:
     """The U-Net flow on the audio latents (dim_mults 1,2,4, 4 classes,
     B=64) through flocoder_torch.train_flow.main: 1 epoch (the recipe's
-    100) with evaluate_model_audio as composed (RK4, 50 grid points, CFG
-    3.0; the sampled and the target latents decoded to waveforms, WAVs
-    written); then generate_samples serves 16 clips from the EMA checkpoint
-    as composed and every WAV is read back. No kernel of the port. With
+    100) with evaluate_model_audio (RK4 over 20 grid points, the recipe's
+    50; CFG 3.0; the sampled and the target latents decoded to waveforms,
+    WAVs written); then generate_samples serves 16 clips from the EMA
+    checkpoint at 20 grid points and every WAV is read back. No kernel of the port. With
     ``bf16`` the codec and the U-Net (flow.bf16) compute in bf16, and the
     EMA checkpoint serves in bf16 as trained (no +bf16 flag)."""
     from flocoder_torch import generate_samples as gs
@@ -4565,7 +4625,7 @@ def audio_flow(tmp: str, card: str, kernels: dict, bf16: bool = False) -> tuple:
     out_dir = os.path.join(tmp, f"{tag}_flow_out")
     events, step_hook = _hooked()
     t0 = time.time()
-    res = tf.main(_audio_argv(tmp, "flow.epochs=1", "flow.ckpt_every=1",
+    res = tf.main(_audio_argv(tmp, "flow.epochs=1", "flow.ckpt_every=1", "flow.n_steps=20",
                               f"+output_dir={out_dir}", *(["flow.bf16=true"] if bf16 else []),
                               bf16=bf16), step_hook=step_hook)
     torch.cuda.synchronize()
@@ -4584,7 +4644,7 @@ def audio_flow(tmp: str, card: str, kernels: dict, bf16: bool = False) -> tuple:
     t0 = time.time()
     served = gs.main(["--config-name", "audio_dac.yaml",
                       f"+flow_checkpoint={res['ema_checkpoint']}", f"+n_samples={AUDIO_SERVE}",
-                      "+seed=0", f"+output_dir={os.path.join(tmp, f'{tag}_gen')}"])
+                      "+n_steps=20", "+seed=0", f"+output_dir={os.path.join(tmp, f'{tag}_gen')}"])
     serve_wall = time.time() - t0
     serve_launches = _counts(kernels)
     _expect(kernels, f"audio_serve (bf16: {bf16})", serve_launches)
@@ -4812,7 +4872,8 @@ def audio_phase(tmp: str, card: str, kernels: dict) -> tuple:
     against the CPU. Returns (record, launches by tag)."""
     print(f"audio_dac cuts: synthetic_n {AUDIO_N} (4 codec steps an epoch), codec epochs 2 "
           f"(1 recon + 1 GAN; the recipe's 200 with 50 recon), pre-encode augs_per "
-          f"{AUDIO_AUGS} (its 8), flow 1 epoch (its 100), flow.ckpt_every=1 (its 25) to write "
+          f"{AUDIO_AUGS} (its 8), flow 1 epoch (its 100) with evaluation and serving at n_steps "
+          f"20 (its 50), flow.ckpt_every=1 (its 25) to write "
           "the served checkpoint", flush=True)
     state, train, train_launches = audio_train(tmp, card, kernels)
     train["gan_breakdown"] = audio_gan_breakdown(state, card)
@@ -5176,6 +5237,663 @@ def quality_phase(tmp: str, root: str, card: str, kernels: dict) -> tuple:
     return rec, launches
 
 
+# ---------------------------------------------------------------------------
+# The parallel layer's data axis: two ranks on the card, and NCCL as a world
+# of one
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_GAN_BATCH = 64              # the codec GAN step's global batch (32 a rank)
+DP_SERVE = 64                  # sharded serving's samples, one batch
+DP_PE_BATCH = 32               # the fused pre-encode's batch (16 a rank)
+DP_MU_REL = 1e-3               # a first moment's tolerance: of its own tensor's largest |μ|
+DP_MU_FLOOR = 1e-5             # plus this share of its model's largest |μ|
+DP_NORM_REL = 1e-4             # a pre-clip gradient norm's, of one process's
+
+
+def _max_rel(ours: dict, ref: dict) -> tuple:
+    """The worst tensor of ``ours`` against ``ref`` (same keys) by
+    max|Δ| / max(1, max|ref|): (key, err, tol at 1e-3)."""
+    worst = ("", 0.0, 1e-3)
+    for k, r in ref.items():
+        r = np.asarray(r, np.float64)
+        err = float(np.abs(np.asarray(ours[k], np.float64) - r).max())
+        tol = 1e-3 * max(1.0, float(np.abs(r).max()))
+        if not np.isfinite(err) or err / tol > worst[1] / worst[2]:
+            worst = (k, err, tol)
+    return worst
+
+
+def _worst_moment(ours: dict, ref: dict) -> tuple:
+    """Adam's first moments of one model (``ours``, same keys as ``ref``;
+    numpy arrays or tensors) against one process's: each tensor within
+    DP_MU_REL of its own largest |μ_ref| plus DP_MU_FLOOR of the model's
+    largest. Returns the worst by err/tol: (key, err, tol, its own largest
+    |μ_ref|, the model's)."""
+    ours = {k: torch.as_tensor(v).double() for k, v in ours.items()}
+    ref = {k: torch.as_tensor(v).double() for k, v in ref.items()}
+    own = {k: float(r.abs().max()) if r.numel() else 0.0 for k, r in ref.items()}
+    peak = max(own.values())
+    worst = ("", 0.0, 1.0, 0.0, peak)
+    for k, r in ref.items():
+        err = float((ours[k].to(r.device) - r).abs().max()) if r.numel() else 0.0
+        tol = DP_MU_REL * own[k] + DP_MU_FLOOR * peak
+        if not np.isfinite(err) or err / tol > worst[1] / worst[2]:
+            worst = (k, err, tol, own[k], peak)
+    return worst
+
+
+def _record_norms(state, into: list) -> None:
+    """Wraps the optimizers' ``step`` of a codec state to append (name, the
+    gradients' global norm before clipping) to ``into`` at each call."""
+    for name in ("opt_d", "opt_g"):
+        opt = getattr(state, name)
+
+        def step(count=0, _step=opt.step, _name=name):
+            norm = _step(count)
+            into.append((_name, norm.detach().clone()))
+            return norm
+
+        opt.step = step
+
+
+def _flow_mu(state) -> dict:
+    """Adam's first moments of a flow state's model in ``to_jax_flat``'s
+    keys (zeros where there is none); an FSDP state's gathered whole."""
+    from flocoder_torch.training.checkpoint import UNET_PREFIXES, adam_to_jax_flat
+    flat = adam_to_jax_flat(state.model, state.opt.adam, state.step, UNET_PREFIXES)
+    return {k[len("1/0/mu/"):]: v for k, v in flat.items() if k.startswith("1/0/mu/")}
+
+
+def _step_ms(fn) -> float:
+    """One call of ``fn`` by CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def dp_job(tmp: str, paths: dict, pe_data: str) -> dict:
+    """The dp phase's inputs, written to ``<tmp>/dp/job.pt`` for the ranks:
+    the codec checkpoint and an RVQ state for it, initialised with three
+    codes a level that start dead (so that the GAN step reseeds them from
+    the injected picks, rows of batch rank 0's images) and its injected
+    draws; the discriminator's seeded weights; 64 images; the 256 latents,
+    global draws and U-Net of the flow steps; 32 images to pre-encode; the
+    serving checkpoint."""
+    from flocoder_torch.models.discriminator import (VQGANPlusPatchDiscriminator,
+                                                     init_discriminator)
+    from flocoder_torch.training.checkpoint import (UNET_PREFIXES, load_checkpoint,
+                                                    load_jax_flat, subtree)
+    from flocoder_torch.models.unet import Unet
+
+    d = os.path.join(tmp, "dp")
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(17)
+    cb = load_checkpoint(paths["codec"])["model_state_dict"]["vq/codebooks"].astype(np.float32)
+    L, K, D = cb.shape
+    counts = rng.uniform(4, 30, (L, K)).astype(np.float32)
+    counts[:, :3] = 0.5
+    rvq = {"codebooks": cb, "ema_counts": counts,
+           "ema_sums": (cb * counts[..., None]).astype(np.float32),
+           "initted": np.asarray(True)}
+    tokens_rank0 = (DP_GAN_BATCH // DP_RANKS) * 16 * 16
+    draws = {"kmeans_seeds": rng.integers(0, tokens_rank0, (L, K)),
+             "reseed_picks": rng.integers(0, tokens_rank0, (L, K))}
+    disc = init_discriminator(VQGANPlusPatchDiscriminator(in_channels=3),
+                              torch.Generator().manual_seed(2))
+    batch = _flow_batch(os.path.join(f"{pe_data}_encoded_vqgan", "train"))
+    flat = load_checkpoint(paths["cfg"])["model_state_dict"]
+    unet = Unet(dim=16, channels=4, dim_mults=(1, 2, 4, 8), n_classes=102)
+    load_jax_flat(unet, subtree(flat, "model/"), UNET_PREFIXES)
+    g = torch.Generator().manual_seed(18)
+    shape, n = tuple(batch["target"].shape), batch["target"].shape[0]
+    job = {"codec": paths["codec"], "rvq": rvq, "draws": draws, "out": d,
+           "images": rng.uniform(-1, 1, (DP_GAN_BATCH, 128, 128, 3)).astype(np.float32),
+           "disc": disc.state_dict(), "unet": unet.state_dict(),
+           "flow_batch": {k: v.cpu() for k, v in batch.items()},
+           "flow_draws": {"noise": torch.randn(shape, generator=g),
+                          "t_uniform": torch.rand(n, generator=g),
+                          "cfg_noise": torch.randn(shape, generator=g)},
+           "pe_images": rng.uniform(0, 1, (DP_PE_BATCH, 128, 128, 3)).astype(np.float32),
+           "serve_ckpt": paths["cfg"]}
+    torch.save(job, os.path.join(d, "job.pt"))
+    return job
+
+
+def _checksums(tensors: dict) -> dict:
+    """A checksum of each tensor's bits, on the card: the 32-bit words
+    weighted by their position modulo a prime (any flipped bit moves it)."""
+    out = {}
+    for k, t in tensors.items():
+        t = torch.as_tensor(t, device="cuda")
+        bits = t.contiguous().view(-1).view(torch.uint8)
+        bits = bits[:bits.numel() // 4 * 4].view(torch.int32).to(torch.int64)
+        w = torch.arange(bits.numel(), device=bits.device) % 1009 + 1
+        out[k] = int((bits * w).sum())
+    return out
+
+
+def _worst_on_card(ours: dict, ref: dict) -> tuple:
+    """``_max_rel`` of tensors on the card: (key, err, tol at 1e-3)."""
+    worst = ("", 0.0, 1e-3)
+    for k, r in ref.items():
+        r = r.double()
+        err = float((ours[k].double() - r).abs().max())
+        tol = 1e-3 * max(1.0, float(r.abs().max()))
+        if not np.isfinite(err) or err / tol > worst[1] / worst[2]:
+            worst = (k, err, tol)
+    return worst
+
+
+def dp_rank(rank: int, world: int, root: str, job_path: str, port: int) -> None:
+    """One rank of the dp phase on cuda:0, in the world that torchrun's
+    variables describe (rendezvous on localhost:``port``; two ranks on one
+    card, so ``maybe_init_distributed`` takes gloo). Drives, with its launch
+    counts zeroed before and read after each part: the codec GAN step on its 32 images; the
+    data-parallel and the FSDP flow steps (then the FSDP state's sharded
+    checkpoint); generate_samples.main of 64 samples, sharded; the fused
+    encode of its 16 rows of a batch of 32. Rank 0 also computes the
+    one-process references in turn (the other rank idle, both ranks'
+    memory freed): the GAN step on all 64 images with the ranks' RVQ picks,
+    the flow steps' documented functions; it holds its state against them
+    and every rank's replicated state against its own, hash for hash.
+    Writes its record beside the job."""
+    import faulthandler
+    import torch.distributed as dist
+    t_rank = time.time()
+    faulthandler.enable()               # a native crash still prints where it was
+    sys.path.insert(0, root)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    from flocoder_torch.parallel import mesh as pm
+    if pm.maybe_init_distributed() != torch.device("cuda:0") or dist.get_backend() != "gloo":
+        raise RuntimeError(f"dp rank {rank}: {dist.get_backend()} world, not gloo on cuda:0")
+    job = torch.load(job_path, weights_only=False)
+    d = job["out"]
+    # TF32 off in the training parts: the ranks' halves and one process's
+    # whole batch then agree to fp32 rounding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch import train_flow as tf
+    from flocoder_torch.config import load_config
+    from flocoder_torch.generate_samples import CONFIG_DIR
+    from flocoder_torch.models.codecs import setup_codec
+    from flocoder_torch.models.discriminator import VQGANPlusPatchDiscriminator
+    from flocoder_torch.models.perceptual import make_perceptual_fn
+    from flocoder_torch.models.unet import Unet
+    from flocoder_torch.ops.kernels import fused_vq as fvk
+    from flocoder_torch.ops.kernels.na2d import na2d_bwd, na2d_fwd
+    from flocoder_torch.training.checkpoint import (UNET_PREFIXES, VQVAE_PREFIXES,
+                                                    load_checkpoint, load_jax_flat,
+                                                    save_checkpoint_sharded, to_jax_flat)
+    from flocoder_torch.training.flow import (create_flow_state, make_flow_train_step,
+                                              shard_flow_state)
+    from flocoder_torch.training.vqgan import create_vqgan_state, make_vqgan_gan_step
+
+    kernels = {"na2d_fwd": na2d_fwd, "na2d_bwd": na2d_bwd,
+               "fused_compress_vq": fvk.fused_compress_vq,
+               "fused_compress_tail_vq": fvk.fused_compress_tail_vq,
+               "fused_compress_tail_vq_bf16": fvk.fused_compress_tail_vq_bf16,
+               "compress_tail_debug": fvk.compress_tail_debug}
+    for k in kernels.values():
+        k.build()                       # the libraries the parent built: loaded
+    mesh = pm.make_mesh(device="cuda")
+    rec, parts = {"rank": rank}, {}
+    cfg = load_config("flowers_vqgan.yaml", CONFIG_DIR, [f"codec.checkpoint={job['codec']}"])
+    codec_flat = load_checkpoint(job["codec"])["model_state_dict"]
+
+    def gan_state():
+        codec = setup_codec(cfg, device="cuda")
+        load_jax_flat(codec, codec_flat, VQVAE_PREFIXES)
+        codec.vq.assign_({k: torch.from_numpy(v).cuda() for k, v in job["rvq"].items()})
+        disc = VQGANPlusPatchDiscriminator(in_channels=3).cuda()
+        disc.load_state_dict({k: v.cuda() for k, v in job["disc"].items()})
+        return create_vqgan_state(codec, disc, 1e-4)
+
+    def gan_tensors(state) -> dict:
+        """Copies on the card: each group's tensors by name (the codec's
+        and discriminator's parameters and buffers, Adam's first moments)."""
+        def moments(module, opt):
+            return {n: (opt.state_of(p)["exp_avg"] if opt.state_of(p) else torch.zeros_like(p))
+                    .detach().clone() for n, p in module.named_parameters()}
+        return {"codec": {k: v.detach().clone() for k, v in state.codec.state_dict().items()},
+                "disc": {k: v.detach().clone() for k, v in state.disc.state_dict().items()},
+                "codec_mu": moments(state.codec, state.opt_g),
+                "disc_mu": moments(state.disc, state.opt_d)}
+
+    def replicated(name: str, groups: dict) -> None:
+        """Every rank's replicated state the same, checksum for checksum."""
+        sums = [None] * world
+        dist.all_gather_object(sums, {g: _checksums(t) for g, t in groups.items()})
+        rec.setdefault("replicated", {})[name] = all(x == sums[0] for x in sums)
+
+    # the codec GAN step on this rank's rows, its RVQ picks recorded
+    print(f"dp rank {rank}: codec GAN step at {time.time() - t_rank:.1f} s", flush=True)
+    stamps = {}
+
+    def stamp(name):
+        torch.cuda.synchronize()
+        stamps[name] = round(time.time() - t_rank, 2)
+
+    perc = make_perceptual_fn(seed=0, device="cuda")
+    step = make_vqgan_gan_step(cfg, perc, mesh=mesh, deterministic=True)
+    stamp("perceptual")
+    state = gan_state()
+    stamp("gan_state")
+    x = torch.from_numpy(pm.shard_batch(mesh, job["images"])).cuda()
+    own, norms = [], []
+    _record_norms(state, norms)
+    _zero(kernels)
+    with forced_picks(None, own):
+        _, aux, idx = step(state, x, torch.Generator("cuda"), **job["draws"])
+    torch.cuda.synchronize()
+    parts["gan"] = _counts(kernels)
+    stamp("gan_step")
+    picks = [pm.gather_rows(torch.from_numpy(o[0]).cuda(), mesh).cpu().numpy() for o in own]
+    mine = gan_tensors(state)
+    replicated("gan", mine)
+    stamp("checksums")
+    rec["gan"] = {"aux": {k: float(v) for k, v in aux.items()},
+                  "norms": {n: float(v) for n, v in norms},
+                  "rvq": {k: getattr(state.codec.vq, k).cpu().numpy()
+                          for k in ("codebooks", "ema_counts", "ema_sums")},
+                  "idx": pm.gather_rows(idx, mesh).cpu().numpy()}
+    rec["gan"]["step_ms"] = _step_ms(lambda: step(state, x, torch.Generator("cuda"),
+                                                  **job["draws"]))
+    if rank == 0:       # the parent starts the NCCL run, whose start-up is imports
+        open(os.path.join(d, "gan_steps_timed"), "w").close()
+    del state, x
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        # one process: all 64 images, the ranks' picks forced (the halves'
+        # encodes differ from the whole's in the last bits, which can flip a
+        # pick at a near tie); its own nearest codes are counted and held to
+        # be near ties
+        one = make_vqgan_gan_step(cfg, perc, deterministic=True)
+        state = gan_state()
+        xb = torch.from_numpy(job["images"]).cuda()
+        ref_own, ref_norms = [], []
+        _record_norms(state, ref_norms)
+        stamp("reference_state")
+        with forced_picks(picks, ref_own):
+            _, ref_aux, ref_idx = one(state, xb, torch.Generator("cuda"), **job["draws"])
+        stamp("reference_step")
+        ref = gan_tensors(state)
+        rec["gan"].update(
+            ref_aux={k: float(v) for k, v in ref_aux.items()},
+            ref_norms={n: float(v) for n, v in ref_norms[:2]},
+            worst={k: (_worst_moment if k.endswith("_mu") else _worst_on_card)(mine[k], ref[k])
+                   for k in ref},
+            idx_equal=bool(np.array_equal(rec["gan"]["idx"], ref_idx.cpu().numpy())),
+            ref_flips=int(sum((o[0] != p).sum() for p, o in zip(picks, ref_own))),
+            pick_gap=worst_pick_gap(picks, ref_own),
+            ref_rvq={k: ref["codec"][f"vq.{k}"].cpu().numpy()
+                     for k in ("ema_counts", "ema_sums")},
+            one_process_ms=_step_ms(lambda: one(state, xb, torch.Generator("cuda"),
+                                                **job["draws"])))
+        stamp("reference_held_and_timed")
+        del state, xb, ref
+    del mine
+    torch.cuda.empty_cache()
+    dist.barrier()
+    rec["stamps"] = stamps
+
+    # the flow steps: data-parallel (its rows, its draws), then FSDP
+    print(f"dp rank {rank}: flow steps at {time.time() - t_rank:.1f} s", flush=True)
+    batch = {k: v.cuda() for k, v in job["flow_batch"].items()}
+    draws = {k: v.cuda() for k, v in job["flow_draws"].items()}
+    unet = Unet(dim=16, channels=4, dim_mults=(1, 2, 4, 8), n_classes=102).cuda()
+    unet.load_state_dict({k: v.cuda() for k, v in job["unet"].items()})
+    drop = torch.tensor(False, device="cuda")
+    refs = {}
+    if rank == 0:       # the documented functions: per-rank microbatches; the global batch
+        per = batch["target"].shape[0] // world
+        rank_draws = [{k: v[r * per:(r + 1) * per] for k, v in draws.items()}
+                      for r in range(world)]
+        for name, kw, draws_of in (("dp", dict(grad_accum=world), rank_draws),
+                                   ("fsdp", {}, [draws])):
+            st = create_flow_state(copy.deepcopy(unet), 1e-4)
+            fstep = make_flow_train_step(**kw)
+            _, faux = fstep(st, batch, None, draws=draws_of, drop=drop)
+            refs[name] = {"aux": {k: float(v) for k, v in faux.items()},
+                          "params": to_jax_flat(st.model, UNET_PREFIXES),
+                          "ema": to_jax_flat(st.ema, UNET_PREFIXES), "mu": _flow_mu(st),
+                          "step_ms": _step_ms(lambda: fstep(st, batch, None, draws=draws_of,
+                                                            drop=drop))}
+            del st
+    rec["flow"] = {}
+    _zero(kernels)
+    for name, fsdp in (("dp", False), ("fsdp", True)):
+        st = create_flow_state(copy.deepcopy(unet), 1e-4)
+        dims = shard_flow_state(st, mesh) if fsdp else {}
+        fstep = make_flow_train_step(mesh=mesh, fsdp=fsdp)
+        mine = pm.shard_batch(mesh, batch)
+        dr = [draws if fsdp else pm.shard_batch(mesh, draws)]
+        _, faux = fstep(st, mine, None, draws=dr, drop=drop)
+        ours = {"params": to_jax_flat(st.model, UNET_PREFIXES),
+                "ema": to_jax_flat(st.ema, UNET_PREFIXES), "mu": _flow_mu(st)}
+        replicated(f"flow_{name}", {g: {k: torch.from_numpy(np.ascontiguousarray(v))
+                                        for k, v in t.items()} for g, t in ours.items()})
+        r = {"aux": {k: float(v) for k, v in faux.items()},
+             "sharded": sum(v is not None for v in dims.values()), "params": len(dims)}
+        if rank == 0:
+            r.update(ref=refs[name]["aux"], one_process_ms=refs[name]["step_ms"],
+                     worst={k: (_worst_moment if k == "mu" else _max_rel)(ours[k], refs[name][k])
+                            for k in ours})
+        r["step_ms"] = _step_ms(lambda: fstep(st, mine, None, draws=dr, drop=drop))
+        if fsdp:       # after the timed step: the state the checkpoint holds
+            save_checkpoint_sharded(tf._sharded_tree(st), 2, ckpt_dir=os.path.join(d, "ck"))
+            whole = {f"params/{k}": v for k, v in to_jax_flat(st.model, UNET_PREFIXES).items()}
+            whole.update({f"ema/{k}": v for k, v in to_jax_flat(st.ema, UNET_PREFIXES).items()})
+            whole.update({f"opt_state/{k}": v for k, v in tf._opt_flat(st).items()})
+            if rank == 0:
+                np.savez(os.path.join(d, "whole.npz"), **whole)
+        rec["flow"][name] = r
+        del st
+    parts["flow"] = _counts(kernels)
+    del unet, batch, draws
+    torch.cuda.empty_cache()
+
+    # sharded serving through the entry point
+    print(f"dp rank {rank}: sharded serving at {time.time() - t_rank:.1f} s", flush=True)
+    torch.backends.cudnn.allow_tf32 = True      # PyTorch's default, as the parent's
+    _zero(kernels)
+    served = gs.main(["--config-name", "flowers_vqgan.yaml", "+device=cuda:0",
+                      f"+flow_checkpoint={job['serve_ckpt']}", f"+n_samples={DP_SERVE}",
+                      "+n_steps=20", f"flow.batch_size={DP_SERVE}", "+seed=0",
+                      f"+output_dir={os.path.join(d, 'samples')}"])
+    parts["serve"] = _counts(kernels)
+    rec["serve"] = {"seed": pm.rank_seed(0, mesh), "batch_s": served["batch_seconds"],
+                    "nfe": served["nfe"]}
+    if rank == 0:
+        np.save(os.path.join(d, "served.npy"), served["images"])
+
+    # the fused pre-encode of one batch: K3 on this rank's rows
+    print(f"dp rank {rank}: fused pre-encode at {time.time() - t_rank:.1f} s", flush=True)
+    pcodec = gs.load_models_once(cfg, job["serve_ckpt"], torch.device("cuda:0"))["codec"]
+    xs = torch.from_numpy(pm.shard_batch(mesh, job["pe_images"])).cuda()
+    _zero(kernels)
+    with torch.inference_mode():
+        zq, pidx = pcodec.encode_quantize_fused(xs)
+        zq, pidx = pm.gather_rows(zq, mesh), pm.gather_rows(pidx, mesh)
+    torch.cuda.synchronize()
+    parts["preencode"] = _counts(kernels)
+    if rank == 0:
+        np.savez(os.path.join(d, "encoded.npz"), zq=zq.float().cpu().numpy(),
+                 idx=pidx.cpu().numpy())
+    rec["launches"] = parts
+    dist.destroy_process_group()
+    torch.save(rec, os.path.join(d, f"rank{rank}.pt"))
+
+
+def nccl_world_of_one(root: str, pe_data: str) -> dict:
+    """Starts train_flow in the background under ``torchrun --standalone
+    --nproc_per_node=1``: the NCCL backend, flowers_vqgan's flow at full
+    width with flow.fsdp=true and flow.sharded_checkpoints=true, one epoch
+    of 4 steps (B=256) on the pre-encode phase's latents, no evaluation
+    (the codec stays seeded). Its start-up takes ~35 s (torch imported by
+    the launcher and the worker, FSDP2's first use). Its output goes to
+    files (a pipe could fill and stall it). Returns the handle
+    ``nccl_result`` reads."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=1", "-m", "flocoder_torch.train_flow",
+           "--config-name", "flowers_vqgan.yaml", f"data={pe_data}",
+           "flow.unet.n_classes=102", "flow.epochs=1", "flow.ckpt_every=1",
+           "flow.no_eval=true", "flow.fsdp=true", "flow.sharded_checkpoints=true",
+           "+seed=0", f"+ckpt_dir={os.path.join(d, 'ck')}",
+           f"+output_dir={os.path.join(d, 'out')}"]
+    out, err = open(os.path.join(d, "stdout"), "w"), open(os.path.join(d, "stderr"), "w")
+    proc = subprocess.Popen(cmd, cwd=d, stdout=out, stderr=err,
+                            env={**os.environ, "PYTHONPATH": root})
+    return {"proc": proc, "dir": d, "files": (out, err), "t0": time.time()}
+
+
+def nccl_stop(h: dict) -> None:
+    """Stops the NCCL run if it still runs, and removes its folder."""
+    if h["proc"].poll() is None:
+        h["proc"].kill()
+        h["proc"].wait()
+    for f in h["files"]:
+        f.close()
+    shutil.rmtree(h["dir"], ignore_errors=True)
+
+
+def nccl_result(h: dict, card: str) -> dict:
+    """Waits for the NCCL run (started by nccl_world_of_one) and reads its
+    sharded checkpoint back whole."""
+    from flocoder_torch.training.checkpoint import load_checkpoint_sharded
+    try:
+        h["proc"].wait(timeout=300)
+        wall = time.time() - h["t0"]
+        for f in h["files"]:
+            f.flush()
+        with open(os.path.join(h["dir"], "stdout")) as f:
+            out = f.read()
+        if h["proc"].returncode:
+            with open(os.path.join(h["dir"], "stderr")) as f:
+                print(out[-4000:], f.read()[-4000:], sep="\n", flush=True)
+            fail(f"train_flow under torchrun (NCCL, a world of one) exited "
+                 f"{h['proc'].returncode}")
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith(("train_flow: mesh", "FSDP:", "epoch 1/1", "done in"))]
+        if len(lines) != 4 or "FSDP step" not in lines[0]:
+            fail(f"train_flow under torchrun did not run the FSDP step: {lines}")
+        state = load_checkpoint_sharded(os.path.join(h["dir"], "ck"), "flow_", 1)["state"]
+        if not (any(k.startswith("params/") for k in state) and all(
+                np.isfinite(v).all() for v in state.values()
+                if np.issubdtype(np.asarray(v).dtype, np.floating))):
+            fail("the NCCL run's sharded checkpoint is empty or not finite")
+    finally:
+        nccl_stop(h)
+    print(f"dp nccl: torchrun --nproc_per_node=1 train_flow flow.fsdp=true "
+          f"flow.sharded_checkpoints=true: {' | '.join(lines)}; checkpoint "
+          f"{len(state)} leaves read back; {wall:.1f} s from its start, beside the ranks "
+          f"once their GAN steps were timed, then beside step 8's checks | card: {card}",
+          flush=True)
+    return {"wall_s": wall, "lines": lines, "checkpoint_leaves": len(state), "card": card}
+
+
+def dp_phase(tmp: str, paths: dict, pe_data: str, root: str, card: str,
+             kernels: dict) -> tuple:
+    """The parallel layer's data axis on the card (step 33): two ranks on
+    the one H100 in a gloo world (NCCL takes one rank a device), started by
+    torch.multiprocessing (dp_rank), and, once their data-parallel GAN
+    steps are timed, the NCCL world of one (nccl_world_of_one). A rank that
+    fails makes the join raise and the script exit non-zero. Returns
+    (record, launches summed over the ranks, the NCCL run's handle, which
+    nccl_result reads once the caller has run step 8's checks beside it)."""
+    import torch.multiprocessing as mp
+    from flocoder_torch import generate_samples as gs
+    from flocoder_torch.config import ldcfg, load_config
+    from flocoder_torch.evaluation import sampler
+    from flocoder_torch.generate_samples import CONFIG_DIR
+    from flocoder_torch.training.checkpoint import load_checkpoint_sharded
+
+    t0 = time.time()
+    job = dp_job(tmp, paths, pe_data)
+    d = job["out"]
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    with socket.socket() as sock:       # a free port on localhost for the rendezvous
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.start_processes(dp_rank, args=(DP_RANKS, root, os.path.join(d, "job.pt"), port),
+                             nprocs=DP_RANKS, join=False, start_method="spawn")
+    nccl = None
+    try:
+        # its start-up (imports) runs beside the ranks once their
+        # data-parallel GAN steps are timed
+        while not ctx.join(timeout=0.5):
+            if nccl is None and os.path.exists(os.path.join(d, "gan_steps_timed")):
+                nccl = nccl_world_of_one(root, pe_data)
+        if nccl is None:
+            nccl = nccl_world_of_one(root, pe_data)
+    except BaseException:
+        if nccl is not None:
+            nccl_stop(nccl)
+        raise
+    t_ranks = time.time() - t1
+    try:
+        recs = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                for r in range(DP_RANKS)]
+
+        # launches: each rank's as one process's step (6 K1 + 6 K2), one decode
+        # (1 K1), one fused encode (5 K1 + 1 K3); the flow steps run none
+        for r in recs:
+            for part, want in (("gan", dict(na2d_fwd=6, na2d_bwd=6)), ("flow", {}),
+                               ("serve", dict(na2d_fwd=1)),
+                               ("preencode", dict(na2d_fwd=5, fused_compress_tail_vq=1))):
+                _expect(kernels, f"dp rank {r['rank']} {part}", r["launches"][part], **want)
+            if not all(r["replicated"].values()):
+                fail(f"dp rank {r['rank']}: replicated state differs between the ranks: "
+                     f"{r['replicated']}")
+        # the codec GAN step (rank 0 holds its state to one process's)
+        g = recs[0]["gan"]
+        for k, v in g["ref_aux"].items():
+            for r in recs:
+                if not abs(r["gan"]["aux"][k] - v) < 1e-3 * max(1.0, abs(v)):
+                    fail(f"dp rank {r['rank']} GAN step loss {k}: {r['gan']['aux'][k]} vs {v}")
+        for name, (k, err, tol, *_) in g["worst"].items():
+            if not err < tol:
+                fail(f"dp GAN step {name} {k}: {err:.3e} (tol {tol:.3e})")
+        norm_worst = 0.0
+        for r in recs:          # the gradients' norms before clipping, G's and D's
+            for n, want in g["ref_norms"].items():
+                rel = abs(r["gan"]["norms"][n] - want) / want
+                norm_worst = max(norm_worst, rel)
+                if not rel < DP_NORM_REL:
+                    fail(f"dp rank {r['rank']} GAN step {n} gradient norm "
+                         f"{r['gan']['norms'][n]} vs {want} ({rel:.3e} relative, tol "
+                         f"{DP_NORM_REL})")
+        if not (g["idx_equal"] and g["pick_gap"] < 1e-4):
+            fail(f"dp GAN step: the ranks' VQ indices differ from one process's, or a pick "
+                 f"of its own is no near tie (relative gap {g['pick_gap']:.3e})")
+        rvq_worst = 0.0
+        for k in ("codebooks", "ema_counts", "ema_sums"):
+            if not np.array_equal(recs[0]["gan"]["rvq"][k], recs[1]["gan"]["rvq"][k]):
+                fail(f"dp: the RVQ {k} differ between the ranks")
+        for k, ref in g["ref_rvq"].items():
+            ref = np.asarray(ref, np.float64)
+            err = float(np.abs(g["rvq"][k] - ref).max() / max(np.abs(ref).max(), 1e-30))
+            rvq_worst = max(rvq_worst, err)
+            if not err < 1e-5:
+                fail(f"dp: RVQ {k} {err:.3e} relative from one process's (tol 1e-5)")
+        # the flow steps
+        for name, f in recs[0]["flow"].items():
+            for k in ("loss", "grad_norm"):
+                for r in recs:
+                    got, want = r["flow"][name]["aux"][k], f["ref"][k]
+                    if not abs(got - want) < 1e-3 * max(1.0, abs(want)):
+                        fail(f"dp rank {r['rank']} {name} flow step {k}: {got} vs {want}")
+            for what, (k, err, tol, *_) in f["worst"].items():
+                if not err < tol:
+                    fail(f"dp {name} flow step {what} {k}: {err:.3e} (tol {tol:.3e})")
+        fs = recs[0]["flow"]["fsdp"]
+        if not 0 < fs["sharded"] < fs["params"]:
+            fail(f"dp: FSDP sharded {fs['sharded']} of {fs['params']} parameters")
+        # the sharded checkpoint, read back by this one process
+        got = load_checkpoint_sharded(os.path.join(d, "ck"), "flow_", 2)["state"]
+        with np.load(os.path.join(d, "whole.npz")) as f:
+            whole = {k: f[k] for k in f.files}
+        if set(got) != set(whole) or not all(np.array_equal(got[k], v) for k, v in whole.items()):
+            fail("dp: the 2-rank sharded checkpoint read back is not the whole state")
+        # sharded serving against one process given each rank's noise, with
+        # the ranks' precision flags whatever an earlier phase left set
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        cfg = load_config("flowers_vqgan.yaml", CONFIG_DIR,
+                          [f"+flow_checkpoint={job['serve_ckpt']}", "+n_steps=20"])
+        b = gs.load_models_once(cfg, job["serve_ckpt"], torch.device("cuda"))
+        per = DP_SERVE // DP_RANKS
+        imgs, grid = [], None
+        for r in recs:
+            gen = torch.Generator("cuda").manual_seed(r["serve"]["seed"])
+            cols = torch.randint(0, b["n_classes"], (10,), generator=gen, device="cuda")
+            grid = cols.repeat(-(-DP_SERVE // 10))[:DP_SERVE] if r["rank"] == 0 else grid
+            rows = grid[r["rank"] * per:(r["rank"] + 1) * per]
+            imgs.append(sampler(b["model"], b["codec"], gen, batch_size=per, n_steps=20,
+                                cond={"class_cond": rows}, n_classes=b["n_classes"],
+                                cfg_strength=float(ldcfg(cfg, "cfg_strength", 3.0)),
+                                latent_shape=b["latent_shape"], t_scale=b["t_scale"])[1]
+                        .float().cpu().numpy())
+        ref_imgs = np.concatenate(imgs)
+        served = np.load(os.path.join(d, "served.npy"))
+        serve_err = float(np.abs(served - ref_imgs).max())
+        serve_tol = 1e-4 * max(1.0, float(np.abs(ref_imgs).max()))
+        if served.shape != (DP_SERVE, 128, 128, 3) or not serve_err < serve_tol:
+            fail(f"dp serving: {served.shape}, max_abs_err {serve_err:.3e} (tol {serve_tol:.3e})")
+        # the fused pre-encode against one process on each rank's rows
+        zqs, idxs = [], []
+        half = DP_PE_BATCH // DP_RANKS
+        with torch.inference_mode():
+            for r in range(DP_RANKS):
+                zq, idx = b["codec"].encode_quantize_fused(
+                    torch.from_numpy(job["pe_images"][r * half:(r + 1) * half]).cuda())
+                zqs.append(zq.float().cpu().numpy())
+                idxs.append(idx.cpu().numpy())
+        with np.load(os.path.join(d, "encoded.npz")) as f:
+            if not (np.array_equal(f["idx"], np.concatenate(idxs))
+                    and np.array_equal(f["zq"], np.concatenate(zqs))):
+                fail("dp pre-encode: the ranks' latents or indices differ from one process's")
+        del b
+        torch.cuda.empty_cache()
+        t_holds = time.time() - t1 - t_ranks
+    except BaseException:
+        nccl_stop(nccl)         # a failed hold leaves no process behind
+        raise
+
+    launches = {name: sum(sum(p[name] for p in r["launches"].values()) for r in recs)
+                for name in kernels}
+    per_rank = [{name: sum(p[name] for p in r["launches"].values()) for name in kernels}
+                for r in recs]
+    rec = {"ranks": DP_RANKS, "backend": "gloo (CUDA tensors)", "card": card,
+           "launches_by_rank": per_rank,
+           "gan": {"step_ms_ranks": [r["gan"]["step_ms"] for r in recs],
+                   "step_ms_one_process": g["one_process_ms"], "worst": g["worst"],
+                   "one_process_pick_flips": g["ref_flips"],
+                   "worst_pick_gap": g["pick_gap"], "rvq_rel_err": rvq_worst,
+                   "grad_norms_one_process": g["ref_norms"], "grad_norm_rel_err": norm_worst},
+           "flow": {name: {"step_ms_ranks": [r["flow"][name]["step_ms"] for r in recs],
+                           "step_ms_one_process": recs[0]["flow"][name]["one_process_ms"],
+                           "worst": recs[0]["flow"][name]["worst"]}
+                    for name in ("dp", "fsdp")},
+           "fsdp_sharded": [fs["sharded"], fs["params"]],
+           "serve": {"batch_s_ranks": [r["serve"]["batch_s"] for r in recs],
+                     "max_abs_err": serve_err},
+           "seconds": {"ranks": t_ranks, "holds": t_holds, "phase": time.time() - t0}}
+    print(f"dp: 2 ranks (gloo, CUDA tensors) on one card: launches by rank {per_rank}; "
+          f"codec GAN step (B=32 a rank) ms {rec['gan']['step_ms_ranks']} against one "
+          f"process B={DP_GAN_BATCH} {g['one_process_ms']:.2f}; flow step (B=128 a rank) "
+          f"ms data-parallel {rec['flow']['dp']['step_ms_ranks']} (one process, as 2 "
+          f"microbatches, {rec['flow']['dp']['step_ms_one_process']:.2f}), FSDP "
+          f"{rec['flow']['fsdp']['step_ms_ranks']} (one process "
+          f"{rec['flow']['fsdp']['step_ms_one_process']:.2f}); FSDP sharded "
+          f"{fs['sharded']} of {fs['params']} parameters; serving max_abs_err "
+          f"{serve_err:.3e}; replicated state equal on the ranks, hash for hash; RVQ "
+          f"statistics {rvq_worst:.3e} relative from one process (its own picks: "
+          f"{g['ref_flips']} near ties flipped, worst relative gap {g['pick_gap']:.3e}) "
+          f"| card: {card}", flush=True)
+    moments = [(f"GAN {n}", w) for n, w in g["worst"].items() if n.endswith("_mu")] + [
+        (f"flow {n} mu", recs[0]["flow"][n]["worst"]["mu"]) for n in ("dp", "fsdp")]
+    print("dp holds: Adam first moments, each tensor within "
+          f"{DP_MU_REL}·its own max|μ| + {DP_MU_FLOOR}·its model's, the worst by err/tol: "
+          + "; ".join(f"{n} {k} err {e:.3e} (tol {t:.3e}; own max {o:.3e}, model's "
+                      f"{p:.3e})" for n, (k, e, t, o, p) in moments)
+          + f"; GAN gradient norms before clipping {g['ref_norms']}, worst rank "
+          f"{norm_worst:.3e} relative (tol {DP_NORM_REL}) | card: {card}", flush=True)
+    print("dp seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in rec["seconds"].items())
+          + f"; rank 0's GAN part by its clock {recs[0]['stamps']} | card: {card}", flush=True)
+    return rec, launches, nccl
+
+
 def print_ptxas(source: str) -> None:
     """Each kernel's registers and spills from ptxas's report of the build of
     ``source`` in this run, demangled."""
@@ -5276,6 +5994,21 @@ def main() -> None:
     # fused_vq.cu (the longest build) still compiles
     pool = ThreadPoolExecutor(3)
     builds = [pool.submit(k.build) for k in (na2d_fwd, na2d_bwd, fvk.fused_compress_tail_vq)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    atexit.register(shutil.rmtree, tmp, True)
+    home = os.getcwd()
+    try:
+        # while nvcc builds, in the temporary directory: the quality tool's
+        # five families (step 32), which launch none of the kernels and
+        # report no speed, and the fixtures
+        os.chdir(tmp)
+        t_q = time.time()
+        quality, quality_launches = quality_phase(tmp, root, card, kernels)
+        quality_s = time.time() - t_q
+        paths = write_checkpoints(tmp, CONFIG_DIR)
+        torch.cuda.empty_cache()
+    finally:
+        os.chdir(home)
     for f in builds[:2]:
         f.result()
     print(f"K1 + K2 build: {time.time() - t0:.1f} s", flush=True)
@@ -5307,8 +6040,7 @@ def main() -> None:
     fused_errs["fused_compress_tail_vq_bf16"] = slice_errs["fused_compress_tail_vq_bf16"]
     fused_timing["fused_compress_tail_vq_bf16"] = slice_timing["fused_compress_tail_vq_bf16"]
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    phase_s = {}
+    phase_s = {"quality (beside the builds)": quality_s}
     t_phase = [t_start]
 
     def lap(name):
@@ -5316,16 +6048,14 @@ def main() -> None:
         t_phase[0] = time.time()
 
     lap("kernel_checks")
-    home = os.getcwd()
     try:
         os.chdir(tmp)           # the trainers write their metrics logs (runs/) here
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = True      # PyTorch's default for convs
-        paths = write_checkpoints(tmp, CONFIG_DIR)
-        torch.cuda.empty_cache()
         serving, serve_launches = serve(tmp, paths, card, kernels)
-        parts = breakdown(paths, card)
         lap("serve")
+        parts = breakdown(paths, card)
+        lap("serve_breakdown")
         webapp, webapp_launches = webapp_phase(tmp, paths, card, kernels)
         lap("webapp")
         state, training, train_launches = train_flowers(tmp, card, kernels)
@@ -5333,9 +6063,6 @@ def main() -> None:
         del state
         torch.cuda.empty_cache()
         lap("codec_training")
-        check_small_input(paths["cfg"])
-        check_train_small()
-        lap("card_vs_cpu_small")
         preencode, pre_launches = preencode_flowers(tmp, paths, card, kernels)
         lap("preencode")
         pe_host_rec, pe_host_launches = pe_host(tmp, paths, card, kernels)
@@ -5352,10 +6079,24 @@ def main() -> None:
         lap("flow")
         shard_flow, shard_flow_launches = flow_shard(tmp, paths, card, kernels)
         lap("flow_shard")
+        dp, dp_launches, nccl = dp_phase(tmp, paths, os.path.join(tmp, "pe_images"), root,
+                                         card, kernels)
+        lap("dp")
+        try:    # card-vs-CPU checks (no speed metric) beside the rest of the NCCL run
+            check_small_input(paths["cfg"])
+            check_train_small()
+            tpu_card_vs_cpu = check_train_small_bf16()
+        except BaseException:
+            nccl_stop(nccl)
+            raise
+        lap("card_vs_cpu_small")
+        dp["nccl"] = nccl_result(nccl, card)
+        dp["seconds"]["nccl_from_start"] = dp["nccl"]["wall_s"]
+        lap("dp_nccl")
         tpu_ckpt, tpu_train, tpu_train_launches, k2_codec_err = tpu_vqgan_train(
             tmp, card, kernels)
         errs2[torch.bfloat16] = max(errs2[torch.bfloat16], k2_codec_err)
-        tpu_train["card_vs_cpu"] = check_train_small_bf16()
+        tpu_train["card_vs_cpu"] = tpu_card_vs_cpu
         lap("tpu_vqgan_train")
         tpu_vqgan, tpu_vqgan_launches = tpu_vqgan_phase(
             tmp, dict(paths, codec=tpu_ckpt), card, kernels)
@@ -5368,31 +6109,35 @@ def main() -> None:
         lap("decodes")
         pe_data = os.path.join(tmp, "pe_images")
         sd_pre, sd_pre_launches = sd_preencode(tmp, pe_data, card, kernels)
+        lap("sd_preencode")
         sd_srv, sd_srv_launches = sd_serve(tmp, CONFIG_DIR, card, kernels)
+        lap("sd_serve")
         hdit, hdit_launches = hdit_flow_phase(tmp, pe_data, card, kernels)
+        lap("hdit_flow")
         hdit_recipe, recipe_launches = hdit_short_phase("hdit_recipe", tmp, pe_data, card,
                                                         kernels, [])
         hdit_moe, moe_launches = hdit_short_phase(
             "hdit_moe", tmp, pe_data, card, kernels, [*HDIT_NA, "+flow.hdit_moe_experts=[8,0]"])
-        lap("sd_family")
+        lap("hdit_short")
         reflow, reflow_launches = reflow_phase(tmp, hdit["ema_checkpoint"], card, kernels)
         lap("reflow")
         vqgan_plus, vqgan_plus_launches = vqgan_plus_phase(tmp, card, kernels)
         lap("vqgan_plus")
         midi_codec, midi_codec_launches = midi_train_codec(tmp, card, kernels)
+        lap("midi_train")
         midi_pre, midi_pre_launches = midi_preencode(tmp, card, kernels)
+        lap("midi_preencode")
         midi_fl, midi_flow_launches = midi_flow(tmp, card, kernels)
+        lap("midi_flow")
         midi_inp, midi_rows, midi_errs, midi_inp_launches = midi_inpainting_codec(
             tmp, card, kernels, (na2d_fwd, na2d_bwd, na2d_banded, na2d_bwd_banded))
-        lap("midi")
+        lap("midi_inpainting")
         demo, demo_launches = tpu_demo(tmp, card, kernels)
         lap("tpu_demo")
         audio, audio_launches = audio_phase(tmp, card, kernels)
         lap("audio")
         audio_bf16, audio_bf16_launches = audio_bf16_phase(tmp, card, kernels, audio)
         lap("audio_bf16")
-        quality, quality_launches = quality_phase(tmp, root, card, kernels)
-        lap("quality")
     finally:
         os.chdir(home)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -5415,6 +6160,7 @@ def main() -> None:
                       "tpu_vqgan_train": tpu_train, "tpu_vqgan": tpu_vqgan,
                       "int8_serving": int8_srv, "decode_ms_64": decodes, "audio": audio,
                       "audio_bf16": audio_bf16, "webapp": webapp, "quality": quality,
+                      "dp": dp,
                       "int8_conv": {**slice_errs["int8_conv"],
                                     "timing": slice_timing["int8_conv"]},
                       "phase_s": phase_s}))
@@ -5428,7 +6174,8 @@ def main() -> None:
               "tpu_vqgan_train": tpu_train_launches, "tpu_vqgan": tpu_vqgan_launches,
               "int8_serving": int8_launches, **audio_launches, **audio_bf16_launches,
               **reflow_launches,
-              **vqgan_plus_launches, "webapp": webapp_launches, "quality": quality_launches}
+              **vqgan_plus_launches, "webapp": webapp_launches, "quality": quality_launches,
+              "dp": dp_launches}
 
     def by_path(name):
         paths = {tag: counts[name] for tag, counts in by_tag.items()}

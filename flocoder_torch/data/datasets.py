@@ -236,22 +236,37 @@ class Loader:
     queued, so the streams do not depend on thread timing. A dataset with
     ``get_batch`` (a packed shard) gives each batch of the order from one
     call, the batches prefetched on their own pool (keys as ``get_batch``
-    names them)."""
+    names them). ``host_shard=(rank, n_ranks)`` serves only this rank's
+    contiguous slice of each epoch's order (the same seeded shuffle on
+    every rank), as the JAX ``Loader``'s ``_host_slice``; ``batch_size`` is
+    then the rank's own."""
 
     prefetch = 2
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 4,
-                 seed: int = 0, shuffle: bool = True, key: str = "target"):
+                 seed: int = 0, shuffle: bool = True, key: str = "target",
+                 host_shard: Optional[Tuple[int, int]] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.shuffle = shuffle
         self.key = key
+        self.host_shard = host_shard
         self._epoch = 0
 
+    def _host_slice(self, order: np.ndarray) -> np.ndarray:
+        if not self.host_shard:
+            return order
+        rank, n = self.host_shard
+        per = len(order) // n
+        return order[rank * per:(rank + 1) * per]
+
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        n = len(self.dataset)
+        if self.host_shard:
+            n //= self.host_shard[1]
+        return n // self.batch_size
 
     def _assemble(self, items) -> dict:
         datas, labels = zip(*items)
@@ -276,6 +291,7 @@ class Loader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             rng.shuffle(order)
+        order = self._host_slice(order)
         n_batches = len(self)
         batch_pool = ThreadPoolExecutor(self.prefetch)
         if hasattr(self.dataset, "get_batch"):      # a packed shard: one gather a batch

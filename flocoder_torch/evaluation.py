@@ -17,8 +17,18 @@ WAVs instead of grids. With ``use_wandb`` (the trainers' ``not no_wandb``)
 both log as the JAX functions do to the open metrics log
 (``utils/logging.py``): ``metrics/<tag><name>`` with ``epoch``, and
 ``evaluate_model`` also each grid (``demo/…``) and the codebook usage
-(``codebook/…``). The sharded serving branch is not ported yet
-(ROADMAP.md).
+(``codebook/…``).
+
+Sharded serving (``mesh``, ``parallel/mesh.py``; the JAX shard_map
+sampler): with more than one batch rank and a batch that divides, each
+rank integrates and decodes its own rows from its own noise (the caller's
+``generator`` is the rank's stream, the JAX ``fold_in`` of the shard
+index), the condition rows its share of the global ones (a drawn class
+grid is batch rank 0's), and the latents and images are gathered on every
+rank in rank order; ``evaluate_model`` then computes its metrics on every
+rank and writes its grids and logs on rank 0 only. A batch that does not
+divide runs whole on every rank, as in the JAX package. Every rank must
+call.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import torch
 from .data.audio_io import save_wav
 from .metrics import compute_sample_metrics, g2rgb, sinkhorn_loss
 from .ops.audio import mel_filterbank, stft
+from .parallel.mesh import batch_shard_count, broadcast0_, gather_rows, is_writer, shard_batch
 from .sampling import generate_latents
 from .utils import logging as wblog
 from .utils.codebook_analysis import analyze_codebooks
@@ -57,8 +68,9 @@ def _sample_latents(model_apply: Callable, codec, generator: torch.Generator,
                     method: str, batch_size: int, n_steps: int, cond: Optional[dict],
                     n_classes: int, latent_shape, cfg_strength: float, source,
                     init_image, init_latents, init_strength: float,
-                    t_scale: float) -> tuple:
-    """``sampler`` without the decode: ``(pred_latents, nfe)``."""
+                    t_scale: float, mesh=None) -> tuple:
+    """``sampler`` without the decode: ``(pred_latents, nfe)``; under a
+    sharded ``mesh`` (``_split``) the latents are this rank's rows."""
     device = generator.device
     if init_latents is None and init_image is not None:
         if isinstance(init_image, str):
@@ -80,6 +92,8 @@ def _sample_latents(model_apply: Callable, codec, generator: torch.Generator,
         cols = torch.randint(0, n_classes, (10,), generator=generator,
                              device=device)
         cond["class_cond"] = cols.repeat(-(-batch_size // 10))[:batch_size]
+        if _split(batch_size, mesh):
+            broadcast0_(cond["class_cond"], mesh)
     elif cond.get("class_cond") is not None:
         cond["class_cond"] = cond["class_cond"][:batch_size]
     if cond.get("mask_cond") is not None:
@@ -87,12 +101,29 @@ def _sample_latents(model_apply: Callable, codec, generator: torch.Generator,
     if not cond or all(v is None for v in cond.values()):
         cond = None
 
+    if _split(batch_size, mesh):
+        batch_size //= batch_shard_count(mesh)
+        cond = shard_batch(mesh, cond) if cond is not None else None
+        source, init_latents = shard_batch(mesh, [source, init_latents])
     shape = (batch_size,) + tuple(latent_shape)
     return generate_latents(
         model_apply, shape, generator, method=method, n_steps=n_steps,
         cond=cond, cfg_strength=cfg_strength, source=source,
         init_latents=init_latents, init_strength=init_strength,
         t_scale=t_scale)
+
+
+def _split(batch_size: int, mesh) -> bool:
+    """Whether a batch of ``batch_size`` is served sharded over ``mesh``."""
+    n = batch_shard_count(mesh)
+    return n > 1 and batch_size % n == 0
+
+
+def _decode_rows(codec, latents, mesh, split: bool, **kw):
+    """Decode this rank's rows (all of them unless ``split``), then gather
+    the images of every rank."""
+    out = decode_latents(codec, shard_batch(mesh, latents) if split else latents, **kw)
+    return gather_rows(out, mesh) if split else out
 
 
 @torch.inference_mode()
@@ -102,17 +133,20 @@ def sampler(model_apply: Callable, codec, generator: torch.Generator,
             latent_shape=(16, 16, 4), cfg_strength: float = 3.0,
             is_midi: bool = False, keep_gray: bool = False, source=None,
             init_image=None, init_latents=None, init_strength: float = 0.0,
-            t_scale: float = 999.0):
+            t_scale: float = 999.0, mesh=None):
     """Generate latents with ``model_apply(x, t, cond)`` and decode them.
     Everything runs on ``generator.device``. ``latent_shape`` is (H, W, C)
     NHWC. With ``n_classes > 0`` and no class condition, samples get the
-    10-column class grid. Returns ``(pred_latents, decoded_pred, nfe)``."""
+    10-column class grid. ``mesh``: sharded serving (module docstring).
+    Returns ``(pred_latents, decoded_pred, nfe)``."""
     pred_latents, nfe = _sample_latents(
         model_apply, codec, generator, method, batch_size, n_steps, cond,
         n_classes, latent_shape, cfg_strength, source, init_image, init_latents,
-        init_strength, t_scale)
+        init_strength, t_scale, mesh)
     decoded = decode_latents(codec, pred_latents, is_midi=is_midi,
                              keep_gray=keep_gray)
+    if _split(batch_size, mesh):
+        pred_latents, decoded = gather_rows(pred_latents, mesh), gather_rows(decoded, mesh)
     return pred_latents, decoded, nfe
 
 
@@ -126,7 +160,7 @@ def evaluate_model(model_apply: Callable, codec, epoch: int, target_latents,
                    use_wandb: bool = True, output_dir: str = "./", source=None,
                    mask_pixels=None,
                    feature_fn=None, t_scale: float = 999.0,
-                   mark: Optional[Callable] = None) -> dict:
+                   mark: Optional[Callable] = None, mesh=None) -> dict:
     """Sample ``min(batch_size, len(target_latents))`` latents, decode them
     and the targets (in chunks of 128), compute ``compute_sample_metrics``,
     track the target and generated codes with ``codec_quantize`` into
@@ -134,22 +168,29 @@ def evaluate_model(model_apply: Callable, codec, epoch: int, target_latents,
     (with ``source``, also the source latents and their decode; with a
     mask, ``mask_latents`` and ``mask_pixels``). Returns the metrics as
     floats plus ``FID_feature_backend``. ``mark`` is called with "sampler",
-    "decode", "metrics" and "grids"."""
+    "decode", "metrics" and "grids". ``mesh``: sharded sampling and
+    decoding (module docstring); only rank 0 writes grids and logs."""
     from .ops.fid import default_feature_fn, feature_backend_name
     mark = mark or (lambda name: None)
     batch_size = min(batch_size, target_latents.shape[0])
     target_latents = target_latents[:batch_size]
+    split = _split(batch_size, mesh)
     pred_latents, nfe = _sample_latents(
         model_apply, codec, generator, method, batch_size, n_steps, cond, n_classes,
-        target_latents.shape[-3:], cfg_strength, source, None, None, 0.0, t_scale)
+        target_latents.shape[-3:], cfg_strength, source, None, None, 0.0, t_scale, mesh)
     mark("sampler")
     # a bf16 codec decodes to bf16 pixels; the metrics take them widened to
     # fp32 (exactly), where the JAX evaluation computes on the bf16 values
     decoded_pred = decode_latents(codec, pred_latents, is_midi=is_midi,
                                   keep_gray=keep_gray).float()
-    decoded_target = decode_latents(codec, target_latents, is_midi=is_midi,
-                                    keep_gray=keep_gray).float()
+    if split:
+        pred_latents = gather_rows(pred_latents, mesh)
+        decoded_pred = gather_rows(decoded_pred, mesh)
+    decoded_target = _decode_rows(codec, target_latents, mesh, split, is_midi=is_midi,
+                                  keep_gray=keep_gray).float()
     mark("decode")
+    writer = is_writer()
+    use_wandb = use_wandb and writer
     if feature_fn is None:
         feature_fn = default_feature_fn(image_size=decoded_target.shape[1])
     metrics = compute_sample_metrics(pred_latents, target_latents, decoded_pred,
@@ -161,19 +202,20 @@ def evaluate_model(model_apply: Callable, codec, epoch: int, target_latents,
         for name, lat in (("val", target_latents), ("gen", pred_latents)):
             idx = codec_quantize(lat)[1]
             cb_tracker.update_counts(name, idx.reshape(-1, idx.shape[-1]).cpu().numpy())
-        analyze_codebooks(cb_tracker, None, epoch, use_wandb=use_wandb,
-                          output_dir=output_dir)
+        if writer:
+            analyze_codebooks(cb_tracker, None, epoch, use_wandb=use_wandb,
+                              output_dir=output_dir)
     images = {"pred_latents": pred_latents, "target_latents": target_latents,
               "decoded_pred": decoded_pred, "decoded_target": decoded_target}
     if source is not None:
         images["source_latents"] = source[:batch_size]
-        images["decoded_source"] = decode_latents(codec, source[:batch_size],
-                                                  is_midi=is_midi, keep_gray=keep_gray)
+        images["decoded_source"] = _decode_rows(codec, source[:batch_size], mesh, split,
+                                                is_midi=is_midi, keep_gray=keep_gray)
     if cond and cond.get("mask_cond") is not None:
         images["mask_latents"] = cond["mask_cond"][:batch_size]
     if mask_pixels is not None:
         images["mask_pixels"] = mask_pixels[:batch_size].float()
-    for key, val in images.items():
+    for key, val in images.items() if writer else ():
         save_img_grid(val.float().cpu().numpy(), epoch, nfe,
                       tag=f"{tag}{key}_{method}_{nfe}", use_wandb=use_wandb,
                       output_dir=output_dir)
@@ -192,7 +234,7 @@ def evaluate_model_audio(model_apply: Callable, codec, epoch: int, target_latent
                          use_wandb: bool = True, output_dir: str = "./",
                          t_scale: float = 999.0,
                          n_demo_wavs: int = 4, mark: Optional[Callable] = None,
-                         **_) -> dict:
+                         mesh=None, **_) -> dict:
     """The audio twin of ``evaluate_model`` for DAC-codec flows: sample
     ``min(batch_size, len(target_latents))`` folded latents, decode them and
     the targets to waveforms, and compute ``sinkhorn`` (latents),
@@ -201,7 +243,8 @@ def evaluate_model_audio(model_apply: Callable, codec, epoch: int, target_latent
     ``nfe``; write ``{tag}ep{epoch:04d}_{i}_gen.wav`` (``n_demo_wavs``) and
     ``_target.wav`` (2). The image evaluation's other keyword arguments are
     accepted and ignored. ``mark`` is called with "sampler", "decode",
-    "metrics" and "wavs"."""
+    "metrics" and "wavs". Under a ``mesh`` every rank samples the whole
+    batch and rank 0 alone writes the WAVs and logs."""
     mark = mark or (lambda name: None)
     batch_size = min(batch_size, target_latents.shape[0])
     tl = target_latents[:batch_size]
@@ -227,6 +270,9 @@ def evaluate_model_audio(model_apply: Callable, codec, epoch: int, target_latent
                "nfe": float(nfe)}
     out = {k: float(v) for k, v in metrics.items()}
     mark("metrics")
+    if not is_writer():
+        mark("wavs")
+        return out
     os.makedirs(output_dir, exist_ok=True)
     pred_np, target_np = decoded_pred.cpu().numpy(), decoded_target.cpu().numpy()
     for i in range(min(n_demo_wavs, batch_size)):

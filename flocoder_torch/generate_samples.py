@@ -41,7 +41,15 @@ waveforms are widened to fp32 before they are written.
 ``+use_gradio=true`` serves the sampler's web UI instead
 (``ui/webapp.py``, on the Python standard library; the gradio app of the
 JAX script is not ported, so this UI is served whether or not gradio is
-installed). Not ported yet (ROADMAP.md): sharded serving.
+installed).
+
+Sharded serving: launched on several ranks (``torchrun
+--nproc_per_node=N -m flocoder_torch.generate_samples ...``;
+``parallel/mesh.py`` and ``+device`` as in
+``train_flow``), each rank integrates and decodes its rows of every batch
+that splits over the ranks, from its own noise (``rank_seed``), and rank 0
+gathers the samples and writes them (``evaluation.sampler``); a batch that
+does not split runs whole on every rank and rank 0 writes its own.
 """
 from __future__ import annotations
 
@@ -58,10 +66,11 @@ from .models.audio_codec import DACCodec
 from .models.codecs import (VQVAE, codec_checkpoint, latest_checkpoint, load_codec_weights,
                             setup_codec)
 from .models.flow_model import build_flow_model
+from .parallel.mesh import (batch_shard_count, is_writer, make_mesh, maybe_init_distributed,
+                            rank0_print, rank_seed)
 from .models.sd_vae import SDVAE
 from .models.vqgan_plus import VQGANPlus
 from .training.checkpoint import UNET_PREFIXES, load_checkpoint, load_jax_flat, subtree
-from .utils.device import resolve_device
 from .utils.viz import save_img, save_img_grid
 
 __all__ = ["load_models_once", "generate_samples", "save_sample_batch",
@@ -173,7 +182,9 @@ def generate_samples(config) -> dict:
     [...], 'nfe': int, 'midi_files': [.mid paths], 'wav_files': [.wav
     paths], 'device': str, 'bf16': bool, 'quant': bool}``, the last two the
     serving dtype and int8 decode in use."""
-    device = resolve_device(config.get("device", None))
+    device = maybe_init_distributed(config.get("device", None))
+    mesh = make_mesh(device=device)
+    writer = is_writer()
     flow_ckpt = str(config.get("flow_checkpoint", "") or
                     ldcfg(config, "flow_checkpoint", ""))
     if not flow_ckpt:
@@ -182,8 +193,10 @@ def generate_samples(config) -> dict:
     if not flow_ckpt or not os.path.exists(flow_ckpt):
         raise SystemExit(f"flow checkpoint not found: {flow_ckpt!r} "
                          "(pass +flow_checkpoint=...)")
-    print(f"loading {flow_ckpt}")
+    rank0_print(f"loading {flow_ckpt}")
     b = load_models_once(config, flow_ckpt, device)
+    if batch_shard_count(mesh) > 1:
+        rank0_print(f"serving over {batch_shard_count(mesh)} batch shards ({mesh})")
 
     n_samples = int(config.get("n_samples", 64))
     batch_size = min(int(ldcfg(config, "batch_size", 256)), n_samples)
@@ -195,7 +208,8 @@ def generate_samples(config) -> dict:
     is_midi = any(s in str(config.get("data", "")).lower()
                   for s in ("midi", "pop909"))
     keep_gray = int(ldcfg(config, "in_channels", 3)) == 1
-    generator = torch.Generator(device).manual_seed(int(config.get("seed", 0)))
+    generator = torch.Generator(device).manual_seed(rank_seed(int(config.get("seed", 0)),
+                                                                mesh))
 
     fixed_class = config.get("class_cond", None)
     init_image = config.get("init_image", None) or None
@@ -223,20 +237,20 @@ def generate_samples(config) -> dict:
             n_steps=n_steps, cond=cond, n_classes=b["n_classes"],
             latent_shape=b["latent_shape"], cfg_strength=cfg_strength,
             is_midi=is_midi, keep_gray=keep_gray, init_latents=init_latents,
-            init_strength=init_strength, t_scale=b["t_scale"])
+            init_strength=init_strength, t_scale=b["t_scale"], mesh=mesh)
         decoded = decoded.float().cpu().numpy()
         dt = time.time() - t0
-        print(f"batch {batch_idx}: {bs} samples, nfe={nfe}, {dt:.2f}s "
-              f"({bs / dt:.1f} samples/s)")
-        if isinstance(b["codec"], DACCodec):      # waveforms: WAVs, not PNGs
+        if writer and isinstance(b["codec"], DACCodec):   # waveforms: WAVs, not PNGs
             wavs += save_wav_batch(decoded, batch_idx, output_dir, b["codec"].sample_rate)
-        else:
+        elif writer:                                      # rank 0 writes the samples
             mids += save_sample_batch(decoded, batch_idx, output_dir, is_midi=is_midi)
+        rank0_print(f"batch {batch_idx}: {bs} samples, nfe={nfe}, {dt:.2f}s "
+                    f"({bs / dt:.1f} samples/s)")
         images.append(decoded)
         seconds.append(dt)
         done += bs
         batch_idx += 1
-    print(f"wrote {done} samples to {output_dir}/")
+    rank0_print(f"wrote {done} samples to {output_dir}/")
     return {"images": np.concatenate(images), "batch_seconds": seconds,
             "nfe": nfe, "midi_files": mids, "wav_files": wavs, "device": str(device),
             "bf16": b["bf16"],

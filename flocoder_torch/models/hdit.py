@@ -303,7 +303,8 @@ class HDiT(nn.Module):
         super().__init__()
         if pp_stages:
             raise NotImplementedError("HDiT's stacked, pipelined mid level "
-                                      "(hdit_pp_stages > 0) is not ported yet (ROADMAP.md)")
+                                      "(hdit_pp_stages > 0) is not ported yet (ROADMAP.md "
+                                      "item 13c)")
         self.levels, self.mapping_spec = tuple(levels), mapping
         self.channels, self.patch_size = channels, patch_size
         self.n_classes, self.dual_time, self.dtype = n_classes, dual_time, dtype

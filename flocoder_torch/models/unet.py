@@ -214,8 +214,8 @@ class Unet(nn.Module):
                  ring_axis_size: int = 1, dtype=torch.float32):
         super().__init__()
         if ring_axis_size > 1:
-            raise NotImplementedError("Unet ring attention is not ported yet "
-                                      "(ROADMAP.md)")
+            raise NotImplementedError("Unet ring attention is the parallel layer's "
+                                      "model axis, not ported yet (ROADMAP.md item 13b)")
         self.dim, self.n_classes, self.dual_time = dim, n_classes, dual_time
         self.mask_cond, self.mask_channels = mask_cond, mask_channels
         self.dtype = dtype

@@ -15,7 +15,13 @@ and the dead-code reseed picks (``K`` batch rows per level each). Both can
 also be passed in (``kmeans_seeds``, ``reseed_picks``, (L, K) row indices),
 so that a test gives this module and the JAX package the same draws.
 Whether the codebooks are initialised is read on the host once per call.
-Data-parallel reductions wait with the parallel layer (ROADMAP.md).
+
+Under a data-parallel mesh (``mesh``, ``parallel/mesh.py``; the JAX
+``axis_name``) each rank quantizes its own rows, and the replicated state
+stays bitwise the same on every rank: the per-level counts and sums are
+summed over the batch ranks, and the k-means centres and the dead-code
+reseed candidates, both drawn from a rank's own rows, are batch rank 0's
+(the JAX ``psum`` and ``_bcast0``).
 """
 from __future__ import annotations
 
@@ -24,6 +30,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.mesh import batch_shard_count, broadcast0_, psum_
 
 __all__ = ["RVQState", "rvq_init", "rvq_apply", "rvq_encode", "rvq_lookup",
            "orthogonal_reg_loss"]
@@ -121,15 +129,18 @@ def rvq_apply(state: RVQState, z: torch.Tensor, train: bool = False,
               generator: Optional[torch.Generator] = None, decay: float = 0.95,
               commitment_weight: float = 0.5, dead_threshold: float = 2.0,
               rotation_trick: bool = True, orthogonal_reg_weight: float = 0.0,
-              kmeans_seeds=None, reseed_picks=None) -> tuple:
+              kmeans_seeds=None, reseed_picks=None, mesh=None) -> tuple:
     """Quantize flat tokens ``z`` (N, D). Returns ``(z_q, indices (N, L),
     commit_loss, new_state)``; ``new_state`` is a dict of the state's
     tensors. With ``train`` and a ``generator`` (or both injected draws),
     the codebooks are k-means-initialised on the first batch, folded by EMA
-    and reseeded where dead; otherwise the state passes through."""
+    and reseeded where dead; otherwise the state passes through. ``mesh``:
+    ``z`` is this rank's rows, and the update reduces over the batch ranks
+    (every rank must call)."""
     L, K, D = state.codebooks.shape
     N = z.shape[0]
     zf = z.float()
+    mesh = mesh if batch_shard_count(mesh) > 1 else None
     update = train and (generator is not None or
                         (kmeans_seeds is not None and reseed_picks is not None))
     codebooks = state.codebooks
@@ -141,7 +152,8 @@ def rvq_apply(state: RVQState, z: torch.Tensor, train: bool = False,
                                             z.device))
                 residual = residual - c[_sq_dists(residual, c).argmin(1)]
                 centers.append(c)
-            codebooks = torch.stack(centers)
+            # k-means ran on this rank's rows: every rank takes rank 0's
+            codebooks = broadcast0_(torch.stack(centers), mesh)
 
     residual = zf
     z_q = torch.zeros_like(zf)
@@ -163,6 +175,7 @@ def rvq_apply(state: RVQState, z: torch.Tensor, train: bool = False,
                 counts = torch.zeros(K, device=z.device).index_add_(
                     0, idx, torch.ones(N, device=z.device))
                 sums = F.one_hot(idx, K).float().T @ res
+                psum_([counts, sums], mesh)
                 ema_c = state.ema_counts[lvl] * decay + counts * (1 - decay)
                 ema_s = state.ema_sums[lvl] * decay + sums * (1 - decay)
                 # Laplace-smoothed EMA codebook
@@ -172,7 +185,8 @@ def rvq_apply(state: RVQState, z: torch.Tensor, train: bool = False,
                 # dead codes take random batch residuals
                 pick = _draw(generator, reseed_picks, lvl, K, N, z.device)
                 dead = ema_c < dead_threshold
-                cb_new = torch.where(dead[:, None], res[pick], cb_new)
+                # the candidates are this rank's rows: rank 0's on every rank
+                cb_new = torch.where(dead[:, None], broadcast0_(res[pick], mesh), cb_new)
                 ema_c = torch.where(dead, torch.full_like(ema_c, dead_threshold + 1.0),
                                     ema_c)
                 ema_s = torch.where(dead[:, None], cb_new * (dead_threshold + 1.0), ema_s)

@@ -78,6 +78,13 @@ is ``codec.checkpoint`` or, by default, the newest ``dac_*.npz`` under
 with ``dac`` raises, as in the JAX script.
 
 ``+device=cpu`` runs on the CPU; without it the run needs a CUDA device.
+On several ranks (``torchrun --nproc_per_node=N -m
+flocoder_torch.preencode_data ...``; ``parallel/mesh.py`` and ``+device``
+as in ``train_flow``) every rank reads the same batches,
+augments them alike, and encodes its own rows of each (the fused path: K3
+on the rank's rows); the latents are gathered and rank 0 alone writes, so
+the files are a one-process run's. A batch that does not split over the
+ranks is encoded whole on every rank.
 A ``data`` path that names no folder (a torchvision set's name, say) takes
 the synthetic set, as the JAX script does without torchvision
 (``data/datasets.py``); no named set is downloaded.
@@ -107,7 +114,8 @@ from .models.codecs import (VQVAE, NoOpAE, SimpleResizeAE, codec_checkpoint,
                             load_codec_weights, setup_codec)
 from .models.layers import init_params
 from .models.vqgan_plus import VQGANPlus
-from .utils.device import resolve_device
+from .parallel.mesh import (batch_shard_count, broadcast0_, gather_rows, is_writer,
+                            make_mesh, maybe_init_distributed, rank0_print, shard_batch)
 
 __all__ = ["open_split", "process_dataset", "load_codec", "host_decoder",
            "quantize_path", "main"]
@@ -285,14 +293,15 @@ def open_split(config, split: str) -> tuple:
     return dataset, total_batches, batches()
 
 
-def process_dataset(config, split: str, codec, device) -> dict:
+def process_dataset(config, split: str, codec, device, mesh=None) -> dict:
     """Pre-encode one split; returns ``{'split', 'out_dir', 'batches',
     'latents', 'seconds', 'latents_per_s', 'bytes', 'format', 'decoder',
     'quantize'}``, the seconds by the host clock over the whole split
     (loader, copies, augments, encodes, writes), ``decoder`` the host's
     image decoder (``host_decoder``), ``quantize`` the quantization
     (``quantize_path``). With ``inpainting`` a latent is one triplet (two
-    encodes)."""
+    encodes). ``mesh``: each rank encodes its rows, rank 0 writes (every
+    rank calls; ``bytes`` counts rank 0's files)."""
     data_path = os.path.expanduser(str(config.data))
     pe = config.get("preencoding", {})
     max_gb = float(pe.get("max_storage_gb", 60))
@@ -309,13 +318,23 @@ def process_dataset(config, split: str, codec, device) -> dict:
     out_split = os.path.join(out_dir + ("_inpainting" if inpainting else ""), split)
     if os.path.exists(out_split) and os.listdir(out_split):
         raise SystemExit(f"Refusing to overwrite existing {out_split}")
+    writer_rank, n_shards = is_writer(), batch_shard_count(mesh)
     decoder, why = host_decoder(config)
-    print(f"[{split}] host decoder: {decoder} ({why})")
+    rank0_print(f"[{split}] host decoder: {decoder} ({why})")
     quantize, why = quantize_path(config, codec)
-    print(f"[{split}] quantize: {quantize} ({why})")
+    rank0_print(f"[{split}] quantize: {quantize} ({why})")
     dataset, total_batches, batches = open_split(config, split)
-    os.makedirs(out_split, exist_ok=True)
-    encode = _encoder(config, codec)
+    if writer_rank:
+        os.makedirs(out_split, exist_ok=True)
+    encode_all = _encoder(config, codec)
+
+    def encode(x):
+        """This rank's rows encoded, every rank's gathered (a batch that
+        does not split: all of it)."""
+        if x.shape[0] % n_shards:
+            return encode_all(x)
+        return gather_rows(encode_all(shard_batch(mesh, x)), mesh)
+
     augment = aug_gen = None
     if _device_augs(config):
         augment = make_device_augment(image_size)
@@ -368,7 +387,9 @@ def process_dataset(config, split: str, codec, device) -> dict:
             else:
                 target, extras = encode(x).float().cpu().numpy(), None
             labels = np.asarray(batch["class_cond"])
-            if fmt == "shard":
+            if not writer_rank:
+                n_saved += len(target)
+            elif fmt == "shard":
                 if shard is None:       # the record shape is the first batch's
                     shard = ShardWriter(
                         os.path.join(out_split, "data.fcshard"), target.shape[1:],
@@ -384,20 +405,23 @@ def process_dataset(config, split: str, codec, device) -> dict:
                         "mask_pixels": masks[i].astype(bool)}
                     writer.submit(write_one, f"b{b:06d}_{i:03d}", item, int(label))
                     n_saved += 1
-            if bytes_written > max_gb * 1e9:
-                print(f"storage cap {max_gb}GB reached")
+            stop = bytes_written > max_gb * 1e9
+            if n_shards > 1:                        # rank 0 counts the bytes
+                stop = bool(broadcast0_(torch.tensor(stop, device=device), mesh))
+            if stop:
+                rank0_print(f"storage cap {max_gb}GB reached")
                 batches.close()
                 break
             if b % 50 == 0:
-                print(f"  [{split}] batch {b}/{total_batches}  {n_saved} latents  "
-                      f"{n_saved / max(time.time() - t0, 1e-9):.0f}/s  "
-                      f"{bytes_written / 1e9:.2f}GB")
+                rank0_print(f"  [{split}] batch {b}/{total_batches}  {n_saved} latents  "
+                            f"{n_saved / max(time.time() - t0, 1e-9):.0f}/s  "
+                            f"{bytes_written / 1e9:.2f}GB")
     if shard is not None:
         shard.close()
     seconds = time.time() - t0
     rate = n_saved / max(seconds, 1e-9)
-    print(f"[{split}] done: {n_saved} latents in {seconds:.1f}s ({rate:.1f} "
-          f"latents/s, {fmt}, decoder {decoder}) -> {out_split}")
+    rank0_print(f"[{split}] done: {n_saved} latents in {seconds:.1f}s ({rate:.1f} "
+                f"latents/s, {fmt}, decoder {decoder}) -> {out_split}")
     return {"split": split, "out_dir": out_split, "batches": b + 1,
             "latents": n_saved, "seconds": seconds, "latents_per_s": rate,
             "bytes": bytes_written, "format": fmt, "decoder": decoder,
@@ -408,9 +432,10 @@ def main(argv=None) -> dict:
     """Pre-encode ``val`` then ``train``; returns ``{'val': stats, 'train':
     stats, 'codec': the codec, 'device': str}``."""
     config = parse_cli(argv, default_config=None, config_dir=CONFIG_DIR)
-    device = resolve_device(config.get("device", None))
+    device = maybe_init_distributed(config.get("device", None))
+    mesh = make_mesh(device=device)
     codec = load_codec(config, device)
-    out = {split: process_dataset(config, split, codec, device)
+    out = {split: process_dataset(config, split, codec, device, mesh)
            for split in ("val", "train")}
     return {**out, "codec": codec, "device": str(device)}
 

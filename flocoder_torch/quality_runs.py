@@ -522,7 +522,7 @@ def run_pod(epochs=120, interleaved_epochs=10, *, device=None, out=OUT):
     expert and pipeline parallelism: not ported yet."""
     raise NotImplementedError("the pod family needs the 8-device mesh, MoE expert "
                               "parallelism and pipeline parallelism, which are not "
-                              "ported yet (ROADMAP.md item 13)")
+                              "ported yet (ROADMAP.md item 13c)")
 
 
 # ---------------------------------------------------------------------------

@@ -35,8 +35,15 @@ parameters.
 ``no_wandb`` is set, the metrics go to ``runs/<codec.project_name>/<run_name
 or the start time>/metrics.jsonl`` (``utils/logging.py``) at the JAX
 script's points, and every 10th epoch the codebook figures to the WAVs'
-folder (``utils/codebook_analysis.py``). Not ported yet (ROADMAP.md, they
-raise): meshes and tensor parallelism.
+folder (``utils/codebook_analysis.py``). Tensor parallelism (``tp``) is the
+model axis, not ported yet (ROADMAP.md item 13b), and raises.
+
+Data parallelism, as in ``train_vqgan``: on several ranks (``torchrun``;
+``parallel/mesh.py``) each rank loads its slice of every epoch's shuffle
+(``codec.batch_size`` is the global batch) and steps on it with its own
+random stream, the steps averaging gradients and losses over the ranks and
+summing the RVQ statistics (``training/audio.py``); the tracker counts the
+indices of every rank, and rank 0 alone validates, prints, logs and writes.
 """
 from __future__ import annotations
 
@@ -56,11 +63,12 @@ from .models.codecs import setup_codec
 from .models.layers import init_params
 from .training.audio import (create_audio_state, make_audio_eval_step,
                              make_audio_gan_step, make_audio_train_step)
+from .parallel.mesh import (batch_rank, batch_shard_count, gather_rows, is_writer,
+                            make_mesh, maybe_init_distributed, rank0_print, rank_seed)
 from .training.checkpoint import (DAC_PREFIXES, load_checkpoint, load_jax_flat,
                                   save_checkpoint, to_jax_flat)
 from .utils import logging as wblog
 from .utils.codebook_analysis import CodebookUsageTracker, analyze_codebooks
-from .utils.device import resolve_device
 
 __all__ = ["audio_datasets", "train_audio_codec", "main"]
 
@@ -102,34 +110,42 @@ def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None)
     training loop (the loader's wait, the copy and the codebook tracker
     included; validation not). ``step_hook``, if given, is called with the
     epoch after each step, e.g. to record a CUDA event."""
-    device = resolve_device(config.get("device", None))
     cc = config.codec
     if str(cc.get("choice", "dac")) != "dac":
         raise SystemExit("train_audio_codec trains codec.choice=dac")
     if int(ldcfg(config, "tp", 1)) > 1:
-        raise NotImplementedError("tensor-parallel codec training is not "
-                                  "ported yet (ROADMAP.md)")
+        raise NotImplementedError("tensor-parallel codec training is the parallel "
+                                  "layer's model axis, not ported yet (ROADMAP.md "
+                                  "item 13b)")
+    device = maybe_init_distributed(config.get("device", None))
+    mesh = make_mesh(device=device)
+    n_shards, writer = batch_shard_count(mesh), is_writer()
     crop_len = int(cc.get("crop_len", 8192))
     sample_rate = int(cc.get("sample_rate", 16000))
     batch_size = int(cc.get("batch_size", 32))
+    if batch_size % n_shards:
+        raise ValueError(f"codec.batch_size={batch_size} does not split over "
+                         f"{n_shards} ranks")
     epochs = int(cc.get("epochs", 200))
     lr = float(cc.get("learning_rate", 1e-4))
     seed = int(ldcfg(config, "seed", 0))
     data_path = os.path.expanduser(str(config.data))
 
     train_ds, val_ds = audio_datasets(config)
-    train_loader = Loader(train_ds, batch_size, int(ldcfg(config, "num_workers", 4)), seed)
+    train_loader = Loader(train_ds, batch_size // n_shards,
+                          int(ldcfg(config, "num_workers", 4)), seed,
+                          host_shard=(batch_rank(mesh), n_shards) if n_shards > 1 else None)
     val_loader = Loader(val_ds, batch_size, 1, seed + 1)
-    print(f"audio data: {len(train_ds)} train / {len(val_ds)} val clips, "
-          f"crop {crop_len} @ {sample_rate} Hz")
+    rank0_print(f"audio data: {len(train_ds)} train / {len(val_ds)} val clips, "
+                f"crop {crop_len} @ {sample_rate} Hz")
 
     codec = setup_codec(config, device=device)
     gen = torch.Generator(device)
     codec.init(gen.manual_seed(seed))
     n_params = sum(p.numel() for p in [*codec.encoder.parameters(),
                                        *codec.decoder.parameters()])
-    print(f"codec params: {n_params / 1e6:.2f}M  latent {codec.latent_shape(crop_len)} "
-          f"(folded), hop {codec.hop}  device {device}")
+    rank0_print(f"codec params: {n_params / 1e6:.2f}M  latent {codec.latent_shape(crop_len)} "
+                f"(folded), hop {codec.hop}  device {device}")
     resume = ldcfg(config, "load_checkpoint", None)
     if resume and os.path.exists(str(resume)):
         ck = load_checkpoint(str(resume))
@@ -145,15 +161,15 @@ def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None)
                                 base_channels=int(cc.get("disc_base_channels", 16)))
         init_params(disc.to(device), gen.manual_seed(seed + 2))
         n_d = sum(p.numel() for p in disc.parameters())
-        print(f"waveform discriminators: {len(disc.periods)} periods + {disc.scales} "
-              f"scales, {n_d / 1e6:.2f}M params, GAN phase from epoch "
-              f"{gan_warmup_epochs + 1}")
+        rank0_print(f"waveform discriminators: {len(disc.periods)} periods + {disc.scales} "
+                    f"scales, {n_d / 1e6:.2f}M params, GAN phase from epoch "
+                    f"{gan_warmup_epochs + 1}")
     state = create_audio_state(codec, disc, lr, d_lr_scale=float(cc.get("d_lr_scale", 1.0)))
-    train_step = make_audio_train_step(config)
-    gan_step = make_audio_gan_step(config) if use_gan else None
+    train_step = make_audio_train_step(config, mesh=mesh)
+    gan_step = make_audio_gan_step(config, mesh=mesh) if use_gan else None
     eval_step = make_audio_eval_step(config)
 
-    use_wandb = not bool(ldcfg(config, "no_wandb", False))
+    use_wandb = writer and not bool(ldcfg(config, "no_wandb", False))
     log_path = None
     if use_wandb:
         log_path = wblog.init(project=str(cc.get("project_name", "flocoder-audio")),
@@ -164,11 +180,12 @@ def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None)
                                    codebook_size=int(cc.get("vq_num_embeddings", 512)))
     output_dir = str(config.get("output_dir", f"output_dac_{os.path.basename(data_path)}"))
     ckpt_dir = str(config.get("ckpt_dir", "checkpoints"))
-    os.makedirs(output_dir, exist_ok=True)
+    if writer:
+        os.makedirs(output_dir, exist_ok=True)
 
     step_seconds = {"recon": [], "gan": []}
     epoch_seconds, history, val_history, wavs, path = [], [], [], [], None
-    gen.manual_seed(seed + 1)
+    gen.manual_seed(rank_seed(seed + 1, mesh))
     t_start = time.time()
     for epoch in range(1, epochs + 1):
         phase = "gan" if use_gan and epoch > gan_warmup_epochs else "recon"
@@ -182,6 +199,7 @@ def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None)
             _sync(device)
             step_seconds[phase].append(time.time() - t0)
             ep_aux.append(aux)
+            idx = gather_rows(idx, mesh)
             tracker.update_counts("train", idx.reshape(-1, levels).cpu().numpy())
         n_clips = len(ep_aux) * batch_size
         epoch_seconds.append({"epoch": epoch, "phase": phase, "clips": n_clips,
@@ -189,6 +207,8 @@ def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None)
         means = {k: float(np.mean([float(a[k]) for a in ep_aux])) for k in ep_aux[0]}
         history.append({"epoch": epoch, "phase": phase, **means})
         sps = n_clips / max(epoch_seconds[-1]["seconds"], 1e-9)
+        if not writer:
+            continue
         print(f"epoch {epoch}/{epochs} [{phase}] " +
               "  ".join(f"{k} {v:.4f}" for k, v in means.items()) +
               f"  {sps:.1f} clips/s")
@@ -220,7 +240,7 @@ def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None)
             path = save_checkpoint(to_jax_flat(codec, DAC_PREFIXES), epoch,
                                    ckpt_dir=ckpt_dir, prefix="dac_", config=config, keep=5)
             print(f"  checkpoint -> {path}")
-    print(f"done in {time.time() - t_start:.0f}s")
+    rank0_print(f"done in {time.time() - t_start:.0f}s")
     if use_wandb:
         wblog.finish()
     return {"state": state, "step_seconds": step_seconds, "epoch_seconds": epoch_seconds,

@@ -1,5 +1,6 @@
 """Train a latent flow-matching model on the CUDA card — the port of the
-repo's ``train_flow.py``, on one device.
+repo's ``train_flow.py``, on one device or on the ranks of a
+``torchrun`` world.
 
 Usage:
     python -m flocoder_torch.train_flow --config-name flowers_vqgan.yaml \\
@@ -40,9 +41,26 @@ The evaluation conditions on the validation batch's masks and starts from
 its mask-blended sources. The checkpoints hold the mask encoder beside the
 U-Net and the two optimizer groups in optax's ``multi_transform`` layout.
 The JAX-only dispatch knobs ``flow.steps_per_dispatch`` and ``rng_impl``
-are accepted and change nothing here (ROADMAP.md). Not ported yet
-(ROADMAP.md), and refused: meshes and FSDP, ring attention, MoE expert
-parallelism, pipeline parallelism, orbax and sharded checkpoints.
+are accepted and change nothing here (ROADMAP.md). Refused: the model
+axis (``flow.n_model`` > 1, ring attention; ROADMAP.md item 13b), MoE
+expert and pipeline parallelism (item 13c) and orbax checkpoints.
+
+Several ranks (``torchrun --nproc_per_node=N -m flocoder_torch.train_flow
+...``; ``parallel/mesh.py``): each rank drives one device (``cuda:LOCAL_RANK``,
+or ``+device``; NCCL on CUDA, gloo on the CPU or with more ranks than cards) and
+loads its own slice of every epoch's shuffle (``Loader``'s ``host_shard``),
+``flow.batch_size`` being the global batch (a multiple of the rank count
+times ``flow.grad_accum``, as the batch-size schedule's sizes are). The
+step is data-parallel (per-rank noise and OT, a global CFG gate, gradients
+averaged over the ranks: ``training/flow.py``) or, with ``flow.fsdp=true``,
+the FSDP step, the one-device function on the global batch with the
+model, its Adam moments and its EMA in FSDP2 shards (the JAX rule:
+tensors of at least 2¹⁴ elements split over the ranks). Evaluations sample
+and decode sharded over the ranks. ``flow.sharded_checkpoints=true`` makes
+every rank write its own ``flow_<epoch>.host<rank>.npz`` (the JAX package's
+sharded format, ``training/checkpoint.py``; no ``flowema_`` file, as in the
+JAX script) instead of the two ordinary files. Rank 0 alone prints, logs
+and writes the grids and the ordinary checkpoints.
 
 Unless ``no_wandb`` is set, the metrics go to
 ``runs/<project_name>/<run_name or the start time>/metrics.jsonl``
@@ -88,31 +106,36 @@ from .models.audio_codec import DACCodec
 from .models.codecs import VQVAE, codec_checkpoint, load_codec_weights, setup_codec
 from .models.flow_model import build_flow_model
 from .models.layers import init_params
+from .parallel.mesh import (batch_rank, batch_shard_count, host_device_count, is_writer,
+                            make_mesh, maybe_init_distributed, rank0_print, rank_seed)
 from .models.sd_vae import SDVAE
 from .models.vqgan_plus import VQGANPlus
 from .training.checkpoint import (MASK_ENCODER_PREFIXES, OPT_GROUPS, UNET_PREFIXES,
-                                  adam_to_jax_flat, load_adam_jax_flat, load_checkpoint,
-                                  load_jax_flat, save_checkpoint, subtree, to_jax_flat)
-from .training.flow import create_flow_state, make_flow_eval_step, make_flow_train_step
+                                  adam_to_jax_flat, adam_to_jax_flat_sharded,
+                                  load_adam_jax_flat, load_checkpoint, load_jax_flat,
+                                  save_checkpoint, save_checkpoint_sharded, subtree,
+                                  to_jax_flat, to_jax_flat_sharded)
+from .training.flow import (create_flow_state, make_flow_eval_step, make_flow_train_step,
+                            shard_flow_state)
 from .training.schedules import batch_size_schedule, cosine_warm_restarts_decay
 from .utils import logging as wblog
 from .utils.codebook_analysis import CodebookUsageTracker
-from .utils.device import resolve_device
 
 __all__ = ["train_flow", "latent_dataset", "main"]
 
 
 def _refuse_unported(config) -> None:
-    flags = {"fsdp": "FSDP", "ring_attention": "ring attention",
-             "moe_ep": "MoE expert parallelism", "pp": "pipeline parallelism",
-             "orbax_checkpoints": "orbax checkpoints",
-             "sharded_checkpoints": "sharded checkpoints"}
+    flags = {"ring_attention": "ring attention, ROADMAP.md item 13b",
+             "moe_ep": "MoE expert parallelism, ROADMAP.md item 13c",
+             "pp": "pipeline parallelism, ROADMAP.md item 13c",
+             "orbax_checkpoints": "orbax checkpoints, which ROADMAP.md does not queue"}
     for key, what in flags.items():
         if bool(ldcfg(config, key, False)):
-            raise NotImplementedError(f"{what} (flow.{key}) is not ported yet (ROADMAP.md)")
+            raise NotImplementedError(f"flow.{key} is not ported: {what}")
     if int(ldcfg(config, "n_model", 1)) > 1:
-        raise NotImplementedError("model-parallel meshes (flow.n_model) are not "
-                                  "ported yet (ROADMAP.md)")
+        raise NotImplementedError("model-parallel meshes (flow.n_model) are the "
+                                  "parallel layer's model axis, not ported yet "
+                                  "(ROADMAP.md item 13b)")
 
 
 def latent_dataset(split_dir: str, n_classes: int = 0):
@@ -156,14 +179,14 @@ def _load_params(model, mask_encoder, flat: dict) -> None:
         load_jax_flat(mask_encoder, subtree(flat, "mask_encoder/"), MASK_ENCODER_PREFIXES)
 
 
-def _opt_flat(state) -> dict:
+def _opt_flat(state, adam_flat=adam_to_jax_flat) -> dict:
     """optax's flat state of the flow optimizer: one Adam state, or with a
     mask encoder the two groups of ``multi_transform``."""
-    model = adam_to_jax_flat(state.model, state.opt.adam, state.step, UNET_PREFIXES)
+    model = adam_flat(state.model, state.opt.adam, state.step, UNET_PREFIXES)
     if state.mask_encoder is None:
         return model
-    mask = adam_to_jax_flat(state.mask_encoder, state.mask_opt.adam, state.step,
-                            MASK_ENCODER_PREFIXES)
+    mask = adam_flat(state.mask_encoder, state.mask_opt.adam, state.step,
+                     MASK_ENCODER_PREFIXES)
     return {**{OPT_GROUPS["model"] + k: v for k, v in model.items()},
             **{OPT_GROUPS["mask"] + k: v for k, v in mask.items()}}
 
@@ -178,6 +201,21 @@ def _load_opt(state, flat: dict) -> None:
                        subtree(flat, OPT_GROUPS["mask"], strip=True), MASK_ENCODER_PREFIXES)
 
 
+def _sharded_tree(state) -> dict:
+    """The JAX script's sharded-checkpoint tree ``{params, opt_state, ema}``,
+    flat, with this rank's blocks of the FSDP-sharded leaves."""
+    def flat(model, mask_encoder):
+        out = to_jax_flat_sharded(model, UNET_PREFIXES)
+        if mask_encoder is not None:
+            out.update(to_jax_flat_sharded(mask_encoder, MASK_ENCODER_PREFIXES))
+        return out
+    tree = {f"params/{k}": v for k, v in flat(state.model, state.mask_encoder).items()}
+    tree.update({f"opt_state/{k}": v
+                 for k, v in _opt_flat(state, adam_to_jax_flat_sharded).items()})
+    tree.update({f"ema/{k}": v for k, v in flat(state.ema, state.ema_mask_encoder).items()})
+    return tree
+
+
 def _keep_recent_files(keep: int, directory: str, pattern: str) -> None:
     files = sorted(glob.glob(os.path.join(directory, pattern)), key=os.path.getmtime)
     for f in files[:-keep]:
@@ -189,15 +227,26 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     'samples', 'seconds'}], 'epochs': [per-epoch mean losses], 'eval':
     [{'epoch', 'tag', 'metrics', 'seconds'}], 'ot_rounds': [per step],
     'checkpoint': path, 'ema_checkpoint': path, 'output_dir': str,
-    'metrics_log': path or None, 'device': str}``. The device is
+    'metrics_log': path or None, 'device': str, 'ranks': int, 'fsdp': bool,
+    'sharded': {parameter name: the dim FSDP splits, or None} or None}``
+    (under ``flow.sharded_checkpoints`` ``checkpoint`` is this rank's file
+    and ``ema_checkpoint`` None). The device is
     synchronised once an epoch, as in the JAX script: an epoch's seconds
     cover its training loop (the loader's wait, the copy to the device and
     the steps) and end in that synchronise. ``step_hook``, if given, is
     called with the epoch after each step is queued, e.g. to record a CUDA
     event. An evaluation's ``seconds`` are split into 'sampler', 'decode',
     'metrics' and 'grids'."""
-    device = resolve_device(config.get("device", None))
     _refuse_unported(config)
+    device = maybe_init_distributed(config.get("device", None))
+    mesh = make_mesh(device=device)
+    n_shards = batch_shard_count(mesh)
+    writer = is_writer()
+    fsdp = bool(ldcfg(config, "fsdp", False))
+    sharded_ckpt = bool(ldcfg(config, "sharded_checkpoints", False))
+    if mesh is not None:
+        rank0_print(f"train_flow: mesh {mesh}, {host_device_count()} rank(s) on this host, "
+                    f"{'FSDP' if fsdp else 'data-parallel'} step")
     data_path = os.path.expanduser(str(config.data))
     # reflow pairs are latents already (make_reflow_pairs): no codec suffix
     reflow = bool(ldcfg(config, "reflow", False))
@@ -216,7 +265,11 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
         bs_sched = batch_size_schedule(
             batch_size, gamma=float(ldcfg(config, "bs_gamma", 2.0)),
             step_every=bs_step_every, milestones=bs_milestones,
-            max_bs=int(ldcfg(config, "bs_max", 0)) or None, multiple_of=grad_accum)
+            max_bs=int(ldcfg(config, "bs_max", 0)) or None,
+            multiple_of=n_shards * grad_accum)
+    if batch_size % n_shards:
+        raise ValueError(f"flow.batch_size={batch_size} does not split over "
+                         f"{n_shards} ranks")
     n_classes = int(ldcfg(config, "n_classes", 0))
     epochs = int(ldcfg(config, "epochs", 100))
     n_steps_eval = int(ldcfg(config, "n_steps", 100))
@@ -229,6 +282,7 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     num_workers = int(ldcfg(config, "num_workers", 4))
     t_scale = 1.0 if meanflow else 999.0
     gen = torch.Generator(device)
+    host_shard = (batch_rank(mesh), n_shards) if n_shards > 1 else None
 
     # ---- the frozen codec: the evaluation's decode, the on-the-fly encode
     codec = setup_codec(config, device=device)
@@ -247,7 +301,8 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     if pre_encoded:
         train_ds = latent_dataset(f"{data_path}/train", n_classes)
         val_ds = latent_dataset(f"{data_path}/val", n_classes)
-        train_loader = Loader(train_ds, batch_size, num_workers, seed)
+        train_loader = Loader(train_ds, batch_size // n_shards, num_workers, seed,
+                              host_shard=host_shard)
         val_loader = Loader(val_ds, min(batch_size, len(val_ds)), num_workers, seed + 1)
         batch0 = next(iter(train_loader))
         H, W, C = batch0["target"].shape[1:]
@@ -256,6 +311,8 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
             batch_size, image_size, os.path.expanduser(str(config.data)),
             num_workers=num_workers, is_midi=is_midi, seed=seed)
         train_loader.key = val_loader.key = "pixels"
+        train_loader.host_shard = host_shard
+        train_loader.batch_size = batch_size // n_shards
         batch0 = {}
         H, W, C = codec.latent_shape(image_size)
         encode_fn = codec.encode
@@ -269,12 +326,13 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     if meanflow and inpainting:
         raise SystemExit("flow.meanflow=true does not combine with inpainting "
                          "datasets or flow.reflow")
-    print(f"latent shape HWC = {(H, W, C)}, inpainting = {inpainting}, "
-          f"reflow = {reflow}, n_batches/epoch = {len(train_loader)}")
+    rank0_print(f"latent shape HWC = {(H, W, C)}, inpainting = {inpainting}, "
+                f"reflow = {reflow}, n_batches/epoch = {len(train_loader)}")
     output_dir = str(config.get("output_dir",
                                 f"output_{os.path.basename(data_path)}-{H}x{W}"))
     ckpt_dir = str(config.get("ckpt_dir", "checkpoints"))
-    os.makedirs(output_dir, exist_ok=True)
+    if writer:
+        os.makedirs(output_dir, exist_ok=True)
 
     # ---- model, optimizer, state
     dtype = torch.bfloat16 if bool(ldcfg(config, "bf16", False)) else torch.float32
@@ -299,7 +357,7 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
             return v, moe_aux_w * aux["moe_aux"].mean()
     n_params = sum(p.numel() for m in (model, mask_encoder) if m is not None
                    for p in m.parameters())
-    print(f"model params: {n_params / 1e6:.2f}M  device {device}")
+    rank0_print(f"model params: {n_params / 1e6:.2f}M  device {device}")
     sched = cosine_warm_restarts_decay(
         float(ldcfg(config, "learning_rate", 1e-4)), T_0=int(ldcfg(config, "lr_T0", 50)),
         T_mult=int(ldcfg(config, "lr_Tmult", 2)), decay=float(ldcfg(config, "lr_decay", 0.6)),
@@ -307,16 +365,21 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     state = create_flow_state(model, sched, mask_encoder=mask_encoder)
     start_epoch = 1
     resume = ldcfg(config, "load_checkpoint", None)
-    if resume and os.path.exists(str(resume)):
-        ck = load_checkpoint(str(resume))
+    ck = load_checkpoint(str(resume)) if resume and os.path.exists(str(resume)) else None
+    if ck is not None:
         _load_params(state.model, state.mask_encoder, ck["model_state_dict"])
-        if ck.get("optimizer_state_dict"):
-            _load_opt(state, ck["optimizer_state_dict"])
         _load_params(state.ema, state.ema_mask_encoder,
                      ck.get("ema_state_dict") or ck["model_state_dict"])
+    sharded = shard_flow_state(state, mesh) if fsdp else None
+    if ck is not None:
+        if ck.get("optimizer_state_dict"):
+            _load_opt(state, ck["optimizer_state_dict"])
         state.step = ck["epoch"] * len(train_loader)
         start_epoch = ck["epoch"] + 1
-        print(f"resumed from {resume} at epoch {ck['epoch']}")
+        rank0_print(f"resumed from {resume} at epoch {ck['epoch']}")
+    if sharded is not None:
+        rank0_print(f"FSDP: {sum(d is not None for d in sharded.values())} of {len(sharded)} "
+                    f"parameters sharded over {n_shards} rank(s)")
 
     # the inpainting curriculum: (p_ones, p_zeros) by epoch from the step
     # counter; "ones" start from blank_latents, the codec's blank image
@@ -325,8 +388,8 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
         with torch.no_grad():
             blank_latents = codec.encode(torch.zeros(1, image_size, image_size,
                                                      codec.in_channels, device=device))
-        print(f"blank_latents range [{float(blank_latents.min()):.3f}, "
-              f"{float(blank_latents.max()):.3f}]")
+        rank0_print(f"blank_latents range [{float(blank_latents.min()):.3f}, "
+                    f"{float(blank_latents.max()):.3f}]")
         otf_aug = {"curriculum_epochs": int(ldcfg(config, "curriculum_epochs", 0)),
                    "extend_epochs": int(ldcfg(config, "extend_epochs", 0)),
                    "p_ones": float(ldcfg(config, "p_ones", 0.0)),
@@ -343,10 +406,10 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
         meanflow=meanflow, meanflow_ratio=float(ldcfg(config, "meanflow_ratio", 0.25)),
         meanflow_adaptive_p=float(ldcfg(config, "meanflow_adaptive_p", 0.5)),
         t_scale=t_scale, grad_accum=grad_accum, model_apply=model_apply,
-        paired_source=reflow)
+        paired_source=reflow, mesh=mesh, fsdp=fsdp)
     train_step = make_flow_train_step(**step_kwargs)
     eval_step = make_flow_eval_step(t_scale=t_scale, paired_source=reflow)
-    use_wandb = not bool(ldcfg(config, "no_wandb", False))
+    use_wandb = writer and not bool(ldcfg(config, "no_wandb", False))
     log_path = None
     if use_wandb:
         log_path = wblog.init(project=str(ldcfg(config, "project_name", "flocoder-flow")),
@@ -360,24 +423,29 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     epoch_seconds, history, evals, ot_rounds = [], [], [], []
     ck_path = ema_path = None
     gen.manual_seed(seed + 2)
+    # each rank's own stream: the data-parallel step's draws and the sharded
+    # evaluation's noise (the FSDP step draws the global batch's from gen)
+    rank_gen = gen if n_shards == 1 else torch.Generator(device).manual_seed(
+        rank_seed(seed + 2, mesh))
+    step_gen = gen if fsdp else rank_gen
     t_start = time.time()
     for epoch in range(start_epoch, epochs + 1):
-        if bs_sched is not None and bs_sched(epoch) != train_loader.batch_size:
-            print(f"  batch size {train_loader.batch_size} -> {bs_sched(epoch)} "
-                  "(bs schedule)")
-            train_loader.batch_size = bs_sched(epoch)
+        if bs_sched is not None and bs_sched(epoch) != train_loader.batch_size * n_shards:
+            rank0_print(f"  batch size {train_loader.batch_size * n_shards} -> "
+                        f"{bs_sched(epoch)} (bs schedule)")
+            train_loader.batch_size = bs_sched(epoch) // n_shards
         ep_aux, t_ep = [], time.time()
         for batch in train_loader:
             if not (inpainting or reflow):
                 batch.pop("source", None)
             batch = _to_device(batch, device)
-            state, aux = train_step(state, batch, gen)
+            state, aux = train_step(state, batch, step_gen)
             if step_hook is not None:
                 step_hook(epoch)
             ep_aux.append(aux)
         _sync(device)                   # one device sync per epoch, not per step
         seconds = time.time() - t_ep
-        samples = len(ep_aux) * train_loader.batch_size
+        samples = len(ep_aux) * train_loader.batch_size * n_shards
         epoch_seconds.append({"epoch": epoch, "steps": len(ep_aux), "samples": samples,
                               "seconds": seconds})
         ot_rounds += [int(a["ot_rounds"]) for a in ep_aux if "ot_rounds" in a]
@@ -385,12 +453,12 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
                  for k in ep_aux[0]} if ep_aux else {"loss": float("nan")}
         history.append({"epoch": epoch, **means})
         lr_now = float(sched(state.step))
-        print(f"epoch {epoch}/{epochs}  loss {means['loss']:.4f}  "
-              f"lr {lr_now:.2e}  {len(ep_aux) / max(seconds, 1e-9):.2f} it/s  "
-              f"({samples / max(seconds, 1e-9):.0f} samples/s)", flush=True)
+        rank0_print(f"epoch {epoch}/{epochs}  loss {means['loss']:.4f}  "
+                    f"lr {lr_now:.2e}  {len(ep_aux) / max(seconds, 1e-9):.2f} it/s  "
+                    f"({samples / max(seconds, 1e-9):.0f} samples/s)", flush=True)
         if use_wandb:
             wblog.log({"Loss/train": means["loss"], "Learning Rate": lr_now, "epoch": epoch,
-                       "batch_size": train_loader.batch_size,
+                       "batch_size": train_loader.batch_size * n_shards,
                        "samples_per_sec": samples / max(seconds, 1e-9)})
 
         if not bool(ldcfg(config, "no_eval", False)) and (epoch < 20 or epoch % 10 == 0):
@@ -402,7 +470,7 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
                 with torch.no_grad():
                     vb["target"] = encode_fn(vb.pop("pixels"))
             val_loss = float(eval_step(state.model, vb, gen, mask_encoder=state.mask_encoder))
-            print(f"  val loss {val_loss:.4f}")
+            rank0_print(f"  val loss {val_loss:.4f}")
             if use_wandb:
                 wblog.log({"Loss/val": val_loss, "epoch": epoch})
             # inpainting conditions on the val batch's own masks, from its
@@ -426,7 +494,7 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
                     t_mark[0] = time.time()
 
                 metrics = eval_fn(
-                    net, codec, epoch, vb["target"], gen,
+                    net, codec, epoch, vb["target"], rank_gen,
                     cond={"class_cond": vb["class_cond"], "mask_cond": eval_mask_cond},
                     batch_size=min(batch_size, 256), n_classes=n_classes,
                     method=eval_method, n_steps=n_steps_eval, cfg_strength=cfg_strength,
@@ -435,33 +503,41 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
                     output_dir=output_dir,
                     source=eval_source,
                     mask_pixels=vb["mask_pixels"] if inpainting else None,
-                    t_scale=t_scale, mark=mark)
+                    t_scale=t_scale, mark=mark, mesh=mesh)
                 evals.append({"epoch": epoch, "tag": tag, "val_loss": val_loss,
                               "metrics": metrics, "seconds": marks})
-                print(f"  {tag}metrics: " +
-                      (f"sinkhorn_mel {metrics['sinkhorn_mel']:.4f}  " if is_audio else
-                       f"FID_px {metrics['FID_px']:.2f}  ") +
-                      f"sinkhorn {metrics['sinkhorn']:.4f}  ({sum(marks.values()):.2f} s)")
+                rank0_print(f"  {tag}metrics: " +
+                            (f"sinkhorn_mel {metrics['sinkhorn_mel']:.4f}  " if is_audio else
+                             f"FID_px {metrics['FID_px']:.2f}  ") +
+                            f"sinkhorn {metrics['sinkhorn']:.4f}  ({sum(marks.values()):.2f} s)")
             if epoch % 2 == 0:
                 cb_tracker.reset_all()
 
         if epoch % int(ldcfg(config, "ckpt_every", 25)) == 0:
-            ema_flat = _params_flat(state.ema, state.ema_mask_encoder)
-            ck_path = save_checkpoint(
-                _params_flat(state.model, state.mask_encoder), epoch, ckpt_dir=ckpt_dir,
-                prefix="flow_", config=config, keep=5, ema=ema_flat,
-                opt_state=_opt_flat(state))
-            ema_path = save_checkpoint(ema_flat, epoch, ckpt_dir=ckpt_dir,
-                                       prefix="flowema_", config=config, keep=5)
-            _keep_recent_files(100, output_dir, "*.png")
-            print(f"  checkpoints -> {ck_path}, {ema_path}")
-    print(f"done in {time.time() - t_start:.0f}s")
+            if sharded_ckpt:        # every rank writes its own blocks
+                ck_path = save_checkpoint_sharded(_sharded_tree(state), epoch,
+                                                  ckpt_dir=ckpt_dir, prefix="flow_",
+                                                  config=config, keep=5)
+            else:                   # gathered whole on every rank (FSDP), rank 0 writes
+                ema_flat = _params_flat(state.ema, state.ema_mask_encoder)
+                flats = (_params_flat(state.model, state.mask_encoder), _opt_flat(state))
+                if writer:
+                    ck_path = save_checkpoint(flats[0], epoch, ckpt_dir=ckpt_dir,
+                                              prefix="flow_", config=config, keep=5,
+                                              ema=ema_flat, opt_state=flats[1])
+                    ema_path = save_checkpoint(ema_flat, epoch, ckpt_dir=ckpt_dir,
+                                               prefix="flowema_", config=config, keep=5)
+            if writer:
+                _keep_recent_files(100, output_dir, "*.png")
+                print(f"  checkpoints -> {ck_path}, {ema_path}")
+    rank0_print(f"done in {time.time() - t_start:.0f}s")
     if use_wandb:
         wblog.finish()
     return {"state": state, "epoch_seconds": epoch_seconds,
             "epochs": history, "eval": evals, "ot_rounds": ot_rounds,
             "checkpoint": ck_path, "ema_checkpoint": ema_path, "output_dir": output_dir,
-            "metrics_log": log_path, "device": str(device)}
+            "metrics_log": log_path, "device": str(device), "ranks": n_shards,
+            "fsdp": sharded is not None, "sharded": sharded}
 
 
 def main(argv=None, step_hook: Optional[Callable[[int], None]] = None) -> dict:

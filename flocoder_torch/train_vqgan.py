@@ -36,7 +36,18 @@ codec. Unless ``no_wandb`` is set, the metrics go to
 ``val/…``, ``demo/recon`` and, for MIDI, ``note_metrics/…`` at each
 validation, ``codebook/…`` every 10th epoch), and the codebook figures to
 the grids' folder (``utils/codebook_analysis.py``). Not ported yet
-(ROADMAP.md): data and tensor parallelism, the wandb backend.
+(ROADMAP.md): tensor parallelism (``tp``, the model axis, item 13b) and the
+wandb backend.
+
+Data parallelism: launched on several ranks (``torchrun
+--nproc_per_node=N -m flocoder_torch.train_vqgan ...``; ``parallel/mesh.py``;
+``+device`` as in ``train_flow``), each rank loads its
+slice of every epoch's shuffle (``codec.batch_size`` is the global batch and
+must split over the ranks) and steps on it with its own random stream; the
+steps average the gradients and losses over the ranks and sum the RVQ
+statistics (``training/vqgan.py``). The indices the codebook tracker counts
+are gathered from every rank; rank 0 alone validates, prints, logs and
+writes the grids and checkpoints.
 """
 from __future__ import annotations
 
@@ -55,13 +66,14 @@ from .models.discriminator import (VQGANPlusDiscriminator,
                                    VQGANPlusPatchDiscriminator,
                                    init_discriminator)
 from .models.perceptual import make_perceptual_fn
+from .parallel.mesh import (batch_rank, batch_shard_count, gather_rows, is_writer,
+                            make_mesh, maybe_init_distributed, rank0_print, rank_seed)
 from .training.checkpoint import (VQVAE_PREFIXES, load_checkpoint,
                                   load_jax_flat, save_checkpoint, to_jax_flat)
 from .training.vqgan import (create_vqgan_state, make_vqgan_eval_step,
                              make_vqgan_gan_step, make_vqgan_warmup_step)
 from .utils.codebook_analysis import CodebookUsageTracker, analyze_codebooks
 from .utils import logging as wblog
-from .utils.device import resolve_device
 from .utils.viz import save_img_grid
 
 __all__ = ["train_vqgan", "main"]
@@ -83,7 +95,6 @@ def train_vqgan(config) -> dict:
     and the host-clock seconds of its training loop: the steps plus the
     loader's wait, the copy to the device and the codebook tracker
     (validation excluded)."""
-    device = resolve_device(config.get("device", None))
     cc = config.codec
     image_size = int(cc.get("image_size", ldcfg(config, "image_size", 128)))
     batch_size = int(cc.get("batch_size", 64))
@@ -95,13 +106,23 @@ def train_vqgan(config) -> dict:
     data_path = os.path.expanduser(str(config.data))
     is_midi = any(s in data_path.lower() for s in ("pop909", "midi"))
     if int(ldcfg(config, "tp", 1)) > 1:
-        raise NotImplementedError("tensor-parallel codec training is not "
-                                  "ported yet (ROADMAP.md)")
+        raise NotImplementedError("tensor-parallel codec training is the parallel "
+                                  "layer's model axis, not ported yet (ROADMAP.md "
+                                  "item 13b)")
+    device = maybe_init_distributed(config.get("device", None))
+    mesh = make_mesh(device=device)
+    n_shards, writer = batch_shard_count(mesh), is_writer()
 
     train_loader, val_loader = create_image_loaders(
         batch_size, image_size, data_path,
         num_workers=int(ldcfg(config, "num_workers", 4)), is_midi=is_midi,
         seed=seed)
+    if n_shards > 1:
+        if train_loader.batch_size % n_shards:
+            raise ValueError(f"codec batch {train_loader.batch_size} does not split "
+                             f"over {n_shards} ranks")
+        train_loader.batch_size //= n_shards
+        train_loader.host_shard = (batch_rank(mesh), n_shards)
 
     # quant_* flags are inference-only: a recipe that serves int8 trains fp32
     cc.pop("quant_decode", None)
@@ -111,8 +132,9 @@ def train_vqgan(config) -> dict:
     codec.init(gen.manual_seed(seed))
     n_params = sum(p.numel() for p in [*codec.encoder.parameters(),
                                        *codec.decoder.parameters()])
-    print(f"codec params: {n_params / 1e6:.2f}M  latent "
-          f"{codec.latent_shape(image_size)}  device {device}  compute {codec.dtype}")
+    rank0_print(f"codec params: {n_params / 1e6:.2f}M  latent "
+                f"{codec.latent_shape(image_size)}  device {device}  compute {codec.dtype}"
+                + (f"  {n_shards} data-parallel ranks" if n_shards > 1 else ""))
     resume = ldcfg(config, "load_checkpoint", None)
     if resume and os.path.exists(str(resume)):
         ck = load_checkpoint(str(resume))
@@ -133,14 +155,14 @@ def train_vqgan(config) -> dict:
         perceptual_fn = make_perceptual_fn(seed=seed, device=device, dtype=net_dtype)
     state = create_vqgan_state(codec, disc, lr)
     grad_accum = max(int(ldcfg(config, "grad_accum", 1)), 1)
-    warmup_step = make_vqgan_warmup_step(config, perceptual_fn,
+    warmup_step = make_vqgan_warmup_step(config, perceptual_fn, mesh=mesh,
                                          grad_accum=grad_accum)
     gan_step = make_vqgan_gan_step(config, perceptual_fn,
                                    lecam_weight=float(ldcfg(config, "lecam_weight", 0.0)),
-                                   grad_accum=grad_accum)
+                                   mesh=mesh, grad_accum=grad_accum)
     eval_step = make_vqgan_eval_step(config, perceptual_fn)
 
-    use_wandb = not bool(ldcfg(config, "no_wandb", False))
+    use_wandb = writer and not bool(ldcfg(config, "no_wandb", False))
     log_path = None
     if use_wandb:
         log_path = wblog.init(project=str(cc.get("project_name", "flocoder-vqgan")),
@@ -152,11 +174,12 @@ def train_vqgan(config) -> dict:
     output_dir = str(config.get("output_dir",
                                 f"output_vqgan_{os.path.basename(data_path)}"))
     ckpt_dir = str(config.get("ckpt_dir", "checkpoints"))
-    os.makedirs(output_dir, exist_ok=True)
+    if writer:
+        os.makedirs(output_dir, exist_ok=True)
 
     step_seconds = {"warmup": [], "gan": []}
     epoch_seconds, history, val_history, path = [], [], [], None
-    gen.manual_seed(seed + 1)
+    gen.manual_seed(rank_seed(seed + 1, mesh))
     for epoch in range(1, epochs + 1):
         phase = "gan" if epoch > warmup_epochs else "warmup"
         step_fn = gan_step if phase == "gan" else warmup_step
@@ -168,13 +191,16 @@ def train_vqgan(config) -> dict:
             _sync(device)
             step_seconds[phase].append(time.time() - t0)
             ep_aux.append(aux)
+            idx = gather_rows(idx, mesh)
             tracker.update_counts("train", idx.reshape(-1, levels).cpu().numpy())
-        n_samples = len(ep_aux) * train_loader.batch_size
+        n_samples = len(ep_aux) * train_loader.batch_size * n_shards
         epoch_seconds.append({"epoch": epoch, "phase": phase, "samples": n_samples,
                               "seconds": time.time() - t_ep})
         means = {k: float(np.mean([float(a[k]) for a in ep_aux])) for k in ep_aux[0]}
         history.append({"epoch": epoch, "phase": phase, **means})
         sps = n_samples / max(epoch_seconds[-1]["seconds"], 1e-9)
+        if not writer:
+            continue
         print(f"epoch {epoch}/{epochs} [{phase}] " +
               "  ".join(f"{k} {v:.4f}" for k, v in means.items()) +
               f"  {sps:.1f} samples/s")

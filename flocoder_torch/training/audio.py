@@ -16,8 +16,11 @@ the reconstruction step, the GAN step and the eval step.
   each averaged over the ensemble; the real features are the discriminator
   step's, detached), and the backward into the codec only.
 - The RVQ's draws come from the step's ``generator``, or are injected
-  (``kmeans_seeds``, ``reseed_picks``; ``ops/rvq.py``). Meshes are not
-  ported yet (ROADMAP.md) and raise.
+  (``kmeans_seeds``, ``reseed_picks``; ``ops/rvq.py``).
+- With a data-parallel ``mesh`` (``parallel/mesh.py``) each rank steps on
+  its own rows; the gradients and the reported losses are averaged over
+  the batch ranks before the updates and the RVQ statistics summed, as in
+  ``training/vqgan.py`` (the JAX ``_mesh_wrap``).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from torch import nn
 
 from ..metrics import feature_matching_loss, hinge_d_loss
 from ..ops.audio import multiscale_mel_loss, multiscale_stft_loss
-from .vqgan import ClippedAdam, VQGANState, _not_ported, g_trainable
+from .vqgan import ClippedAdam, VQGANState, _dp, _pmean_aux, _pmean_grads, g_trainable
 
 __all__ = ["make_audio_optimizer", "create_audio_state", "audio_codec_losses",
            "make_audio_train_step", "make_audio_gan_step", "make_audio_eval_step"]
@@ -91,20 +94,23 @@ def _detached(losses: dict) -> dict:
 def make_audio_train_step(config, mesh=None):
     """Reconstruction phase: ``step(state, batch (B, T, 1), generator,
     **draws) -> (state, aux, indices)``; ``state`` is updated in place, its
-    discriminators untouched."""
-    _not_ported(config, mesh, 1)
+    discriminators untouched. With a ``mesh``, ``batch`` is this rank's
+    rows."""
+    mesh = _dp(mesh)
     cfg = _loss_cfg(config)
 
     def step(state: VQGANState, batch, generator, **draws):
         codec = state.codec
         state.opt_g.zero_grad()
-        recon, commit, idx, new_vq = codec(batch, train=True, generator=generator, **draws)
+        recon, commit, idx, new_vq = codec(batch, train=True, generator=generator,
+                                           mesh=mesh, **draws)
         losses = audio_codec_losses(recon, batch, commit, cfg)
         losses["total"].backward()
+        _pmean_grads(state.opt_g.params, mesh)
         state.opt_g.step()
         codec.vq.assign_(new_vq)
         state.step += 1
-        return state, _detached(losses), idx
+        return state, _pmean_aux(_detached(losses), mesh), idx
 
     return step
 
@@ -118,8 +124,8 @@ def make_audio_gan_step(config, mesh=None):
     one codec forward: ``step(state, batch, generator, mark=None, **draws)
     -> (state, aux, indices)``. ``mark(name)``, when given, is called after
     each part ("codec_forward", "d_step", "g_loss_backward",
-    "optimizers")."""
-    _not_ported(config, mesh, 1)
+    "optimizers"). With a ``mesh``, ``batch`` is this rank's rows."""
+    mesh = _dp(mesh)
     cfg = _loss_cfg(config)
     cc = _codec_cfg(config)
     lambda_gen = float(cc.get("lambda_gen", 1.0))
@@ -131,13 +137,15 @@ def make_audio_gan_step(config, mesh=None):
         codec, disc = state.codec, state.disc
         state.opt_g.zero_grad()
         state.opt_d.zero_grad()
-        recon, commit, idx, new_vq = codec(x, train=True, generator=generator, **draws)
+        recon, commit, idx, new_vq = codec(x, train=True, generator=generator,
+                                           mesh=mesh, **draws)
         mark("codec_forward")
 
         real_logits, real_feats = disc(x)
         fake_logits, _ = disc(recon.detach())
         d_loss = _mean([hinge_d_loss(r, f) for r, f in zip(real_logits, fake_logits)])
         d_loss.backward()
+        _pmean_grads(state.opt_d.params, mesh)
         state.opt_d.step()
         mark("d_step")
 
@@ -153,13 +161,14 @@ def make_audio_gan_step(config, mesh=None):
         losses["total"].backward()
         disc.requires_grad_(True)
         mark("g_loss_backward")
+        _pmean_grads(state.opt_g.params, mesh)
         state.opt_g.step()
         codec.vq.assign_(new_vq)
         mark("optimizers")
         state.step += 1
         aux = _detached(losses)
         aux["d_loss"] = d_loss.detach()
-        return state, aux, idx
+        return state, _pmean_aux(aux, mesh), idx
 
     return step
 

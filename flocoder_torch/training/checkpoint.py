@@ -41,25 +41,38 @@ a discriminator's flat tree is its flax variables, ``params/…`` and
 ``batch_stats/…`` (``DISC_PREFIXES``, the waveform discriminators' too), and
 the VGG16 features' its ``params/…`` (``VGG_PREFIXES``), ResNet50's its
 ``params/…`` and ``batch_stats/…`` (``RESNET_PREFIXES``).
+
+Sharded checkpoints (``save_checkpoint_sharded`` / ``load_checkpoint_sharded``,
+the JAX package's format): each rank writes ``{prefix}{epoch}.host{rank}.npz``
+holding its FSDP shards as ``<leaf path>@<global shape>@<offsets>``, in the
+flax layout (a torch OIHW shard is written as its HWIO slab, its offsets
+permuted to match), and rank 0 the replicated leaves as ``<leaf path>@r``,
+with ``epoch`` and ``config_json``. ``to_jax_flat_sharded`` and
+``adam_to_jax_flat_sharded`` give a module's and its Adam state's leaves in
+that form (Adam in optax's layout). Either package's loader reassembles the
+other's files onto any world size.
 """
 from __future__ import annotations
 
 import glob
 import json
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..config import config_from_dict, to_dict
+from ..parallel.mesh import full_tensor, shard_like
 
 __all__ = ["checkpoint_payload", "save_checkpoint", "load_checkpoint", "to_jax_flat",
            "load_jax_flat", "adam_to_jax_flat", "load_adam_jax_flat", "UNET_PREFIXES",
            "VQVAE_PREFIXES", "SDVAE_PREFIXES", "DAC_PREFIXES", "DISC_PREFIXES",
            "VGG_PREFIXES", "RESNET_PREFIXES",
-           "MASK_ENCODER_PREFIXES", "OPT_GROUPS", "subtree"]
+           "MASK_ENCODER_PREFIXES", "OPT_GROUPS", "subtree", "ShardPiece",
+           "to_jax_flat_sharded", "adam_to_jax_flat_sharded", "save_checkpoint_sharded",
+           "load_checkpoint_sharded", "FLAX_ORDER"]
 
 _SEP = "/"
 
@@ -125,8 +138,9 @@ def _entries(module: nn.Module, prefixes: dict) -> dict:
 def _to_jax(t: torch.Tensor, kind: str) -> np.ndarray:
     """A copy in flax layout: never a view of the module's memory, which
     an optimizer updates in place. A bf16 tensor (numpy has no bf16) is
-    written widened to float32, exactly; loading casts it back."""
-    t = t.detach().cpu()
+    written widened to float32, exactly; loading casts it back. An FSDP2
+    shard is gathered whole first (a collective: every rank calls)."""
+    t = full_tensor(t).detach().cpu()
     a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     if kind == "conv":
         return np.ascontiguousarray(a.transpose(2, 3, 1, 0))
@@ -224,7 +238,7 @@ def load_adam_jax_flat(module: nn.Module, adam: torch.optim.Adam, flat: dict,
             a = _from_jax(np.asarray(flat[f"1/0/{slot}/{jkey}"]), kind)
             if tuple(a.shape) != tuple(p.shape):
                 raise ValueError(f"shape mismatch for {slot}/{jkey}: {a.shape}")
-            moments[key] = torch.tensor(a, dtype=p.dtype, device=p.device)
+            moments[key] = shard_like(p, torch.tensor(a, dtype=p.dtype))
         adam.state[p] = {"step": torch.tensor(float(count)), **moments}
     return count
 
@@ -286,3 +300,129 @@ def load_checkpoint(path: str) -> dict:
                 head, _, rest = key.partition(_SEP)
                 groups.setdefault(head, {})[rest] = data[key]
     return {**groups, "epoch": epoch, "config": config}
+
+
+# torch dims in flax order, by kind (the transposes of ``_to_jax``)
+FLAX_ORDER = {"conv": (2, 3, 1, 0), "conv1d": (2, 1, 0), "dense": (1, 0)}
+
+
+class ShardPiece(NamedTuple):
+    """One rank's block of a leaf, in the flax layout: its data, the leaf's
+    global shape and the block's offsets."""
+    data: np.ndarray
+    shape: tuple
+    offsets: tuple
+
+
+def _piece(t: torch.Tensor, kind: str):
+    """A leaf of a sharded save: a replicated tensor as its flax-layout
+    array, an FSDP2 shard (a DTensor) as this rank's ``ShardPiece``."""
+    if not hasattr(t, "to_local"):
+        return _to_jax(t, kind)
+    from torch.distributed.tensor import Shard
+    mesh, shape = t.device_mesh, tuple(t.shape)
+    offsets = [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for m, pl in enumerate(t.placements):
+        if isinstance(pl, Shard):
+            offsets[pl.dim] += coord[m] * (shape[pl.dim] // mesh.size(m))
+    order = FLAX_ORDER.get(kind, tuple(range(len(shape))))
+    return ShardPiece(_to_jax(t.to_local(), kind), tuple(shape[d] for d in order),
+                      tuple(offsets[d] for d in order))
+
+
+def to_jax_flat_sharded(module: nn.Module, prefixes: dict) -> dict:
+    """``to_jax_flat`` for a sharded save: ``{jax path: array or
+    ShardPiece}``, this rank's blocks of the FSDP-sharded leaves."""
+    sd = module.state_dict()
+    return {jkey: _piece(sd[tkey], kind)
+            for tkey, (jkey, kind) in _entries(module, prefixes).items()}
+
+
+def adam_to_jax_flat_sharded(module: nn.Module, adam: torch.optim.Adam, step: int,
+                             prefixes: dict) -> dict:
+    """``adam_to_jax_flat`` for a sharded save: a sharded parameter's
+    moments are this rank's blocks, laid out as the parameter's."""
+    entries = _entries(module, prefixes)
+    out = {"1/0/count": np.asarray(step, np.int32),
+           "1/1/count": np.asarray(step, np.int32)}
+    for name, p in module.named_parameters():
+        jkey, kind = entries[name]
+        state = adam.state.get(p, {})
+        for slot, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+            out[f"1/0/{slot}/{jkey}"] = _piece(state.get(key, torch.zeros_like(p)), kind)
+    return out
+
+
+def save_checkpoint_sharded(tree: dict, epoch: int, ckpt_dir: str = "checkpoints",
+                            prefix: str = "flow_", config=None, keep: int = 5,
+                            rank: Optional[int] = None) -> str:
+    """Write this rank's ``{ckpt_dir}/{prefix}{epoch}.host{rank}.npz``:
+    each ``ShardPiece`` of the flat ``tree`` as ``key@shape@offsets``, and
+    on rank 0 each replicated array as ``key@r`` plus ``epoch`` and
+    ``config_json`` (the JAX package's keys; members stored, not deflated).
+    ``rank`` defaults to the process group's (0 outside one). Keeps this
+    rank's newest ``keep`` epochs. Returns the path."""
+    import torch.distributed as dist
+    if rank is None:
+        rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    payload = {}
+    for key, leaf in tree.items():
+        if isinstance(leaf, ShardPiece):
+            shape = ",".join(str(d) for d in leaf.shape)
+            offs = "-".join(str(o) for o in leaf.offsets)
+            payload[f"{key}@{shape}@{offs}"] = np.asarray(leaf.data)
+        elif rank == 0:
+            payload[f"{key}@r"] = np.asarray(leaf)
+    if rank == 0:
+        payload["epoch"] = np.asarray(epoch)
+        if config is not None:
+            payload["config_json"] = np.asarray(json.dumps(to_dict(config)))
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"{prefix}{epoch}.host{rank}.npz")
+    np.savez(path, **payload)
+    files = sorted(glob.glob(os.path.join(ckpt_dir, f"{prefix}*.host{rank}.npz")),
+                   key=os.path.getmtime)
+    for f in files[:-keep]:
+        os.remove(f)
+    return path
+
+
+def load_checkpoint_sharded(ckpt_dir: str, prefix: str, epoch: int) -> dict:
+    """Reassemble ``{prefix}{epoch}.host*.npz`` under ``ckpt_dir``, written
+    by either package on any number of ranks: ``{'state': flat {jax path:
+    full array}, 'epoch': int, 'config': Config or None}``. A block that
+    two files hold is taken from the first."""
+    files = sorted(glob.glob(os.path.join(ckpt_dir, f"{prefix}{epoch}.host*.npz")))
+    if not files:
+        raise FileNotFoundError(f"no {prefix}{epoch}.host*.npz under {ckpt_dir}")
+    flat, parts, config = {}, {}, None
+    for f in files:
+        with np.load(f, allow_pickle=False) as data:
+            for key in data.files:
+                if key == "epoch":
+                    epoch = int(data[key])
+                elif key == "config_json":
+                    config = config_from_dict(json.loads(str(data[key])))
+                else:
+                    leaf, _, tail = key.partition("@")
+                    if tail == "r":
+                        flat[leaf] = data[key]
+                        continue
+                    shape_s, _, offs_s = tail.partition("@")
+                    entry = parts.setdefault(leaf, {
+                        "shape": tuple(int(d) for d in shape_s.split(",") if d),
+                        "blocks": {}})
+                    entry["blocks"].setdefault(
+                        tuple(int(o) for o in offs_s.split("-") if o != ""), data[key])
+    for leaf, entry in parts.items():
+        blocks = entry["blocks"]
+        sample = next(iter(blocks.values()))
+        if not entry["shape"]:
+            flat[leaf] = sample
+            continue
+        full = np.zeros(entry["shape"], dtype=sample.dtype)
+        for offs, block in blocks.items():
+            full[tuple(slice(o, o + n) for o, n in zip(offs, block.shape))] = block
+        flat[leaf] = full
+    return {"state": flat, "epoch": epoch, "config": config}

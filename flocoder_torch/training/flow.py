@@ -37,6 +37,22 @@
   chosen by rank threshold over a random permutation (``draws['otf_perm']``,
   injectable like the other draws); ones become unconditional (mask 1,
   source ``blank_latents``), zeros identity (mask 0, source the target).
+- Data parallelism (``mesh``, ``parallel/mesh.py``): each rank takes its
+  own rows and its own draws (its generator seeded with ``rank_seed``, the
+  JAX key folded with the shard index; draws stay injectable), the CFG
+  gate is batch rank 0's on every rank, OT pairs within the rank's rows,
+  and the gradients and losses are averaged over the batch ranks before
+  the clipped Adam update and the EMA, which then run replicated: the
+  documented function of the JAX shard_map step.
+- FSDP (``fsdp=True`` with ``shard_flow_state``): the model and its EMA
+  are FSDP2 modules (``parallel/mesh.py:shard_state``), and the step
+  computes the one-device function on the global batch: every rank
+  gathers the batch, draws the global noise, times and gate from a
+  generator seeded alike on every rank, pairs the whole batch by OT, and
+  runs the model on its own rows; FSDP2 averages the sharded gradients,
+  the replicated ones (and the mask encoder's) are averaged here, and Adam
+  and the EMA update the shards. Forward-mode derivatives (curvature,
+  MeanFlow) do not pass FSDP2's hooks and are refused with it.
 """
 from __future__ import annotations
 
@@ -48,17 +64,16 @@ import torch
 from torch import nn
 
 from ..ops.ot import compute_ot_pairing, compute_ot_pairing_blocked
+from ..parallel.mesh import (batch_rank, batch_shard_count, broadcast0_, gather_rows,
+                             pmean_, shard_state)
 from ..sampling import warp_time
 from .ema import ema_init, ema_update
-from .vqgan import ClippedAdam
+from .vqgan import ClippedAdam, _is_dtensor
 
 __all__ = ["FlowState", "create_flow_state", "make_flow_optimizer",
            "make_mask_optimizer", "make_flow_grads_fn", "make_flow_train_step",
-           "make_flow_eval_step", "meanflow_target", "draw_flow_inputs", "otf_counts"]
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
+           "make_flow_eval_step", "meanflow_target", "draw_flow_inputs", "otf_counts",
+           "shard_flow_state"]
 
 
 def meanflow_target(model: Callable, x_r, r, t_h, v_star, cond: Optional[dict],
@@ -113,6 +128,25 @@ def create_flow_state(model: nn.Module, learning_rate, grad_clip: float = 1.0,
         state.mask_opt = make_mask_optimizer(mask_encoder, learning_rate)
         state.ema_mask_encoder = ema_init(mask_encoder)
     return state
+
+
+def shard_flow_state(state: FlowState, mesh, min_size: int = 2 ** 14) -> dict:
+    """FSDP-shard a fresh state in place (``parallel/mesh.py:shard_state``,
+    the JAX ``shard_state``): the model and its EMA by the same placement,
+    and the model's optimizer rebuilt on the sharded parameters (its
+    moments then live in the shards). The mask encoder stays replicated.
+    Returns the placement by parameter name; on the degenerate mesh
+    (``None``) the state stays whole and the result is ``None``."""
+    if mesh is None:
+        return None
+    if state.opt.adam.state:
+        raise ValueError("shard_flow_state takes a state before its first step")
+    dims = shard_state(mesh, state.model, min_size)
+    shard_state(mesh, state.ema, min_size)
+    opt = state.opt
+    state.opt = ClippedAdam(state.model.parameters(), opt.schedule or opt.lr,
+                            opt.grad_clip, opt.betas)
+    return dims
 
 
 def otf_counts(otf_aug: dict, step: int, batch: int) -> tuple:
@@ -176,14 +210,15 @@ def make_flow_grads_fn(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 
     'class_cond': (B,) or absent, 'source' (paired_source, inpainting),
     'mask_pixels' (inpainting, with ``mask_encoder``)}``, or ``'pixels'``
     with ``encode_fn``. ``step`` is the optimizer step the OTF curriculum
-    reads."""
+    reads. ``rows``: the draws, the gate and the OT pairing cover the whole
+    batch, and the model's loss only these rows (the FSDP step's share)."""
     if model_apply is None:
         model_apply = lambda m, x, t, c: m(x, t, c)  # noqa: E731
 
     def grads_fn(model: nn.Module, batch: dict, drop, draws: Optional[dict] = None,
                  generator: Optional[torch.Generator] = None,
                  loss_scale: float = 1.0, mask_encoder: Optional[nn.Module] = None,
-                 step: int = 0) -> dict:
+                 step: int = 0, rows: Optional[slice] = None) -> dict:
         if encode_fn is not None and "pixels" in batch:
             with torch.no_grad():
                 target = encode_fn(batch["pixels"])
@@ -233,6 +268,12 @@ def make_flow_grads_fn(eps: float = 1e-3, warp_s: float = 0.5, t_scale: float = 
             target = target[idx]
             if class_cond is not None:
                 class_cond = class_cond[idx]
+        if rows is not None:
+            source, target, t = source[rows], target[rows], t[rows]
+            class_cond = class_cond[rows] if class_cond is not None else None
+            mask = mask[rows] if mask is not None else None
+            draws = {k: v[rows] if k in ("r_uniform", "sel_uniform") else v
+                     for k, v in draws.items()}
         v_star = target - source
         cond = {"class_cond": class_cond, "mask_cond": mask}
 
@@ -300,7 +341,7 @@ def make_flow_train_step(cfg_dropout: float = 0.1, eps: float = 1e-3,
                          mask_identity_weight: float = 1.0,
                          blank_latents: Optional[torch.Tensor] = None,
                          otf_aug: Optional[dict] = None, mesh=None,
-                         model_apply: Optional[Callable] = None):
+                         model_apply: Optional[Callable] = None, fsdp: bool = False):
     """``step(state, batch, generator, draws=None, drop=None) -> (state,
     aux)``, updating ``state`` in place: the gradients (over ``grad_accum``
     microbatches), the clipped Adam updates of the model's group and, when
@@ -308,14 +349,25 @@ def make_flow_train_step(cfg_dropout: float = 0.1, eps: float = 1e-3,
     a list of one dict per microbatch; ``drop`` overrides the gate. ``aux``
     holds device scalars: the losses (the microbatches' mean),
     ``grad_norm`` (the global norm over both groups before clipping) and,
-    with the parallel OT method, ``ot_rounds``."""
-    if mesh is not None:
-        _not_ported("data-parallel and sharded flow training")
+    with the parallel OT method, ``ot_rounds``.
+
+    ``mesh`` (``parallel/mesh.py``): ``batch`` is this rank's rows and the
+    step is data-parallel (per-rank ``generator`` and ``draws``), or with
+    ``fsdp`` (a state sharded by ``shard_flow_state``; a world of one rank
+    too) the FSDP step, whose ``generator`` and ``draws`` are global and
+    alike on every rank. Every rank must call. Without a mesh, ``fsdp`` is
+    the one-device step."""
     if meanflow and curvature_weight:
         raise ValueError("meanflow mode does not combine with curvature_weight "
                          "or the inpainting mask path")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    fsdp = fsdp and mesh is not None    # on the degenerate mesh, the plain step
+    if fsdp and (meanflow or curvature_weight):
+        raise ValueError("flow.fsdp does not combine with flow.meanflow or "
+                         "flow.curvature_weight: forward-mode derivatives do not "
+                         "pass FSDP2's hooks")
+    dp = mesh if (not fsdp and batch_shard_count(mesh) > 1) else None
     grads_fn = make_flow_grads_fn(
         eps=eps, warp_s=warp_s, t_scale=t_scale, use_ot=use_ot, encode_fn=encode_fn,
         ot_method=ot_method, ot_block=ot_block, paired_source=paired_source,
@@ -332,6 +384,10 @@ def make_flow_train_step(cfg_dropout: float = 0.1, eps: float = 1e-3,
         if drop is None:
             drop = torch.rand((), generator=generator,
                               device=generator.device) < cfg_dropout
+            if dp is not None or fsdp:
+                drop = broadcast0_(drop, mesh)      # one gate for the global batch
+        if fsdp:
+            batch = {k: gather_rows(v, mesh) for k, v in batch.items()}
         state.opt.zero_grad()
         if state.mask_opt is not None:
             state.mask_opt.zero_grad()
@@ -340,12 +396,27 @@ def make_flow_train_step(cfg_dropout: float = 0.1, eps: float = 1e-3,
             raise ValueError(f"batch size {lead} is not divisible by "
                              f"grad_accum={grad_accum}")
         n = lead // grad_accum
+        rows = None
+        if fsdp:
+            shards = batch_shard_count(mesh)
+            if n % shards:
+                raise ValueError(f"microbatch {n} does not split over {shards} ranks")
+            r, per = batch_rank(mesh), n // shards
+            rows = slice(r * per, (r + 1) * per)
         auxs = [grads_fn(state.model, _slice(batch, i, n) if grad_accum > 1 else batch,
                          drop, draws[i] if draws is not None else None, generator,
                          1.0 / grad_accum, mask_encoder=state.mask_encoder,
-                         step=state.step)
+                         step=state.step, rows=rows)
                 for i in range(grad_accum)]
         aux = {k: sum(a[k] for a in auxs) / grad_accum for k in auxs[0]}
+        sync = dp if dp is not None else (mesh if fsdp else None)
+        if sync is not None:
+            # FSDP2 averages the sharded gradients; the rest are averaged here
+            pmean_([p.grad for p in state.model.parameters() if not _is_dtensor(p)]
+                   + [p.grad for p in (state.mask_encoder.parameters()
+                                       if state.mask_encoder is not None else ())], sync)
+            aux = {k: v.detach().float().clone() for k, v in aux.items()}
+            pmean_(list(aux.values()), sync)
         norm = state.opt.step(state.step)
         if state.mask_opt is not None:
             norm = torch.sqrt(norm ** 2 + state.mask_opt.step(state.step) ** 2)

@@ -29,8 +29,15 @@ the GAN step and the eval step.
   (the JAX package's simultaneous update); at ``grad_accum=1`` the step is
   the alternating one above.
 - ``deterministic=True`` turns dropout and NoiseInjection off (parity tests
-  only). Data and tensor parallelism are not ported yet (ROADMAP.md) and
-  raise.
+  only). The steps pass their ``**draws`` (the RVQ's injected
+  ``kmeans_seeds``/``reseed_picks``) to the codec.
+- Data parallelism (``mesh``, ``parallel/mesh.py``; the JAX ``_mesh_wrap``):
+  each rank steps on its own rows of the batch; the discriminator's and
+  the codec's gradients, the discriminator's power-iteration vectors and
+  the reported losses are averaged over the batch ranks before the
+  updates, the RVQ statistics summed (``ops/rvq.py``), and the indices
+  returned are the rank's own. ``grad_accum`` splits each rank's rows.
+  Tensor parallelism is the model axis (ROADMAP.md item 13b).
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from ..metrics import (compute_vqgan_losses, get_total_vqgan_loss,
                        hinge_d_loss, lecam_loss)
 from ..models.layers import weak
 from ..models.discriminator import make_disc_apply
+from ..parallel.mesh import batch_shard_count, pmean_, sharded_sq_norm
 
 __all__ = ["ClippedAdam", "VQGANState", "create_vqgan_state",
            "make_vqgan_optimizers", "make_vqgan_warmup_step",
@@ -83,8 +91,14 @@ class ClippedAdam:
         self.lr = 0.0 if callable(lr) else lr
         self.narrow = [p for p in self.params if p.dtype not in _WIDE]
         self.narrow_state: dict = {}
+        # FSDP2's sharded parameters (DTensors) take the per-tensor Adam:
+        # torch's foreach kernels refuse a list mixing them with tensors
+        self.sharded = any(_is_dtensor(p) for p in self.params)
+        if self.sharded and self.narrow:
+            raise ValueError("a sharded optimizer steps fp32 parameters only")
         self.adam = torch.optim.Adam([p for p in self.params if p.dtype in _WIDE],
-                                     lr=self.lr, betas=self.betas, eps=self.eps)
+                                     lr=self.lr, betas=self.betas, eps=self.eps,
+                                     foreach=False if self.sharded else None)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -104,8 +118,12 @@ class ClippedAdam:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         wide = [p.grad for p in self.adam.param_groups[0]["params"]]
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g) for g in wide]))
+        if self.sharded:
+            norm = _sharded_norm(wide)
+            wide = [g.to_local() if _is_dtensor(g) else g for g in wide]
+        else:
+            norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g) for g in wide]))
         if self.narrow:
             # optax's global norm: each leaf's sum of squares in its dtype
             norm = torch.sqrt(norm.square() + sum(
@@ -143,6 +161,24 @@ class ClippedAdam:
         st["exp_avg"], st["exp_avg_sq"] = mu, nu
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _sharded_norm(grads: list) -> torch.Tensor:
+    """The global norm of gradients some of which are FSDP2 shards: the
+    shards' squares summed over their mesh (a collective), the replicated
+    ones' added once."""
+    sq = [torch.linalg.vector_norm(g) ** 2 for g in grads if not _is_dtensor(g)]
+    shards = [g for g in grads if _is_dtensor(g)]
+    total = torch.stack(sq).sum() if sq else None
+    if shards:
+        part = sharded_sq_norm(shards)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
 def g_trainable(codec: nn.Module) -> list:
     """The encoder's and decoder's parameters; the RVQ state is buffers."""
     return [*codec.encoder.parameters(), *codec.decoder.parameters()]
@@ -173,12 +209,28 @@ def create_vqgan_state(codec, disc, learning_rate: float, **kw) -> VQGANState:
     return VQGANState(codec=codec, opt_g=opt_g, disc=disc, opt_d=opt_d)
 
 
-def _not_ported(config, mesh, grad_accum: int) -> None:
-    if mesh is not None:
-        raise NotImplementedError("data- and tensor-parallel codec training is "
-                                  "not ported yet (ROADMAP.md)")
+def _check_accum(grad_accum: int) -> None:
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+
+
+def _dp(mesh):
+    """The mesh when it splits the batch, else None."""
+    return mesh if batch_shard_count(mesh) > 1 else None
+
+
+def _pmean_grads(params, mesh) -> None:
+    """Average the gradients of ``params`` over the batch ranks."""
+    if mesh is not None:
+        pmean_([p.grad for p in params], mesh)
+
+
+def _pmean_aux(aux: dict, mesh) -> dict:
+    if mesh is None:
+        return aux
+    aux = {k: v.detach().clone() for k, v in aux.items()}
+    pmean_(list(aux.values()), mesh)
+    return aux
 
 
 def _micro(batch, grad_accum: int) -> list:
@@ -201,17 +253,20 @@ def _aux(losses: dict, total) -> dict:
 def make_vqgan_warmup_step(config, perceptual_fn: Optional[Callable] = None,
                            mesh=None, grad_accum: int = 1,
                            deterministic: bool = False):
-    """Reconstruction-only phase: ``step(state, batch, generator) ->
-    (state, aux, indices)``; ``state`` is updated in place."""
-    _not_ported(config, mesh, grad_accum)
+    """Reconstruction-only phase: ``step(state, batch, generator, **draws)
+    -> (state, aux, indices)``; ``state`` is updated in place. With a
+    ``mesh``, ``batch`` is this rank's rows."""
+    _check_accum(grad_accum)
+    mesh = _dp(mesh)
 
-    def step(state: VQGANState, batch, generator):
+    def step(state: VQGANState, batch, generator, **draws):
         codec = state.codec
         state.opt_g.zero_grad()
         auxs, idxs = [], []
         for sub in _micro(batch, grad_accum):
             recon, commit, idx, new_vq = codec(sub, train=True, generator=generator,
-                                               deterministic=deterministic)
+                                               deterministic=deterministic, mesh=mesh,
+                                               **draws)
             losses = compute_vqgan_losses(recon, sub, commit, config,
                                           perceptual_fn=perceptual_fn)
             total = get_total_vqgan_loss(losses, config)
@@ -219,9 +274,10 @@ def make_vqgan_warmup_step(config, perceptual_fn: Optional[Callable] = None,
             codec.vq.assign_(new_vq)
             auxs.append(_aux(losses, total))
             idxs.append(idx)
+        _pmean_grads(state.opt_g.params, mesh)
         state.opt_g.step()
         state.step += 1
-        return state, _mean_aux(auxs), torch.cat(idxs)
+        return state, _pmean_aux(_mean_aux(auxs), mesh), torch.cat(idxs)
 
     return step
 
@@ -235,19 +291,29 @@ def make_vqgan_gan_step(config, perceptual_fn: Optional[Callable] = None,
     features as the feature-matching targets instead of a second real
     forward through the updated discriminator. ``mark(name)``, when given,
     is called after each part of the step ("codec_forward", "d_step",
-    "g_loss_backward", "optimizers"), for a breakdown of its time."""
-    _not_ported(config, mesh, grad_accum)
+    "g_loss_backward", "optimizers"), for a breakdown of its time. With a
+    ``mesh``, ``batch`` is this rank's rows."""
+    _check_accum(grad_accum)
+    mesh = _dp(mesh)
     share_real_features = bool(config.codec.get("share_real_features", False))
 
-    def step(state: VQGANState, batch, generator, mark=None):
+    def sync_disc(disc, opt_d) -> None:
+        """The discriminator's gradients and power-iteration vectors,
+        averaged over the batch ranks (the vectors agree already: they
+        follow the replicated weights alone)."""
+        if mesh is not None:
+            _pmean_grads(opt_d.params, mesh)
+            pmean_([b for b in disc.buffers() if b.is_floating_point()], mesh)
+
+    def step(state: VQGANState, batch, generator, mark=None, **draws):
         if grad_accum > 1:
-            return accum_step(state, batch, generator)
+            return accum_step(state, batch, generator, **draws)
         mark = mark or (lambda name: None)
         codec, disc = state.codec, state.disc
         state.opt_g.zero_grad()
         state.opt_d.zero_grad()
         recon, commit, idx, new_vq = codec(batch, train=True, generator=generator,
-                                           deterministic=deterministic)
+                                           deterministic=deterministic, mesh=mesh, **draws)
         mark("codec_forward")
 
         # discriminator step, power iterations advancing: real, then fake
@@ -257,6 +323,7 @@ def make_vqgan_gan_step(config, perceptual_fn: Optional[Callable] = None,
         if lecam_weight > 0:
             d_loss = d_loss + lecam_loss(real_pred, fake_pred, lecam_weight)
         d_loss.backward()
+        sync_disc(disc, state.opt_d)
         state.opt_d.step()
         mark("d_step")
 
@@ -272,15 +339,16 @@ def make_vqgan_gan_step(config, perceptual_fn: Optional[Callable] = None,
         total.backward()
         disc.requires_grad_(True)
         mark("g_loss_backward")
+        _pmean_grads(state.opt_g.params, mesh)
         state.opt_g.step()
         codec.vq.assign_(new_vq)
         mark("optimizers")
         state.step += 1
         aux = _aux(losses, total)
         aux["d_loss"] = d_loss.detach()
-        return state, aux, idx
+        return state, _pmean_aux(aux, mesh), idx
 
-    def accum_step(state: VQGANState, batch, generator):
+    def accum_step(state: VQGANState, batch, generator, **draws):
         """Simultaneous update over microbatches: every slice's D and G
         gradients against the discriminator's weights before the update."""
         codec, disc = state.codec, state.disc
@@ -289,7 +357,8 @@ def make_vqgan_gan_step(config, perceptual_fn: Optional[Callable] = None,
         auxs, idxs = [], []
         for sub in _micro(batch, grad_accum):
             recon, commit, idx, new_vq = codec(sub, train=True, generator=generator,
-                                               deterministic=deterministic)
+                                               deterministic=deterministic, mesh=mesh,
+                                               **draws)
             real_pred, real_features = disc(sub, update_stats=True)
             fake_pred, _ = disc(recon.detach(), update_stats=True)
             d_loss = hinge_d_loss(real_pred, fake_pred)
@@ -311,10 +380,12 @@ def make_vqgan_gan_step(config, perceptual_fn: Optional[Callable] = None,
             aux["d_loss"] = d_loss.detach()
             auxs.append(aux)
             idxs.append(idx)
+        sync_disc(disc, state.opt_d)
+        _pmean_grads(state.opt_g.params, mesh)
         state.opt_d.step()
         state.opt_g.step()
         state.step += 1
-        return state, _mean_aux(auxs), torch.cat(idxs)
+        return state, _pmean_aux(_mean_aux(auxs), mesh), torch.cat(idxs)
 
     return step
 

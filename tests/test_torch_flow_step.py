@@ -179,11 +179,19 @@ def test_batch_size_schedule_matches_jax_exactly(kw):
 
 
 def test_not_ported_options_raise():
-    """Meshes wait for ROADMAP.md; MeanFlow refuses curvature and, as in the
+    """The data-parallel and FSDP steps are ported
+    (tests/test_torch_parallel_flow*.py); without a mesh ``fsdp`` builds
+    the one-device step, with one it refuses forward-mode derivatives, and
+    the model axis still raises, naming ROADMAP item 13b. MeanFlow refuses
+    curvature and, as in the
     JAX package, the inpainting mask path (the mask encoder and OTF
     augmentation themselves are ported: tests/test_torch_flow_inpaint_step.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tflow.make_flow_train_step(mesh=object())
+    from flocoder_torch.parallel import mesh as pmesh
+    with pytest.raises(NotImplementedError, match="ROADMAP.*13b"):
+        pmesh.make_mesh(n_model=2)
+    assert callable(tflow.make_flow_train_step(fsdp=True, curvature_weight=0.1))
+    with pytest.raises(ValueError, match="forward-mode"):
+        tflow.make_flow_train_step(mesh=object(), fsdp=True, curvature_weight=0.1)
     with pytest.raises(ValueError):
         tflow.make_flow_train_step(meanflow=True, curvature_weight=0.1)
     lin = torch.nn.Linear(1, 1)

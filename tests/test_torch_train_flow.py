@@ -161,7 +161,24 @@ def test_unported_options_raise(trained, override, tmp_path):
     smoke data lacks; tests/test_torch_audio_slice.py trains it on audio
     latents. Reflow (``+flow.reflow=true``) trains too, on the pairs of
     ``make_reflow_pairs`` (tests/test_torch_reflow_train.py): on the smoke
-    latents, which hold no sources, it exits as the JAX script does."""
+    latents, which hold no sources, it exits as the JAX script does. FSDP
+    (``flow.fsdp=true``) and sharded checkpoints run since too: in one
+    process (the degenerate mesh) the FSDP flag trains the one-device step,
+    as the JAX script on one device does, and the sharded checkpoint is one
+    ``flow_1.host0.npz`` that the JAX loader reassembles
+    (tests/test_torch_parallel_*.py run them on several ranks)."""
+    if override in ("flow.fsdp=true", "+flow.sharded_checkpoints=true"):
+        from flocoder_tpu.training.checkpoint import load_checkpoint_sharded
+        res = tf.main(_argv(trained["data"], tmp_path, "flow.epochs=1", "flow.ckpt_every=1",
+                            "flow.no_eval=true", override))
+        (ep,) = res["epochs"]
+        assert np.isfinite(ep["loss"]) and res["ranks"] == 1 and not res["fsdp"]
+        if override == "+flow.sharded_checkpoints=true":
+            assert os.path.basename(res["checkpoint"]) == "flow_1.host0.npz"
+            assert res["ema_checkpoint"] is None
+            ck = load_checkpoint_sharded(os.path.dirname(res["checkpoint"]), "flow_", 1)
+            assert set(ck["state"]) == {"params", "opt_state", "ema"} and ck["epoch"] == 1
+        return
     if override == "+flow.reflow=true":
         with pytest.raises(SystemExit, match="source_latents"):
             tf.main(_argv(f"{trained['data']}_encoded_resize", tmp_path, "flow.epochs=1",
