@@ -376,6 +376,34 @@
    seconds. A rank that fails makes the join raise and the script exit
    non-zero.
 
+34. ring (last): the model axis's ring attention
+   (flocoder_torch/parallel/ring_attention.py) on two ranks of the one
+   card, a 1×2 mesh of the model axis, started as step 33's (gloo, CUDA
+   tensors; the ring's hops staged through host memory, as gloo's
+   point-to-point calls take CPU tensors only). Each rank: the ring op
+   (S = 2) at HDiT's global shape (B=256, 16 tokens, 8 heads of 64) and at
+   the VQGAN decoder's non-local shape (B=64, 256 tokens, one head, q and k
+   of width 2, v of width 4), fp32 and bf16, its forward and the gradients
+   of sum(out·w) for q, k, v against plain attention on the same inputs
+   (fp32, TF32 off: 1e-5 and 1e-4·max(1, |ref|); bf16 2e-2·max(1, |ref|)),
+   two hops a forward and two a backward; flowers_hdit's NA variant at full
+   width (the recipe's bf16) and flowers_vqgan's U-Net (fp32), a step each
+   through the ring twin (models/flow_model.py:ring_twin), timed by CUDA
+   events beside one process's plain step; one fp32 ring step of each, TF32
+   off, its parameter changes and Adam's first moments each tensor within
+   1e-4 of its own largest |ref| of one process's plain step on the same
+   batch and draws (a change also within fp32's spacing at its parameter
+   and what Adam's first update, lr·g/(|g| + ε), makes of the two held
+   gradients: _ring_hold), the two model replicas' parameters, moments and
+   EMA equal bit for bit; K1 and K2 4 a step on each rank, as one
+   process's.
+   Once the ranks' steps are timed, train_flow under torchrun --standalone
+   --nproc_per_node=2 with flow.n_model=2 flow.ring_attention=true on
+   flowers_hdit's NA variant (1 epoch of 4 steps on step 14's latents, no
+   evaluation) starts beside the holds; its EMA checkpoint is then served
+   by generate_samples here (64 samples, RK4 over 20 grid points, K1 4·76
+   times, exactly).
+
 Prints a ``{"kernels": [...]}`` JSON line, the card line, and as its last
 line ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
 that line. Imports nothing of JAX or of flocoder_tpu.
@@ -5894,6 +5922,448 @@ def dp_phase(tmp: str, paths: dict, pe_data: str, root: str, card: str,
     return rec, launches, nccl
 
 
+# ---------------------------------------------------------------------------
+# The model axis: ring attention (step 34)
+# ---------------------------------------------------------------------------
+
+RING_RANKS = 2
+# the ring op's shapes: HDiT's global level (flowers_hdit's NA variant: 4×4
+# tokens, 8 heads of 64, B=256) and the VQGAN decoder's non-local attention
+# (16×16 latents, one head, q and k of width 2, v of width 4, a decode's B=64)
+RING_OP_SHAPES = {"hdit_global": (256, 16, 8, 64, 64), "decoder_nonlocal": (64, 256, 1, 2, 4)}
+
+
+def ring_job(tmp: str, paths: dict, pe_data: str) -> dict:
+    """The ring phase's inputs, written to ``<tmp>/ring/job.pt`` for the
+    ranks: flowers_hdit's NA variant at full width with seeded weights,
+    every parameter perturbed so that the zero-init projections carry
+    signal, 256 of sd_preencode's latents and their draws; flowers_vqgan's
+    class-conditional U-Net (the serving checkpoint) and 256 of the
+    pre-encode phase's latents with theirs."""
+    from flocoder_torch.config import load_config
+    from flocoder_torch.generate_samples import CONFIG_DIR
+    from flocoder_torch.models.flow_model import build_flow_model
+    from flocoder_torch.models.layers import init_params
+    from flocoder_torch.models.unet import Unet
+    from flocoder_torch.training.checkpoint import (UNET_PREFIXES, load_checkpoint,
+                                                    load_jax_flat, subtree)
+
+    d = os.path.join(tmp, "ring")
+    os.makedirs(d, exist_ok=True)
+    cfg = load_config("flowers_hdit.yaml", CONFIG_DIR, HDIT_NA)
+    hdit = init_params(build_flow_model(cfg, 4, 102), torch.Generator().manual_seed(30))
+    g = torch.Generator().manual_seed(31)
+    with torch.no_grad():
+        for p in hdit.parameters():
+            p.add_(0.02 * torch.randn(p.shape, generator=g))
+    unet = Unet(dim=16, channels=4, dim_mults=(1, 2, 4, 8), n_classes=102)
+    load_jax_flat(unet, subtree(load_checkpoint(paths["cfg"])["model_state_dict"], "model/"),
+                  UNET_PREFIXES)
+    job = {"out": d, "hdit": hdit.state_dict(), "unet": unet.state_dict()}
+    for name, split in (("hdit", "sd"), ("unet", "vqgan")):
+        batch = {k: v.cpu() for k, v in _flow_batch(
+            os.path.join(f"{pe_data}_encoded_{split}", "train")).items()}
+        shape, n = tuple(batch["target"].shape), batch["target"].shape[0]
+        job[f"{name}_batch"] = batch
+        job[f"{name}_draws"] = {"noise": torch.randn(shape, generator=g),
+                                "t_uniform": torch.rand(n, generator=g),
+                                "cfg_noise": torch.randn(shape, generator=g)}
+    torch.save(job, os.path.join(d, "job.pt"))
+    return job
+
+
+def _ring_hold(ours: dict, ref: dict, after: dict, lr: float = 1e-4) -> dict:
+    """A ring step's parameter changes and Adam's first moments (tensors on
+    the card by name; ``after``: the reference's parameters after its step)
+    against one process's: every moment within 1e-4 of its tensor's largest
+    |μ_ref|, every change within 1e-4 of its tensor's largest |Δ_ref| plus
+    two allowances that the held moments fix. (1) fp32's spacing at the
+    parameter: a change is measured as the difference of two fp32
+    parameters, which rounds each update to the parameter's ulp. (2) What
+    Adam's first update, lr·g/(|g| + ε) with g = μ/(1 − β1), makes of the
+    two gradients: near ε = 1e-8 it turns their last bits into a share of
+    lr, and at a gradient of fp32's noise floor it may flip the sign.
+    Returns the worst tensor of each by err/tol and the count of changes
+    that needed an allowance."""
+    from flocoder_torch.training.vqgan import ClippedAdam
+    eps, b1 = ClippedAdam.eps, 0.9      # the flow optimizer's ε and β1
+
+    def adam(mu):
+        g = mu.double() / (1 - b1)
+        return g / (g.abs() + eps)
+
+    out, allowed = {}, 0
+    for what in ("delta", "mu"):
+        worst = ("", 0.0, 1.0)
+        for k, r in ref[what].items():
+            diff = (ours[what][k].double() - r.double()).abs()
+            tol = 1e-4 * float(r.abs().max()) or 1e-30
+            if what == "delta":
+                a = after[k].detach().abs()
+                spacing = (torch.nextafter(a, torch.full_like(a, float("inf"))) - a).double()
+                extra = spacing + 1.01 * lr * (adam(ours["mu"][k]) - adam(ref["mu"][k])).abs()
+                allowed += int((diff > tol).sum())
+                diff = (diff - extra).clamp_min(0.0)
+            err = float(diff.max()) if diff.numel() else 0.0
+            if not np.isfinite(err) or err / tol > worst[1] / worst[2]:
+                worst = (k, err, tol)
+        out[what] = worst
+    out["allowed"] = allowed
+    return out
+
+
+def ring_rank(rank: int, world: int, root: str, job_path: str, port: int) -> None:
+    """One rank of the ring phase on cuda:0, in the world torchrun's
+    variables describe (rendezvous on localhost:``port``; gloo, as two ranks
+    share the card), a 1×2 mesh of the model axis. In order: the ring op at
+    RING_OP_SHAPES, fp32 and bf16, against plain attention on the same
+    inputs (each rank holds its own) and timed; flowers_hdit's bf16 step
+    (the recipe) with the ring twin, timed, and flowers_vqgan's fp32 U-Net
+    step (its recipe) with the ring at the bottleneck, timed; then, TF32
+    off, one fp32 ring step of each, its state checksummed on both ranks.
+    Rank 0 computes one process's references in turn (the other rank idle):
+    plain attention timed, the plain steps timed, and the fp32 plain steps
+    it holds the ring steps to. Launch counts a part, zeroed before and read
+    after. Writes its record beside the job."""
+    import faulthandler
+    import torch.distributed as dist
+    t_rank = time.time()
+    faulthandler.enable()
+    sys.path.insert(0, root)
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    from flocoder_torch.parallel import mesh as pm
+    if pm.maybe_init_distributed() != torch.device("cuda:0") or dist.get_backend() != "gloo":
+        raise RuntimeError(f"ring rank {rank}: {dist.get_backend()} world, not gloo on cuda:0")
+    from flocoder_torch.config import load_config
+    from flocoder_torch.generate_samples import CONFIG_DIR
+    from flocoder_torch.models.flow_model import build_flow_model, ring_twin
+    from flocoder_torch.models.unet import Unet
+    from flocoder_torch.ops.kernels.na2d import na2d_bwd, na2d_fwd
+    from flocoder_torch.parallel import ring_attention as ra
+    from flocoder_torch.training.flow import create_flow_state, make_flow_train_step
+
+    kernels = {"na2d_fwd": na2d_fwd, "na2d_bwd": na2d_bwd}
+    for k in kernels.values():
+        k.build()                       # the libraries the parent built: loaded
+    job = torch.load(job_path, weights_only=False)
+    mesh = pm.make_mesh(n_model=world, device="cuda")
+    rec = {"rank": rank, "layout": [list(mesh.get_coordinate()), pm.batch_rank(mesh),
+                                    pm.model_rank(pm.model_group(mesh))],
+           "transport": dist.get_backend(pm.model_group(mesh)), "op": {}, "steps": {}}
+    cfg = load_config("flowers_hdit.yaml", CONFIG_DIR, HDIT_NA)
+    drop = torch.tensor(False, device="cuda")
+
+    def replicated(tensors: dict) -> list:
+        """The names of the tensors that differ between the ranks."""
+        sums = [None] * world
+        dist.all_gather_object(sums, _checksums(tensors))
+        return sorted(k for k in sums[0] if any(s[k] != sums[0][k] for s in sums))
+
+    # the op: each rank holds the ring against plain attention on the same inputs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, (b, n, h, d, dv) in RING_OP_SHAPES.items():
+        for dt in (torch.float32, torch.bfloat16):
+            g = torch.Generator("cuda").manual_seed(40)
+            q, k = (torch.randn(b, n, h, d, generator=g, device="cuda") for _ in range(2))
+            v, w = (torch.randn(b, n, h, dv, generator=g, device="cuda") for _ in range(2))
+            res = {}
+            for how in ("ring", "plain"):
+                leaves = [t.detach().to(dt, copy=True).requires_grad_(True) for t in (q, k, v)]
+                ra.reset_hops()
+                out = (ra.ring_attention_replicated(*leaves, world) if how == "ring"
+                       else ra._plain_attention(*leaves))
+                (out.float() * w).sum().backward()
+                res[how] = (out.detach().float(), [t.grad.float() for t in leaves],
+                            [ra.HOPS["forward"], ra.HOPS["backward"]])
+            (o, gr, hops), (o_ref, g_ref, _) = res["ring"], res["plain"]
+            rel = lambda a, r: float((a - r).abs().max()) / max(1.0, float(r.abs().max()))  # noqa: E731
+            errs = {"out": rel(o, o_ref), "dq": rel(gr[0], g_ref[0]), "dk": rel(gr[1], g_ref[1]),
+                    "dv": rel(gr[2], g_ref[2])}
+            tols = ({"out": 1e-5, "dq": 1e-4, "dk": 1e-4, "dv": 1e-4} if dt == torch.float32
+                    else dict.fromkeys(errs, 2e-2))
+            leaves = [t.detach().to(dt, copy=True).requires_grad_(True) for t in (q, k, v)]
+
+            def call(fn=ra.ring_attention_replicated):
+                (fn(*leaves, world).float() * w).sum().backward()
+
+            call()
+            rec["op"][f"{name}_{str(dt)[6:]}"] = {"errs": errs, "tols": tols, "hops": hops,
+                                                 "ms": _step_ms(call)}
+            del res, leaves
+    torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:       # one process's plain attention, the other rank idle
+        for name, (b, n, h, d, dv) in RING_OP_SHAPES.items():
+            for dt in (torch.float32, torch.bfloat16):
+                g = torch.Generator("cuda").manual_seed(40)
+                q, k = (torch.randn(b, n, h, d, generator=g, device="cuda") for _ in range(2))
+                v, w = (torch.randn(b, n, h, dv, generator=g, device="cuda") for _ in range(2))
+                leaves = [t.detach().to(dt, copy=True).requires_grad_(True) for t in (q, k, v)]
+
+                def plain():
+                    (ra._plain_attention(*leaves).float() * w).sum().backward()
+
+                plain()
+                rec["op"][f"{name}_{str(dt)[6:]}"]["plain_ms"] = _step_ms(plain)
+    dist.barrier()
+
+    def models(kind, dtype):
+        if kind == "hdit":
+            m = build_flow_model(cfg, 4, 102, dtype=dtype).cuda()
+        else:
+            m = Unet(dim=16, channels=4, dim_mults=(1, 2, 4, 8), n_classes=102).cuda()
+        m.load_state_dict({k: v.cuda() for k, v in job[kind].items()})
+        return m
+
+    def batch_of(kind, dtype=torch.float32):
+        return ({k: (v.cuda().to(dtype) if v.is_floating_point() else v.cuda())
+                 for k, v in job[f"{kind}_batch"].items()},
+                [{k: v.cuda().to(dtype) for k, v in job[f"{kind}_draws"].items()}])
+
+    def ring_step(kind, dtype):
+        model = models(kind, dtype)
+        twin = ring_twin(model, world)
+        state = create_flow_state(model, 1e-4)
+        return state, make_flow_train_step(mesh=mesh,
+                                           model_apply=lambda m, x, t, c: twin(x, t, c))
+
+    # the recipes' steps timed: flowers_hdit's in bf16, flowers_vqgan's U-Net in fp32
+    print(f"ring rank {rank}: timed steps at {time.time() - t_rank:.1f} s", flush=True)
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's default, as the parent's
+    for kind, dtype in (("hdit", torch.bfloat16), ("unet", torch.float32)):
+        state, step = ring_step(kind, dtype)
+        batch, draws = batch_of(kind)
+        _zero(kernels)
+        step(state, batch, None, draws=draws, drop=drop)
+        ms = _step_ms(lambda: step(state, batch, None, draws=draws, drop=drop))
+        rec["steps"][kind] = {"ms": ms, "launches_timed": _counts(kernels)}
+        del state, step
+        torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:
+        for kind, dtype in (("hdit", torch.bfloat16), ("unet", torch.float32)):
+            st = create_flow_state(models(kind, dtype), 1e-4)
+            one = make_flow_train_step()
+            batch, draws = batch_of(kind)
+            _zero(kernels)
+            one(st, batch, None, draws=draws, drop=drop)
+            rec["steps"][kind].update(
+                one_process_ms=_step_ms(lambda: one(st, batch, None, draws=draws, drop=drop)),
+                one_process_launches=_counts(kernels))
+            del st
+            torch.cuda.empty_cache()
+    dist.barrier()
+    if rank == 0:       # the parent starts train_flow under torchrun beside the holds
+        open(os.path.join(job["out"], "steps_timed"), "w").close()
+
+    # one fp32 step of each, TF32 off, held against one process's
+    print(f"ring rank {rank}: fp32 holds at {time.time() - t_rank:.1f} s", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    for kind in ("hdit", "unet"):
+        state, step = ring_step(kind, torch.float32)
+        batch, draws = batch_of(kind)
+        before = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        _zero(kernels)
+        _, aux = step(state, batch, None, draws=draws, drop=drop)
+        torch.cuda.synchronize()
+        r = rec["steps"][kind]
+        r["launches_fp32"] = _counts(kernels)
+        r["loss"] = float(aux["loss"])
+        mine = {"delta": {n: p.detach() - before[n] for n, p in state.model.named_parameters()},
+                "mu": {n: state.opt.adam.state[p]["exp_avg"].clone()
+                       for n, p in state.model.named_parameters()}}
+        r["replicas_differ"] = replicated(
+            {**{f"p.{n}": p.detach() for n, p in state.model.named_parameters()},
+             **{f"mu.{n}": t for n, t in mine["mu"].items()},
+             **{f"ema.{n}": p.detach() for n, p in state.ema.named_parameters()}})
+        del state, step
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            st = create_flow_state(models(kind, torch.float32), 1e-4)
+            _zero(kernels)
+            _, ref_aux = make_flow_train_step()(st, batch, None, draws=draws, drop=drop)
+            torch.cuda.synchronize()
+            r["one_process_launches_fp32"] = _counts(kernels)
+            r["ref_loss"] = float(ref_aux["loss"])
+            ref = {"delta": {n: p.detach() - before[n] for n, p in st.model.named_parameters()},
+                   "mu": {n: st.opt.adam.state[p]["exp_avg"] for n, p in
+                          st.model.named_parameters()}}
+            r["hold"] = _ring_hold(mine, ref, dict(st.model.named_parameters()))
+            del st, ref
+        del mine, before
+        torch.cuda.empty_cache()
+        dist.barrier()
+    rec["seconds"] = time.time() - t_rank
+    dist.destroy_process_group()
+    torch.save(rec, os.path.join(os.path.dirname(job_path), f"rank{rank}.pt"))
+
+
+def ring_torchrun(root: str, pe_data: str) -> dict:
+    """Starts train_flow in the background under ``torchrun --standalone
+    --nproc_per_node=2``: flowers_hdit's NA variant at full width (bf16, the
+    recipe) with flow.n_model=2 flow.ring_attention=true, both ranks on
+    cuda:0 (gloo), one epoch of 4 steps on sd_preencode's latents, no
+    evaluation. Its output goes to files. Returns the handle
+    ``ring_torchrun_result`` reads."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_ring_")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=2", "-m", "flocoder_torch.train_flow",
+           "--config-name", "flowers_hdit.yaml", f"data={pe_data}", *HDIT_NA,
+           "+device=cuda:0", "flow.n_model=2", "flow.ring_attention=true", "flow.epochs=1",
+           "flow.ckpt_every=1", "flow.no_eval=true", "+seed=0",
+           f"+ckpt_dir={os.path.join(d, 'ck')}", f"+output_dir={os.path.join(d, 'out')}"]
+    out, err = open(os.path.join(d, "stdout"), "w"), open(os.path.join(d, "stderr"), "w")
+    proc = subprocess.Popen(cmd, cwd=d, stdout=out, stderr=err,
+                            env={**os.environ, "PYTHONPATH": root})
+    return {"proc": proc, "dir": d, "files": (out, err), "t0": time.time()}
+
+
+def ring_phase(tmp: str, paths: dict, pe_data: str, root: str, card: str,
+               kernels: dict) -> tuple:
+    """The model axis's ring attention on the card (step 34): two ranks on
+    the one H100 in a gloo world (ring_rank), then train_flow under torchrun
+    with the ring (ring_torchrun, started once the ranks' steps are timed),
+    and its EMA checkpoint served by generate_samples in this process.
+    Returns (record, launches: the ranks' ring steps and the serving)."""
+    import torch.multiprocessing as mp
+    from flocoder_torch import generate_samples as gs
+
+    t0 = time.time()
+    job = ring_job(tmp, paths, pe_data)
+    d = job["out"]
+    torch.cuda.empty_cache()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.start_processes(ring_rank, args=(RING_RANKS, root, os.path.join(d, "job.pt"), port),
+                             nprocs=RING_RANKS, join=False, start_method="spawn")
+    run = None
+    try:
+        while not ctx.join(timeout=0.5):
+            if run is None and os.path.exists(os.path.join(d, "steps_timed")):
+                run = ring_torchrun(root, pe_data)
+        if run is None:
+            run = ring_torchrun(root, pe_data)
+        t_ranks = time.time() - t0
+        recs = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                for r in range(RING_RANKS)]
+        for r in recs:
+            if r["layout"] != [[0, r["rank"]], 0, r["rank"]] or r["transport"] != "gloo":
+                fail(f"ring rank {r['rank']}: layout {r['layout']}, transport {r['transport']}")
+            for name, o in r["op"].items():
+                if o["hops"] != [RING_RANKS, RING_RANKS] or not all(
+                        np.isfinite(e) and e < o["tols"][k] for k, e in o["errs"].items()):
+                    fail(f"ring op {name} on rank {r['rank']}: errors {o['errs']} (tol "
+                         f"{o['tols']}), hops {o['hops']}")
+            for kind, s in r["steps"].items():
+                # K1 and K2 4 a step at the NA level: two timed steps, one fp32
+                na = HDIT_NA_BLOCKS if kind == "hdit" else 0
+                for part, want in (("launches_timed", 2 * na), ("launches_fp32", na)):
+                    if s[part] != {"na2d_fwd": want, "na2d_bwd": want}:
+                        fail(f"ring rank {r['rank']} {kind} {part}: {s[part]}, expected "
+                             f"{want} each")
+                if s["replicas_differ"]:
+                    fail(f"ring {kind} step: the model replicas differ after the step in "
+                         f"{len(s['replicas_differ'])} tensors: {s['replicas_differ'][:6]}")
+        for kind, s in recs[0]["steps"].items():
+            if (s["one_process_launches_fp32"] != s["launches_fp32"]
+                    or s["one_process_launches"] != s["launches_timed"]):
+                fail(f"ring {kind}: a rank's launches {s['launches_fp32']} "
+                     f"{s['launches_timed']} differ from one process's "
+                     f"{s['one_process_launches_fp32']} {s['one_process_launches']}")
+            h = s["hold"]
+            for what in ("delta", "mu"):
+                k, err, tol = h[what]
+                if not err < tol:
+                    fail(f"ring {kind} fp32 step {what} {k}: {err:.3e} (tol {tol:.3e})")
+            if not abs(s["loss"] - s["ref_loss"]) < 1e-4 * max(1.0, abs(s["ref_loss"])):
+                fail(f"ring {kind} fp32 step loss {s['loss']} vs one process's {s['ref_loss']}")
+
+        # train_flow under torchrun with the ring, then its EMA served here
+        run["proc"].wait(timeout=300)
+        wall = time.time() - run["t0"]
+        for f in run["files"]:
+            f.flush()
+        with open(os.path.join(run["dir"], "stdout")) as f:
+            out = f.read()
+        if run["proc"].returncode:
+            with open(os.path.join(run["dir"], "stderr")) as f:
+                print(out[-4000:], f.read()[-4000:], sep="\n", flush=True)
+            fail(f"train_flow under torchrun with the ring exited {run['proc'].returncode}")
+        lines = [ln for ln in out.splitlines()
+                 if ln.startswith(("train_flow: mesh", "epoch 1/1", "done in"))]
+        if len(lines) != 3 or "ring attention over 'model' (size 2)" not in lines[0]:
+            fail(f"train_flow under torchrun did not train the ring: {lines}")
+        ema = os.path.join(run["dir"], "ck", "flowema_1.npz")
+        _zero(kernels)
+        served = gs.main(["--config-name", "flowers_hdit.yaml", f"+flow_checkpoint={ema}",
+                          "+n_samples=64", f"+n_steps={HDIT_N_STEPS}", "+seed=0",
+                          f"+output_dir={os.path.join(d, 'gen')}"])
+        serve_launches = _counts(kernels)
+    finally:
+        if run is not None:
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+            for f in run["files"]:
+                f.close()
+            shutil.rmtree(run["dir"], ignore_errors=True)
+    _expect(kernels, "serving the ring run's EMA checkpoint", serve_launches,
+            na2d_fwd=HDIT_NA_BLOCKS * HDIT_NFE)
+    if (served["images"].shape != (64, 128, 128, 3) or not np.isfinite(served["images"]).all()
+            or served["nfe"] != HDIT_NFE):
+        fail(f"serving the ring run's EMA: {served['images'].shape}, nfe {served['nfe']}")
+    launches = dict.fromkeys(kernels, 0)
+    for r in recs:
+        for s in r["steps"].values():
+            for part in ("launches_timed", "launches_fp32"):
+                for name, n in s[part].items():
+                    launches[name] += n
+    for name, n in serve_launches.items():
+        launches[name] += n
+    steps = recs[0]["steps"]
+    rec = {"ranks": RING_RANKS, "transport": "gloo, K/V and dK/dV staged through host memory",
+           "card": card, "op": {r["rank"]: r["op"] for r in recs},
+           "steps": {kind: {"ms_ranks": [r["steps"][kind]["ms"] for r in recs],
+                            "ms_one_process": s["one_process_ms"], "hold": s["hold"],
+                            "launches_a_rank": {p: s[f"launches_{p}"] for p in ("timed", "fp32")},
+                            "launches_one_process": {"timed": s["one_process_launches"],
+                                                     "fp32": s["one_process_launches_fp32"]}}
+                     for kind, s in steps.items()},
+           "torchrun": {"wall_s": wall, "lines": lines},
+           "serve": {"batch_s": served["batch_seconds"], "launches": serve_launches},
+           "seconds": {"ranks": t_ranks, "rank0_own": recs[0]["seconds"],
+                       "phase": time.time() - t0}}
+    print(f"ring transport: {rec['transport']} (ring_permute_ on a gloo group: two ranks "
+          f"share the one card) | card: {card}", flush=True)
+    for name, o in recs[0]["op"].items():
+        print(f"ring op {name} (S={RING_RANKS}): hops a call {o['hops']} (forward, backward); "
+              f"max|Δ|/max(1,|ref|) " + " ".join(f"{k}={v:.2e}" for k, v in o["errs"].items())
+              + f" (tol {o['tols']['out']:.0e}/{o['tols']['dq']:.0e}); forward+backward ms a "
+              f"rank {[round(r['op'][name]['ms'], 3) for r in recs]} against plain attention "
+              f"in one process {o['plain_ms']:.3f} | card: {card}", flush=True)
+    for kind, s in rec["steps"].items():
+        h = s["hold"]
+        what = "flowers_hdit NA variant, bf16" if kind == "hdit" else "flowers_vqgan U-Net, fp32"
+        print(f"ring {kind} step ({what}, B={FLOW_BATCH}): ms a rank {s['ms_ranks']} "
+              f"against one process's plain step {s['ms_one_process']:.2f}; fp32 hold (TF32 "
+              f"off): Δ {h['delta'][0]} {h['delta'][1]:.3e} (tol {h['delta'][2]:.3e}), μ "
+              f"{h['mu'][0]} {h['mu'][1]:.3e} (tol {h['mu'][2]:.3e}), {h['allowed']} changes "
+              f"past 1e-4 within fp32's spacing or Adam's map of the held moments; K1/K2 launches a rank (2 timed steps, 1 fp32) "
+              f"{s['launches_a_rank']} = one process's {s['launches_one_process']}; replicas "
+              f"equal bit for bit | card: {card}", flush=True)
+    print(f"ring torchrun --nproc_per_node=2 train_flow flow.n_model=2 "
+          f"flow.ring_attention=true: {' | '.join(lines)}; {wall:.1f} s from its start; "
+          f"its EMA served (64 samples, nfe {served['nfe']}, launches {serve_launches}) | "
+          f"card: {card}", flush=True)
+    print("ring seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in rec["seconds"].items())
+          + f" | card: {card}", flush=True)
+    return rec, launches
+
+
 def print_ptxas(source: str) -> None:
     """Each kernel's registers and spills from ptxas's report of the build of
     ``source`` in this run, demangled."""
@@ -6138,6 +6608,8 @@ def main() -> None:
         lap("audio")
         audio_bf16, audio_bf16_launches = audio_bf16_phase(tmp, card, kernels, audio)
         lap("audio_bf16")
+        ring, ring_launches = ring_phase(tmp, paths, pe_data, root, card, kernels)
+        lap("ring")
     finally:
         os.chdir(home)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -6160,7 +6632,7 @@ def main() -> None:
                       "tpu_vqgan_train": tpu_train, "tpu_vqgan": tpu_vqgan,
                       "int8_serving": int8_srv, "decode_ms_64": decodes, "audio": audio,
                       "audio_bf16": audio_bf16, "webapp": webapp, "quality": quality,
-                      "dp": dp,
+                      "dp": dp, "ring": ring,
                       "int8_conv": {**slice_errs["int8_conv"],
                                     "timing": slice_timing["int8_conv"]},
                       "phase_s": phase_s}))
@@ -6175,7 +6647,7 @@ def main() -> None:
               "int8_serving": int8_launches, **audio_launches, **audio_bf16_launches,
               **reflow_launches,
               **vqgan_plus_launches, "webapp": webapp_launches, "quality": quality_launches,
-              "dp": dp_launches}
+              "dp": dp_launches, "ring": ring_launches}
 
     def by_path(name):
         paths = {tag: counts[name] for tag, counts in by_tag.items()}

@@ -25,11 +25,17 @@ NATTEN's ``gamma`` is the one parameter held in ``dtype``, as the JAX module
 declares it. ``setup_codec`` builds the codec in bf16 when ``codec.bf16``
 is set (or ``dtype=`` says so). ``quant_encode`` / ``quant_decode`` route
 the convolutions the JAX package routes to its W8A8 ``QuantConv``
-(``ops/quant.py``) there; the compression and output heads stay plain. Not
-ported yet (ROADMAP.md): ring attention and a DAC codec in bf16.
-``setup_codec`` also builds the DAC audio codec (``models/audio_codec.py``)
-for ``codec.choice=dac`` and the VQGAN+ codec (``models/vqgan_plus.py``) for
-``codec.choice=vqgan_plus``.
+(``ops/quant.py``) there; the compression and output heads stay plain.
+``setup_codec`` also builds the DAC audio codec (``models/audio_codec.py``,
+in bf16 too with ``codec.bf16``) for ``codec.choice=dac`` and the VQGAN+
+codec (``models/vqgan_plus.py``) for ``codec.choice=vqgan_plus``.
+
+Ring attention: with ``ring_axis_size`` > 1 (``setup_codec``'s, with
+``codec.ring_attention=true``; VQVAE only, as in the JAX package) the
+decoder's ``SpatialNonLocalAttention`` runs as the ring over the mesh's
+model axis (``parallel/ring_attention.py``), v at full width. No entry point
+builds such a codec, in either package; its callers run it on every rank of
+the model group.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from ..ops.fused_vq import fused_compress_tail_vq
 from ..ops.neighborhood_attention import na2d
 from ..ops.quant import conv_or_quant
 from ..ops.rvq import RVQState, rvq_apply
+from ..parallel.ring_attention import ring_attention_replicated
 from .layers import Dense, Scope, SiLU, conv, group_norm, init_params, silu
 
 __all__ = ["gn_groups", "NoOpAE", "SimpleResizeAE", "VQVAE", "VQVAEEncoder",
@@ -302,10 +309,14 @@ def _rope_1d(x: torch.Tensor, max_log: float = math.log(10000.0)) -> torch.Tenso
 
 class SpatialNonLocalAttention(nn.Module):
     """Full attention over flattened H·W tokens with 1-D RoPE on q/k;
-    zero-init output projection so the block starts as identity; residual."""
+    zero-init output projection so the block starts as identity; residual.
+    With ``ring_axis_size`` > 1, one head of the ring over the model axis
+    (q and k of width c/2, v of width c)."""
 
-    def __init__(self, c: int, reduction_factor: int = 2, dtype=None):
+    def __init__(self, c: int, reduction_factor: int = 2, dtype=None,
+                 ring_axis_size: int = 1):
         super().__init__()
+        self.ring_axis_size = ring_axis_size
         rd = max(1, c // reduction_factor)
         self.Conv_0 = conv(c, rd, 1, dtype=dtype)
         self.Conv_1 = conv(c, rd, 1, dtype=dtype)
@@ -327,7 +338,11 @@ class SpatialNonLocalAttention(nn.Module):
         q = _rope_1d(_tokens(self.Conv_0(x)))
         k = _rope_1d(_tokens(self.Conv_1(x)))
         v = _tokens(self.Conv_2(x))
-        out = _attend(q, k, v, q.shape[-1] ** -0.5)
+        if self.ring_axis_size > 1:
+            out = ring_attention_replicated(q[:, :, None], k[:, :, None], v[:, :, None],
+                                            self.ring_axis_size)[:, :, 0]
+        else:
+            out = _attend(q, k, v, q.shape[-1] ** -0.5)
         return x + self.Conv_3(_untokens(out, h, w))
 
 
@@ -395,7 +410,8 @@ class VQVAEDecoder(nn.Module):
     def __init__(self, in_channels: int = 3, hidden_channels: int = 256,
                  num_downsamples: int = 3, internal_dim: int = 128,
                  vq_embedding_dim: int = 4, decoder_nonlocal: bool = True,
-                 use_attention: bool = True, dtype=None, quant: bool = False):
+                 use_attention: bool = True, dtype=None, quant: bool = False,
+                 ring_axis_size: int = 1):
         super().__init__()
         s = Scope(self)
         noise = lambda c: s.add("NoiseInjection", NoiseInjection(c, dtype))  # noqa: E731
@@ -406,7 +422,8 @@ class VQVAEDecoder(nn.Module):
         ops = []
         if decoder_nonlocal:
             ops.append(s.add("SpatialNonLocalAttention",
-                             SpatialNonLocalAttention(vq_embedding_dim, dtype=dtype)))
+                             SpatialNonLocalAttention(vq_embedding_dim, dtype=dtype,
+                                                      ring_axis_size=ring_axis_size)))
         cur = hidden_channels * (2 ** (num_downsamples - 1))
         ops += [qconv(vq_embedding_dim, internal_dim, 1),
                 s.add("GroupNorm", group_norm(gn_groups(vq_embedding_dim, internal_dim),
@@ -456,7 +473,7 @@ class VQVAE(nn.Module):
                  vq_num_embeddings=512, internal_dim=256, codebook_levels=3,
                  vq_embedding_dim=4, commitment_weight=0.25, use_attention=True,
                  decoder_nonlocal=True, dtype=torch.float32, quant_decode=False,
-                 quant_encode=False):
+                 quant_encode=False, ring_axis_size=1):
         super().__init__()
         self.in_channels = in_channels
         self.num_downsamples = num_downsamples
@@ -470,7 +487,7 @@ class VQVAE(nn.Module):
         self.decoder = VQVAEDecoder(in_channels, hidden_channels,
                                     num_downsamples, internal_dim,
                                     vq_embedding_dim, decoder_nonlocal,
-                                    use_attention, dt, quant_decode)
+                                    use_attention, dt, quant_decode, ring_axis_size)
         self.vq = RVQState(codebook_levels, vq_num_embeddings, vq_embedding_dim)
 
     def init(self, generator: torch.Generator) -> "VQVAE":
@@ -536,7 +553,8 @@ class VQVAE(nn.Module):
 # Factory
 # --------------------------------------------------------------------------
 
-def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module:
+def setup_codec(config, device=None, dtype=None, quant_decode=None,
+                ring_axis_size: int = 1) -> nn.Module:
     """Build a codec from ``config.codec.choice`` ∈ {noop, resize, vqgan,
     vqgan_plus, sd, dac} on ``device``. Weights are the caller's concern
     (``load_codec_weights``). Compute dtype: ``dtype`` when given, else
@@ -545,7 +563,10 @@ def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module
     ``int8`` build the W8A8 encoder / decoder (``ops/quant.py``);
     ``quant_decode`` (a bool), when given, overrides the latter, as serving's
     ``+quant`` does (``dac`` has no W8A8 path, as in the JAX package).
-    Other choices raise."""
+    ``ring_axis_size`` > 1 with ``codec.ring_attention=true`` builds the
+    VQVAE whose decoder's non-local attention is the ring over the mesh's
+    model axis (its callers run it on every model rank). Other choices
+    raise."""
     from ..config import ldcfg
     choice = config.codec.choice if "codec" in config else "noop"
     image_size = ldcfg(config, "image_size", 128)
@@ -569,6 +590,10 @@ def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module
                                                                image_size))
         elif choice in ("vqgan", "vqgan_plus"):
             from .vqgan_plus import VQGANPlus
+            ring = {}
+            if (choice == "vqgan" and bool(ldcfg(config, "ring_attention", False))
+                    and ring_axis_size > 1):
+                ring = dict(ring_axis_size=ring_axis_size)
             codec = (VQGANPlus if choice == "vqgan_plus" else VQVAE)(
                 in_channels=in_channels,
                 hidden_channels=ldcfg(config, "hidden_channels", 256),
@@ -578,7 +603,7 @@ def setup_codec(config, device=None, dtype=None, quant_decode=None) -> nn.Module
                 codebook_levels=ldcfg(config, "codebook_levels", 3),
                 vq_embedding_dim=ldcfg(config, "vq_embedding_dim", 4),
                 commitment_weight=ldcfg(config, "commitment_weight", 0.25),
-                dtype=dtype, quant_decode=quant_decode, quant_encode=quant_encode)
+                dtype=dtype, quant_decode=quant_decode, quant_encode=quant_encode, **ring)
         elif choice == "sd":
             from .sd_vae import SDVAE
             codec = SDVAE(image_size=image_size, dtype=dtype, quant_decode=quant_decode,

@@ -1,8 +1,13 @@
 """The velocity field a flow config asks for: the U-Net or, with
 ``flow.arch=hdit``, the Hourglass DiT. ``train_flow``, ``generate_samples``
 and ``evaluate_model`` build their model here, so an HDiT checkpoint trains,
-serves and evaluates alike."""
+serves and evaluates alike. ``ring_twin`` gives ``train_flow``'s
+``flow.ring_attention`` its training model: the same parameters, with the
+global attention sites run as the ring over the mesh's model axis (the JAX
+script's ``model.clone(ring_axis=..., ring_axis_size=...)``)."""
 from __future__ import annotations
+
+import copy
 
 import torch
 from torch import nn
@@ -10,7 +15,20 @@ from torch import nn
 from .hdit import hdit_from_config
 from .unet import Unet
 
-__all__ = ["build_flow_model", "flow_arch"]
+__all__ = ["build_flow_model", "flow_arch", "ring_twin"]
+
+
+def ring_twin(model: nn.Module, ring_axis_size: int) -> nn.Module:
+    """A twin of ``model`` that shares its parameters and buffers (the same
+    tensors: a step on either moves both) and whose attention sites with a
+    ``ring_axis_size`` run the ring over ``ring_axis_size`` model ranks.
+    The serving model stays ring-free."""
+    shared = {id(t): t for t in (*model.parameters(), *model.buffers())}
+    twin = copy.deepcopy(model, shared)
+    for m in twin.modules():
+        if hasattr(m, "ring_axis_size"):
+            m.ring_axis_size = ring_axis_size
+    return twin
 
 
 def flow_arch(config) -> str:

@@ -15,7 +15,10 @@ is the CFG null token and contributes nothing.
 Neighborhood attention calls ``ops.neighborhood_attention.na2d``: on the
 card K1 forward and K2 backward (``NA2DFunction``), on the CPU their plain
 twins. The global branch is a plain matmul + softmax with fp32 logits and
-the row maximum subtracted, as in the JAX module.
+the row maximum subtracted, as in the JAX module, or with
+``ring_axis_size`` > 1 the ring over the mesh's model axis
+(``parallel/ring_attention.py``: the training twin of ``train_flow``'s
+``flow.ring_attention``; the parameters are the same either way).
 
 ``dtype`` is a module field as in flax: every Dense casts its input and its
 fp32 weight to it, RMS statistics and the MoE router stay in fp32, and the
@@ -26,8 +29,8 @@ the flax tree maps onto the ``state_dict`` through
 
 ``forward(..., return_aux=True)`` also returns the MoE blocks' auxiliary
 losses and dropped fractions (flax's ``sow("moe_losses")``), which
-``train_flow`` folds into the objective. Not ported yet (ROADMAP.md): the
-stacked, pipelined mid level (``pp_stages``), ring attention and expert
+``train_flow`` folds into the objective. Not ported yet (ROADMAP.md item
+13c): the stacked, pipelined mid level (``pp_stages``) and expert
 parallelism.
 """
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 from torch import nn
 
 from ..ops.neighborhood_attention import na2d
+from ..parallel.ring_attention import ring_attention_replicated
 from ..parallel.moe import (geglu, load_balance_loss, moe_capacity,
                             moe_geglu_apply, moe_routing)
 from .layers import Dense
@@ -140,10 +144,13 @@ def _axial_rope(q: torch.Tensor, k: torch.Tensor, hw: Tuple[int, int],
 
 class SelfAttentionBlock(nn.Module):
     """Pre-AdaRMSNorm residual attention: qk RMSNorm, axial RoPE,
-    neighborhood (NA2D) or global attention, zero-init output."""
+    neighborhood (NA2D) or global attention (the ring over the model axis
+    with ``ring_axis_size`` > 1), zero-init output."""
 
-    def __init__(self, spec, width: int, cond_dim: int, dtype=torch.float32):
+    def __init__(self, spec, width: int, cond_dim: int, dtype=torch.float32,
+                 ring_axis_size: int = 1):
         super().__init__()
+        self.ring_axis_size = ring_axis_size
         if spec.d_head % 4:
             raise ValueError(f"d_head must be divisible by 4 for axial RoPE, "
                              f"got {spec.d_head}")
@@ -171,6 +178,11 @@ class SelfAttentionBlock(nn.Module):
             # the kernels take contiguous NHWC tensors of one dtype
             out = na2d(*(t.reshape(B, H, W, hidden).contiguous() for t in (q, k, v)),
                        kernel_size=self.spec.kernel_size, heads=heads, scale=scale)
+        elif self.ring_axis_size > 1:
+            out = ring_attention_replicated(
+                *(t.reshape(B, H * W, heads, d) for t in (q, k, v)),
+                self.ring_axis_size, scale)
+            out = out.reshape(B, H, W, hidden)
         else:
             qf = (q * scale).reshape(B, H * W, heads, d)
             sim = torch.einsum("bnhd,bmhd->bhnm", qf.float(),
@@ -299,7 +311,8 @@ class HDiT(nn.Module):
 
     def __init__(self, levels: Tuple[LevelSpec, ...], mapping: MappingSpec = MappingSpec(),
                  channels: int = 4, patch_size: int = 4, n_classes: int = 0,
-                 dual_time: bool = False, dtype=torch.float32, pp_stages: int = 0):
+                 dual_time: bool = False, dtype=torch.float32, pp_stages: int = 0,
+                 ring_axis_size: int = 1):
         super().__init__()
         if pp_stages:
             raise NotImplementedError("HDiT's stacked, pipelined mid level "
@@ -320,7 +333,7 @@ class HDiT(nn.Module):
         def level(spec, tag):
             for j in range(spec.depth):
                 self.add_module(f"{tag}_attn_{j}", SelfAttentionBlock(
-                    spec.self_attn, spec.width, mw, dtype))
+                    spec.self_attn, spec.width, mw, dtype, ring_axis_size))
                 self.add_module(f"{tag}_ff_{j}", MoEFeedForwardBlock(
                     spec.width, spec.d_ff, spec.moe_experts, mw, spec.moe_top_k,
                     spec.moe_capacity, dtype) if spec.moe_experts else
@@ -403,12 +416,13 @@ class HDiT(nn.Module):
 
 
 def hdit_from_config(config, channels: int, n_classes: int, dtype=torch.float32,
-                     dual_time: bool = False) -> HDiT:
+                     dual_time: bool = False, ring_axis_size: int = 1) -> HDiT:
     """An HDiT from the flat flow-section keys (``ldcfg`` precedence), with
     the JAX function's defaults: two levels (2, 256, 768) and (4, 512,
     1536), global attention with d_head 64, patch 4. ``hdit_attns`` entries
     are 'global' or 'na[:k]'; ``hdit_moe_experts`` (per level, 0 = dense)
-    turns a level's feed-forward blocks into MoE blocks."""
+    turns a level's feed-forward blocks into MoE blocks; ``ring_axis_size``
+    > 1 makes the global levels' attention the ring."""
     from ..config import ldcfg
 
     depths = [int(d) for d in ldcfg(config, "hdit_depths", [2, 4])]
@@ -438,4 +452,5 @@ def hdit_from_config(config, channels: int, n_classes: int, dtype=torch.float32,
     return HDiT(levels=tuple(levels), mapping=mapping, channels=channels,
                 patch_size=int(ldcfg(config, "hdit_patch_size", 4)),
                 n_classes=n_classes, dual_time=dual_time, dtype=dtype,
-                pp_stages=int(ldcfg(config, "hdit_pp_stages", 0)))
+                pp_stages=int(ldcfg(config, "hdit_pp_stages", 0)),
+                ring_axis_size=ring_axis_size)

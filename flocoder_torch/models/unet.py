@@ -15,9 +15,10 @@ stem concatenated with the mask), bypassed for the whole batch when every
 mask value is 1 (a 0-dim ``torch.where``, so the forward never waits on the
 card for it), and the mask resized into the first two down and up scales
 with ``jax.image.resize``'s bilinear weights (antialiased when it shrinks;
-``inpainting.resize_bilinear``). A missing mask is the all-ones mask. The
-sequence-parallel (ring) bottleneck is not ported yet and raises
-(ROADMAP.md).
+``inpainting.resize_bilinear``). A missing mask is the all-ones mask. With
+``ring_axis_size`` > 1 the bottleneck attention is the ring over the mesh's
+model axis (``parallel/ring_attention.py``), the training twin of
+``train_flow``'s ``flow.ring_attention`` with the same parameters.
 
 ``dtype`` is the compute dtype, as the JAX module's field. In bf16 the
 parameters stay fp32, every Conv and Dense casts its input, kernel and bias
@@ -38,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..inpainting import resize_bilinear
+from ..parallel.ring_attention import ring_attention_replicated
 from .layers import Dense, Scope, conv, group_norm
 
 __all__ = ["Unet", "sinusoidal_embedding", "pixel_shuffle", "pixel_unshuffle"]
@@ -123,11 +125,14 @@ def _split_heads(qkv: torch.Tensor, heads: int, dim_head: int):
 
 class Attention(nn.Module):
     """Full softmax attention over spatial tokens (bottleneck only), as a
-    plain matmul + softmax; the logits and the softmax in fp32."""
+    plain matmul + softmax; the logits and the softmax in fp32. With
+    ``ring_axis_size`` > 1, the ring over the model axis."""
 
-    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, dtype=None):
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32, dtype=None,
+                 ring_axis_size: int = 1):
         super().__init__()
         self.heads, self.dim_head = heads, dim_head
+        self.ring_axis_size = ring_axis_size
         hidden = heads * dim_head
         self.Conv_0 = conv(dim, hidden * 3, 1, bias=False, dtype=dtype)
         self.Conv_1 = conv(hidden, dim, 1, dtype=dtype)
@@ -135,6 +140,10 @@ class Attention(nn.Module):
     def forward(self, x):
         b, c, h, w = x.shape
         q, k, v = _split_heads(self.Conv_0(x), self.heads, self.dim_head)
+        if self.ring_axis_size > 1:       # (b, heads, d, n) → (b, n, heads, d) and back
+            out = ring_attention_replicated(*(t.permute(0, 3, 1, 2) for t in (q, k, v)),
+                                            self.ring_axis_size)
+            return self.Conv_1(out.permute(0, 2, 3, 1).reshape(b, -1, h, w))
         q = q * (self.dim_head ** -0.5)
         sim = torch.einsum("bhdn,bhdm->bhnm", _acc(q), _acc(k))
         sim = sim - sim.amax(dim=-1, keepdim=True)
@@ -213,9 +222,6 @@ class Unet(nn.Module):
                  mask_channels: int = 1, dual_time: bool = False,
                  ring_axis_size: int = 1, dtype=torch.float32):
         super().__init__()
-        if ring_axis_size > 1:
-            raise NotImplementedError("Unet ring attention is the parallel layer's "
-                                      "model axis, not ported yet (ROADMAP.md item 13b)")
         self.dim, self.n_classes, self.dual_time = dim, n_classes, dual_time
         self.mask_cond, self.mask_channels = mask_cond, mask_channels
         self.dtype = dtype
@@ -254,7 +260,8 @@ class Unet(nn.Module):
         mid = dims[-1]
         self.mid = (s.add("ResnetBlock", ResnetBlock(mid, mid, time_dim, groups, dt)),
                     s.add("PreNormResidual", PreNormResidual(mid, dt)),
-                    s.add("Attention", Attention(mid, dtype=dt)),
+                    s.add("Attention", Attention(mid, dtype=dt,
+                                                 ring_axis_size=ring_axis_size)),
                     s.add("ResnetBlock", ResnetBlock(mid, mid, time_dim, groups, dt)))
         self.ups = []
         for ind, (dim_in, dim_out) in enumerate(reversed(in_out)):

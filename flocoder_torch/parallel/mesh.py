@@ -28,9 +28,19 @@ process outside any world is the degenerate mesh (``make_mesh`` returns
   layout, every other one is replicated (left to the caller's
   ``pmean_``, as FSDP2's ``ignored_params``).
 
+- The model axis (``n_model`` > 1): ranks lie row-major as the JAX mesh
+  lays out devices, rank r at batch coordinate r // n_model and model
+  coordinate r % n_model. The model ranks of a batch coordinate take the
+  same rows and the same random stream (``shard_batch``, ``rank_seed``), so
+  they hold replicas (computed with cuDNN's deterministic algorithms); ``ring_permute_`` (one hop to model rank +1, the JAX
+  ``ppermute`` j → j+1) and ``model_all_gather`` (the tiled
+  ``all_gather``) are the collectives of ring attention
+  (``parallel/ring_attention.py``) over the model group alone. Tensor
+  parallelism (``tp_param_shardings``, ``shard_state_tp``) is ROADMAP item
+  13b-ii and raises.
+
 A mesh or world that was asked for and cannot be formed raises; nothing
-falls back to one rank. The model axis (tensor parallelism, ring
-attention) is ROADMAP item 13b and raises.
+falls back to one rank.
 """
 from __future__ import annotations
 
@@ -50,16 +60,23 @@ __all__ = ["DATA_AXIS", "MODEL_AXIS", "DCN_AXIS", "maybe_init_distributed",
            "psum_", "broadcast0_", "gather_rows", "rank_seed",
            "fsdp_param_shardings", "shard_state", "full_tensor", "shard_like",
            "sharded_sq_norm", "tp_param_shardings",
-           "shard_state_tp"]
+           "shard_state_tp", "model_axis_size", "model_rank", "model_group",
+           "ring_permute_", "model_all_gather"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 DCN_AXIS = "dcn"
 
 
-def _model_axis(what: str):
-    raise NotImplementedError(f"{what} is the parallel layer's model axis, not "
-                              "ported yet (ROADMAP.md item 13b)")
+# the groups of the mesh that ``make_mesh`` formed last with a model axis:
+# the ring's model group and the batch group of this rank's model
+# coordinate (the JAX shard_map binds the axis names for its body alike)
+_MODEL_AXIS: dict = {}
+
+
+def _tensor_parallel(what: str):
+    raise NotImplementedError(f"{what} is the model axis's tensor parallelism, not "
+                              "ported yet (ROADMAP.md item 13b-ii)")
 
 
 def maybe_init_distributed(device=None) -> torch.device:
@@ -91,32 +108,48 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1, n_dcn: int = 1,
               device=None):
     """A ``DeviceMesh`` over the world, ranks laid out row-major: axes
     ``('data', 'model')``, or ``('dcn', 'data', 'model')`` when
-    ``n_dcn > 1``; ``n_data`` defaults to the world size over ``n_dcn``.
-    Outside a world, ``None`` (the degenerate mesh) unless more than one
-    device was asked for, which raises. ``device`` gives the mesh's device
-    type (default: CUDA under NCCL, else the CPU)."""
-    if n_model > 1:
-        _model_axis("a model axis (n_model > 1)")
+    ``n_dcn > 1``; ``n_data`` defaults to the world size over ``n_dcn`` and
+    ``n_model``. Outside a world, ``None`` (the degenerate mesh) unless more
+    than one device was asked for, which raises. ``device`` gives the mesh's
+    device type (default: CUDA under NCCL, else the CPU). With ``n_model``
+    > 1 rank r sits at batch coordinate r // n_model and model coordinate
+    r % n_model (the JAX mesh's device layout), and the mesh's groups serve
+    ``batch_group`` and ``model_group``. The model ranks of a batch
+    coordinate are replicas that must compute alike bit for bit, as XLA's
+    do, so a model axis selects cuDNN's deterministic algorithms
+    (``torch.backends.cudnn.deterministic``): its default weight-gradient
+    convolutions part two ranks' U-Net steps in the last bits."""
     if not (dist.is_available() and dist.is_initialized()):
-        if (n_data or 1) * n_dcn > 1:
-            raise RuntimeError(f"a mesh of {(n_data or 1) * n_dcn} ranks was asked "
-                               "for outside a torch.distributed world (launch with "
+        if (n_data or 1) * n_dcn * n_model > 1:
+            raise RuntimeError(f"a mesh of {(n_data or 1) * n_dcn * n_model} ranks was "
+                               "asked for outside a torch.distributed world (launch with "
                                "torchrun)")
         return None
     from torch.distributed.device_mesh import init_device_mesh
     world = dist.get_world_size()
     if n_data is None:
-        n_data = world // n_dcn
-    if n_dcn * n_data != world:
-        raise ValueError(f"a mesh of {n_dcn}×{n_data} ranks does not cover the "
-                         f"world of {world}")
+        n_data = world // (n_dcn * n_model)
+    if n_dcn * n_data * n_model != world:
+        raise ValueError(f"a mesh of {n_dcn}×{n_data}×{n_model} ranks does not cover "
+                         f"the world of {world}")
     if device is None:
         device = "cuda" if dist.get_backend() == "nccl" else "cpu"
     dtype = torch.device(device).type
     if n_dcn > 1:
-        return init_device_mesh(dtype, (n_dcn, n_data, 1),
+        mesh = init_device_mesh(dtype, (n_dcn, n_data, n_model),
                                 mesh_dim_names=(DCN_AXIS, DATA_AXIS, MODEL_AXIS))
-    return init_device_mesh(dtype, (n_data, 1), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    else:
+        mesh = init_device_mesh(dtype, (n_data, n_model),
+                                mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
+    if n_model > 1:
+        # the batch group: the ranks of this model coordinate over the batch
+        # axes (every rank forms every group, in the same order)
+        batch, _ = dist.new_subgroups_by_enumeration(
+            [list(range(m, world, n_model)) for m in range(n_model)])
+        _MODEL_AXIS.clear()
+        _MODEL_AXIS.update(mesh=mesh, batch=batch, model=mesh.get_group(MODEL_AXIS))
+        torch.backends.cudnn.deterministic = True
+    return mesh
 
 
 def batch_axis_names(mesh):
@@ -138,16 +171,50 @@ def batch_shard_count(mesh) -> int:
     return n
 
 
+def model_axis_size(mesh) -> int:
+    """The size of the mesh's 'model' axis: 1 for ``None``."""
+    return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index(MODEL_AXIS))
+
+
+def _groups_of(mesh) -> dict:
+    if _MODEL_AXIS.get("mesh") is not mesh:
+        raise RuntimeError("this mesh's model axis is not the one make_mesh formed last")
+    return _MODEL_AXIS
+
+
 def batch_group(mesh):
-    """The process group of the batch axes: with the model axis of size 1
-    (``make_mesh`` allows no other) it is the whole world."""
-    return None if batch_shard_count(mesh) == 1 else dist.group.WORLD
+    """The process group of the batch axes: the whole world with a model
+    axis of size 1, else the ranks of this rank's model coordinate."""
+    if batch_shard_count(mesh) == 1:
+        return None
+    return dist.group.WORLD if model_axis_size(mesh) == 1 else _groups_of(mesh)["batch"]
 
 
 def batch_rank(mesh) -> int:
     """This rank's linear index over the batch axes (the JAX package's
-    folded ``axis_index``): row-major over ``('dcn', 'data')``."""
-    return 0 if batch_shard_count(mesh) == 1 else dist.get_rank()
+    folded ``axis_index``): row-major over ``('dcn', 'data')``, the same on
+    the model ranks of a batch coordinate."""
+    if batch_shard_count(mesh) == 1:
+        return 0
+    return dist.get_rank() // model_axis_size(mesh)
+
+
+def model_group(mesh=None):
+    """The process group of the 'model' axis that holds this rank: of
+    ``mesh``, or of the mesh ``make_mesh`` formed last with a model axis
+    (the ring's default). ``None`` on a model axis of size 1; raises where
+    no model axis was formed."""
+    if mesh is not None:
+        return None if model_axis_size(mesh) == 1 else _groups_of(mesh)["model"]
+    if not _MODEL_AXIS or not dist.is_initialized():
+        raise RuntimeError("no mesh with a model axis (make_mesh(n_model > 1) in a "
+                           "torch.distributed world)")
+    return _MODEL_AXIS["model"]
+
+
+def model_rank(group) -> int:
+    """This rank's index on the model axis of ``group`` (``model_group``)."""
+    return 0 if group is None else dist.get_rank(group)
 
 
 def is_writer() -> bool:
@@ -355,11 +422,53 @@ def shard_state(mesh, module: nn.Module, min_size: int = 2 ** 14) -> dict:
     return dims
 
 
+def ring_permute_(tensors: list, group) -> list:
+    """One hop of the ring, in place: each tensor takes the value that model
+    rank −1 holds, and sends its own to model rank +1 (the JAX ``ppermute``
+    with perm j → j+1 mod S), one flat buffer per dtype. NCCL sends the
+    device buffers (``batch_isend_irecv``); gloo, whose point-to-point
+    calls take CPU tensors only, stages them through host memory."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + 1) % n)
+    src = dist.get_global_rank(group, (me - 1) % n)
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    host = dist.get_backend(group) == "gloo"
+    groups = list(by_dtype.values())
+    sends = [torch.cat([t.reshape(-1) for t in ts]) for ts in groups]
+    if host:
+        sends = [f.cpu() for f in sends]
+    recvs = [torch.empty_like(f) for f in sends]
+    ops = []
+    for tag, (send, recv) in enumerate(zip(sends, recvs)):
+        ops += [dist.P2POp(dist.isend, send, dst, group, tag),
+                dist.P2POp(dist.irecv, recv, src, group, tag)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    for ts, recv in zip(groups, recvs):
+        off = 0
+        for t in ts:
+            t.copy_(recv[off:off + t.numel()].view_as(t))
+            off += t.numel()
+    return tensors
+
+
+def model_all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every model rank's ``t`` concatenated on ``dim`` in model-rank order
+    (the JAX ``all_gather(..., tiled=True)``), on every model rank."""
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim=dim)
+
+
 def tp_param_shardings(*args, **kwargs):
-    """Tensor-parallel placement: ROADMAP item 13b."""
-    _model_axis("tensor-parallel parameter sharding")
+    """Tensor-parallel placement: ROADMAP item 13b-ii."""
+    _tensor_parallel("tensor-parallel parameter sharding")
 
 
 def shard_state_tp(*args, **kwargs):
-    """Tensor-parallel placement: ROADMAP item 13b."""
-    _model_axis("tensor-parallel parameter sharding")
+    """Tensor-parallel placement: ROADMAP item 13b-ii."""
+    _tensor_parallel("tensor-parallel parameter sharding")

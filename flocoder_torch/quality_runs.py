@@ -20,7 +20,7 @@ dataset or pretrained weights:
   Sinkhorn, colour accuracy: the decoded image's dominant channel against
   its class).
 - ``pod`` needs the 8-device mesh, expert and pipeline parallelism: it
-  raises until those are ported (ROADMAP.md item 13).
+  raises until those are ported (ROADMAP.md item 13c).
 
 Each family trains on one device through ``training/flow.py``'s step (or
 ``training/audio.py``'s), draws its data with numpy exactly as the JAX

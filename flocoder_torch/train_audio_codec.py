@@ -36,7 +36,7 @@ parameters.
 or the start time>/metrics.jsonl`` (``utils/logging.py``) at the JAX
 script's points, and every 10th epoch the codebook figures to the WAVs'
 folder (``utils/codebook_analysis.py``). Tensor parallelism (``tp``) is the
-model axis, not ported yet (ROADMAP.md item 13b), and raises.
+model axis, not ported yet (ROADMAP.md item 13b-ii), and raises.
 
 Data parallelism, as in ``train_vqgan``: on several ranks (``torchrun``;
 ``parallel/mesh.py``) each rank loads its slice of every epoch's shuffle
@@ -114,9 +114,9 @@ def train_audio_codec(config, step_hook: Optional[Callable[[int], None]] = None)
     if str(cc.get("choice", "dac")) != "dac":
         raise SystemExit("train_audio_codec trains codec.choice=dac")
     if int(ldcfg(config, "tp", 1)) > 1:
-        raise NotImplementedError("tensor-parallel codec training is the parallel "
-                                  "layer's model axis, not ported yet (ROADMAP.md "
-                                  "item 13b)")
+        raise NotImplementedError("tensor-parallel codec training is the model "
+                                  "axis's tensor parallelism, not ported yet "
+                                  "(ROADMAP.md item 13b-ii)")
     device = maybe_init_distributed(config.get("device", None))
     mesh = make_mesh(device=device)
     n_shards, writer = batch_shard_count(mesh), is_writer()

@@ -41,9 +41,8 @@ The evaluation conditions on the validation batch's masks and starts from
 its mask-blended sources. The checkpoints hold the mask encoder beside the
 U-Net and the two optimizer groups in optax's ``multi_transform`` layout.
 The JAX-only dispatch knobs ``flow.steps_per_dispatch`` and ``rng_impl``
-are accepted and change nothing here (ROADMAP.md). Refused: the model
-axis (``flow.n_model`` > 1, ring attention; ROADMAP.md item 13b), MoE
-expert and pipeline parallelism (item 13c) and orbax checkpoints.
+are accepted and change nothing here (ROADMAP.md). Refused: MoE expert
+and pipeline parallelism (ROADMAP.md item 13c) and orbax checkpoints.
 
 Several ranks (``torchrun --nproc_per_node=N -m flocoder_torch.train_flow
 ...``; ``parallel/mesh.py``): each rank drives one device (``cuda:LOCAL_RANK``,
@@ -61,6 +60,20 @@ every rank write its own ``flow_<epoch>.host<rank>.npz`` (the JAX package's
 sharded format, ``training/checkpoint.py``; no ``flowema_`` file, as in the
 JAX script) instead of the two ordinary files. Rank 0 alone prints, logs
 and writes the grids and the ordinary checkpoints.
+
+The model axis (``flow.n_model`` > 1; the world is ``flow.n_model`` times
+the batch ranks): the mesh gains a 'model' axis, and its model ranks hold
+replicas, fed the same rows and draws. With ``flow.ring_attention=true``
+the step trains the ring twin (``models/flow_model.py:ring_twin``, the same
+parameters): the global attention sites (the U-Net's bottleneck, HDiT's
+global levels) run as the ring over the model axis
+(``parallel/ring_attention.py``), whose gradients come whole to every
+model rank, so the step averages over the batch ranks alone. Evaluation,
+checkpoints and serving use the ring-free model, as in the JAX script. The
+ring refuses, before the first step, what the JAX script cannot trace:
+``flow.meanflow`` and ``flow.curvature_weight`` (the ring has no
+forward-mode derivative), ``flow.fsdp`` (the JAX FSDP step leaves the
+ring's axis unbound) and ``flow.pp`` (both claim the model axis).
 
 Unless ``no_wandb`` is set, the metrics go to
 ``runs/<project_name>/<run_name or the start time>/metrics.jsonl``
@@ -104,7 +117,7 @@ from .generate_samples import CONFIG_DIR
 from .inpainting import MaskEncoder
 from .models.audio_codec import DACCodec
 from .models.codecs import VQVAE, codec_checkpoint, load_codec_weights, setup_codec
-from .models.flow_model import build_flow_model
+from .models.flow_model import build_flow_model, ring_twin
 from .models.layers import init_params
 from .parallel.mesh import (batch_rank, batch_shard_count, host_device_count, is_writer,
                             make_mesh, maybe_init_distributed, rank0_print, rank_seed)
@@ -124,18 +137,33 @@ from .utils.codebook_analysis import CodebookUsageTracker
 __all__ = ["train_flow", "latent_dataset", "main"]
 
 
+def _uses_ring(config) -> bool:
+    """``flow.ring_attention`` on a model axis (``flow.n_model`` > 1), as
+    the JAX script reads it."""
+    return bool(ldcfg(config, "ring_attention", False)) and int(ldcfg(config, "n_model", 1)) > 1
+
+
 def _refuse_unported(config) -> None:
-    flags = {"ring_attention": "ring attention, ROADMAP.md item 13b",
-             "moe_ep": "MoE expert parallelism, ROADMAP.md item 13c",
+    ring = _uses_ring(config)
+    if ring and bool(ldcfg(config, "pp", False)):
+        raise SystemExit("flow.pp and flow.ring_attention both claim the mesh 'model' "
+                         "axis; pick one")
+    flags = {"moe_ep": "MoE expert parallelism, ROADMAP.md item 13c",
              "pp": "pipeline parallelism, ROADMAP.md item 13c",
              "orbax_checkpoints": "orbax checkpoints, which ROADMAP.md does not queue"}
     for key, what in flags.items():
         if bool(ldcfg(config, key, False)):
             raise NotImplementedError(f"flow.{key} is not ported: {what}")
-    if int(ldcfg(config, "n_model", 1)) > 1:
-        raise NotImplementedError("model-parallel meshes (flow.n_model) are the "
-                                  "parallel layer's model axis, not ported yet "
-                                  "(ROADMAP.md item 13b)")
+    if ring and (bool(ldcfg(config, "meanflow", False))
+                 or float(ldcfg(config, "curvature_weight", 0.0))):
+        raise ValueError("flow.ring_attention does not combine with flow.meanflow or "
+                         "flow.curvature_weight: the ring defines no forward-mode "
+                         "derivative, as the JAX script's ring, a custom_vjp that jax.jvp "
+                         "cannot push forward, fails its first step's trace")
+    if ring and bool(ldcfg(config, "fsdp", False)):
+        raise ValueError("flow.fsdp does not combine with flow.ring_attention: the JAX "
+                         "script's FSDP step is plain jit, where the ring's 'model' axis "
+                         "is unbound, and fails its first step's trace")
 
 
 def latent_dataset(split_dir: str, n_classes: int = 0):
@@ -228,7 +256,8 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     [{'epoch', 'tag', 'metrics', 'seconds'}], 'ot_rounds': [per step],
     'checkpoint': path, 'ema_checkpoint': path, 'output_dir': str,
     'metrics_log': path or None, 'device': str, 'ranks': int, 'fsdp': bool,
-    'sharded': {parameter name: the dim FSDP splits, or None} or None}``
+    'sharded': {parameter name: the dim FSDP splits, or None} or None,
+    'model_axis': int, 'ring': bool}``
     (under ``flow.sharded_checkpoints`` ``checkpoint`` is this rank's file
     and ``ema_checkpoint`` None). The device is
     synchronised once an epoch, as in the JAX script: an epoch's seconds
@@ -239,14 +268,17 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
     'metrics' and 'grids'."""
     _refuse_unported(config)
     device = maybe_init_distributed(config.get("device", None))
-    mesh = make_mesh(device=device)
+    n_model = int(ldcfg(config, "n_model", 1))
+    mesh = make_mesh(n_model=n_model, device=device)
+    use_ring = _uses_ring(config)
     n_shards = batch_shard_count(mesh)
     writer = is_writer()
     fsdp = bool(ldcfg(config, "fsdp", False))
     sharded_ckpt = bool(ldcfg(config, "sharded_checkpoints", False))
     if mesh is not None:
         rank0_print(f"train_flow: mesh {mesh}, {host_device_count()} rank(s) on this host, "
-                    f"{'FSDP' if fsdp else 'data-parallel'} step")
+                    f"{'FSDP' if fsdp else 'data-parallel'} step"
+                    + (f", ring attention over 'model' (size {n_model})" if use_ring else ""))
     data_path = os.path.expanduser(str(config.data))
     # reflow pairs are latents already (make_reflow_pairs): no codec suffix
     reflow = bool(ldcfg(config, "reflow", False))
@@ -355,6 +387,12 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
             # the MoE blocks' mean auxiliary loss joins the objective
             v, aux = m(x, t, c, return_aux=True)
             return v, moe_aux_w * aux["moe_aux"].mean()
+    if use_ring:
+        # the training twin: the same parameters, the ring at the global
+        # attention sites; evaluation and checkpoints read the model itself
+        train_model = ring_twin(model, n_model)
+        inner = model_apply or (lambda m, x, t, c: m(x, t, c))
+        model_apply = lambda m, x, t, c: inner(train_model, x, t, c)  # noqa: E731
     n_params = sum(p.numel() for m in (model, mask_encoder) if m is not None
                    for p in m.parameters())
     rank0_print(f"model params: {n_params / 1e6:.2f}M  device {device}")
@@ -537,7 +575,8 @@ def train_flow(config, step_hook: Optional[Callable[[int], None]] = None) -> dic
             "epochs": history, "eval": evals, "ot_rounds": ot_rounds,
             "checkpoint": ck_path, "ema_checkpoint": ema_path, "output_dir": output_dir,
             "metrics_log": log_path, "device": str(device), "ranks": n_shards,
-            "fsdp": sharded is not None, "sharded": sharded}
+            "fsdp": sharded is not None, "sharded": sharded, "model_axis": n_model,
+            "ring": use_ring}
 
 
 def main(argv=None, step_hook: Optional[Callable[[int], None]] = None) -> dict:

@@ -36,7 +36,7 @@ codec. Unless ``no_wandb`` is set, the metrics go to
 ``val/…``, ``demo/recon`` and, for MIDI, ``note_metrics/…`` at each
 validation, ``codebook/…`` every 10th epoch), and the codebook figures to
 the grids' folder (``utils/codebook_analysis.py``). Not ported yet
-(ROADMAP.md): tensor parallelism (``tp``, the model axis, item 13b) and the
+(ROADMAP.md): tensor parallelism (``tp``, the model axis, item 13b-ii) and the
 wandb backend.
 
 Data parallelism: launched on several ranks (``torchrun
@@ -106,9 +106,9 @@ def train_vqgan(config) -> dict:
     data_path = os.path.expanduser(str(config.data))
     is_midi = any(s in data_path.lower() for s in ("pop909", "midi"))
     if int(ldcfg(config, "tp", 1)) > 1:
-        raise NotImplementedError("tensor-parallel codec training is the parallel "
-                                  "layer's model axis, not ported yet (ROADMAP.md "
-                                  "item 13b)")
+        raise NotImplementedError("tensor-parallel codec training is the model "
+                                  "axis's tensor parallelism, not ported yet "
+                                  "(ROADMAP.md item 13b-ii)")
     device = maybe_init_distributed(config.get("device", None))
     mesh = make_mesh(device=device)
     n_shards, writer = batch_shard_count(mesh), is_writer()

@@ -43,7 +43,13 @@
   gate is batch rank 0's on every rank, OT pairs within the rank's rows,
   and the gradients and losses are averaged over the batch ranks before
   the clipped Adam update and the EMA, which then run replicated: the
-  documented function of the JAX shard_map step.
+  documented function of the JAX shard_map step. On a mesh with a model
+  axis the model ranks of a batch coordinate are replicas: they take the
+  same rows and draws (``rank_seed`` is keyed on the batch rank), pair
+  them alike, and average over the batch group only, since the ring's
+  gradients (``parallel/ring_attention.py``, reached through
+  ``model_apply``) are whole on every model rank already; the replicas
+  stay equal bit for bit.
 - FSDP (``fsdp=True`` with ``shard_flow_state``): the model and its EMA
   are FSDP2 modules (``parallel/mesh.py:shard_state``), and the step
   computes the one-device function on the global batch: every rank

@@ -37,7 +37,7 @@ the GAN step and the eval step.
   the reported losses are averaged over the batch ranks before the
   updates, the RVQ statistics summed (``ops/rvq.py``), and the indices
   returned are the rank's own. ``grad_accum`` splits each rank's rows.
-  Tensor parallelism is the model axis (ROADMAP.md item 13b).
+  Tensor parallelism is the model axis (ROADMAP.md item 13b-ii).
 """
 from __future__ import annotations
 

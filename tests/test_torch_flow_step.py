@@ -182,12 +182,13 @@ def test_not_ported_options_raise():
     """The data-parallel and FSDP steps are ported
     (tests/test_torch_parallel_flow*.py); without a mesh ``fsdp`` builds
     the one-device step, with one it refuses forward-mode derivatives, and
-    the model axis still raises, naming ROADMAP item 13b. MeanFlow refuses
+    a model axis, ported since (tests/test_torch_ring_*.py), needs a world
+    of ranks as the data axis does. MeanFlow refuses
     curvature and, as in the
     JAX package, the inpainting mask path (the mask encoder and OTF
     augmentation themselves are ported: tests/test_torch_flow_inpaint_step.py)."""
     from flocoder_torch.parallel import mesh as pmesh
-    with pytest.raises(NotImplementedError, match="ROADMAP.*13b"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         pmesh.make_mesh(n_model=2)
     assert callable(tflow.make_flow_train_step(fsdp=True, curvature_weight=0.1))
     with pytest.raises(ValueError, match="forward-mode"):

@@ -2,8 +2,8 @@
 package or the JAX tools (the serving, codec-training, pre-encoding and
 flow-training modules, the SD VAE, HDiT and MoE, the host pipeline's shard,
 decoder and device augmentation, the audio family, the reflow-pairs tool,
-the VQGAN+ codec, the web UI, the quality-runs tool and the parallel
-layer's mesh alike) and builds
+the VQGAN+ codec, the web UI, the quality-runs tool, the parallel
+layer's mesh and its ring attention alike) and builds
 its native libraries under ``flocoder_torch/build/``, never from
 ``native/``; its entry point refuses
 to run without a card unless asked for the CPU, MIDI export and the options
@@ -59,7 +59,7 @@ def test_every_module_imports_without_jax():
               "training.audio", "train_audio_codec", "make_reflow_pairs",
               "models.vqgan_plus", "utils.logging", "utils.interactive_scatter",
               "utils.plot_metrics", "utils.profiling", "models.inception", "ui",
-              "ui.webapp", "quality_runs", "parallel.mesh"):
+              "ui.webapp", "quality_runs", "parallel.mesh", "parallel.ring_attention"):
         assert f"flocoder_torch.{m}" in mods, m
     # the native libraries build and load with the JAX package blocked
     code = ("import sys, importlib\n"

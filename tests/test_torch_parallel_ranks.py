@@ -154,9 +154,9 @@ def test_single_process_is_the_degenerate_mesh():
     assert pm.maybe_init_distributed(device="cpu") == torch.device("cpu")
     with pytest.raises(RuntimeError, match="torchrun"):
         pm.make_mesh(n_data=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*13b"):
-        pm.make_mesh(n_model=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*13b"):
+    with pytest.raises(RuntimeError, match="torchrun"):
+        pm.make_mesh(n_model=2)         # the model axis needs a world as the data axis does
+    with pytest.raises(NotImplementedError, match="ROADMAP.*13b-ii"):
         pm.tp_param_shardings()
 
 
@@ -356,10 +356,151 @@ def script_rank(rank, world, module, argv, rp_dim):
             tfid.make_random_projection_features(dim=rp_dim)
     res = importlib.import_module(f"flocoder_torch.{module}").main(argv)
     keep = ("epochs", "epoch_seconds", "eval", "checkpoint", "ema_checkpoint", "ranks",
-            "fsdp", "sharded", "device", "val", "step_seconds")
+            "fsdp", "sharded", "device", "val", "step_seconds", "model_axis", "ring")
     out = {k: res[k] for k in keep if isinstance(res, dict) and k in res}
     if module == "preencode_data":
         out = {split: {k: v for k, v in res[split].items()} for split in ("val", "train")}
     if module == "train_flow":
         out["n_dtensor"] = sum(hasattr(p, "to_local") for p in res["state"].model.parameters())
     return out
+
+
+# ---- (i) the model axis: ring attention -------------------------------------
+
+def _layout(mesh) -> dict:
+    from flocoder_torch.parallel import mesh as pm
+    return {"dims": mesh.mesh_dim_names, "shape": tuple(mesh.shape),
+            "coord": list(mesh.get_coordinate()), "batch_rank": pm.batch_rank(mesh),
+            "model_rank": pm.model_rank(pm.model_group(mesh)),
+            "n_batch": pm.batch_shard_count(mesh), "seed": pm.rank_seed(7, mesh)}
+
+
+def ring_op_rank(rank, world, cases, flop_qkv):
+    """The ring on a 1×``world`` mesh: for each case of ``cases`` (``q``,
+    ``k``, ``v`` and the cotangent ``w`` as numpy, ``dtype``, ``axis_size``
+    and ``kind``: 'replicated', whole tensors, or 'sharded', each rank its
+    token chunk) the output, the gradients of sum(out·w), the hops and the
+    all-gathers of each direction, or the error a case raises; then the
+    backward FLOPs of the ring and of plain attention on ``flop_qkv``."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from flocoder_torch.parallel import mesh as pm
+    from flocoder_torch.parallel import ring_attention as ra
+    mesh = pm.make_mesh(n_model=world)
+    gathers = [0]
+    real = ra.model_all_gather
+
+    def counting(t, dim, group):
+        gathers[0] += 1
+        return real(t, dim, group)
+
+    ra.model_all_gather = counting
+    out = {"layout": _layout(mesh), "cases": []}
+    for c in cases:
+        dt = getattr(torch, c["dtype"])
+        q, k, v = (torch.from_numpy(c[n]).to(dt) for n in "qkv")
+        w = torch.from_numpy(c["w"])
+        if c["kind"] == "sharded":
+            q, k, v, w = (ra._chunk(t, rank, world) for t in (q, k, v, w))
+        q, k, v = (t.clone().requires_grad_(True) for t in (q, k, v))
+        ra.reset_hops()
+        gathers[0] = 0
+        try:
+            o = (ra.make_ring_self_attention()(q, k, v) if c["kind"] == "sharded" else
+                 ra.ring_attention_replicated(q, k, v, c["axis_size"]))
+        except ValueError as e:
+            out["cases"].append({"error": str(e)})
+            continue
+        fwd_hops, fwd_gathers = ra.HOPS["forward"], gathers[0]
+        (o.float() * w).sum().backward()
+        out["cases"].append({"out": o.detach().float().numpy(), "dtype": str(o.dtype),
+                             "grads": [t.grad.float().numpy() for t in (q, k, v)],
+                             "grad_dtypes": [str(t.grad.dtype) for t in (q, k, v)],
+                             "hops": [fwd_hops, ra.HOPS["backward"]],
+                             "gathers": [fwd_gathers, gathers[0] - fwd_gathers]})
+    flops = {}
+    for name in ("ring", "plain"):
+        q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in flop_qkv)
+        o = (ra.ring_attention_replicated(q, k, v, world) if name == "ring"
+             else ra._plain_attention(q, k, v))
+        with FlopCounterMode(display=False) as fc:
+            (o ** 2).sum().backward()
+        flops[name] = fc.get_total_flops()
+    out["flops"] = flops
+    return out
+
+
+def _grads_flat(module, prefixes) -> dict:
+    """The gradients of ``module``'s parameters, laid out as ``to_jax_flat``
+    lays out the module."""
+    import copy
+    from flocoder_torch.training.checkpoint import to_jax_flat
+    m = copy.deepcopy(module)
+    with torch.no_grad():
+        for pm_, p in zip(m.parameters(), module.parameters()):
+            pm_.copy_(p.grad if p.grad is not None else torch.zeros_like(p))
+    return to_jax_flat(m, prefixes)
+
+
+def ring_models_rank(rank, world, cases):
+    """Each case's module (``build``: 'unet', 'hdit' or 'decoder' with its
+    ``kw``) on the 1×``world`` mesh, its weights the JAX flat tree ``flat``
+    (prefix ``params``), built with the ring and without: the outputs on
+    ``inputs`` and the parameters' gradients of sum(out·w)."""
+    from flocoder_torch.models import codecs as tc
+    from flocoder_torch.models import hdit as th
+    from flocoder_torch.models.unet import Unet
+    from flocoder_torch.parallel import mesh as pm
+    from flocoder_torch.parallel import ring_attention as ra
+    from flocoder_torch.training.checkpoint import load_jax_flat
+    pm.make_mesh(n_model=world)
+    prefixes = {"": "params"}
+    out = []
+    for c in cases:
+        res = {}
+        for ring in (world, 1):
+            kw = dict(c["kw"], ring_axis_size=ring)
+            if c["build"] == "hdit":
+                levels = tuple(th.LevelSpec(d, w, f, th.NeighborhoodAttentionSpec(8, 3)
+                                            if a == "na" else th.GlobalAttentionSpec(8))
+                               for d, w, f, a in kw.pop("levels"))
+                m = th.HDiT(levels, th.MappingSpec(*kw.pop("mapping")), **kw)
+            else:
+                m = {"unet": Unet, "decoder": tc.VQVAEDecoder}[c["build"]](**kw)
+            load_jax_flat(m, c["flat"], prefixes)
+            args = [torch.from_numpy(a) for a in c["inputs"]]
+            if c["build"] != "decoder":
+                args.append({"class_cond": None, "mask_cond": None})
+            ra.reset_hops()
+            o = m(*args)
+            (o * torch.from_numpy(c["w"])).sum().backward()
+            res[ring] = {"out": o.detach().numpy(), "grads": _grads_flat(m, prefixes),
+                         "hops": [ra.HOPS["forward"], ra.HOPS["backward"]]}
+        out.append(res)
+    return out
+
+
+def ring_flow_rank(rank, world, n_model, models, target, cls, draws, drop, lr):
+    """One flow step of the HDiT of ``models`` on a (world/n_model)×n_model
+    mesh, its ring twin trained (``ring_twin``): this rank's rows of the
+    global batch by its batch rank, that batch rank's ``draws``; the mesh
+    layout, the state after the step and Adam's first moments."""
+    from flocoder_torch.models import hdit as th
+    from flocoder_torch.models.flow_model import ring_twin
+    from flocoder_torch.parallel import mesh as pm
+    from flocoder_torch.training import flow as tflow
+    from flocoder_torch.training.checkpoint import UNET_PREFIXES, adam_to_jax_flat, to_jax_flat
+    mesh = pm.make_mesh(n_model=n_model)
+    model = th.HDiT(**models["kw"])
+    model.load_state_dict(models["sd"])
+    twin = ring_twin(model, n_model)
+    state = tflow.create_flow_state(model, lr)
+    step = tflow.make_flow_train_step(mesh=mesh, ema_decay=0.9,
+                                      model_apply=lambda m, x, t, c: twin(x, t, c))
+    b = pm.batch_rank(mesh)
+    batch = pm.shard_batch(mesh, {"target": torch.from_numpy(target),
+                                  "class_cond": torch.from_numpy(cls).long()})
+    state, aux = step(state, batch, None, draws=[draws[b]], drop=torch.tensor(drop))
+    return {"layout": _layout(mesh), "aux": {k: float(v) for k, v in aux.items()},
+            "params": to_jax_flat(state.model, UNET_PREFIXES),
+            "ema": to_jax_flat(state.ema, UNET_PREFIXES),
+            "opt": adam_to_jax_flat(state.model, state.opt.adam, state.step, UNET_PREFIXES)}

@@ -166,13 +166,23 @@ def test_unported_options_raise(trained, override, tmp_path):
     process (the degenerate mesh) the FSDP flag trains the one-device step,
     as the JAX script on one device does, and the sharded checkpoint is one
     ``flow_1.host0.npz`` that the JAX loader reassembles
-    (tests/test_torch_parallel_*.py run them on several ranks)."""
-    if override in ("flow.fsdp=true", "+flow.sharded_checkpoints=true"):
+    (tests/test_torch_parallel_*.py run them on several ranks). So does
+    the model axis: ``flow.ring_attention=true`` without a model axis
+    (``flow.n_model`` 1) trains the ring-free step, as the JAX script reads
+    it, and ``+flow.n_model=2`` needs a world of ranks (tests/
+    test_torch_ring_models.py trains the ring on two)."""
+    if override == "+flow.n_model=2":
+        with pytest.raises(RuntimeError, match="torchrun"):
+            tf.main(_argv(trained["data"], tmp_path, "flow.epochs=1", override))
+        return
+    if override in ("flow.fsdp=true", "+flow.sharded_checkpoints=true",
+                    "flow.ring_attention=true"):
         from flocoder_tpu.training.checkpoint import load_checkpoint_sharded
         res = tf.main(_argv(trained["data"], tmp_path, "flow.epochs=1", "flow.ckpt_every=1",
                             "flow.no_eval=true", override))
         (ep,) = res["epochs"]
         assert np.isfinite(ep["loss"]) and res["ranks"] == 1 and not res["fsdp"]
+        assert not res["ring"] and res["model_axis"] == 1
         if override == "+flow.sharded_checkpoints=true":
             assert os.path.basename(res["checkpoint"]) == "flow_1.host0.npz"
             assert res["ema_checkpoint"] is None

@@ -212,16 +212,18 @@ def _assert_grads(ours: dict, ref: dict, what: str):
 
 def test_not_ported_options_raise():
     """Data parallelism is ported (tests/test_torch_parallel_codec.py): the
-    steps take a mesh, and the degenerate one (``None``) is one device. The
-    model axis, tensor parallelism, still raises, naming ROADMAP item 13b."""
+    steps take a mesh, and the degenerate one (``None``) is one device. A
+    model axis needs a world of ranks (its ring attention is ported:
+    tests/test_torch_ring_*.py); its tensor parallelism still raises,
+    naming ROADMAP item 13b-ii."""
     from flocoder_torch import train_vqgan as ttv
     from flocoder_torch.parallel import mesh as pmesh
     cfg = load_config("smoke_vqgan", config_dir="configs")
     assert callable(tvqgan.make_vqgan_warmup_step(cfg, mesh=None))
     assert callable(tvqgan.make_vqgan_gan_step(cfg, mesh=None))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*13b"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         pmesh.make_mesh(n_model=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*13b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*13b-ii"):
         ttv.main(["--config-name", "smoke_vqgan", "+device=cpu", "+codec.tp=2"])
     with pytest.raises(ValueError, match="grad_accum"):
         tvqgan.make_vqgan_warmup_step(cfg, grad_accum=0)
